@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the ``deepspeed_tpu`` GPT-2 serving path for NVIDIA
+Hopper GPUs.
+
+The JAX package stays the reference; this package imports neither it nor
+JAX. Its entry points run on CUDA unless the caller passes ``device="cpu"``,
+where every kernel wrapper computes its plain PyTorch version."""
+
+from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, InferenceEngine, init_inference
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel, get_gpt2_config
+
+__all__ = ["DeepSpeedInferenceConfig", "GPT2Config", "GPT2LMHeadModel", "InferenceEngine",
+           "get_gpt2_config", "init_inference", "resolve_device"]

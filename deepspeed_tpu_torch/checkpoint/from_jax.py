@@ -1,0 +1,72 @@
+"""Carry weights from the JAX package to the port.
+
+``params_from_jax`` takes the JAX package's flax param tree of a GPT-2 as
+nested dicts of numpy arrays (``jax.device_get(engine.params)``) and returns
+the port's state dict. The layouts are identical, so this is a renaming:
+``h_0/attn/c_attn/kernel`` -> ``h_0.attn.c_attn.kernel`` and
+``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``.
+"""
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.models.common import flatten_tree
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, param_shapes
+
+#: flax's inner scope of ``nn.LayerNorm`` inside the model's LayerNorm wrapper
+_FLAX_NORM_SCOPE = "LayerNorm_0"
+
+
+def _to_tensor(leaf) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _torch_key(path: str) -> str:
+    return ".".join(p for p in path.split("/") if p != _FLAX_NORM_SCOPE)
+
+
+def _infer_config(sd: Dict[str, torch.Tensor]) -> GPT2Config:
+    n_layer = len({k.split(".")[0] for k in sd if k.startswith("h_")})
+    vocab, n_embd = sd["wte"].shape
+    qkv = sd.get("h_0.attn.c_attn.kernel")
+    if qkv is None or qkv.dim() != 4:
+        raise KeyError("params_from_jax: no [E, 3, H, D] h_0/attn/c_attn/kernel to infer the "
+                       "config from; pass config=")
+    return GPT2Config(vocab_size=vocab, n_positions=sd["wpe"].shape[0], n_embd=n_embd,
+                      n_layer=n_layer, n_head=qkv.shape[2], param_dtype=sd["wte"].dtype)
+
+
+def params_from_jax(tree: dict, config: Optional[GPT2Config] = None,
+                    scales: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """The port's GPT-2 state dict from a JAX param tree.
+
+    ``scales`` is the ``"quant"`` mirror tree of a quantized tree (JAX
+    ``quantize_params`` output); its ``kernel_scale`` leaves join the state
+    dict beside their kernels, and ``config`` must then name the served
+    weight dtype. Without ``config`` it is inferred from the tree (fp).
+    Raises ``KeyError`` on a missing or extra key and ``ValueError`` on a
+    shape mismatch."""
+    sd = {_torch_key(path): _to_tensor(leaf) for path, leaf in flatten_tree(tree, "/").items()}
+    if scales is not None:
+        if config is None:
+            raise ValueError("params_from_jax: a quantized tree needs config= (its "
+                             "serve_weight_dtype and group size)")
+        sd.update({_torch_key(path): _to_tensor(leaf)
+                   for path, leaf in flatten_tree(scales, "/").items()})
+    cfg = config if config is not None else _infer_config(sd)
+    expected = param_shapes(cfg)
+    missing = sorted(set(expected) - set(sd))
+    extra = sorted(set(sd) - set(expected))
+    if missing or extra:
+        raise KeyError(f"params_from_jax: missing {missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                       f"extra {extra[:8]}{'...' if len(extra) > 8 else ''}")
+    bad = [f"{k}: {tuple(sd[k].shape)} vs {shape}" for k, (shape, _) in expected.items()
+           if tuple(sd[k].shape) != shape]
+    if bad:
+        raise ValueError("params_from_jax: shape mismatch — " + "; ".join(bad[:8]))
+    return sd

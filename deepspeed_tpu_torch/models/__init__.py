@@ -1,0 +1,1 @@
+from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, GPT2Config, GPT2LMHeadModel, get_gpt2_config

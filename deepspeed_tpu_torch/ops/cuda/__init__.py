@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version (``flash_attention``: K1 forward and K3 decode; ``quant_matmul``:
+K2), with the build in ``build``.
+
+``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds one
+where it launches its kernel and nowhere else (the plain versions on CPU
+tensors do not count), so a run can show which kernels its path went
+through."""
+
+LAUNCHES = {"flash_fwd": 0, "flash_decode": 0, "quant_matmul": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launches() -> dict:
+    return dict(LAUNCHES)

@@ -1,0 +1,192 @@
+"""Flash attention on Hopper: K1, the forward kernel (``csrc/flash_fwd.cu``),
+and K3, the decode kernel (``csrc/flash_decode.cu``), each beside its plain
+PyTorch version, plus the ``"flash"`` attention backend.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. Layout at
+the public boundary is ``[batch, length, heads, head_dim]`` (BLHD), as in
+the JAX package; the kernels read it in place through strides.
+
+On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
+launches the kernel or raises. The JAX backend falls back to XLA for a bias,
+an arbitrary mask or dropout; this backend raises instead, so the main path
+can never leave the kernel quietly. Only the forward is ported: the
+backward kernels (K4) belong to the training slice.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.ops.cuda import LAUNCHES
+from deepspeed_tpu_torch.ops.cuda import build
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import KERNEL_HEAD_DIMS
+from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF, register_backend
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic, in dense PyTorch)
+# ---------------------------------------------------------------------------
+def _masked_softmax_av(s, valid, v):
+    """Online-softmax result in one pass: masked logits give an explicit 0,
+    so a row with no live key has l = 0 and returns zeros."""
+    m = s.masked_fill(~valid, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=s.device))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / l.clamp_min(1e-37)
+    return o, m, l
+
+
+def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: ``(o [B, Lq, H, D] in q's dtype, lse [B, H, Lq]
+    fp32)``. Query i sits at position ``i + Lk - Lq``; rows with no live key
+    give O = 0 and lse = NEG_INF / 2."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dev = q.device
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    q_pos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=dev)[None, :]
+    valid = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        valid = valid & (k_pos <= q_pos)
+    if window is not None:
+        valid = valid & (k_pos > q_pos - window)
+    valid = valid[None, None]
+    if kv_lengths is not None:
+        valid = valid & (k_pos[None, None] < kv_lengths.to(dev).long()[:, None, None, None])
+    o, m, l = _masked_softmax_av(s, valid, v)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)),
+                      torch.full((), NEG_INF / 2, device=dev))[..., 0]
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Plain version of K3: row i of slot s sits at position
+    ``lengths[s] - Lq + i`` and sees cache positions at or before it, inside
+    ``min(lengths[s], P)``; rows with no live key, and length 0, give 0."""
+    lq = q.shape[1]
+    p_len = k.shape[1]
+    dev = q.device
+    lengths = lengths.to(dev).long()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    q_pos = lengths[:, None] - lq + torch.arange(lq, device=dev)[None, :]        # [S, Lq]
+    k_pos = torch.arange(p_len, device=dev)
+    n_live = lengths.clamp(0, p_len)
+    valid = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos[None, None, :] < n_live[:, None, None])
+    o, _, _ = _masked_softmax_av(s, valid[:, None], v)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _check_operands(what, q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"{what}: q, k and v must lie on one CUDA device")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"{what}: q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
+    build.dtype_code(q, what)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: expected [B, L, H, D] tensors")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{what}: head_dim must be the unit-stride axis")
+    d = q.shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+
+
+def _lengths_operand(what, lengths, b, device):
+    if lengths.shape != (b,):
+        raise ValueError(f"{what}: lengths must be [{b}], got {tuple(lengths.shape)}")
+    if lengths.device != device or lengths.dtype != torch.int32:
+        raise ValueError(f"{what}: lengths must be int32 on {device}, got "
+                         f"{lengths.dtype} on {lengths.device}")
+    return lengths.contiguous()
+
+
+def flash_fwd(q, k, v, *, scale: float, causal: bool,
+              kv_lengths: Optional[torch.Tensor] = None,
+              window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: ``(o [B, Lq, H, D], lse [B, H, Lq] fp32)`` of attention with an
+    optional causal mask (offset ``Lk - Lq``), right-padding
+    ``kv_lengths`` [B] and sliding ``window``."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal flash attention needs lq <= lk, got {q.shape[1]} > {k.shape[1]}")
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
+                               kv_lengths=kv_lengths, window=window)
+    _check_operands("flash_fwd", q, k, v)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    lens = None if kv_lengths is None else _lengths_operand("flash_fwd", kv_lengths, b, q.device)
+    o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_fwd")
+    lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), build.ptr(lens),
+        build.dtype_code(q, "flash_fwd"), b, h, lq, lk, d, float(scale), int(bool(causal)),
+        int(window) if window is not None else 0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], build.stream_ptr(q.device))
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_decode(q, k, v, lengths: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
+    """K3: length-masked attention of ``q`` [S, Lq, H, D] (each slot's
+    newest Lq tokens) against a cache [S, P, H, D] with ``lengths`` [S]
+    live positions per slot."""
+    if scale is None:
+        scale = q.shape[-1]**-0.5
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, lengths, scale=scale)
+    _check_operands("flash_decode", q, k, v)
+    s, lq, h, d = q.shape
+    p_len = k.shape[1]
+    lens = _lengths_operand("flash_decode", lengths, s, q.device)
+    o = torch.empty((s, lq, h, d), dtype=q.dtype, device=q.device)
+    lib = build.load("flash_decode")
+    lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
+        build.dtype_code(q, "flash_decode"), s, h, lq, p_len, d, float(scale),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], build.stream_ptr(q.device))
+    LAUNCHES["flash_decode"] += 1
+    return o
+
+
+@register_backend("flash")
+def flash_attention(q: torch.Tensor,
+                    k: torch.Tensor,
+                    v: torch.Tensor,
+                    *,
+                    causal: bool = True,
+                    bias: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    decode_lengths: Optional[torch.Tensor] = None,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Flash attention over BLHD tensors: K3 when ``decode_lengths`` is
+    given (cache decode), K1 otherwise. A bias, an arbitrary mask or
+    dropout raise ``ValueError``: use the ``"xla"`` backend for those."""
+    del generator  # dropout is refused below; the argument mirrors the plain backend
+    if bias is not None or mask is not None or dropout_rate > 0.0:
+        raise ValueError("the flash backend takes no bias, mask or dropout; use backend='xla'")
+    if decode_lengths is not None and kv_lengths is not None:
+        raise ValueError("pass decode_lengths (cache decode) or kv_lengths "
+                         "(padded prefill), not both")
+    if window is not None and not causal:
+        raise ValueError("window (sliding-window attention) requires causal=True")
+    if window is not None and decode_lengths is not None:
+        raise ValueError("window is a prefill/training feature; the decode path "
+                         "attends the whole cache")
+    if scale is None:
+        scale = q.shape[-1]**-0.5
+    if decode_lengths is not None:
+        return flash_decode(q, k, v, decode_lengths, scale=scale)
+    o, _ = flash_fwd(q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths, window=window)
+    return o

@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
+
+These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
+``chip_smoke.py`` runs the same comparisons at the serving slice's full
+shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
+in another order) and 2e-2 in bf16 (outputs are rounded to bf16).
+"""
+
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops.cuda import LAUNCHES
+from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, ref, dtype):
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(ref.float().abs().max().item(), 1e-30)
+
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal,lengths,window", [
+    (100, 100, True, None, None), (16, 130, True, None, None), (64, 64, False, [64, 9, 0], None),
+    (90, 90, True, [90, 40, 1], None), (200, 200, True, None, 33)])
+def test_flash_fwd_matches_plain(gen, dtype, lq, lk, causal, lengths, window):
+    b = 3
+    q, k, v = (_randn(gen, b, n, 4, 64, dtype=dtype) for n in (lq, lk, lk))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = LAUNCHES["flash_fwd"]
+    o, lse = fa.flash_fwd(q, k, v, scale=0.125, causal=causal, kv_lengths=lens, window=window)
+    assert LAUNCHES["flash_fwd"] == before + 1
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale=0.125, causal=causal, kv_lengths=lens, window=window)
+    _close(o, ro, dtype)
+    _close(lse, rlse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lengths", [(1, [0, 1, 63, 64, 65, 200, 256, 257]),
+                                        (16, [0, 1, 15, 16, 100, 256, 272, 5]),
+                                        (20, [3, 40, 256, 276])])
+def test_flash_decode_matches_plain(gen, dtype, lq, lengths):
+    s = len(lengths)
+    q = _randn(gen, s, lq, 4, 64, dtype=dtype)
+    k, v = (_randn(gen, s, 256, 4, 64, dtype=dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = LAUNCHES["flash_decode"]
+    o = fa.flash_decode(q, k, v, lens)
+    assert LAUNCHES["flash_decode"] == before + 1
+    _close(o, fa.flash_decode_plain(q, k, v, lens, scale=0.125), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n,groups", [(8, 1024, 3072, 16), (128, 4096, 1024, 64), (5, 96, 40, 3)])
+def test_quant_matmul_matches_plain(gen, dtype, bits, m, k, n, groups):
+    qmax = 127 if bits == 8 else 7
+    codes = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    qw = codes if bits == 8 else pack_rows(codes)
+    scale = torch.rand(groups, n, generator=gen, device="cuda") * 0.02 + 1e-3
+    x = _randn(gen, m, k, dtype=dtype)
+    before = LAUNCHES["quant_matmul"]
+    out = qm.quant_matmul(x, qw, scale, bits=bits)
+    assert LAUNCHES["quant_matmul"] == before + 1
+    _close(out, qm.quant_matmul_plain(x, qw, scale, bits), dtype)
+
+
+def test_flash_backend_raises_on_cuda_for_bias(gen):
+    q = _randn(gen, 1, 8, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 4, 8, 8, device="cuda"))
