@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``deepspeed_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                 # every phase, as a release check
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -23,12 +22,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
               counts are zeroed just before (a) and read just after (b), and
               each kernel must have launched; (c) the first prefill and decode
               ticks again through the same model on the CPU, where every
-              kernel wrapper computes its plain version: logits held to 2e-2
-              in bf16 as served, and to 1e-4 with both sides in fp32.
+              kernel wrapper computes its plain version: logits held to 1e-4
+              with both sides in fp32 (the check that catches a kernel
+              fault), and in bf16 as served to 1.5x the rounding error the
+              same run measures (plain bf16 with int8 KV against plain fp32).
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``. It exits non-zero, printing no result, when
+``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
 
@@ -43,8 +44,6 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-PHASES = ("card", "build", "kernels", "slice")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -84,22 +83,26 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = PEAK_BF16_FLOP_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> float:
+def rel_err(got: torch.Tensor, ref: torch.Tensor):
+    """(max |got - ref|, that over max |ref|), both in fp32."""
+    got32, ref32 = got.float(), ref.float()
+    err = (got32 - ref32).abs().max().item()
+    return err, err / max(ref32.abs().max().item(), 1e-30)
+
+
+def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dtype, tol: float = None) -> float:
     torch.cuda.synchronize()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs plain {tuple(ref.shape)}")
-    got32, ref32 = got.float(), ref.float()
-    if not torch.isfinite(got32).all():
+    if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    err = (got32 - ref32).abs().max().item()
-    scale = max(ref32.abs().max().item(), 1e-30)
-    rel = err / scale
-    ok = rel <= TOL[dtype]
-    RESULTS["checks"].append({"name": name, "max_abs_err": err, "rel_err": rel, "ok": ok})
-    log(f"check {name}: max_abs_err={err:.3e} rel={rel:.3e} tol={TOL[dtype]:.0e} "
-        f"{'ok' if ok else 'FAIL'}")
+    tol = TOL[dtype] if tol is None else tol
+    err, rel = rel_err(got, ref)
+    ok = rel <= tol
+    RESULTS["checks"].append({"name": name, "max_abs_err": err, "rel_err": rel, "tol": tol, "ok": ok})
+    log(f"check {name}: max_abs_err={err:.3e} rel={rel:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: relative error {rel:.3e} > {TOL[dtype]}")
+        raise AssertionError(f"{name}: relative error {rel:.3e} > {tol:.3e}")
     return err
 
 
@@ -386,12 +389,14 @@ def slice_phase(seed: int, card: str):
     out["profile"] = _profile_decode_ticks(sched, prompts[:8], card)
 
     # ---- (c) the first prefill and decode ticks against the plain versions ----
+    # Both in fp32 with an fp KV cache, held to 1e-4: there neither bf16
+    # rounding nor an int8 KV code that rounds the other way on one side
+    # drowns a kernel fault, so this is the comparison that fails a kernel.
     # The served model as is (bf16, int8 KV, CUDA kernels) against the same
-    # model on the CPU (plain versions), held to 2e-2. Then both in fp32 with
-    # an fp KV cache, held to 1e-4: there neither bf16 rounding nor an int8
-    # KV code that rounds the other way on one side drowns a kernel fault.
-    # Random weights make the 24 layers amplify any such 1-ulp difference,
-    # so the bf16 comparison sits near bf16's own error against fp32.
+    # model on the CPU (plain versions): random weights make the 24 layers
+    # amplify every 1-ulp difference, so this sits at bf16's own error and is
+    # held to 1.5x that error as this run measures it (plain bf16 with int8
+    # KV against plain fp32 with an fp KV cache), not to a fixed limit.
     ids = torch.as_tensor(np.stack([p[:16] for p in prompts[:8]]).astype(np.int64))
     cpu = torch.device("cpu")
     runs = {}
@@ -411,15 +416,15 @@ def slice_phase(seed: int, card: str):
     prefill = {name: run[0].cpu() for name, run in runs.items()}
     decode = {name: d.cpu() for name, d in decode.items()}
     for tick, logits in (("prefill", prefill), ("decode", decode)):
-        compare(f"slice {tick} tick logits bf16 (served vs plain)", logits["served_bf16"],
-                logits["plain_bf16"], torch.bfloat16)
         compare(f"slice {tick} tick logits fp32 (served vs plain)", logits["served_fp32"],
                 logits["plain_fp32"], torch.float32)
         for name in ("served_bf16", "plain_bf16"):
-            rel = ((logits[name].float() - logits["plain_fp32"]).abs().max()
-                   / logits["plain_fp32"].abs().max()).item()
+            rel = rel_err(logits[name], logits["plain_fp32"])[1]
             out[f"{tick}_{name}_vs_plain_fp32_rel"] = rel
             log(f"slice {tick} tick {name} (int8 KV) vs plain_fp32 (fp KV): rel={rel:.3e}")
+        rounding = out[f"{tick}_plain_bf16_vs_plain_fp32_rel"]
+        compare(f"slice {tick} tick logits bf16 (served vs plain, 1.5x rounding)",
+                logits["served_bf16"], logits["plain_bf16"], torch.bfloat16, tol=1.5 * rounding)
     agree_prefill = (prefill["served_bf16"][:, -1].argmax(-1)
                      == prefill["plain_bf16"][:, -1].argmax(-1)).float().mean().item()
     agree_decode = (decode["served_bf16"][:, -1].argmax(-1)
@@ -435,14 +440,8 @@ def slice_phase(seed: int, card: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -460,27 +459,19 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
     RESULTS.update(card=card, device=kind, torch=torch.__version__)
-    if "build" in phases:
-        t0 = time.perf_counter()
-        per = build.build(verbose=True)
-        RESULTS["build_s"] = time.perf_counter() - t0
-        log(f"build: {RESULTS['build_s']:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    lines = kernel_phase(gen) if "kernels" in phases else {}
-    counts = {}
-    if "slice" in phases:
-        RESULTS["slice"], counts = slice_phase(args.seed, card)
+    t0 = time.perf_counter()
+    per = build.build(verbose=True)
+    RESULTS["build_s"] = time.perf_counter() - t0
+    log(f"build: {RESULTS['build_s']:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
+    lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed))
+    RESULTS["slice"], counts = slice_phase(args.seed, card)
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+    with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
-    if lines:
-        kernels = []
-        for name in ("flash_fwd", "quant_matmul", "flash_decode"):
-            entry = {k: v for k, v in lines[name].items() if k != "shape"}
-            entry["launches"] = counts.get(name, 0)
-            kernels.append(entry)
-        log(json.dumps({"kernels": kernels}))
+    kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"}, launches=counts[name])
+               for name in ("flash_fwd", "quant_matmul", "flash_decode")]
+    log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

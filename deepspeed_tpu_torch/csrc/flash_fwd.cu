@@ -6,10 +6,12 @@
 // the log-sum-exp [B, H, Lq] (NEG_INF/2 on rows with no live key).
 //
 // What bounds it on the H100: at the slice's shape (B=4, H=16, L=1024, D=64,
-// causal, bf16) the work is ~8.6 GFLOP against ~34 MB of traffic, far above
-// the 295 FLOP/byte ridge, so it is bound by operations. This first version
-// issues the products as fp32 FMAs from shared memory (no mma/wgmma), so it
-// runs at a fraction of the tensor-core peak; the tensor-core version is
+// causal, bf16) the work is ~8.6 GFLOP against ~34 MB of traffic, ~253
+// FLOP/byte, just below the 295 FLOP/byte ridge: it is bound by bytes, with
+// the bf16 tensor-core bound close behind (a larger D or a longer L crosses
+// over, so a tensor-core version must keep its loads streaming as well). This
+// first version issues the products as fp32 FMAs from shared memory (no
+// mma/wgmma), so it runs far from either bound; the tensor-core version is
 // later work.
 //
 // What the design does about it: one thread block per (q-tile of 64 rows,
