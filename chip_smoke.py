@@ -9,12 +9,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build    — compile the kernels from ``deepspeed_tpu_torch/csrc`` with
               ``nvcc`` for sm_90a (one process per source, in parallel).
 3. kernels  — each kernel (K1 flash forward, K2 int8/int4 dequant GEMM, K3
-              flash decode) against its plain PyTorch version on the same
-              inputs at the serving slice's shapes; max |err| / max |ref|
-              must stay within 2e-2 in bf16 and 1e-4 in fp32. Times the
-              kernel, its plain version and one PyTorch library call, and
-              computes the least time the card could take (``bound_ms``).
-4. slice    — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
+              flash decode, K4 flash backward: dq, dk and dv) against its
+              plain PyTorch version on the same inputs at the serving and
+              training slices' shapes; max |err| / max |ref| must stay
+              within 2e-2 in bf16 and 1e-4 in fp32. Times the kernel, its
+              plain version and one PyTorch library call, and computes the
+              least time the card could take (``bound_ms``).
+4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
               prompts; (b) ``ContinuousBatchingScheduler`` with int8 weights and
@@ -26,6 +27,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
               with both sides in fp32 (the check that catches a kernel
               fault), and in bf16 as served to 1.5x the rounding error the
               same run measures (plain bf16 with int8 KV against plain fp32).
+5. training — the JAX bench's training step through ``initialize``: GPT-2
+              350m (24 layers, vocab 50304), seq 1024, micro-batch 8, bf16
+              over fp32 masters, remat, fused LM-head loss (chunk 1024), the
+              ``"flash"`` backend, AdamW lr 1e-4 wd 0.01, clipping 1.0, one
+              seeded batch repeated: 2 warm-up and 10 timed steps with launch
+              counts zeroed just before and read just after (K1 and K4 must
+              have launched), finite and falling loss, step ms, tokens/s and
+              model TFLOP/s, and one steady step under ``torch.profiler``.
+6. gradcheck — one training step of the same model at 2 layers, seq 512,
+              batch 2 on the card and on the CPU (plain versions): the loss
+              and every parameter's gradient within 1e-4 in fp32, and in bf16
+              within 1.5x the rounding the same run measures (plain bf16
+              against plain fp32).
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. Details go to
@@ -50,6 +64,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+#: the kernels each main path must launch
+SERVING_KERNELS = ("flash_fwd", "flash_decode", "quant_matmul")
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 
 RESULTS = {"checks": [], "timings": {}}
 
@@ -135,25 +153,76 @@ def kernel_phase(gen: torch.Generator):
         compare(f"flash_fwd {name} lse", lse[live], rlse[live], torch.float32 if dtype == torch.float32 else dtype)
         return q, k, v, err
 
-    q, k, v, err = k1("[4,16,1024,64] bf16 causal", 4, 16, 1024, 1024, 64, torch.bfloat16)
     k1("[2,4,256,64] fp32 causal", 2, 4, 256, 256, 64, torch.float32)
     k1("[3,4,200,64] bf16 kv_lengths", 3, 4, 200, 200, 64, torch.bfloat16, causal=False,
        kv_lengths=[200, 77, 0])
     k1("[2,4,130,64] bf16 causal kv_lengths", 2, 4, 130, 130, 64, torch.bfloat16, kv_lengths=[130, 50])
     k1("[2,4,300,64] bf16 causal window=100", 2, 4, 300, 300, 64, torch.bfloat16, window=100)
     k1("[2,4,16,300,64] bf16 causal lq<lk", 2, 4, 16, 300, 64, torch.bfloat16)
-    b, h, l, d = 4, 16, 1024, 64
+    d = 64
     scale = d**-0.5
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, scale=scale, causal=True), iters=10)
-    plain_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale, causal=True), iters=3, warmup=1)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=10)
+    k1_lines = {}
+    for b, what in ((4, "serving forward"), (8, "training step")):
+        q, k, v, err = k1(f"[{b},16,1024,64] bf16 causal", b, 16, 1024, 1024, 64, torch.bfloat16)
+        h, l = 16, 1024
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_fwd(q, k, v, scale=scale, causal=True), iters=10)
+        plain_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale, causal=True), iters=3, warmup=1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=10)
+        pairs = b * h * l * (l + 1) / 2
+        bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
+        k1_lines[b] = dict(name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+                           replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117",
+                           shape=f"q,k,v [{b},1024,16,64] bf16 causal ({what})", max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    RESULTS["timings"]["flash_fwd"] = k1_lines
+    lines["flash_fwd"] = k1_lines[8]
+
+    # -- K4 flash backward: dq, dk, dv --------------------------------------
+    def k4(name, b, h, lq, lk, d, dtype, causal=True, kv_lengths=None, window=None):
+        if lq == lk:  # q, k, v as the model gives them: slices of the fused QKV output
+            qkv = randn(b, lq, 3, h, d, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = randn(b, lq, h, d, dtype=dtype), randn(b, lk, h, d, dtype=dtype), randn(b, lk, h, d, dtype=dtype)
+        do = randn(b, lq, h, d, dtype=dtype)
+        lens = None if kv_lengths is None else torch.tensor(kv_lengths, dtype=torch.int32, device=dev)
+        kw = dict(scale=d**-0.5, causal=causal, kv_lengths=lens, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs = [compare(f"flash_bwd {name} d{x}", g, r, dtype) for x, g, r in zip("qkv", got, ref)]
+        del ref
+        return (q, k, v, o, lse, do), max(errs)
+
+    (q, k, v, o, lse, do), err = k4("[8,1024,16,64] bf16 causal (fused QKV)", 8, 16, 1024, 1024, 64,
+                                    torch.bfloat16)
+    k4("[2,4,256,64] fp32 causal", 2, 4, 256, 256, 64, torch.float32)
+    k4("[3,4,200,64] bf16 kv_lengths 200,77,0", 3, 4, 200, 200, 64, torch.bfloat16, causal=False,
+       kv_lengths=[200, 77, 0])
+    k4("[2,4,130,64] bf16 causal kv_lengths 130,50", 2, 4, 130, 130, 64, torch.bfloat16,
+       kv_lengths=[130, 50])
+    k4("[2,4,200,64] fp32 causal kv_lengths 0,70", 2, 4, 200, 200, 64, torch.float32, kv_lengths=[0, 70])
+    k4("[2,4,300,64] bf16 causal window=100", 2, 4, 300, 300, 64, torch.bfloat16, window=100)
+    k4("[2,4,16,300,64] bf16 causal lq<lk", 2, 4, 16, 300, 64, torch.bfloat16)
+    b, h, l = 8, 16, 1024
+    kw = dict(scale=scale, causal=True)
+    ms = time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), iters=10)
+    plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del out, qt, kt, vt, dot
     pairs = b * h * l * (l + 1) / 2
-    bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
-    lines["flash_fwd"] = dict(name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
-                              replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117",
-                              shape="q,k,v [4,1024,16,64] bf16 causal", max_abs_err=err, ms=ms,
-                              plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    # q, k, v, o, dO read and dq, dk, dv written once, plus lse; 5 products
+    # (s, dp, dv, dk, dq) of 2 * D FLOPs per live pair
+    bnd, by = bound_ms(8 * b * h * l * d * 2 + b * h * l * 4, 10 * d * pairs)
+    lines["flash_bwd"] = dict(name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                              replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403",
+                              shape="q,k,v,o,dO [8,1024,16,64] bf16 causal (training step)",
+                              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                              library_ms=lib_ms)
 
     # -- K3 flash decode ------------------------------------------------------
     P = 1024
@@ -225,9 +294,8 @@ def kernel_phase(gen: torch.Generator):
                                  replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:74",
                                  shape="x [8,1024] bf16 @ int8 [1024,4096], scales [16,4096]",
                                  **main)
-    for key in ("flash_fwd", "flash_decode"):
-        ln = lines[key]
-        log(f"time {key}: kernel_ms={ln['ms']:.4f} plain_ms={ln['plain_ms']:.4f} "
+    for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"]):
+        log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} plain_ms={ln['plain_ms']:.4f} "
             f"library_ms={ln['library_ms']:.4f} bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
     return lines
 
@@ -265,6 +333,22 @@ def _two_ticks(module, ids, device, kv_quant):
                                              tokens[:, None].to(device))), t1 - t0
 
 
+def device_events(prof) -> list:
+    """The profile's kernels: device-side events with device time, without
+    the device ranges of user annotations (``Optimizer.step`` records one),
+    which would count their kernels twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+#: kernel families of the training step's profile, by name
+TRAIN_KERNEL_FAMILIES = (("K1 flash_fwd", ("flash_fwd_kernel",)),
+                         ("K4 flash_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+                         ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+
+
 def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
     """Where a steady decode tick's time goes: 8 requests are prefilled,
     then ``n_ticks`` decode ticks run on the wall clock and ``n_ticks`` more
@@ -272,7 +356,6 @@ def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
     device-side events only: a CPU op's device time repeats its kernels'),
     its idle share of the unprofiled tick, and the kernels that took the
     most device time. The requests are then served to the end."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference.serving import ACTIVE, Request
@@ -297,8 +380,7 @@ def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = decode_ticks()
     sched.run_until_drained()
-    events = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_ticks
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     result = {"ticks": n_ticks, "wall_ms_per_tick": wall_ms,
@@ -371,9 +453,9 @@ def slice_phase(seed: int, card: str):
         raise AssertionError("not every request finished with 32 tokens")
     if stats["pool"]["used_blocks"] != 0 or stats["pool"]["total_frees"] != 16:
         raise AssertionError(f"block pool did not return to empty: {stats['pool']}")
-    missing = [k for k, c in counts.items() if c <= 0]
+    missing = [k for k in SERVING_KERNELS if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing} ({counts})")
+        raise AssertionError(f"kernels never launched on the serving path: {missing} ({counts})")
     ticks = sum(stats["ticks"].values())
     out.update(serve_s=serve_s, ticks=stats["ticks"], launches=counts,
                generated_tokens=stats["generated_tokens"],
@@ -438,6 +520,163 @@ def slice_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training slice at full width, and its gradients
+# ---------------------------------------------------------------------------
+def flops_per_token(n_params: int, n_layers: int, hidden: int, seq: int, causal: bool = True) -> float:
+    """Training FLOPs per token as the JAX package's bench counts them
+    (``tools/bench_core.py:20-32``): 6 N for the parameter products plus the
+    attention scores, 12 L s E, halved when causal."""
+    attn = 12.0 * n_layers * hidden * seq
+    if causal:
+        attn /= 2.0
+    return 6.0 * n_params + attn
+
+
+def train_config(micro: int, clip: float, bf16: bool) -> dict:
+    """The JAX bench's engine config (``bench.py:107-114``), ZeRO 0 on one card."""
+    return {"train_batch_size": micro, "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            "bf16": {"enabled": bf16}, "gradient_clipping": clip,
+            "zero_optimization": {"stage": 0}, "steps_per_print": 10**9}
+
+
+def _profile_train_step(engine, batch, card, step_ms: float) -> dict:
+    """Device time of one steady training step, from the device-side events
+    of ``torch.profiler`` only (a CPU op's device time repeats its
+    kernels'), against the unprofiled step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    families = {}
+    for e in events:
+        family = next((f for f, keys in TRAIN_KERNEL_FAMILIES if any(k in e.key for k in keys)),
+                      "other (elementwise, reductions, copies)")
+        families[family] = families.get(family, 0.0) + e.self_device_time_total / 1e3
+    result = {"wall_ms_per_step": step_ms, "profiled_wall_ms": profiled_ms,
+              "device_busy_ms_per_step": busy_ms if events else None,
+              "device_idle_share": 1.0 - busy_ms / step_ms if events else None,
+              "device_ms_by_family": families,
+              "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                               "device_ms": e.self_device_time_total / 1e3} for e in top]}
+    if not events:
+        log(f"train profile: no device time recorded by torch.profiler; busy share not measured  [{card}]")
+        return result
+    log(f"train profile of one step: wall {step_ms:.2f} ms ({profiled_ms:.2f} under the profiler), "
+        f"device busy {busy_ms:.2f} ms, idle share {result['device_idle_share']:.3f}  [{card}]")
+    log("  by family: " + ", ".join(f"{f} {ms:.2f} ms" for f, ms in
+                                    sorted(families.items(), key=lambda kv: -kv[1])))
+    for k in result["top_kernels"]:
+        log(f"  {k['device_ms']:.3f} ms, {k['calls']} calls: {k['name']}")
+    return result
+
+
+def train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    micro, seq = 8, 1024
+    cfg = get_gpt2_config("350m", vocab_size=50304, n_positions=seq, remat=True,
+                          attention_backend="flash", dtype=torch.bfloat16, fused_head_loss_chunk=1024)
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    engine, _, _, _ = initialize(model=model, config=train_config(micro, 1.0, True))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro, seq)).astype(np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: losses not finite and falling: {losses}")
+    per_step = {k: c / (warmup + steps) for k, c in counts.items()}
+    missing = [k for k in TRAINING_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing} ({counts})")
+    if per_step["flash_fwd"] != 2 * cfg.n_layer or per_step["flash_bwd"] != cfg.n_layer:
+        raise AssertionError(f"training: expected K1 twice (forward, remat recompute) and K4 once "
+                             f"per layer per step, got {per_step}")
+    step_ms = dt / steps * 1e3
+    tokens_s = micro * seq * steps / dt
+    fpt = flops_per_token(n_params, cfg.n_layer, cfg.n_embd, seq)
+    out = dict(n_params=n_params, losses=losses, launches=counts, launches_per_step=per_step,
+               step_ms=step_ms, tokens_per_s=tokens_s, model_tflops=fpt * tokens_s / 1e12,
+               flops_per_token=fpt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               grad_norm=engine.get_global_grad_norm())
+    log(f"train: GPT-2 350m ({n_params} params), seq {seq}, micro-batch {micro}, bf16, remat, fused "
+        f"head, flash; losses {losses[0]:.4f} -> {losses[-1]:.4f} over {warmup}+{steps} steps  [{card}]")
+    log(f"train: {step_ms:.2f} ms/step, {tokens_s:.1f} tokens/s, {out['model_tflops']:.2f} model TFLOP/s "
+        f"({fpt:.4g} FLOP/token), peak memory {out['peak_memory_gb']:.2f} GB  [{card}]")
+    log(f"train launches on the main path: {counts}; per step {per_step}  [{card}]")
+    out["profile"] = _profile_train_step(engine, batch, card, step_ms)
+    return out, counts
+
+
+def gradcheck_phase(seed: int, card: str) -> dict:
+    """One training step of GPT-2 350m's width at 2 layers on the card and
+    on the CPU, where every kernel wrapper computes its plain version: the
+    loss and each parameter's gradient (no clipping) held to 1e-4 in fp32;
+    in bf16 the largest relative error over those tensors is held to 1.5x
+    the same largest error of plain bf16 against plain fp32."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+
+    kw = dict(n_layer=2, vocab_size=50304, n_positions=512, remat=True, attention_backend="flash",
+              fused_head_loss_chunk=1024)
+    base = GPT2LMHeadModel(get_gpt2_config("350m", **kw), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    ids = np.random.default_rng(seed + 1).integers(0, 50304, (2, 512)).astype(np.int32)
+
+    def one_step(device: str, dtype) -> dict:
+        model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
+        model.load_state_dict(state, strict=True)
+        engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
+                                     device=device)
+        loss = engine.train_batch({"input_ids": ids})
+        out = {"loss": loss.detach().float().cpu().reshape(1)}
+        out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
+        return out
+
+    runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
+            for dev in ("cuda", "cpu")}
+    for name, ref in runs[("cpu", "float32")].items():
+        compare(f"gradcheck fp32 {name} (card vs plain)", runs[("cuda", "float32")][name], ref,
+                torch.float32)
+    served = {n: rel_err(g, runs[("cpu", "bfloat16")][n])[1] for n, g in runs[("cuda", "bfloat16")].items()}
+    rounding = {n: rel_err(g, runs[("cpu", "float32")][n])[1] for n, g in runs[("cpu", "bfloat16")].items()}
+    worst = max(served, key=served.get)
+    out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
+           "bf16_rounding_max_rel": max(rounding.values()),
+           "loss": {f"{d}_{t}": float(r["loss"]) for (d, t), r in runs.items()}}
+    log(f"gradcheck bf16: card vs plain max rel {served[worst]:.3e} ({worst}); plain bf16 vs plain "
+        f"fp32 max rel {out['bf16_rounding_max_rel']:.3e}; losses {out['loss']}")
+    if not served[worst] <= 1.5 * out["bf16_rounding_max_rel"]:
+        raise AssertionError(f"gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding "
+                             f"{out['bf16_rounding_max_rel']:.3e}")
+    RESULTS["checks"].append({"name": "gradcheck bf16 (1.5x rounding)", "rel_err": served[worst],
+                              "tol": 1.5 * out["bf16_rounding_max_rel"], "ok": True})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -464,13 +703,18 @@ def main(argv=None) -> int:
     RESULTS["build_s"] = time.perf_counter() - t0
     log(f"build: {RESULTS['build_s']:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
     lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed))
-    RESULTS["slice"], counts = slice_phase(args.seed, card)
+    RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
+    RESULTS["train"], train_counts = train_phase(args.seed, card)
+    RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
-    kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"}, launches=counts[name])
-               for name in ("flash_fwd", "quant_matmul", "flash_decode")]
+    # launches: the serving and the training paths' counts, each zeroed just
+    # before its path and read just after
+    kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"},
+                    launches=serve_counts[name] + train_counts[name])
+               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd")]
     log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)

@@ -4,7 +4,9 @@
 nested dicts of numpy arrays (``jax.device_get(engine.params)``) and returns
 the port's state dict. The layouts are identical, so this is a renaming:
 ``h_0/attn/c_attn/kernel`` -> ``h_0.attn.c_attn.kernel`` and
-``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``.
+``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``. ``opt_state_from_jax`` does
+the same for the JAX ``fused_adam`` state, so that both packages can resume
+from one mid-training state.
 """
 
 from typing import Dict, Optional
@@ -70,3 +72,15 @@ def params_from_jax(tree: dict, config: Optional[GPT2Config] = None,
     if bad:
         raise ValueError("params_from_jax: shape mismatch — " + "; ".join(bad[:8]))
     return sd
+
+
+def opt_state_from_jax(adam_state) -> dict:
+    """The port's optimizer state (``FusedAdam.load_named_state``) from a
+    JAX ``AdamState(count, exp_avg, exp_avg_sq)`` of numpy leaves, keyed
+    like :func:`params_from_jax`: ``{"count": int, "exp_avg": {key:
+    tensor}, "exp_avg_sq": {key: tensor}}``."""
+    count, exp_avg, exp_avg_sq = adam_state
+    return {"count": int(np.asarray(count)),
+            "exp_avg": {_torch_key(k): _to_tensor(v) for k, v in flatten_tree(exp_avg, "/").items()},
+            "exp_avg_sq": {_torch_key(k): _to_tensor(v)
+                           for k, v in flatten_tree(exp_avg_sq, "/").items()}}

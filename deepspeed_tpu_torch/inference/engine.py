@@ -79,6 +79,7 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._max_len = int(self.mcfg.n_positions)
 
+    @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:
         """Full-sequence logits (no cache)."""
         if isinstance(input_ids, torch.Tensor):
@@ -96,7 +97,7 @@ class InferenceEngine:
             b *= 2
         return b
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: Optional[int] = None, do_sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
                  eos_token_id: Optional[int] = None,

@@ -84,8 +84,10 @@ def stamp_lengths(cache: Dict[str, torch.Tensor], write_pos: np.ndarray) -> Dict
 
 def make_apply_fn(module) -> Callable:
     """The one decode apply shared by the serving steps:
-    ``apply_fn(cache, ids) -> logits [S, L, V]``, cache updated in place."""
+    ``apply_fn(cache, ids) -> logits [S, L, V]``, cache updated in place,
+    with no autograd graph recorded."""
 
+    @torch.inference_mode()
     def apply_fn(cache, ids):
         return module(ids, cache)
 

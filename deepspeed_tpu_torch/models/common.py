@@ -1,14 +1,128 @@
-"""Shared model helpers (the serving subset of
+"""Shared model helpers (the serving and training subset of
 ``deepspeed_tpu/models/common.py``)."""
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def embed_lookup(wte: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Token-embedding gather."""
-    return torch.nn.functional.embedding(ids, wte)
+    """Token-embedding gather. Its backward is ``F.embedding``'s
+    scatter-add, which gives the fp32 gradient the JAX package computes as
+    a one-hot product (a TPU workaround for its scatter, so the port has no
+    ``embed_onehot_grad`` knob)."""
+    return F.embedding(ids, wte)
+
+
+def dense_init(scale: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
+    """In-place normal(0, ``scale``) initializer, drawn from ``generator``."""
+
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            t.normal_(0.0, scale, generator=generator)
+
+    return init
+
+
+def maybe_remat(block: Callable, cfg, layer_idx: int, enabled: Optional[bool] = None) -> Callable:
+    """Activation checkpointing of one block: ``torch.utils.checkpoint``
+    (non-reentrant) around ``block`` when remat is on and ``layer_idx`` hits
+    the ``remat_every`` stride, else ``block`` itself. Full recompute only
+    (the JAX package's saveable-op ``remat_policy`` belongs to the
+    activation-checkpointing slice; ``GPT2Config`` refuses it). Runs the
+    block plainly when no graph is recorded (inference)."""
+    enabled = getattr(cfg, "remat", False) if enabled is None else enabled
+    if not enabled or layer_idx % max(getattr(cfg, "remat_every", 1), 1) != 0:
+        return block
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False)
+
+    return run
+
+
+class _FusedLMHeadLoss(torch.autograd.Function):
+    """Chunked LM head + mean cross-entropy that never builds [B, T, V]:
+    the forward keeps one chunk's logits at a time and only sums the NLL;
+    the backward recomputes each chunk's logits and feeds ``(softmax -
+    onehot) * valid * g / denom``, cast to x's dtype, into the two products.
+    Port of ``_fused_lm_head_loss_fn`` (``models/common.py:292-399``), whose
+    chunk loop was a ``lax.scan``."""
+
+    @staticmethod
+    def _padded(x, labels, chunk, ignore_index):
+        e = x.shape[-1]
+        x_f, lab_f = x.reshape(-1, e), labels.reshape(-1)
+        pad = (-x_f.shape[0]) % chunk
+        if pad:
+            x_f = torch.cat([x_f, x_f.new_zeros((pad, e))])
+            lab_f = torch.cat([lab_f, lab_f.new_full((pad,), ignore_index)])
+        return x_f, lab_f
+
+    @staticmethod
+    def forward(ctx, x, w, labels, chunk, ignore_index):
+        x_f, lab_f = _FusedLMHeadLoss._padded(x, labels, chunk, ignore_index)
+        denom = (lab_f != ignore_index).sum().clamp_min(1).float()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, x_f.shape[0], chunk):
+            lab_c = lab_f[lo:lo + chunk]
+            logits = x_f[lo:lo + chunk] @ w.t()  # [C, V] in x's dtype
+            valid = lab_c != ignore_index
+            safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
+            logz = torch.logsumexp(logits.float(), dim=-1)
+            ll = logits.gather(-1, safe[:, None])[:, 0].float()
+            total = total + ((logz - ll) * valid).sum()
+        ctx.save_for_backward(x, w, labels, denom)
+        ctx.args = (chunk, ignore_index)
+        return total / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, denom = ctx.saved_tensors
+        chunk, ignore_index = ctx.args
+        x_f, lab_f = _FusedLMHeadLoss._padded(x, labels, chunk, ignore_index)
+        scale = g / denom
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dx_chunks = []
+        for lo in range(0, x_f.shape[0], chunk):
+            x_c, lab_c = x_f[lo:lo + chunk], lab_f[lo:lo + chunk]
+            logits = x_c @ w.t()
+            valid = lab_c != ignore_index
+            safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
+            coeff32 = torch.softmax(logits.float(), dim=-1)
+            coeff32.scatter_add_(-1, safe[:, None], torch.full_like(coeff32[:, :1], -1.0))
+            coeff32 = coeff32 * (valid * scale)[:, None]
+            coeff = coeff32.to(x.dtype)
+            # dx: fp32 accumulation rounded once to x's dtype; dw: fp32 sums
+            # of the exact products of the x-dtype operands
+            dx_chunks.append(coeff @ w)
+            dw += coeff.t().float() @ x_c.float()
+        dx = torch.cat(dx_chunks)[:x.shape[0] * x.shape[1]].reshape(x.shape)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def fused_lm_head_loss(x: torch.Tensor, embedding: torch.Tensor, labels: torch.Tensor, *,
+                       chunk: int = 1024, ignore_index: int = -100) -> torch.Tensor:
+    """Mean next-token cross-entropy straight from hidden states, chunk by
+    chunk (``x`` [B, T, E] already shifted: token t predicts ``labels[:,
+    t]``; ``embedding`` the tied ``[V, E]`` LM head in the compute dtype,
+    the JAX ``vocab_major=True`` layout of GPT-2; the untied ``[E, V]``
+    heads belong to the model families that use them). Logits stay in x's
+    dtype, the log-sum-exp runs in fp32; tokens are padded to a multiple of
+    ``chunk`` with ``ignore_index`` labels."""
+    return _FusedLMHeadLoss.apply(x, embedding, labels.long(), int(chunk), int(ignore_index))
+
+
+def fused_head_loss_output(x: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
+                           cfg) -> torch.Tensor:
+    """The fused head as a causal LM uses it: the next-token shift
+    (``x[:, :-1]`` predicts ``labels[:, 1:]``), then
+    :func:`fused_lm_head_loss` with ``cfg.fused_head_loss_chunk``."""
+    return fused_lm_head_loss(x[:, :-1], weight, labels[:, 1:], chunk=cfg.fused_head_loss_chunk)
 
 
 def config_from(table: dict, cls, name: str, **overrides):

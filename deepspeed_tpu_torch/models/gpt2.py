@@ -1,4 +1,5 @@
-"""GPT-2 for serving (counterpart of ``deepspeed_tpu/models/gpt2.py``).
+"""GPT-2 for serving and training (counterpart of
+``deepspeed_tpu/models/gpt2.py``).
 
 The parameter layouts are the JAX package's, so weights carry across with
 no transposes: fused QKV ``[E, 3, H, D]`` with bias ``[3, H, D]``,
@@ -11,9 +12,17 @@ The decode branch of :class:`SelfAttention` takes the cache from
 ``models/common.init_cache`` (lockstep ``generate``: scalar ``cache_index``)
 or ``inference/serving/programs.make_slot_cache`` (serving: one write
 position per slot, int8 KV codes and scales by default) and updates it in
-place. Training features of the JAX model (MoE, progressive layer drop,
-remat, the fused-loss head, the pipeline adapters) belong to a later slice
-and raise if configured.
+place.
+
+For training, ``model(ids, labels=..., deterministic=False, generator=g)``
+applies dropout (embedding, attention probabilities on the ``"xla"``
+backend, attention output, MLP), checkpoints blocks under ``remat``
+(``models/common.maybe_remat``), and with ``fused_head_loss_chunk > 0``
+returns the chunked fused LM-head loss instead of logits. Every floating
+parameter is rounded to the compute dtype where it is used, as the JAX
+engine casts the whole parameter tree before ``apply``, so fp32 master
+weights train with bf16 compute. MoE, progressive layer drop and the
+pipeline adapters belong to later slices and raise if configured.
 """
 
 import dataclasses
@@ -25,16 +34,19 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.common import config_from, embed_lookup
+from deepspeed_tpu_torch.models.common import (config_from, dense_init, embed_lookup,
+                                               fused_head_loss_output, maybe_remat)
 from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
 from deepspeed_tpu_torch.ops.quantizer.weights import quant_bits
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 
 #: config fields of the JAX model that belong to later slices of the port,
-#: with the value that means "off"
-_LATER_SLICES = {"remat": False, "moe_num_experts": 0, "progressive_layer_drop": False,
-                 "fused_head_loss_chunk": 0}
+#: with the value that means "off" and the slice
+_LATER_SLICES = {"moe_num_experts": (0, "MoE"),
+                 "progressive_layer_drop": (False, "progressive-layer-drop"),
+                 "remat_policy": (None, "activation-checkpointing"),
+                 "attention_blocks": (None, "attention-tuning")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +56,8 @@ class GPT2Config:
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
-    # serving is deterministic: dropout is accepted for config parity and
-    # never applied
+    # applied in training only (forward(deterministic=False)); attention
+    # dropout needs the "xla" backend
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     dtype: torch.dtype = torch.float32  # compute dtype; params stay in param_dtype
@@ -56,16 +68,25 @@ class GPT2Config:
     serve_weight_dtype: Optional[str] = None
     # target rows per quantization group along the contraction axis
     serve_weight_group_size: int = 64
+    # checkpoint every ``remat_every``-th block (full recompute; the JAX
+    # package's saveable-op ``remat_policy`` is a later slice)
     remat: bool = False
+    remat_every: int = 1
+    remat_policy: Optional[str] = None
+    # >0: called with ``labels=``, return the chunked fused LM-head loss
+    # (tokens per chunk) instead of [B, L, V] logits
+    fused_head_loss_chunk: int = 0
+    # the JAX flash kernel's TPU block geometry; the Hopper kernels have
+    # their own tiles
+    attention_blocks: Optional[str] = None
     moe_num_experts: int = 0
     progressive_layer_drop: bool = False
-    fused_head_loss_chunk: int = 0
 
     def __post_init__(self):
-        for name, off in _LATER_SLICES.items():
+        for name, (off, where) in _LATER_SLICES.items():
             if getattr(self, name) != off:
-                raise NotImplementedError(f"GPT2Config.{name}={getattr(self, name)!r} belongs to a "
-                                          f"later slice of the PyTorch port (serving only here)")
+                raise NotImplementedError(f"GPT2Config.{name}={getattr(self, name)!r} belongs to the "
+                                          f"{where} slice of the PyTorch port")
         if self.serve_weight_dtype not in (None, "fp", "int8", "int4"):
             raise ValueError(f"unknown serve_weight_dtype {self.serve_weight_dtype!r}")
 
@@ -145,11 +166,10 @@ class _Projection(nn.Module):
         for name, (shape, dtype) in _projection_shapes(cfg, kshape, n_contract).items():
             t = torch.zeros(shape, dtype=dtype, device=device)
             if dtype.is_floating_point and name == "kernel":
-                self.kernel = nn.Parameter(t, requires_grad=False)
+                self.kernel = nn.Parameter(t)
             else:
                 self.register_buffer(name, t)
-        self.bias = nn.Parameter(torch.zeros(bias_shape, dtype=cfg.param_dtype, device=device),
-                                 requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(bias_shape, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x):
         cfg = self.cfg
@@ -196,31 +216,44 @@ class MLP(nn.Module):
 
     def __init__(self, cfg, device):
         super().__init__()
+        self.cfg = cfg
         self.c_fc = QuantDense(cfg, cfg.n_embd, 4 * cfg.n_embd, device)
         self.c_proj = QuantDense(cfg, 4 * cfg.n_embd, cfg.n_embd, device)
 
-    def forward(self, x):
-        return self.c_proj(torch.nn.functional.gelu(self.c_fc(x), approximate="tanh"))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        h = self.c_proj(torch.nn.functional.gelu(self.c_fc(x), approximate="tanh"))
+        return dropout(h, self.cfg.dropout, generator)
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics in fp32 with the fast variance
-    E[x^2] - E[x]^2 (clipped at 0), output in the compute dtype."""
+    E[x^2] - E[x]^2 (clipped at 0), output in the compute dtype. Scale and
+    bias are rounded to the compute dtype first, as the JAX engine rounds
+    every parameter."""
 
     def __init__(self, cfg, device):
         super().__init__()
         self.cfg = cfg
-        self.scale = nn.Parameter(torch.ones(cfg.n_embd, dtype=cfg.param_dtype, device=device),
-                                  requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cfg.n_embd, dtype=cfg.param_dtype, device=device),
-                                 requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(cfg.n_embd, dtype=cfg.param_dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(cfg.n_embd, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x):
+        dt = self.cfg.dtype
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.cfg.layer_norm_epsilon) * self.scale.float()
-        return ((xf - mean) * mul + self.bias.float()).to(self.cfg.dtype)
+        mul = torch.rsqrt(var + self.cfg.layer_norm_epsilon) * self.scale.to(dt).float()
+        return ((xf - mean) * mul + self.bias.to(dt).float()).to(dt)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - rate`` (drawn from ``generator``) and scale it by ``1 / (1 - rate)``;
+    the identity without a generator (deterministic) or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _SlotWrite(NamedTuple):
@@ -273,7 +306,7 @@ class SelfAttention(nn.Module):
         self.c_proj = AttnOutProj(cfg, device)
 
     def forward(self, x, cache: Optional[Dict[str, torch.Tensor]] = None, prefix: str = "",
-                plans: Optional[dict] = None):
+                plans: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         q, k, v = self.c_attn(x)
         causal, decode_lengths = True, None
@@ -317,9 +350,11 @@ class SelfAttention(nn.Module):
             else:
                 k, v = pool_k, pool_v
             causal = False
+        rate = cfg.dropout if generator is not None else 0.0
         attn_out = dot_product_attention(q, k, v, backend=cfg.attention_backend, causal=causal,
-                                         decode_lengths=decode_lengths)
-        return self.c_proj(attn_out)
+                                         decode_lengths=decode_lengths, dropout_rate=rate,
+                                         generator=generator)
+        return dropout(self.c_proj(attn_out), rate, generator)
 
 
 class Block(nn.Module):
@@ -331,9 +366,15 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, cache=None, prefix="", plans=None):
-        x = x + self.attn(self.ln_1(x), cache, prefix, plans)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, cache=None, prefix="", plans=None, dropout_seed: Optional[int] = None):
+        """``dropout_seed`` seeds this block's dropout generator (None:
+        deterministic). An int and not a generator, so that a checkpointed
+        block draws the same masks again when it is recomputed."""
+        gen = None
+        if dropout_seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
+        x = x + self.attn(self.ln_1(x), cache, prefix, plans, gen)
+        return x + self.mlp(self.ln_2(x), gen)
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -347,9 +388,9 @@ class GPT2LMHeadModel(nn.Module):
         cfg = self.config = config
         dev = self.device = resolve_device(device)
         self.wte = nn.Parameter(torch.empty((cfg.vocab_size, cfg.n_embd), dtype=cfg.param_dtype,
-                                            device=dev), requires_grad=False)
+                                            device=dev))
         self.wpe = nn.Parameter(torch.empty((cfg.n_positions, cfg.n_embd), dtype=cfg.param_dtype,
-                                            device=dev), requires_grad=False)
+                                            device=dev))
         for i in range(cfg.n_layer):
             setattr(self, f"h_{i}", Block(cfg, dev))
         self.ln_f = LayerNorm(cfg, dev)
@@ -366,11 +407,11 @@ class GPT2LMHeadModel(nn.Module):
         scales), from ``generator`` (a fresh one seeded 0 when None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        self.wte.normal_(0.0, 0.02, generator=generator)
-        self.wpe.normal_(0.0, 0.01, generator=generator)
+        dense_init()(self.wte, generator)
+        dense_init(0.01)(self.wpe, generator)
         for name, t in self.named_parameters():
             if name.endswith(".kernel"):
-                t.normal_(0.0, 0.02, generator=generator)
+                dense_init()(t, generator)
 
     def cache_shapes(self, batch_size: int):
         """Decode-cache leaves: name -> (shape, dtype, device)."""
@@ -385,12 +426,24 @@ class GPT2LMHeadModel(nn.Module):
         shapes["position_index"] = host_index
         return shapes
 
-    @torch.no_grad()
-    def forward(self, input_ids: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None):
+    def forward(self, input_ids: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None, *,
+                labels: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Logits [B, L, V] in the compute dtype, or with ``labels`` and
+        ``fused_head_loss_chunk > 0`` the mean next-token loss (fp32
+        scalar). ``deterministic=False`` applies dropout drawn from
+        ``generator``."""
         cfg = self.config
         ids = input_ids.to(self.device)
         seq_len = ids.shape[1]
-        x = embed_lookup(self.wte, ids).to(cfg.dtype)
+        seeds = [None] * (cfg.n_layer + 1)
+        if not deterministic and cfg.dropout > 0.0:
+            if generator is None:
+                raise ValueError("training with dropout needs a generator")
+            seeds = torch.randint(0, 2**62, (cfg.n_layer + 1,), generator=generator,
+                                  device=generator.device).tolist()
+        wte = self.wte.to(cfg.dtype)  # once: both uses of the tied table share its gradient
+        x = embed_lookup(wte, ids)
         plans = None
         if cache is not None:
             pidx = cache["position_index"]
@@ -409,8 +462,26 @@ class GPT2LMHeadModel(nn.Module):
             plans = {}
         else:
             x = x + self.wpe[:seq_len].to(cfg.dtype)
+        if seeds[-1] is not None:
+            x = dropout(x, cfg.dropout, torch.Generator(device=x.device).manual_seed(seeds[-1]))
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, f"h_{i}/attn/", plans)
+            run = maybe_remat(block, cfg, i, enabled=cfg.remat and cache is None)
+            x = run(x, cache, f"h_{i}/attn/", plans, seeds[i])
         x = self.ln_f(x)
+        if labels is not None and cfg.fused_head_loss_chunk > 0:
+            return fused_head_loss_output(x, wte, labels.to(self.device), cfg)
         # tied LM head; logits stay in the compute dtype (JAX gpt2.py:559)
-        return x @ self.wte.to(cfg.dtype).t()
+        return x @ wte.t()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean token cross-entropy with label masking: the log-sum-exp in fp32,
+    the label logit read in the logits' dtype (JAX ``gpt2.py:636-651``)."""
+    labels = labels.to(logits.device).long()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = logits.gather(-1, safe[..., None])[..., 0].float()
+    nll = (logz - label_logit) * valid
+    return nll.sum() / valid.sum().clamp_min(1)

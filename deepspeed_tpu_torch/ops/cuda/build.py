@@ -29,7 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "deepspeed_tpu_torch"
 
 #: the kernel libraries, one per source file
-KERNELS = ("flash_fwd", "flash_decode", "quant_matmul")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -44,6 +44,8 @@ SIGNATURES = {
     "flash_fwd": ("ds_flash_fwd",
                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I]
                   + [_LL] * 9 + [_P]),
+    "flash_bwd": ("ds_flash_bwd",
+                  [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _I, _I] + [_LL] * 12 + [_P]),
     "flash_decode": ("ds_flash_decode",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F]
                      + [_LL] * 9 + [_P]),

@@ -1,6 +1,7 @@
 """Flash attention on Hopper: K1, the forward kernel (``csrc/flash_fwd.cu``),
-and K3, the decode kernel (``csrc/flash_decode.cu``), each beside its plain
-PyTorch version, plus the ``"flash"`` attention backend.
+K4, its backward (``csrc/flash_bwd.cu``), and K3, the decode kernel
+(``csrc/flash_decode.cu``), each beside its plain PyTorch version, plus the
+``"flash"`` attention backend.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. Layout at
 the public boundary is ``[batch, length, heads, head_dim]`` (BLHD), as in
@@ -9,8 +10,10 @@ the JAX package; the kernels read it in place through strides.
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches the kernel or raises. The JAX backend falls back to XLA for a bias,
 an arbitrary mask or dropout; this backend raises instead, so the main path
-can never leave the kernel quietly. Only the forward is ported: the
-backward kernels (K4) belong to the training slice.
+can never leave the kernel quietly. The backend goes through
+:class:`FlashAttention`, the ``torch.autograd.Function`` that ties K1 to
+K4 (the JAX custom VJP ``_flash_attention_bhld``), so one call serves
+inference (no graph is recorded) and training.
 """
 
 from typing import Optional, Tuple
@@ -36,16 +39,9 @@ def _masked_softmax_av(s, valid, v):
     return o, m, l
 
 
-def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
-                    kv_lengths: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: ``(o [B, Lq, H, D] in q's dtype, lse [B, H, Lq]
-    fp32)``. Query i sits at position ``i + Lk - Lq``; rows with no live key
-    give O = 0 and lse = NEG_INF / 2."""
-    b, lq, h, d = q.shape
-    lk = k.shape[1]
-    dev = q.device
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+def _live_pairs(lq, lk, causal, kv_lengths, window, dev) -> torch.Tensor:
+    """[B or 1, 1, Lq, Lk] mask of the (query, key) pairs attention reads:
+    query i sits at position ``i + Lk - Lq``."""
     q_pos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
     k_pos = torch.arange(lk, device=dev)[None, :]
     valid = torch.ones((lq, lk), dtype=torch.bool, device=dev)
@@ -56,10 +52,46 @@ def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
     valid = valid[None, None]
     if kv_lengths is not None:
         valid = valid & (k_pos[None, None] < kv_lengths.to(dev).long()[:, None, None, None])
+    return valid
+
+
+def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: ``(o [B, Lq, H, D] in q's dtype, lse [B, H, Lq]
+    fp32)``. Query i sits at position ``i + Lk - Lq``; rows with no live key
+    give O = 0 and lse = NEG_INF / 2."""
+    lq, lk = q.shape[1], k.shape[1]
+    dev = q.device
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    valid = _live_pairs(lq, lk, causal, kv_lengths, window, dev)
     o, m, l = _masked_softmax_av(s, valid, v)
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)),
                       torch.full((), NEG_INF / 2, device=dev))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K4, the FlashAttention-2 backward over BLHD tensors:
+    ``delta = rowsum(dO * O)``, ``p = exp(s - lse)`` on live pairs (0
+    elsewhere, so a row with no live key has zero gradients), ``ds = p (dp -
+    delta)``; ``dq = ds k * scale`` in q's dtype, ``dk = ds^T (q * scale)``
+    and ``dv = p^T dO`` in k's and v's."""
+    lq, lk = q.shape[1], k.shape[1]
+    qf = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    valid = _live_pairs(lq, lk, causal, kv_lengths, window, q.device)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, Lq]
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
@@ -135,6 +167,78 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
     return o, lse
 
 
+def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
+              kv_lengths: Optional[torch.Tensor] = None,
+              window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: ``(dq, dk, dv)`` of :func:`flash_fwd`'s output given its
+    ``o``, ``lse`` and the output cotangent ``do``. q, k, v and do are read
+    through their strides; o and lse are K1's contiguous outputs."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal flash attention needs lq <= lk, got {q.shape[1]} > {k.shape[1]}")
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale=scale, causal=causal,
+                               kv_lengths=kv_lengths, window=window)
+    _check_operands("flash_bwd", q, k, v)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
+        raise ValueError(f"flash_bwd: do must match q [B, Lq, H, D] {q.dtype} with unit-stride "
+                         f"head_dim, got {tuple(do.shape)} {do.dtype}")
+    if o.shape != q.shape or o.dtype != q.dtype or not o.is_contiguous():
+        raise ValueError("flash_bwd: o must be K1's contiguous [B, Lq, H, D] output")
+    if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_bwd: lse must be K1's contiguous [B, H, Lq] fp32 output")
+    lens = None if kv_lengths is None else _lengths_operand("flash_bwd", kv_lengths, b, q.device)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=q.device)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_bwd")
+    lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        build.ptr(lens), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        build.dtype_code(q, "flash_bwd"), b, h, lq, lk, d, float(scale), int(bool(causal)),
+        int(window) if window is not None else 0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        build.stream_ptr(q.device))
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+#: ``policy`` of :class:`FlashAttention`: keep K1's log-sum-exp for the
+#: backward, or drop it and re-run K1 there to regenerate it
+POLICIES = ("lse", "recompute")
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 backward: the port's ``_flash_attention_bhld``
+    (``deepspeed_tpu/ops/pallas/flash_attention.py:515-546``), over BLHD
+    tensors. ``policy="recompute"`` saves no lse and re-runs K1 in the
+    backward. The JAX kernel's block sizes and ``bwd_skip`` are TPU grid
+    policy: the Hopper loops always skip dead tiles, which gives the result
+    of both JAX settings."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, scale, causal, window, policy):
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths,
+                           window=window)
+        ctx.save_for_backward(q, k, v, o, lse if policy == "lse" else None, kv_lengths)
+        ctx.args = (scale, causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        scale, causal, window = ctx.args
+        if lse is None:
+            _, lse = flash_fwd(q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths,
+                               window=window)
+        if do.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
+            do = do.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, scale=scale, causal=causal,
+                               kv_lengths=kv_lengths, window=window)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_decode(q, k, v, lengths: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """K3: length-masked attention of ``q`` [S, Lq, H, D] (each slot's
     newest Lq tokens) against a cache [S, P, H, D] with ``lengths`` [S]
@@ -169,13 +273,17 @@ def flash_attention(q: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     decode_lengths: Optional[torch.Tensor] = None,
                     kv_lengths: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    policy: str = "lse") -> torch.Tensor:
     """Flash attention over BLHD tensors: K3 when ``decode_lengths`` is
-    given (cache decode), K1 otherwise. A bias, an arbitrary mask or
-    dropout raise ``ValueError``: use the ``"xla"`` backend for those."""
+    given (cache decode), else K1 with K4 as its backward
+    (:class:`FlashAttention`). A bias, an arbitrary mask or dropout raise
+    ``ValueError``: use the ``"xla"`` backend for those."""
     del generator  # dropout is refused below; the argument mirrors the plain backend
     if bias is not None or mask is not None or dropout_rate > 0.0:
         raise ValueError("the flash backend takes no bias, mask or dropout; use backend='xla'")
+    if policy not in POLICIES:
+        raise ValueError(f"unknown flash backward policy {policy!r}; expected one of {POLICIES}")
     if decode_lengths is not None and kv_lengths is not None:
         raise ValueError("pass decode_lengths (cache decode) or kv_lengths "
                          "(padded prefill), not both")
@@ -188,5 +296,5 @@ def flash_attention(q: torch.Tensor,
         scale = q.shape[-1]**-0.5
     if decode_lengths is not None:
         return flash_decode(q, k, v, decode_lengths, scale=scale)
-    o, _ = flash_fwd(q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths, window=window)
-    return o
+    return FlashAttention.apply(q, k, v, kv_lengths, float(scale), bool(causal),
+                                None if window is None else int(window), policy)

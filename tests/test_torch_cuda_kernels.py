@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
 These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
-``chip_smoke.py`` runs the same comparisons at the serving slice's full
-shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
+``chip_smoke.py`` runs the same comparisons at the serving and training
+slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
 in another order) and 2e-2 in bf16 (outputs are rounded to bf16).
 """
 
@@ -50,6 +50,47 @@ def test_flash_fwd_matches_plain(gen, dtype, lq, lk, causal, lengths, window):
     ro, rlse = fa.flash_fwd_plain(q, k, v, scale=0.125, causal=causal, kv_lengths=lens, window=window)
     _close(o, ro, dtype)
     _close(lse, rlse, torch.float32)
+
+
+def _qkv(gen, b, lq, lk, dtype):
+    """q, k, v as the model gives them: slices of one fused QKV tensor when
+    lq == lk (not contiguous), else separate tensors."""
+    if lq == lk:
+        qkv = _randn(gen, b, lq, 3, 4, 64, dtype=dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return _randn(gen, b, lq, 4, 64, dtype=dtype), *(_randn(gen, b, lk, 4, 64, dtype=dtype)
+                                                     for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal,lengths,window", [
+    (100, 100, True, None, None), (16, 130, True, None, None), (64, 64, False, [64, 9, 0], None),
+    (90, 90, True, [90, 40, 1], None), (200, 200, True, None, 33), (130, 130, False, None, None)])
+def test_flash_bwd_matches_plain(gen, dtype, lq, lk, causal, lengths, window):
+    q, k, v = _qkv(gen, 3, lq, lk, dtype)
+    do = _randn(gen, 3, lq, 4, 2, 64, dtype=dtype)[:, :, :, 0]  # strided cotangent
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(scale=0.125, causal=causal, kv_lengths=lens, window=window)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    before = LAUNCHES["flash_bwd"]
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    assert LAUNCHES["flash_bwd"] == before + 1
+    for g, r in zip(got, fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)):
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("policy", ["lse", "recompute"])
+def test_flash_autograd_runs_k1_and_k4(gen, policy):
+    q, k, v = (x.detach().requires_grad_() for x in _qkv(gen, 2, 96, 96, torch.float32))
+    w = _randn(gen, 2, 96, 4, 64, dtype=torch.float32)
+    before = dict(LAUNCHES)
+    (fa.flash_attention(q, k, v, causal=True, policy=policy) * w).sum().backward()
+    assert LAUNCHES["flash_fwd"] == before["flash_fwd"] + (2 if policy == "recompute" else 1)
+    assert LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    o, lse = fa.flash_fwd_plain(q, k, v, scale=0.125, causal=True)
+    for g, r in zip((q.grad, k.grad, v.grad),
+                    fa.flash_bwd_plain(q, k, v, o, lse, w, scale=0.125, causal=True)):
+        _close(g, r, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference, resolve_device
+from deepspeed_tpu_torch import (GPT2LMHeadModel, get_gpt2_config, init_inference, initialize,
+                                 resolve_device)
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -20,6 +21,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deepspeed_tpu")
 def _port_sources():
     files = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("runtime/engine.py", "runtime/entry.py", "runtime/config.py",
+                   "runtime/lr_schedules.py", "runtime/utils.py", "ops/adam/fused_adam.py",
+                   "ops/cuda/flash_attention.py", "models/common.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
 
@@ -74,13 +80,17 @@ def test_cpu_runs_the_plain_versions_and_counts_no_launch():
                                             serve_weight_dtype="int8"), device="cpu")
     engine = init_inference(model, device="cpu")
     engine.generate(np.zeros((1, 5), np.int32), max_new_tokens=2)
+    model = GPT2LMHeadModel(get_gpt2_config("test", attention_backend="flash", remat=True,
+                                            fused_head_loss_chunk=16), device="cpu")
+    trainer, _, _, _ = initialize(model=model, config={"train_batch_size": 2}, device="cpu")
+    trainer.train_batch(np.zeros((2, 12), np.int32))
     assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 
 
 def test_importing_builds_nothing():
     """Kernels build on first CUDA use, never at import (no nvcc on a CPU host)."""
     from deepspeed_tpu_torch.ops.cuda import build
-    assert build.KERNELS == ("flash_fwd", "flash_decode", "quant_matmul")
+    assert build.KERNELS == ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul")
     for name in build.KERNELS:
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
     assert not build._loaded
