@@ -9,12 +9,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build    — compile the kernels from ``deepspeed_tpu_torch/csrc`` with
               ``nvcc`` for sm_90a (one process per source, in parallel).
 3. kernels  — each kernel (K1 flash forward, K2 int8/int4 dequant GEMM, K3
-              flash decode, K4 flash backward: dq, dk and dv) against its
-              plain PyTorch version on the same inputs at the serving and
-              training slices' shapes; max |err| / max |ref| must stay
-              within 2e-2 in bf16 and 1e-4 in fp32. Times the kernel, its
-              plain version and one PyTorch library call, and computes the
-              least time the card could take (``bound_ms``).
+              flash decode, K4 flash backward: dq, dk and dv, K5 MoE row
+              permutation: forward and VJP) against its plain PyTorch
+              version on the same inputs at the serving and training
+              slices' shapes; max |err| / max |ref| must stay within 2e-2
+              in bf16 and 1e-4 in fp32, and K5, a gather, must be exact.
+              Times the kernel, its plain version and one PyTorch library
+              call, and computes the least time the card could take
+              (``bound_ms``).
 4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
@@ -40,6 +42,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
               and every parameter's gradient within 1e-4 in fp32, and in bf16
               within 1.5x the rounding the same run measures (plain bf16
               against plain fp32).
+7. MoE training — the same step with an MoE FFN of 8 GPT-2 MLP experts in
+              every other block (top-1, capacity factor 1.25, RTS, the
+              sorted route: ~1.06B parameters, ~355M active): 2 warm-up and
+              10 timed steps with launch counts zeroed just before and read
+              just after (per step K1 48, K4 24 and K5 72: 12 MoE layers x
+              dispatch and combine x forward, remat recompute and backward),
+              finite and falling loss, step ms, tokens/s, model TFLOP/s by
+              active parameters, peak memory, and one profiled step.
+8. MoE gradcheck — one step of a 2-layer MoE model (layer 1 MoE, top-1, no
+              RTS, so routing is deterministic) on the card and on the CPU:
+              in fp32 every token's expert and slot identical and the loss
+              and every gradient within 1e-4; in bf16 within 1.5x the
+              measured rounding, with the routing flips counted.
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. Details go to
@@ -68,6 +83,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #: the kernels each main path must launch
 SERVING_KERNELS = ("flash_fwd", "flash_decode", "quant_matmul")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
+MOE_TRAINING_KERNELS = ("flash_fwd", "flash_bwd", "moe_permute")
 
 RESULTS = {"checks": [], "timings": {}}
 
@@ -294,10 +310,112 @@ def kernel_phase(gen: torch.Generator):
                                  replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:74",
                                  shape="x [8,1024] bf16 @ int8 [1024,4096], scales [16,4096]",
                                  **main)
-    for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"]):
+    lines["moe_permute"] = k5_cases(gen)
+    for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"],
+               lines["moe_permute"]):
         log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} plain_ms={ln['plain_ms']:.4f} "
             f"library_ms={ln['library_ms']:.4f} bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
     return lines
+
+
+def compare_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """A copy kernel against its plain version: equal bit for bit."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs plain "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item() if got.numel() else 0.0
+    ok = torch.equal(got, ref)
+    RESULTS["checks"].append({"name": name, "max_abs_err": err, "tol": 0.0, "ok": ok})
+    log(f"check {name}: max_abs_err={err:.3e} tol=0 (exact) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: differs from the plain version (max |err| {err:.3e})")
+    return err
+
+
+def routed_maps(gen, groups: int, tokens: int, experts: int, capacity: int):
+    """The sorted route's index maps for random top-1 routing of ``tokens``
+    tokens per group: ``(flat_slot [G, S], src [G, E*C])`` int32, tokens past
+    an expert's capacity parked on the sentinel E*C."""
+    from deepspeed_tpu_torch.ops.cuda.moe_dispatch import inverse_index
+    expert = torch.randint(0, experts, (groups, tokens), generator=gen, device="cuda")
+    pos = (torch.cumsum(F.one_hot(expert, experts), dim=1) - 1).gather(2, expert[..., None])[..., 0]
+    flat = torch.where(pos < capacity, expert * capacity + pos, experts * capacity).to(torch.int32)
+    return flat, inverse_index(flat, experts * capacity)
+
+
+def k5_cases(gen) -> dict:
+    """K5 at the MoE step's shapes (S = 8 x 1024 tokens, E = 8, C = 1280,
+    M = 1024): dispatch [1,8192,1024] -> [1,10240,1024] and combine back, in
+    bf16 and fp32, a quarter of sentinel rows, and two groups; forward and
+    VJP (``PermuteRows``' backward, K5 on the inverse map) against the plain
+    gather and its autograd, exactly. Times dispatch and combine in bf16,
+    each launch reading one of three copies of the input so that no launch
+    finds its input in the 50 MB L2 cache."""
+    import itertools
+
+    from deepspeed_tpu_torch.moe.sharded_moe import _gate_capacity
+    from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
+
+    S, E, M = 8192, 8, 1024
+    C = _gate_capacity(S, E, 1.25, 4, True, 1)
+    flat, src = routed_maps(gen, 1, S, E, C)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def case(name, x, fwd, bwd):
+        err = compare_exact(f"moe_permute {name}", md.moe_permute(x, fwd), md.moe_permute_plain(x, fwd))
+        cot = randn(x.shape[0], fwd.shape[1], x.shape[2], dtype=x.dtype)
+        xk = x.detach().requires_grad_()
+        (gk,) = torch.autograd.grad(md.permute_rows(xk, fwd, bwd, impl="pallas"), xk, cot)
+        xp = x.detach().requires_grad_()
+        (gp,) = torch.autograd.grad(md.permute_rows(xp, fwd, bwd, impl="xla"), xp, cot)
+        return max(err, compare_exact(f"moe_permute {name} VJP", gk, gp))
+
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        t = str(dtype)[6:]
+        errs.append(case(f"dispatch [1,{S},{M}]->[1,{E * C},{M}] {t}", randn(1, S, M, dtype=dtype),
+                         src, flat))
+        errs.append(case(f"combine [1,{E * C},{M}]->[1,{S},{M}] {t}", randn(1, E * C, M, dtype=dtype),
+                         flat, src))
+    idx = torch.randperm(E * C, generator=gen, device="cuda")[None]
+    idx = torch.where((torch.rand(idx.shape, generator=gen, device="cuda") < 0.25) | (idx >= S),
+                      S + 7, idx).to(torch.int32)
+    errs.append(case(f"quarter sentinels [1,{S},{M}]->[1,{E * C},{M}] bf16",
+                     randn(1, S, M, dtype=torch.bfloat16), idx, md.inverse_index(idx, S)))
+    c2 = _gate_capacity(S // 2, E, 1.25, 4, True, 1)
+    flat2, src2 = routed_maps(gen, 2, S // 2, E, c2)
+    errs.append(case(f"G=2 dispatch [2,{S // 2},{M}] bf16", randn(2, S // 2, M, dtype=torch.bfloat16),
+                     src2, flat2))
+    errs.append(case(f"G=2 combine [2,{E * c2},{M}] bf16", randn(2, E * c2, M, dtype=torch.bfloat16),
+                     flat2, src2))
+
+    timed = {}
+    for what, n_rows, fwd in (("dispatch", S, src), ("combine", E * C, flat)):
+        copies = [randn(1, n_rows, M, dtype=torch.bfloat16) for _ in range(3)]
+        nxt = itertools.cycle(copies).__next__
+        clamped = fwd[0].clamp(max=n_rows - 1).long()
+        ms = time_ms(lambda: md.moe_permute(nxt(), fwd), iters=60)
+        plain_ms = time_ms(lambda: md.moe_permute_plain(nxt(), fwd), iters=30)
+        lib_ms = time_ms(lambda: torch.index_select(nxt()[0], 0, clamped), iters=60)
+        live = int((fwd < n_rows).sum())
+        r = fwd.shape[1]
+        # live source rows read once, every output row written, the index read
+        bnd, by = bound_ms(live * M * 2 + r * M * 2 + r * 4, 0.0)
+        shape = (f"x [1,{n_rows},{M}] bf16 -> [1,{r},{M}], {live} live rows "
+                 f"({what}, S={S} E={E} C={C})")
+        timed[what] = dict(name="moe_permute", route="cuda",
+                           source="deepspeed_tpu_torch/csrc/moe_permute.cu",
+                           replaces="deepspeed_tpu/ops/pallas/moe_dispatch.py:76", shape=shape,
+                           max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                           bound_by=by, library_ms=lib_ms)
+        log(f"time moe_permute {shape}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (index_select of the clamped index, no zeroing) "
+            f"bound_ms={bnd:.4f} ({by})")
+    RESULTS["timings"]["moe_permute"] = timed
+    return timed["dispatch"]
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +464,15 @@ def device_events(prof) -> list:
 #: kernel families of the training step's profile, by name
 TRAIN_KERNEL_FAMILIES = (("K1 flash_fwd", ("flash_fwd_kernel",)),
                          ("K4 flash_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
-                         ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+                         ("K5 moe_permute", ("permute_kernel<",)),
+                         ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+                         ("sort and scan (MoE gate)", ("Sort", "sort", "Scan", "scan")))
+
+#: the MoE layer's profiler ranges (forward and remat recompute) and the
+#: PyTorch ops whose device time the MoE step reports on their own
+MOE_RANGES = ("moe_gate", "moe_dispatch", "moe_experts", "moe_combine")
+MOE_OPS = ("aten::bmm", "aten::sort", "aten::cumsum", "aten::scatter_", "aten::index_add_",
+           "aten::one_hot", "aten::mm")
 
 
 def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
@@ -545,6 +671,7 @@ def _profile_train_step(engine, batch, card, step_ms: float) -> dict:
     """Device time of one steady training step, from the device-side events
     of ``torch.profiler`` only (a CPU op's device time repeats its
     kernels'), against the unprofiled step's wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -555,6 +682,14 @@ def _profile_train_step(engine, batch, card, step_ms: float) -> dict:
     events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    # device time of the kernels each CPU-side range or op launched, its
+    # children's included (aten::bmm: the expert GEMMs, forward, recompute
+    # and backward; the moe_* ranges: forward and recompute only)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and (e.name in MOE_RANGES or e.name in MOE_OPS):
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3, calls + 1)
     families = {}
     for e in events:
         family = next((f for f, keys in TRAIN_KERNEL_FAMILIES if any(k in e.key for k in keys)),
@@ -564,6 +699,8 @@ def _profile_train_step(engine, batch, card, step_ms: float) -> dict:
               "device_busy_ms_per_step": busy_ms if events else None,
               "device_idle_share": 1.0 - busy_ms / step_ms if events else None,
               "device_ms_by_family": families,
+              "device_ms_by_range_or_op": {k: {"device_ms": ms, "calls": c}
+                                           for k, (ms, c) in by_name.items()},
               "top_kernels": [{"name": e.key[:90], "calls": e.count,
                                "device_ms": e.self_device_time_total / 1e3} for e in top]}
     if not events:
@@ -573,6 +710,9 @@ def _profile_train_step(engine, batch, card, step_ms: float) -> dict:
         f"device busy {busy_ms:.2f} ms, idle share {result['device_idle_share']:.3f}  [{card}]")
     log("  by family: " + ", ".join(f"{f} {ms:.2f} ms" for f, ms in
                                     sorted(families.items(), key=lambda kv: -kv[1])))
+    if by_name:
+        log("  by range or op (device ms of what it launched, calls): " + ", ".join(
+            f"{k} {ms:.2f} ms/{c}" for k, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])))
     for k in result["top_kernels"]:
         log(f"  {k['device_ms']:.3f} ms, {k['calls']} calls: {k['name']}")
     return result
@@ -677,6 +817,148 @@ def gradcheck_phase(seed: int, card: str) -> dict:
     return out
 
 
+def active_params(n_params: int, cfg) -> int:
+    """Parameters that compute per token (``tools/bench_core.py:35-58``,
+    copied, GPT-2 family): each MoE layer's E - k unused experts are left
+    out, 8 E^2 + 5 E parameters each."""
+    if not cfg.moe_num_experts:
+        return n_params
+    ffn = 8 * cfg.n_embd * cfg.n_embd + 5 * cfg.n_embd
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layer))
+    return n_params - moe_layers * (cfg.moe_num_experts - cfg.moe_k) * ffn
+
+
+def moe_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    from deepspeed_tpu_torch.moe.sharded_moe import _gate_capacity
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    micro, seq = 8, 1024
+    cfg = get_gpt2_config("350m", vocab_size=50304, n_positions=seq, remat=True,
+                          attention_backend="flash", dtype=torch.bfloat16, fused_head_loss_chunk=1024,
+                          moe_num_experts=8, moe_layer_freq=2, moe_k=1)
+    model = GPT2LMHeadModel(cfg, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 2))
+    engine, _, _, _ = initialize(model=model, config=train_config(micro, 1.0, True))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = active_params(n_params, cfg)
+    moe_layers = [i for i in range(cfg.n_layer) if cfg.is_moe_layer(i)]
+    capacity = _gate_capacity(micro * seq, cfg.moe_num_experts, cfg.moe_capacity_factor,
+                              cfg.moe_min_capacity, cfg.moe_drop_tokens, cfg.moe_k)
+    rng = np.random.default_rng(seed + 2)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro, seq)).astype(np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training: losses not finite and falling: {losses}")
+    per_step = {k: c / (warmup + steps) for k, c in counts.items()}
+    missing = [k for k in MOE_TRAINING_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the MoE training path: {missing} ({counts})")
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_bwd": cfg.n_layer, "moe_permute": 6 * len(moe_layers)}
+    if any(per_step[k] != v for k, v in want.items()):
+        raise AssertionError(f"MoE training: expected per step {want}, got {per_step}")
+    kept = [int(model.blocks[i].moe.deepspeed_moe.kept_counts.sum()) for i in moe_layers]
+    step_ms = dt / steps * 1e3
+    tokens_s = micro * seq * steps / dt
+    fpt = flops_per_token(n_active, cfg.n_layer, cfg.n_embd, seq)
+    out = dict(n_params=n_params, n_active_params=n_active, moe_layers=moe_layers, capacity=capacity,
+               kept_tokens_last_step=kept, losses=losses, launches=counts, launches_per_step=per_step,
+               step_ms=step_ms, tokens_per_s=tokens_s, model_tflops=fpt * tokens_s / 1e12,
+               flops_per_token=fpt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               grad_norm=engine.get_global_grad_norm())
+    log(f"moe train: GPT-2 350m + 8 experts every other layer ({n_params} params, {n_active} active), "
+        f"top-1, capacity {capacity}, sorted route, seq {seq}, micro-batch {micro}, bf16, remat, "
+        f"fused head, flash; losses {losses[0]:.4f} -> {losses[-1]:.4f} over {warmup}+{steps} "
+        f"steps; tokens kept per MoE layer in the last step {kept} of {micro * seq}  [{card}]")
+    log(f"moe train: {step_ms:.2f} ms/step, {tokens_s:.1f} tokens/s, {out['model_tflops']:.2f} model "
+        f"TFLOP/s by active parameters ({fpt:.4g} FLOP/token), peak memory "
+        f"{out['peak_memory_gb']:.2f} GB  [{card}]")
+    log(f"moe train launches on the main path: {counts}; per step {per_step}  [{card}]")
+    out["profile"] = _profile_train_step(engine, batch, card, step_ms)
+    return out, counts
+
+
+def moe_gradcheck_phase(seed: int, card: str) -> dict:
+    """One training step of a 2-layer MoE model at 350m width (layer 1 MoE,
+    8 experts, top-1, no RTS: routing depends on the data alone) on the card
+    and on the CPU (plain versions). fp32: every token's expert, slot and
+    keep identical, the loss and each gradient within 1e-4. bf16: the
+    largest relative error within 1.5x the same run's rounding (plain bf16
+    against plain fp32), with the routing flips of both counted."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+
+    kw = dict(n_layer=2, vocab_size=50304, n_positions=512, remat=True, attention_backend="flash",
+              fused_head_loss_chunk=1024, moe_num_experts=8, moe_layer_freq=2, moe_k=1,
+              moe_use_rts=False)
+    base = GPT2LMHeadModel(get_gpt2_config("350m", **kw), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed + 3))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    ids = np.random.default_rng(seed + 3).integers(0, 50304, (2, 512)).astype(np.int32)
+
+    def one_step(device: str, dtype):
+        model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
+        model.load_state_dict(state, strict=True)
+        engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
+                                     device=device)
+        loss = engine.train_batch({"input_ids": ids})
+        out = {"loss": loss.detach().float().cpu().reshape(1)}
+        out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
+        routing = model.h_1.moe.deepspeed_moe.last_routing
+        return out, {f: getattr(routing, f).cpu() for f in ("expert", "slot", "keep")}
+
+    runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
+            for dev in ("cuda", "cpu")}
+    for f, ref in runs[("cpu", "float32")][1].items():
+        if not torch.equal(runs[("cuda", "float32")][1][f], ref):
+            n = int((runs[("cuda", "float32")][1][f] != ref).sum())
+            raise AssertionError(f"moe gradcheck fp32: routing field {f} differs in {n} token copies")
+    RESULTS["checks"].append({"name": "moe gradcheck fp32 routing identical", "ok": True})
+    for name, ref in runs[("cpu", "float32")][0].items():
+        compare(f"moe gradcheck fp32 {name} (card vs plain)", runs[("cuda", "float32")][0][name], ref,
+                torch.float32)
+
+    def flips(a, b):
+        return int((runs[a][1]["expert"] != runs[b][1]["expert"]).sum())
+
+    served = {n: rel_err(g, runs[("cpu", "bfloat16")][0][n])[1]
+              for n, g in runs[("cuda", "bfloat16")][0].items()}
+    rounding = {n: rel_err(g, runs[("cpu", "float32")][0][n])[1]
+                for n, g in runs[("cpu", "bfloat16")][0].items()}
+    worst = max(served, key=served.get)
+    out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
+           "bf16_rounding_max_rel": max(rounding.values()),
+           "bf16_routing_flips_card_vs_plain": flips(("cuda", "bfloat16"), ("cpu", "bfloat16")),
+           "bf16_routing_flips_plain_bf16_vs_fp32": flips(("cpu", "bfloat16"), ("cpu", "float32")),
+           "tokens": int(ids.size),
+           "loss": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in runs.items()}}
+    log(f"moe gradcheck fp32: routing identical over {ids.size} tokens; bf16: card vs plain max rel "
+        f"{served[worst]:.3e} ({worst}); plain bf16 vs plain fp32 max rel "
+        f"{out['bf16_rounding_max_rel']:.3e}; routing flips card vs plain (bf16) "
+        f"{out['bf16_routing_flips_card_vs_plain']}, plain bf16 vs fp32 "
+        f"{out['bf16_routing_flips_plain_bf16_vs_fp32']}; losses {out['loss']}  [{card}]")
+    if not served[worst] <= 1.5 * out["bf16_rounding_max_rel"]:
+        raise AssertionError(f"moe gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding "
+                             f"{out['bf16_rounding_max_rel']:.3e}")
+    RESULTS["checks"].append({"name": "moe gradcheck bf16 (1.5x rounding)", "rel_err": served[worst],
+                              "tol": 1.5 * out["bf16_rounding_max_rel"], "ok": True})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -706,15 +988,19 @@ def main(argv=None) -> int:
     RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
     RESULTS["train"], train_counts = train_phase(args.seed, card)
     RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
+    torch.cuda.empty_cache()
+    RESULTS["moe_train"], moe_counts = moe_train_phase(args.seed, card)
+    torch.cuda.empty_cache()
+    RESULTS["moe_gradcheck"] = moe_gradcheck_phase(args.seed, card)
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
-    # launches: the serving and the training paths' counts, each zeroed just
-    # before its path and read just after
+    # launches: the serving, training and MoE training paths' counts, each
+    # zeroed just before its path and read just after
     kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"},
-                    launches=serve_counts[name] + train_counts[name])
-               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd")]
+                    launches=serve_counts[name] + train_counts[name] + moe_counts[name])
+               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute")]
     log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)

@@ -6,7 +6,11 @@ the port's state dict. The layouts are identical, so this is a renaming:
 ``h_0/attn/c_attn/kernel`` -> ``h_0.attn.c_attn.kernel`` and
 ``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``. ``opt_state_from_jax`` does
 the same for the JAX ``fused_adam`` state, so that both packages can resume
-from one mid-training state.
+from one mid-training state. An MoE model's keys carry over the same way
+(``h_1/moe/deepspeed_moe/gate/wg`` -> ``h_1.moe.deepspeed_moe.gate.wg``, the
+experts' stacked ``[E, ...]`` leaves as they are), and the config inferred
+from such a tree has its ``moe_num_experts``, ``moe_layer_freq`` and
+``moe_use_residual``.
 """
 
 from typing import Dict, Optional
@@ -39,8 +43,20 @@ def _infer_config(sd: Dict[str, torch.Tensor]) -> GPT2Config:
     if qkv is None or qkv.dim() != 4:
         raise KeyError("params_from_jax: no [E, 3, H, D] h_0/attn/c_attn/kernel to infer the "
                        "config from; pass config=")
+    moe = {}
+    gates = {int(k.split(".")[0][2:]): v for k, v in sd.items()
+             if k.startswith("h_") and k.endswith(".moe.deepspeed_moe.gate.wg")}
+    if gates:
+        # MoE blocks sit at layers freq - 1, 2 freq - 1, ...
+        freq = min(gates) + 1
+        expected = [i for i in range(n_layer) if i % freq == freq - 1]
+        if sorted(gates) != expected:
+            raise ValueError(f"params_from_jax: MoE blocks at layers {sorted(gates)} follow no "
+                             f"moe_layer_freq; pass config=")
+        moe = dict(moe_num_experts=gates[freq - 1].shape[1], moe_layer_freq=freq,
+                   moe_use_residual=any(".moe.coefficient." in k for k in sd))
     return GPT2Config(vocab_size=vocab, n_positions=sd["wpe"].shape[0], n_embd=n_embd,
-                      n_layer=n_layer, n_head=qkv.shape[2], param_dtype=sd["wte"].dtype)
+                      n_layer=n_layer, n_head=qkv.shape[2], param_dtype=sd["wte"].dtype, **moe)
 
 
 def params_from_jax(tree: dict, config: Optional[GPT2Config] = None,

@@ -74,6 +74,9 @@ class InferenceEngine:
                  params: Optional[dict] = None, device: DeviceLike = None, seed: int = 0):
         self.config = config if config is not None else DeepSpeedInferenceConfig()
         self.device = resolve_device(device)
+        if getattr(model.config, "moe_num_experts", 0) > 0:
+            raise NotImplementedError("serving an MoE model belongs to the MoE-serving slice of "
+                                      "the PyTorch port")
         self.module = replace_transformer_layer(model, self.config, self.device, params)
         self.mcfg = self.module.config
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

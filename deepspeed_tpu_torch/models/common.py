@@ -117,12 +117,18 @@ def fused_lm_head_loss(x: torch.Tensor, embedding: torch.Tensor, labels: torch.T
     return _FusedLMHeadLoss.apply(x, embedding, labels.long(), int(chunk), int(ignore_index))
 
 
-def fused_head_loss_output(x: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-                           cfg) -> torch.Tensor:
+def fused_head_loss_output(x: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor, cfg,
+                           aux_total: Optional[torch.Tensor] = None,
+                           deterministic: bool = True) -> torch.Tensor:
     """The fused head as a causal LM uses it: the next-token shift
     (``x[:, :-1]`` predicts ``labels[:, 1:]``), then
-    :func:`fused_lm_head_loss` with ``cfg.fused_head_loss_chunk``."""
-    return fused_lm_head_loss(x[:, :-1], weight, labels[:, 1:], chunk=cfg.fused_head_loss_chunk)
+    :func:`fused_lm_head_loss` with ``cfg.fused_head_loss_chunk``. An MoE
+    model's ``aux_total * moe_aux_loss_coef`` is added in training only
+    (eval reports the pure cross-entropy, as the unfused eval does)."""
+    loss = fused_lm_head_loss(x[:, :-1], weight, labels[:, 1:], chunk=cfg.fused_head_loss_chunk)
+    if aux_total is not None and not deterministic and cfg.moe_num_experts > 0:
+        loss = loss + aux_total * cfg.moe_aux_loss_coef
+    return loss
 
 
 def config_from(table: dict, cls, name: str, **overrides):

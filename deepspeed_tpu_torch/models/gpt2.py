@@ -21,8 +21,18 @@ backend, attention output, MLP), checkpoints blocks under ``remat``
 returns the chunked fused LM-head loss instead of logits. Every floating
 parameter is rounded to the compute dtype where it is used, as the JAX
 engine casts the whole parameter tree before ``apply``, so fp32 master
-weights train with bf16 compute. MoE, progressive layer drop and the
-pipeline adapters belong to later slices and raise if configured.
+weights train with bf16 compute.
+
+With ``moe_num_experts > 0`` every ``moe_layer_freq``-th block (layers
+``freq - 1``, ``2 freq - 1``...) runs an MoE FFN of ``moe_num_experts``
+stacked MLP experts (``moe/``) instead of its MLP. The model then sums the
+blocks' load-balancing losses: the fused head adds ``aux_total *
+moe_aux_loss_coef`` to its loss in training, and the logits forward returns
+``(logits, aux_total * moe_aux_loss_coef)``. Training-mode gating draws its
+noise from a generator per block, seeded from the caller's generator, so a
+checkpointed block routes the same way when it is recomputed. Serving an
+MoE model, progressive layer drop and the pipeline adapters belong to later
+slices and raise if configured.
 """
 
 import dataclasses
@@ -43,8 +53,7 @@ from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 
 #: config fields of the JAX model that belong to later slices of the port,
 #: with the value that means "off" and the slice
-_LATER_SLICES = {"moe_num_experts": (0, "MoE"),
-                 "progressive_layer_drop": (False, "progressive-layer-drop"),
+_LATER_SLICES = {"progressive_layer_drop": (False, "progressive-layer-drop"),
                  "remat_policy": (None, "activation-checkpointing"),
                  "attention_blocks": (None, "attention-tuning")}
 
@@ -79,8 +88,22 @@ class GPT2Config:
     # the JAX flash kernel's TPU block geometry; the Hopper kernels have
     # their own tiles
     attention_blocks: Optional[str] = None
-    moe_num_experts: int = 0
     progressive_layer_drop: bool = False
+    # MoE (the JAX fields): every ``moe_layer_freq``-th block is an MoE FFN
+    moe_num_experts: int = 0  # 0 = dense model
+    moe_layer_freq: int = 2
+    moe_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_eval_capacity_factor: float = 2.0
+    moe_min_capacity: int = 4
+    moe_aux_loss_coef: float = 0.01
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_use_residual: bool = False
+    moe_drop_tokens: bool = True
+    moe_use_rts: bool = True
+    # dispatch/combine route pin ("dense"|"sorted"); None resolves through
+    # DS_MOE_ROUTE > the engine's "moe" block > "sorted" (moe/routing.py)
+    moe_route: Optional[str] = None
 
     def __post_init__(self):
         for name, (off, where) in _LATER_SLICES.items():
@@ -89,10 +112,23 @@ class GPT2Config:
                                           f"{where} slice of the PyTorch port")
         if self.serve_weight_dtype not in (None, "fp", "int8", "int4"):
             raise ValueError(f"unknown serve_weight_dtype {self.serve_weight_dtype!r}")
+        if self.moe_num_experts > 0 and self.serve_weight_dtype is not None:
+            raise NotImplementedError("serving an MoE model belongs to the MoE-serving slice of "
+                                      "the PyTorch port")
 
     @property
     def head_dim(self):
         return self.n_embd // self.n_head
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe_num_experts > 0 and i % self.moe_layer_freq == self.moe_layer_freq - 1
+
+    @property
+    def moe_gate_draws(self) -> bool:
+        """Whether training-mode gating draws noise (RTS, a noisy gate or
+        top-2; the JAX gate's ``make_rng`` condition)."""
+        return self.moe_num_experts > 0 and (self.moe_use_rts or self.moe_k == 2 or
+                                             self.moe_noisy_gate_policy not in (None, "None"))
 
     @property
     def weight_bits(self) -> Optional[int]:
@@ -144,6 +180,18 @@ def param_shapes(cfg: GPT2Config) -> Dict[str, Tuple[tuple, torch.dtype]]:
         add(f"{p}.attn.c_proj", _projection_shapes(cfg, (h, d, e), 2))
         add(f"{p}.attn.c_proj", {"bias": ((e,), pd)})
         add(f"{p}.ln_2", norm)
+        mlp = {"c_fc.kernel": ((e, 4 * e), pd), "c_fc.bias": ((4 * e,), pd),
+               "c_proj.kernel": ((4 * e, e), pd), "c_proj.bias": ((e,), pd)}
+        if cfg.is_moe_layer(i):
+            n = cfg.moe_num_experts
+            add(f"{p}.moe.deepspeed_moe.gate", {"wg": ((e, n), torch.float32)})
+            add(f"{p}.moe.deepspeed_moe.experts.deepspeed_experts",
+                {k: ((n,) + shape, dt) for k, (shape, dt) in mlp.items()})
+            if cfg.moe_use_residual:
+                add(f"{p}.moe.mlp.residual_mlp", mlp)
+                add(f"{p}.moe.coefficient", {"kernel": ((e, 2), torch.float32),
+                                             "bias": ((2,), torch.float32)})
+            continue
         add(f"{p}.mlp.c_fc", _projection_shapes(cfg, (e, 4 * e), 1))
         add(f"{p}.mlp.c_fc", {"bias": ((4 * e,), pd)})
         add(f"{p}.mlp.c_proj", _projection_shapes(cfg, (4 * e, e), 1))
@@ -212,13 +260,40 @@ class QuantDense(_Projection):
         super().__init__(cfg, (in_features, features), (features,), 1, device)
 
 
-class MLP(nn.Module):
+class StackedDense(nn.Module):
+    """``num_experts`` dense projections stacked: ``kernel`` [E, in, out],
+    ``bias`` [E, out] (the JAX ``nn.vmap`` layout of the MoE experts), run
+    as one batched product ``[E, T, in] -> [E, T, out]``."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, num_experts, in_features, features, device):
         super().__init__()
         self.cfg = cfg
-        self.c_fc = QuantDense(cfg, cfg.n_embd, 4 * cfg.n_embd, device)
-        self.c_proj = QuantDense(cfg, 4 * cfg.n_embd, cfg.n_embd, device)
+        self.kernel = nn.Parameter(torch.zeros((num_experts, in_features, features),
+                                               dtype=cfg.param_dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros((num_experts, features), dtype=cfg.param_dtype,
+                                             device=device))
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        return torch.bmm(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)[:, None, :]
+
+
+class MLP(nn.Module):
+    """The GPT-2 MLP, or with ``num_experts`` that many stacked copies over
+    ``[E, T, E_model]`` (the MoE experts, ``stacked``)."""
+
+    def __init__(self, cfg, device, num_experts: Optional[int] = None):
+        super().__init__()
+        self.cfg = cfg
+        if num_experts is None:
+            self.c_fc = QuantDense(cfg, cfg.n_embd, 4 * cfg.n_embd, device)
+            self.c_proj = QuantDense(cfg, 4 * cfg.n_embd, cfg.n_embd, device)
+        else:
+            self.c_fc = StackedDense(cfg, num_experts, cfg.n_embd, 4 * cfg.n_embd, device)
+            self.c_proj = StackedDense(cfg, num_experts, 4 * cfg.n_embd, cfg.n_embd, device)
+
+    def stacked(self, num_experts: int) -> "MLP":
+        return MLP(self.cfg, self.c_fc.bias.device, num_experts)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         h = self.c_proj(torch.nn.functional.gelu(self.c_fc(x), approximate="tanh"))
@@ -359,22 +434,45 @@ class SelfAttention(nn.Module):
 
 class Block(nn.Module):
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, use_moe: bool = False):
         super().__init__()
+        self.use_moe = use_moe
         self.ln_1 = LayerNorm(cfg, device)
         self.attn = SelfAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            from deepspeed_tpu_torch.moe.layer import MoE
+            self.moe = MoE(cfg.n_embd, MLP(cfg, device), num_experts=cfg.moe_num_experts,
+                           k=cfg.moe_k, capacity_factor=cfg.moe_capacity_factor,
+                           eval_capacity_factor=cfg.moe_eval_capacity_factor,
+                           min_capacity=cfg.moe_min_capacity, use_residual=cfg.moe_use_residual,
+                           noisy_gate_policy=cfg.moe_noisy_gate_policy,
+                           drop_tokens=cfg.moe_drop_tokens, use_rts=cfg.moe_use_rts,
+                           route=cfg.moe_route, dtype=cfg.dtype, device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
-    def forward(self, x, cache=None, prefix="", plans=None, dropout_seed: Optional[int] = None):
-        """``dropout_seed`` seeds this block's dropout generator (None:
-        deterministic). An int and not a generator, so that a checkpointed
-        block draws the same masks again when it is recomputed."""
+    def forward(self, x, cache=None, prefix="", plans=None, dropout_seed: Optional[int] = None,
+                gating_seed: Optional[int] = None, deterministic: bool = True):
+        """``(x, l_aux)``: the block's output and, for an MoE block, its
+        load-balancing loss (None for a dense block). ``dropout_seed`` and
+        ``gating_seed`` seed this block's dropout and gating generators
+        (None: no draws). Ints and not generators, so that a checkpointed
+        block draws the same masks and routes the same way when it is
+        recomputed. ``deterministic=False`` is training-mode gating (train
+        capacity factor, noise)."""
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
         x = x + self.attn(self.ln_1(x), cache, prefix, plans, gen)
-        return x + self.mlp(self.ln_2(x), gen)
+        if not self.use_moe:
+            return x + self.mlp(self.ln_2(x), gen), None
+        gate_gen = None
+        if gating_seed is not None:
+            gate_gen = torch.Generator(device=x.device).manual_seed(gating_seed)
+        out, l_aux, _ = self.moe(self.ln_2(x), deterministic=deterministic,
+                                 gate_generator=gate_gen, generator=gen)
+        return x + out, l_aux
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -392,7 +490,7 @@ class GPT2LMHeadModel(nn.Module):
         self.wpe = nn.Parameter(torch.empty((cfg.n_positions, cfg.n_embd), dtype=cfg.param_dtype,
                                             device=dev))
         for i in range(cfg.n_layer):
-            setattr(self, f"h_{i}", Block(cfg, dev))
+            setattr(self, f"h_{i}", Block(cfg, dev, cfg.is_moe_layer(i)))
         self.ln_f = LayerNorm(cfg, dev)
         self.reset_parameters(generator)
 
@@ -403,14 +501,18 @@ class GPT2LMHeadModel(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Random init with the JAX model's distributions (normal 0.02 for
-        kernels and ``wte``, 0.01 for ``wpe``; zero biases, unit norm
-        scales), from ``generator`` (a fresh one seeded 0 when None)."""
+        kernels, MoE gates and ``wte``, 0.01 for ``wpe``; zero biases, unit
+        norm scales; the PR-MoE coefficient normal with std fan_in^-1/2,
+        flax's lecun_normal without its truncation), from ``generator`` (a
+        fresh one seeded 0 when None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         dense_init()(self.wte, generator)
         dense_init(0.01)(self.wpe, generator)
         for name, t in self.named_parameters():
-            if name.endswith(".kernel"):
+            if name.endswith(".coefficient.kernel"):
+                dense_init(t.shape[0] ** -0.5)(t, generator)
+            elif name.endswith(".kernel") or name.endswith(".gate.wg"):
                 dense_init()(t, generator)
 
     def cache_shapes(self, batch_size: int):
@@ -431,17 +533,27 @@ class GPT2LMHeadModel(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Logits [B, L, V] in the compute dtype, or with ``labels`` and
         ``fused_head_loss_chunk > 0`` the mean next-token loss (fp32
-        scalar). ``deterministic=False`` applies dropout drawn from
-        ``generator``."""
+        scalar). An MoE model returns ``(logits, aux_total *
+        moe_aux_loss_coef)`` instead of logits, and its fused-head loss
+        includes that term in training. ``deterministic=False`` is training:
+        dropout, and training-mode gating, draw from ``generator``."""
         cfg = self.config
+        if cache is not None and cfg.moe_num_experts > 0:
+            raise NotImplementedError("decoding an MoE model belongs to the MoE-serving slice of "
+                                      "the PyTorch port")
         ids = input_ids.to(self.device)
         seq_len = ids.shape[1]
         seeds = [None] * (cfg.n_layer + 1)
-        if not deterministic and cfg.dropout > 0.0:
+        gate_seeds = [None] * cfg.n_layer
+        if not deterministic and (cfg.dropout > 0.0 or cfg.moe_gate_draws):
             if generator is None:
-                raise ValueError("training with dropout needs a generator")
-            seeds = torch.randint(0, 2**62, (cfg.n_layer + 1,), generator=generator,
-                                  device=generator.device).tolist()
+                raise ValueError("training with dropout or MoE gating noise needs a generator")
+            if cfg.dropout > 0.0:
+                seeds = torch.randint(0, 2**62, (cfg.n_layer + 1,), generator=generator,
+                                      device=generator.device).tolist()
+            if cfg.moe_gate_draws:
+                gate_seeds = torch.randint(0, 2**62, (cfg.n_layer,), generator=generator,
+                                           device=generator.device).tolist()
         wte = self.wte.to(cfg.dtype)  # once: both uses of the tied table share its gradient
         x = embed_lookup(wte, ids)
         plans = None
@@ -464,14 +576,22 @@ class GPT2LMHeadModel(nn.Module):
             x = x + self.wpe[:seq_len].to(cfg.dtype)
         if seeds[-1] is not None:
             x = dropout(x, cfg.dropout, torch.Generator(device=x.device).manual_seed(seeds[-1]))
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, block in enumerate(self.blocks):
             run = maybe_remat(block, cfg, i, enabled=cfg.remat and cache is None)
-            x = run(x, cache, f"h_{i}/attn/", plans, seeds[i])
+            x, l_aux = run(x, cache, f"h_{i}/attn/", plans, seeds[i], gate_seeds[i],
+                           deterministic)
+            if l_aux is not None:
+                aux_total = aux_total + l_aux
         x = self.ln_f(x)
         if labels is not None and cfg.fused_head_loss_chunk > 0:
-            return fused_head_loss_output(x, wte, labels.to(self.device), cfg)
+            return fused_head_loss_output(x, wte, labels.to(self.device), cfg, aux_total,
+                                          deterministic)
         # tied LM head; logits stay in the compute dtype (JAX gpt2.py:559)
-        return x @ wte.t()
+        logits = x @ wte.t()
+        if cfg.moe_num_experts > 0:
+            return logits, aux_total * cfg.moe_aux_loss_coef
+        return logits
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

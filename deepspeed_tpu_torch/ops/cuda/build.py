@@ -29,7 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "deepspeed_tpu_torch"
 
 #: the kernel libraries, one per source file
-KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul", "moe_permute")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -51,6 +51,7 @@ SIGNATURES = {
                      + [_LL] * 9 + [_P]),
     "quant_matmul": ("ds_quant_matmul",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _P]),
+    "moe_permute": ("ds_moe_permute", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -4,11 +4,12 @@ the GPT-2 training step uses).
 Read: the batch triangle (``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``) on one
 device, ``optimizer`` (Adam/AdamW), ``scheduler``, ``bf16``,
-``gradient_clipping``, ``zero_optimization`` at stage 0, ``steps_per_print``
-and ``seed``. Everything else raises ``NotImplementedError`` naming the
-slice of the port it belongs to, so that a setting is never dropped
-quietly: fp16 (the kernels take fp32 and bf16 only), ZeRO stages 1-3 and
-offload, other optimizers, and any other block.
+``gradient_clipping``, ``zero_optimization`` at stage 0, ``steps_per_print``,
+``seed`` and the ``"moe"`` block (``route``, ``kernel``: the MoE dispatch
+route and permutation, ``moe/routing.py``). Everything else raises
+``NotImplementedError`` naming the slice of the port it belongs to, so that
+a setting is never dropped quietly: fp16 (the kernels take fp32 and bf16
+only), ZeRO stages 1-3 and offload, other optimizers, and any other block.
 """
 
 import json
@@ -25,7 +26,10 @@ OPTIMIZER_PARAMS = ("lr", "betas", "eps", "weight_decay", "adam_w_mode", "bias_c
 
 _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
           "optimizer", "scheduler", "bf16", "bfloat16", "fp16", "gradient_clipping",
-          "zero_optimization", "steps_per_print", "seed")
+          "zero_optimization", "steps_per_print", "seed", "moe")
+
+#: keys of the ``"moe"`` block (JAX ``MoEConfig``)
+MOE_KEYS = ("route", "kernel")
 
 
 class DeepSpeedConfigError(Exception):
@@ -56,6 +60,12 @@ class DeepSpeedConfig:
         self.steps_per_print = int(config.get("steps_per_print", 10))
         self.seed = int(config.get("seed", 1234))
         self.gradient_clipping = float(config.get("gradient_clipping", 0.0))
+        moe = dict(config.get("moe") or {})
+        unknown = sorted(set(moe) - set(MOE_KEYS))
+        if unknown:
+            raise ValueError(f"unknown keys {unknown} in the moe block; it takes {list(MOE_KEYS)}")
+        self.moe_route = moe.get("route")
+        self.moe_kernel = moe.get("kernel")
 
         opt = config.get("optimizer")
         self.optimizer_name = opt["type"].lower() if opt and "type" in opt else None

@@ -11,6 +11,13 @@ One step of ``train_batch`` (JAX ``engine.py:849-925, 1886-1934``):
 6. unless ``overflow``, the optimizer update. On overflow the parameters
    and the Adam count stay as they were; the step counter still advances.
 
+An MoE model (``moe_num_experts > 0``) trains with training-mode gating
+(``deterministic=False``, the train capacity factor and the gating noise)
+even at dropout 0, as the JAX engine does; its load-balancing loss is part
+of the training loss and not of ``eval_batch``'s. The config's ``"moe"``
+block installs the default dispatch route for the engine's life (cleared
+by an engine without one).
+
 The model holds fp32 master parameters and computes in its config's
 ``dtype``, rounding each parameter to it where it is used (the JAX engine
 casts the whole tree before ``apply``). The JAX engine ran the step as one
@@ -27,17 +34,20 @@ import torch
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.models.gpt2 import cross_entropy_loss
+from deepspeed_tpu_torch.moe import routing as moe_routing
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime.config import ADAMW_OPTIMIZER, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import global_norm_l2
 
 
-def default_causal_lm_loss(outputs: torch.Tensor, batch: dict) -> torch.Tensor:
+def default_causal_lm_loss(outputs, batch: dict) -> torch.Tensor:
     """Next-token cross-entropy of logits over ``labels`` (default:
-    ``input_ids``)."""
+    ``input_ids``). An MoE model's ``(logits, aux_loss)`` adds the
+    (already scaled) load-balancing loss."""
     labels = batch.get("labels", batch["input_ids"])
-    return cross_entropy_loss(outputs[:, :-1], labels[:, 1:])
+    logits, aux_loss = outputs if isinstance(outputs, (tuple, list)) else (outputs, 0.0)
+    return cross_entropy_loss(logits[:, :-1], labels[:, 1:]) + aux_loss
 
 
 class DeepSpeedEngine:
@@ -57,6 +67,7 @@ class DeepSpeedEngine:
                              f"{mcfg.dtype}; build it with GPT2Config.dtype=torch.bfloat16")
         self.module = model
         self.config = config
+        moe_routing.set_default_route(config.moe_route, config.moe_kernel)
         self.loss_fn = loss_fn or default_causal_lm_loss
         self.lr_scheduler = lr_scheduler
         if self.lr_scheduler is None and config.scheduler_name is not None:
@@ -106,7 +117,8 @@ class DeepSpeedEngine:
     def _loss_for(self, mb: dict, train: bool) -> torch.Tensor:
         mcfg = self.module.config
         ids = mb["input_ids"]
-        stochastic = train and mcfg.dropout > 0.0
+        moe = mcfg.moe_num_experts > 0
+        stochastic = train and (mcfg.dropout > 0.0 or moe)
         kwargs = dict(deterministic=not stochastic,
                       generator=self.generator if stochastic else None)
         # a fused-head model computes the loss itself (no [B, L, V] logits);
@@ -115,6 +127,10 @@ class DeepSpeedEngine:
         if fused_head:
             kwargs["labels"] = mb.get("labels", ids)
         outputs = self.module(ids, **kwargs)
+        if not train and moe and isinstance(outputs, (tuple, list)):
+            # eval reports the pure cross-entropy: the load-balancing loss
+            # regularizes training only
+            outputs = outputs[0]
         return outputs if fused_head else self.loss_fn(outputs, mb)
 
     def train_batch(self, batch) -> torch.Tensor:

@@ -3,7 +3,8 @@
 These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
 ``chip_smoke.py`` runs the same comparisons at the serving and training
 slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
-in another order) and 2e-2 in bf16 (outputs are rounded to bf16).
+in another order) and 2e-2 in bf16 (outputs are rounded to bf16); K5, a gather, must equal
+its plain version exactly.
 """
 
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
 from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
 from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
 
@@ -128,3 +130,79 @@ def test_flash_backend_raises_on_cuda_for_bias(gen):
     q = _randn(gen, 1, 8, 4, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, bias=torch.zeros(1, 4, 8, 8, device="cuda"))
+
+
+def _injective_idx(gen, groups, n, r):
+    """[G, r] int32 on the card: unique entries below n per group, about a
+    quarter replaced by the sentinel n + 7."""
+    idx = torch.stack([torch.randperm(max(n, r), generator=gen, device="cuda")[:r]
+                       for _ in range(groups)])
+    drop = torch.rand(idx.shape, generator=gen, device="cuda") < 0.25
+    return torch.where(drop | (idx >= n), n + 7, idx).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,n,m,r", [(1, 8192, 1024, 10240), (1, 10240, 1024, 8192),
+                                          (2, 12, 8, 20), (4, 6, 128, 4), (2, 7, 3, 9)])
+def test_moe_permute_matches_plain(gen, dtype, groups, n, m, r):
+    x = _randn(gen, groups, n, m, dtype=dtype)
+    idx = _injective_idx(gen, groups, n, r)
+    before = LAUNCHES["moe_permute"]
+    out = md.moe_permute(x, idx)
+    assert LAUNCHES["moe_permute"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, md.moe_permute_plain(x, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_permute_rows_autograd_runs_k5_both_ways(gen, dtype):
+    x = _randn(gen, 2, 40, 64, dtype=dtype).requires_grad_()
+    fwd = _injective_idx(gen, 2, 40, 50)
+    bwd = md.inverse_index(fwd, 40)
+    cot = _randn(gen, 2, 64, 50, dtype=dtype).transpose(1, 2)  # strided cotangent
+    before = LAUNCHES["moe_permute"]
+    out = md.permute_rows(x, fwd, bwd, impl="pallas")
+    (gx,) = torch.autograd.grad(out, x, cot)
+    assert LAUNCHES["moe_permute"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, md.moe_permute_plain(x, fwd))
+    x_plain = x.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(md.permute_rows(x_plain, fwd, bwd, impl="xla"), x_plain, cot)
+    assert torch.equal(gx, want)
+
+
+def test_moe_permute_refuses_what_the_kernel_does_not_take(gen):
+    x = _randn(gen, 1, 8, 16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        md.moe_permute(x, torch.zeros(1, 4, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        md.moe_permute(x.half(), torch.zeros(1, 4, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        md.moe_permute(x, torch.zeros(1, 4, dtype=torch.int32))
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(gen):
+    """A GPT-2-MLP MoE layer (top-1, no RTS) in fp32: output and gradients on
+    the card (K5 twice forward, twice backward) against the CPU's plain
+    versions, within 1e-4 of the largest magnitude."""
+    from deepspeed_tpu_torch.models.gpt2 import MLP, get_gpt2_config
+    from deepspeed_tpu_torch.moe import MOELayer
+
+    cfg = get_gpt2_config("test", n_embd=64, n_head=4)
+    layers = {dev: MOELayer(MLP(cfg, dev), 64, 4, capacity_factor=1.0, min_capacity=1,
+                            use_rts=False) for dev in ("cuda", "cpu")}
+    with torch.no_grad():
+        for p in layers["cuda"].parameters():
+            p.normal_(0.0, 0.1, generator=gen)
+    layers["cpu"].load_state_dict({k: v.cpu() for k, v in layers["cuda"].state_dict().items()})
+    x = _randn(gen, 2, 48, 64, dtype=torch.float32)
+    before = LAUNCHES["moe_permute"]
+    grads = {}
+    for dev, layer in layers.items():
+        xd = x.detach().to(dev, copy=True).requires_grad_()
+        out, l_aux, _ = layer(xd, deterministic=False)
+        ((out**2).sum() + l_aux).backward()
+        grads[dev] = [out.detach(), xd.grad] + [p.grad for p in layer.parameters()]
+    assert LAUNCHES["moe_permute"] == before + 4
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        _close(got.cpu(), ref, torch.float32)

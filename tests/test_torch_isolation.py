@@ -24,7 +24,9 @@ def _port_sources():
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("runtime/engine.py", "runtime/entry.py", "runtime/config.py",
                    "runtime/lr_schedules.py", "runtime/utils.py", "ops/adam/fused_adam.py",
-                   "ops/cuda/flash_attention.py", "models/common.py"):
+                   "ops/cuda/flash_attention.py", "models/common.py", "ops/cuda/moe_dispatch.py",
+                   "moe/routing.py", "moe/sharded_moe.py", "moe/layer.py", "moe/experts.py",
+                   "moe/mappings.py", "moe/utils.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
@@ -84,13 +86,18 @@ def test_cpu_runs_the_plain_versions_and_counts_no_launch():
                                             fused_head_loss_chunk=16), device="cpu")
     trainer, _, _, _ = initialize(model=model, config={"train_batch_size": 2}, device="cpu")
     trainer.train_batch(np.zeros((2, 12), np.int32))
+    model = GPT2LMHeadModel(get_gpt2_config("test", attention_backend="flash", remat=True,
+                                            moe_num_experts=4), device="cpu")
+    trainer, _, _, _ = initialize(model=model, config={"train_batch_size": 2}, device="cpu")
+    trainer.train_batch(np.zeros((2, 12), np.int32))
     assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 
 
 def test_importing_builds_nothing():
     """Kernels build on first CUDA use, never at import (no nvcc on a CPU host)."""
     from deepspeed_tpu_torch.ops.cuda import build
-    assert build.KERNELS == ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul")
+    assert build.KERNELS == ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul",
+                             "moe_permute")
     for name in build.KERNELS:
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
     assert not build._loaded
