@@ -10,10 +10,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               ``nvcc`` for sm_90a (one process per source, in parallel).
 3. kernels  — each kernel (K1 flash forward, K2 int8/int4 dequant GEMM, K3
               flash decode, K4 flash backward: dq, dk and dv, K5 MoE row
-              permutation: forward and VJP) against its plain PyTorch
-              version on the same inputs at the serving and training
-              slices' shapes; max |err| / max |ref| must stay within 2e-2
-              in bf16 and 1e-4 in fp32, and K5, a gather, must be exact.
+              permutation: forward and VJP, K6 block-sparse attention:
+              forward and backward) against its plain PyTorch version on the
+              same inputs at the serving, training and sparse slices' shapes;
+              max |err| / max |ref| must stay within 2e-2 in bf16 and 1e-4 in
+              fp32, and K5, a gather, must be exact.
               Times the kernel, its plain version and one PyTorch library
               call, and computes the least time the card could take
               (``bound_ms``).
@@ -55,6 +56,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
               in fp32 every token's expert and slot identical and the loss
               and every gradient within 1e-4; in bf16 within 1.5x the
               measured rounding, with the routing flips counted.
+9. sparse attention — ``SparseSelfAttention(cfg)(q, k, v)`` and
+              ``.backward()`` on a seeded cotangent, bf16, 2 warm-up and 10
+              timed iterations each, in two published layouts: (a) Sparse
+              Transformer "fixed" (block 16, 4 local blocks, 1 global,
+              unidirectional, so causal) at GPT-2 350m's training attention
+              shape [8, 1024, 16, 64]; (b) BigBird ITC (block 64, 3 random,
+              3 sliding, 2 global blocks, a layout per head, bidirectional)
+              at [2, 4096, 16, 64]. Launch counts are zeroed just before and
+              read just after: K6 forward and backward once per iteration,
+              K1/K4 never. Then the path's o, dq, dk and dv against the plain
+              versions (bf16, and the same path in fp32), the NaN probe on
+              the card (NaN K/V rows in a key block the layout leaves dead:
+              everything finite, dk = dv = 0 there), a dense layout against
+              K1 and K4 (causal and not), and K1 + K4 at shape (a).
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. Details go to
@@ -82,6 +97,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 #: the kernels each main path must launch
 SERVING_KERNELS = ("flash_fwd", "flash_decode", "quant_matmul")
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 MOE_TRAINING_KERNELS = ("flash_fwd", "flash_bwd", "moe_permute")
 
@@ -143,7 +159,7 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dtype, tol: float =
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
-def kernel_phase(gen: torch.Generator):
+def kernel_phase(gen: torch.Generator, seed: int):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
     from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups
@@ -311,8 +327,9 @@ def kernel_phase(gen: torch.Generator):
                                  shape="x [8,1024] bf16 @ int8 [1024,4096], scales [16,4096]",
                                  **main)
     lines["moe_permute"] = k5_cases(gen)
+    lines.update(k6_cases(gen, seed))
     for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"],
-               lines["moe_permute"]):
+               lines["moe_permute"], lines["sparse_fwd"], lines["sparse_bwd"]):
         log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} plain_ms={ln['plain_ms']:.4f} "
             f"library_ms={ln['library_ms']:.4f} bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
     return lines
@@ -416,6 +433,158 @@ def k5_cases(gen) -> dict:
             f"bound_ms={bnd:.4f} ({by})")
     RESULTS["timings"]["moe_permute"] = timed
     return timed["dispatch"]
+
+
+def sparse_configs(seed: int) -> dict:
+    """The sparse slice's two layouts: name -> (config, [B, L, H, D], causal).
+    (a) Sparse Transformer "fixed" (Child et al. 2019, upstream DeepSpeed's
+    FixedSparsityConfig defaults), unidirectional, at GPT-2 350m's training
+    attention shape; (b) BigBird ITC (Zaheer et al. 2020: block 64, r=3,
+    w=3, g=2) with a layout per head, at 4096 tokens."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig, FixedSparsityConfig
+    return {
+        "fixed": (FixedSparsityConfig(num_heads=16, block=16, num_local_blocks=4, num_global_blocks=1,
+                                      attention="unidirectional"), (8, 1024, 16, 64), True),
+        "bigbird": (BigBirdSparsityConfig(num_heads=16, block=64, num_random_blocks=3,
+                                          num_sliding_window_blocks=3, num_global_blocks=2,
+                                          attention="bidirectional", different_layout_per_head=True,
+                                          seed=seed), (2, 4096, 16, 64), False),
+    }
+
+
+def live_pairs(layout, block: int, causal: bool) -> int:
+    """(query, key) pairs a layout makes live in one batch row, the diagonal
+    blocks' causal halves counted exactly."""
+    layout = np.asarray(layout, bool)
+    if not causal:
+        return int(layout.sum()) * block * block
+    n = layout.shape[1]
+    below = int((layout & np.tril(np.ones((n, n), bool), -1)).sum())
+    diag = int((layout & np.eye(n, dtype=bool)).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def layout_mask(layout, block: int, causal: bool) -> torch.Tensor:
+    """[1, H, L, L] bool of a layout's live pairs on the card: the
+    ``attn_mask`` of the library call K6 is timed against."""
+    m = torch.as_tensor(np.asarray(layout, bool), device="cuda")
+    m = m.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        m = m & torch.ones(m.shape[1:], dtype=torch.bool, device="cuda").tril()
+    return m[None]
+
+
+def edge_layout(rng, h: int, n: int) -> np.ndarray:
+    """Per-head random layouts that hold K6's edge cases: query block 1
+    reads nothing, query block 2 only the last block (above the diagonal:
+    empty under causal), and key block n - 2 is read by no query block."""
+    layout = (rng.random((h, n, n)) < 0.35).astype(np.int64)
+    layout[:, np.arange(n), np.arange(n)] = 1
+    layout[:, 1, :] = 0
+    layout[:, 2, :] = 0
+    layout[:, 2, n - 1] = 1
+    layout[:, :, n - 2] = 0
+    return layout
+
+
+def k6_check(name, q, k, v, do, lists, causal: bool, block: int, dtype):
+    """K6 forward and backward against their plain versions on the same
+    inputs. Returns ((o, lse), forward max |err|, backward max |err|)."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    kw = dict(scale=q.shape[-1]**-0.5, causal=causal, block=block)
+    o, lse = sa.sparse_fwd(q, k, v, *lists[:2], **kw)
+    ro, rlse = sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw)
+    err_f = compare(f"sparse_fwd {name}", o, ro, dtype)
+    live = rlse > -1e30
+    if not torch.equal(live, lse > -1e30):
+        raise AssertionError(f"sparse_fwd {name}: rows with no live key differ")
+    if live.any():
+        compare(f"sparse_fwd {name} lse", lse[live], rlse[live],
+                torch.float32 if dtype == torch.float32 else dtype)
+    del ro, rlse
+    got = sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw)
+    ref = sa.sparse_bwd_plain(q, k, v, o, lse, do, *lists, **kw)
+    err_b = max(compare(f"sparse_bwd {name} d{x}", g, r, dtype) for x, g, r in zip("qkv", got, ref))
+    return (o, lse), err_f, err_b
+
+
+def k6_cases(gen, seed: int) -> dict:
+    """K6 against its plain versions for every block the kernel takes (16,
+    32, 64, 128) on per-head layouts with an empty row, a row above the
+    diagonal and a dead key block, fp32 and bf16, causal and not, q/k/v and
+    dO strided; then at the sparse slice's two shapes in bf16, where it
+    times the kernels, their plain versions and SDPA with the layout
+    expanded to a boolean mask (its output checked against the kernel's),
+    and computes the bound from the layout's live pairs."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    rng = np.random.default_rng(seed)
+    for block in (16, 32, 64, 128):
+        h, n = 4, 8
+        l = n * block
+        lists = index_lists_on(edge_layout(rng, h, n), "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                qkv = randn(2, l, 3, h, 64, dtype=dtype)
+                do = randn(2, l, h, 2, 64, dtype=dtype)[:, :, :, 0]
+                k6_check(f"[2,{l},{h},64] block {block} {str(dtype)[6:]} causal={causal} (edge layout)",
+                         qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do, lists, causal, block, dtype)
+
+    timed = {}
+    for name, (cfg, (b, l, h, d), causal) in sparse_configs(seed).items():
+        layout = cfg.make_layout(l)
+        block = cfg.block
+        lists = index_lists_on(layout, "cuda")
+        q, k, v, do = (randn(b, l, h, d) for _ in range(4))
+        shape = f"q,k,v [{b},{l},{h},{d}] bf16, {name} layout block {block}{' causal' if causal else ''}"
+        (o, lse), err_f, err_b = k6_check(shape, q, k, v, do, lists, causal, block, torch.bfloat16)
+        kw = dict(scale=d**-0.5, causal=causal, block=block)
+        fwd_ms = time_ms(lambda: sa.sparse_fwd(q, k, v, *lists[:2], **kw), iters=10)
+        fwd_plain = time_ms(lambda: sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw), iters=3, warmup=1)
+        bwd_ms = time_ms(lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw), iters=10)
+        bwd_plain = time_ms(lambda: sa.sparse_bwd_plain(q, k, v, o, lse, do, *lists, **kw), iters=3,
+                            warmup=1)
+        mask = layout_mask(layout, block, causal)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        compare(f"sparse_fwd {shape} vs SDPA with the layout mask", o, lib.transpose(1, 2), torch.bfloat16)
+        fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
+        qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2).contiguous()
+        bwd_lib = time_ms(lambda: torch.autograd.grad(lib, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del lib, qt, kt, vt, dot, mask
+        pairs = b * live_pairs(layout, block, causal)
+        elem = b * l * h * d * 2
+        # q, k, v, o (and dO, dq, dk, dv) once and lse; 4 D FLOPs per live
+        # pair forward (s, pv), 10 D backward (s, dp, dv, dk, dq)
+        f_bnd, f_by = bound_ms(4 * elem + b * h * l * 4, 4 * d * pairs)
+        b_bnd, b_by = bound_ms(8 * elem + b * h * l * 4, 10 * d * pairs)
+        common = dict(route="cuda", shape=shape)
+        timed[name] = {
+            "live_pairs": pairs, "active_blocks_per_row": float(np.asarray(layout, bool).sum(-1).mean()),
+            "sparse_fwd": dict(name="sparse_fwd", source="deepspeed_tpu_torch/csrc/sparse_fwd.cu",
+                               replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:54",
+                               max_abs_err=err_f, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_bnd,
+                               bound_by=f_by, library_ms=fwd_lib, **common),
+            "sparse_bwd": dict(name="sparse_bwd", source="deepspeed_tpu_torch/csrc/sparse_bwd.cu",
+                               replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:171",
+                               max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_bnd,
+                               bound_by=b_by, library_ms=bwd_lib, **common)}
+        log(f"sparse layout {name}: {pairs} live pairs, {timed[name]['active_blocks_per_row']:.2f} "
+            f"active blocks per query block of {l // block}")
+        if name != "fixed":
+            for ln in (timed[name]["sparse_fwd"], timed[name]["sparse_bwd"]):
+                log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} "
+                    f"plain_ms={ln['plain_ms']:.4f} library_ms={ln['library_ms']:.4f} "
+                    f"bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
+        del o, lse
+    RESULTS["timings"]["sparse_attention"] = timed
+    return {k: timed["fixed"][k] for k in SPARSE_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -959,6 +1128,147 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: block-sparse attention through its public surface
+# ---------------------------------------------------------------------------
+def _leaves(*xs):
+    return tuple(x.detach().clone().requires_grad_() for x in xs)
+
+
+def _plain_path(lists, block: int, q, k, v, cot, causal: bool):
+    """The path's plain versions on the same inputs: o, then dq, dk, dv."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    kw = dict(scale=q.shape[-1]**-0.5, causal=causal, block=block)
+    with torch.no_grad():
+        o, lse = sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw)
+        return (o,) + sa.sparse_bwd_plain(q, k, v, o, lse, cot, *lists, **kw)
+
+
+def _compare_path(name, got, ref, dtype) -> float:
+    return max(compare(f"{name} {x}", g, r, dtype) for x, g, r in zip(("o", "dq", "dk", "dv"), got, ref))
+
+
+def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    from deepspeed_tpu_torch.ops.sparse_attention import (DenseSparsityConfig, SparseSelfAttention,
+                                                          sparse_attention)
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    runs = {}
+    for name, (cfg, shape, causal) in sparse_configs(seed).items():
+        attn = SparseSelfAttention(cfg)
+        attn.get_index_lists(shape[1], "cuda")  # layout and index lists: set-up, once
+        runs[name] = dict(attn=attn, shape=shape, causal=causal,
+                          inputs=_leaves(*(randn(*shape) for _ in range(3))), cot=randn(*shape))
+    torch.cuda.synchronize()
+
+    def iteration(run):
+        q, k, v = run["inputs"]
+        for x in (q, k, v):
+            x.grad = None
+        o = run["attn"](q, k, v)
+        o.backward(run["cot"])
+        return o
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    for run in runs.values():
+        before = launches()
+        for _ in range(warmup):
+            iteration(run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run["o"] = iteration(run)
+        torch.cuda.synchronize()
+        run["ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        run["launches"] = {k: c - before[k] for k, c in launches().items()}
+    counts = launches()
+    # ---- end of the main path ----
+
+    out = {}
+    for name, run in runs.items():
+        want = {k: (warmup + iters if k in SPARSE_KERNELS else 0) for k in counts}
+        if run["launches"] != want:
+            raise AssertionError(f"sparse {name}: expected K6 forward and backward once per iteration "
+                                 f"and no other kernel, got {run['launches']}")
+        b, l, h, d = run["shape"]
+        attn, causal, cot = run["attn"], run["causal"], run["cot"]
+        q, k, v = run["inputs"]
+        block = attn.sparsity_config.block
+        lists = attn.get_index_lists(l, "cuda")
+        got = (run["o"], q.grad, k.grad, v.grad)
+        err_bf16 = _compare_path(f"sparse path {name} bf16 (card vs plain)", got,
+                                 _plain_path(lists, block, q, k, v, cot, causal), torch.bfloat16)
+        qf, kf, vf = _leaves(q.float(), k.float(), v.float())
+        of = attn(qf, kf, vf)
+        of.backward(cot.float())
+        err_fp32 = _compare_path(f"sparse path {name} fp32 (card vs plain)", (of, qf.grad, kf.grad, vf.grad),
+                                 _plain_path(lists, block, qf, kf, vf, cot.float(), causal), torch.float32)
+        del of, qf, kf, vf
+
+        # NaN probe: NaN K/V rows in a key block the layout leaves dead
+        dead = 5 if name == "fixed" else l // block // 2 + 1
+        layout = attn.get_layout(l).copy()
+        layout[:, :, dead] = 0
+        rows = slice(dead * block, (dead + 1) * block)
+        qn, kn, vn = (x.detach().clone() for x in (q, k, v))
+        kn[:, rows] = float("nan")
+        vn[:, rows] = float("nan")
+        qn, kn, vn = _leaves(qn, kn, vn)
+        on = sparse_attention(qn, kn, vn, layout, block, causal=causal)
+        on.backward(cot)
+        _compare_path(f"sparse NaN probe {name} bf16 (key block {dead} dead)",
+                      (on, qn.grad, kn.grad, vn.grad),
+                      _plain_path(index_lists_on(layout, "cuda"), block, qn, kn, vn, cot, causal),
+                      torch.bfloat16)
+        if (kn.grad[:, rows] != 0).any() or (vn.grad[:, rows] != 0).any():
+            raise AssertionError(f"sparse NaN probe {name}: dk or dv not zero in the dead block")
+        RESULTS["checks"].append({"name": f"sparse NaN probe {name}: finite, dk = dv = 0 in the dead block",
+                                  "ok": True})
+        del on, qn, kn, vn
+        torch.cuda.empty_cache()
+        out[name] = dict(shape=list(run["shape"]), causal=causal, launches=run["launches"],
+                         ms_per_iteration=run["ms"], max_abs_err_bf16=err_bf16, max_abs_err_fp32=err_fp32)
+        log(f"sparse {name} [{b},{l},{h},{d}] bf16 block {block}{' causal' if causal else ''}: "
+            f"SparseSelfAttention forward + backward {run['ms']:.3f} ms per iteration over {iters} "
+            f"(after {warmup}); launches {run['launches']['sparse_fwd']} forward, "
+            f"{run['launches']['sparse_bwd']} backward  [{card}]")
+    del runs
+
+    # a dense layout against K1 and K4 on the same inputs, and K1 + K4 at shape (a)
+    b, l, h, d = sparse_configs(seed)["fixed"][1]
+    dense = SparseSelfAttention(DenseSparsityConfig(num_heads=h, block=64))
+    q, k, v, cot = (randn(b, l, h, d) for _ in range(4))
+    for causal in (True, False):
+        qs, ks, vs = _leaves(q, k, v)
+        o = dense(qs, ks, vs, causal=causal)
+        o.backward(cot)
+        qf, kf, vf = _leaves(q, k, v)
+        of = fa.flash_attention(qf, kf, vf, causal=causal)
+        of.backward(cot)
+        _compare_path(f"dense layout [{b},{l},{h},{d}] bf16 causal={causal} (K6 vs K1/K4)",
+                      (o, qs.grad, ks.grad, vs.grad), (of, qf.grad, kf.grad, vf.grad), torch.bfloat16)
+    del o, of, qs, ks, vs, qf, kf, vf
+    kw = dict(scale=d**-0.5, causal=True)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    k1_ms = time_ms(lambda: fa.flash_fwd(q, k, v, **kw), iters=10)
+    k4_ms = time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, cot, **kw), iters=10)
+    k6 = RESULTS["timings"]["sparse_attention"]["fixed"]
+    k6_ms = k6["sparse_fwd"]["ms"] + k6["sparse_bwd"]["ms"]
+    out["dense_causal_k1_k4"] = dict(k1_ms=k1_ms, k4_ms=k4_ms, fixed_k6_ms=k6_ms)
+    log(f"sparse (a) against dense causal at [{b},{l},{h},{d}] bf16: K1 {k1_ms:.4f} + K4 {k4_ms:.4f} = "
+        f"{k1_ms + k4_ms:.4f} ms, K6 fixed forward + backward {k6_ms:.4f} ms "
+        f"({(k1_ms + k4_ms) / k6_ms:.2f}x)  [{card}]")
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -984,7 +1294,7 @@ def main(argv=None) -> int:
     per = build.build(verbose=True)
     RESULTS["build_s"] = time.perf_counter() - t0
     log(f"build: {RESULTS['build_s']:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
-    lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed))
+    lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
     RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
     RESULTS["train"], train_counts = train_phase(args.seed, card)
     RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
@@ -992,15 +1302,18 @@ def main(argv=None) -> int:
     RESULTS["moe_train"], moe_counts = moe_train_phase(args.seed, card)
     torch.cuda.empty_cache()
     RESULTS["moe_gradcheck"] = moe_gradcheck_phase(args.seed, card)
+    torch.cuda.empty_cache()
+    RESULTS["sparse"], sparse_counts = sparse_phase(args.seed, card)
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
-    # launches: the serving, training and MoE training paths' counts, each
-    # zeroed just before its path and read just after
+    # launches: the serving, training, MoE training and sparse attention
+    # paths' counts, each zeroed just before its path and read just after
     kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"},
-                    launches=serve_counts[name] + train_counts[name] + moe_counts[name])
-               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute")]
+                    launches=sum(c[name] for c in (serve_counts, train_counts, moe_counts, sparse_counts)))
+               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
+                            "sparse_fwd", "sparse_bwd")]
     log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)

@@ -29,7 +29,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "deepspeed_tpu_torch"
 
 #: the kernel libraries, one per source file
-KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul", "moe_permute")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul", "moe_permute", "sparse_fwd",
+           "sparse_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -52,6 +53,8 @@ SIGNATURES = {
     "quant_matmul": ("ds_quant_matmul",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _P]),
     "moe_permute": ("ds_moe_permute", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "sparse_fwd": ("ds_sparse_fwd", [_P] * 7 + [_I] * 7 + [_F, _I] + [_LL] * 9 + [_P]),
+    "sparse_bwd": ("ds_sparse_bwd", [_P] * 14 + [_I] * 8 + [_F, _I] + [_LL] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -4,9 +4,11 @@ These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
 ``chip_smoke.py`` runs the same comparisons at the serving and training
 slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
 in another order) and 2e-2 in bf16 (outputs are rounded to bf16); K5, a gather, must equal
-its plain version exactly.
+its plain version exactly. K6 (block-sparse attention) is held to its plain version for
+every layout block the kernel takes, per-head layouts, an empty row and a NaN probe.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +16,8 @@ from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
 from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
 from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
 
 pytestmark = pytest.mark.cuda
@@ -206,3 +210,112 @@ def test_moe_layer_on_the_card_matches_the_cpu(gen):
     assert LAUNCHES["moe_permute"] == before + 4
     for got, ref in zip(grads["cuda"], grads["cpu"]):
         _close(got.cpu(), ref, torch.float32)
+
+
+def _sparse_layout(seed, h, n):
+    """Per-head random layouts over n blocks that keep most diagonals and
+    hold the edge cases: query block 1 attends nothing (an empty row),
+    query block 2 only the last block (above the diagonal: empty under
+    causal), and key block n - 2 is read by no query block."""
+    rng = np.random.default_rng(seed)
+    layout = (rng.random((h, n, n)) < 0.35).astype(np.int64)
+    layout[:, np.arange(n), np.arange(n)] = 1
+    layout[:, 1, :] = 0
+    layout[:, 2, :] = 0
+    layout[:, 2, n - 1] = 1
+    layout[:, :, n - 2] = 0
+    return layout
+
+
+def _sparse_inputs(gen, b, l, h, dtype):
+    qkv = _randn(gen, b, l, 3, h, 64, dtype=dtype)  # strided q, k, v, as the model gives them
+    do = _randn(gen, b, l, h, 2, 64, dtype=dtype)[:, :, :, 0]  # strided cotangent
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sparse_fwd_bwd_match_plain(gen, dtype, block, causal):
+    b, h, n = 2, 3, 8
+    l = n * block
+    kidx, kcnt, qidx, qcnt = index_lists_on(_sparse_layout(block, h, n), "cuda")
+    q, k, v, do = _sparse_inputs(gen, b, l, h, dtype)
+    kw = dict(scale=0.125, causal=causal, block=block)
+    before = dict(LAUNCHES)
+    o, lse = sa.sparse_fwd(q, k, v, kidx, kcnt, **kw)
+    got = sa.sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, **kw)
+    assert LAUNCHES["sparse_fwd"] == before["sparse_fwd"] + 1
+    assert LAUNCHES["sparse_bwd"] == before["sparse_bwd"] + 1
+    ro, rlse = sa.sparse_fwd_plain(q, k, v, kidx, kcnt, **kw)
+    _close(o, ro, dtype)
+    live = rlse > -1e30
+    assert torch.equal(live, lse > -1e30)
+    assert not live[:, :, block:2 * block].any()  # the empty row
+    above = live[:, :, 2 * block:3 * block]  # only a block above the diagonal
+    assert bool(above.all()) if not causal else not above.any()
+    _close(lse[live], rlse[live], torch.float32)
+    for g, r in zip(got, sa.sparse_bwd_plain(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, **kw)):
+        _close(g, r, dtype)
+    dead = slice((n - 2) * block, (n - 1) * block)
+    assert (got[1][:, dead] == 0).all() and (got[2][:, dead] == 0).all()
+
+
+@pytest.mark.parametrize("block", [16, 64])
+def test_sparse_nan_probe_on_the_card(gen, block):
+    """NaNs in the K/V rows of a key block no query block reads: o, dq, dk
+    and dv stay finite, and dk = dv = 0 there."""
+    b, h, n = 1, 2, 6
+    l = n * block
+    kidx, kcnt, qidx, qcnt = index_lists_on(_sparse_layout(7, h, n), "cuda")
+    q, k, v, do = (x.contiguous() for x in _sparse_inputs(gen, b, l, h, torch.float32))
+    dead = slice((n - 2) * block, (n - 1) * block)
+    k[:, dead] = float("nan")
+    v[:, dead] = float("nan")
+    kw = dict(scale=0.125, causal=False, block=block)
+    o, lse = sa.sparse_fwd(q, k, v, kidx, kcnt, **kw)
+    dq, dk, dv = sa.sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, **kw)
+    torch.cuda.synchronize()
+    for x in (o, dq, dk, dv):
+        assert torch.isfinite(x).all()
+    assert (dk[:, dead] == 0).all() and (dv[:, dead] == 0).all()
+    _close(o, sa.sparse_fwd_plain(q, k, v, kidx, kcnt, **kw)[0], torch.float32)
+
+
+def test_sparse_self_attention_runs_k6_once_each_way(gen):
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          SparseSelfAttention)
+    attn = SparseSelfAttention(BigBirdSparsityConfig(num_heads=4, block=32, num_random_blocks=2,
+                                                     different_layout_per_head=True, seed=3))
+    q, k, v = (_randn(gen, 2, 256, 4, 64, dtype=torch.float32).requires_grad_() for _ in range(3))
+    w = _randn(gen, 2, 256, 4, 64, dtype=torch.float32)
+    before = dict(LAUNCHES)
+    (attn(q, k, v) * w).sum().backward()
+    assert LAUNCHES["sparse_fwd"] == before["sparse_fwd"] + 1
+    assert LAUNCHES["sparse_bwd"] == before["sparse_bwd"] + 1
+    lists = attn.get_index_lists(256, "cuda")
+    assert list(attn._index_lists) == [(256, q.device)]  # built once, "cuda" and "cuda:0" alike
+    assert lists is attn.get_index_lists(256, q.device)
+    kw = dict(scale=0.125, causal=False, block=32)
+    with torch.no_grad():
+        o, lse = sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw)
+        ref = sa.sparse_bwd_plain(q, k, v, o, lse, w, *lists, **kw)
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        _close(g, r, torch.float32)
+
+
+def test_sparse_refuses_what_the_kernel_does_not_take(gen):
+    kidx, kcnt, _, _ = index_lists_on(np.ones((2, 4, 4), np.int64), "cuda")
+    q = _randn(gen, 1, 64, 2, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.sparse_fwd(q[..., :32], q[..., :32], q[..., :32], kidx, kcnt, scale=1.0, causal=False,
+                      block=16)
+    with pytest.raises(ValueError, match="layout block"):
+        lists = index_lists_on(np.ones((2, 8, 8), np.int64), "cuda")
+        sa.sparse_fwd(q, q, q, *lists[:2], scale=1.0, causal=False, block=8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sa.sparse_fwd(q.half(), q.half(), q.half(), kidx, kcnt, scale=1.0, causal=False, block=16)
+    with pytest.raises(ValueError, match="int32"):
+        sa.sparse_fwd(q, q, q, kidx.long(), kcnt, scale=1.0, causal=False, block=16)
+    with pytest.raises(ValueError, match="multiple"):
+        sa.sparse_fwd(q[:, :60], q[:, :60], q[:, :60], kidx, kcnt, scale=1.0, causal=False, block=16)

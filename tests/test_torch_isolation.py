@@ -26,7 +26,10 @@ def _port_sources():
                    "runtime/lr_schedules.py", "runtime/utils.py", "ops/adam/fused_adam.py",
                    "ops/cuda/flash_attention.py", "models/common.py", "ops/cuda/moe_dispatch.py",
                    "moe/routing.py", "moe/sharded_moe.py", "moe/layer.py", "moe/experts.py",
-                   "moe/mappings.py", "moe/utils.py"):
+                   "moe/mappings.py", "moe/utils.py", "ops/cuda/sparse_attention.py",
+                   "ops/sparse_attention/__init__.py",
+                   "ops/sparse_attention/sparse_self_attention.py",
+                   "ops/sparse_attention/sparsity_config.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
@@ -90,6 +93,13 @@ def test_cpu_runs_the_plain_versions_and_counts_no_launch():
                                             moe_num_experts=4), device="cpu")
     trainer, _, _, _ = initialize(model=model, config={"train_batch_size": 2}, device="cpu")
     trainer.train_batch(np.zeros((2, 12), np.int32))
+    from deepspeed_tpu_torch.ops.sparse_attention import (FixedSparsityConfig,
+                                                          SparseSelfAttention)
+    attn = SparseSelfAttention(FixedSparsityConfig(num_heads=2, block=16,
+                                                   attention="unidirectional"))
+    q = torch.randn(1, 64, 2, 64, requires_grad=True)
+    attn(q, q, q).sum().backward()
+    assert torch.isfinite(q.grad).all()
     assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 
 
@@ -97,7 +107,8 @@ def test_importing_builds_nothing():
     """Kernels build on first CUDA use, never at import (no nvcc on a CPU host)."""
     from deepspeed_tpu_torch.ops.cuda import build
     assert build.KERNELS == ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul",
-                             "moe_permute")
+                             "moe_permute", "sparse_fwd", "sparse_bwd")
+    assert set(build.KERNELS) == set(build.SIGNATURES) == set(LAUNCHES)
     for name in build.KERNELS:
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
     assert not build._loaded
