@@ -14,10 +14,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
               forward and backward) against its plain PyTorch version on the
               same inputs at the serving, training and sparse slices' shapes;
               max |err| / max |ref| must stay within 2e-2 in bf16 and 1e-4 in
-              fp32, and K5, a gather, must be exact.
+              fp32, and K5, a gather, must be exact. K1 and K4 in bf16 also
+              within 1e-6 of inputs whose result is exact (one-hot softmax
+              rows, with a dead decoy key past each mask boundary that
+              would win if let in: ``deepspeed_tpu_torch.testing``).
               Times the kernel, its plain version and one PyTorch library
               call, and computes the least time the card could take
-              (``bound_ms``).
+              (``bound_ms``). For K1, K4 and K6 the library time is the
+              device time of the kernels SDPA launches (``torch.profiler``
+              sums, so host launch gaps do not count), with the event-timed
+              figure beside it, and the kernel's own device time
+              (``device_ms``) is measured the same way, K4's by kernel.
 4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
@@ -81,6 +88,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -102,6 +110,13 @@ TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 MOE_TRAINING_KERNELS = ("flash_fwd", "flash_bwd", "moe_permute")
 
 RESULTS = {"checks": [], "timings": {}}
+
+#: the keys of each kernel in the ``kernels`` line (``launches`` is added);
+#: ``device_ms``, the kernel's own device-side time, only where
+#: ``library_ms`` is device-side too (K1, K4, K6), so the two compare on one
+#: clock
+KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms", "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -126,6 +141,43 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, iters: int = 5, warmup: int = 2, attempts: int = 3) -> dict:
+    """Device time per call of ``fn`` by kernel name: each kernel's time
+    over ``iters`` calls under ``torch.profiler``, divided by ``iters``.
+    Unlike events around host-issued calls (``time_ms``), launch gaps and
+    host work between the kernels do not count. Profiling the CUDA
+    activity alone sometimes came back with no device event at all on an
+    H100, for a call whose kernels had just run; with the CPU activity
+    beside it that was not seen. A profile with no device event is taken
+    again all the same, up to ``attempts`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            return {e.key: e.self_device_time_total / 1e3 / iters for e in events}
+        log(f"torch.profiler recorded no device time for {iters} calls; profiling again")
+    raise AssertionError(f"torch.profiler recorded no device time in {attempts} profiles: the "
+                         "device-side timing cannot be measured")
+
+
+def short_name(key: str) -> str:
+    """A profiler kernel name without its namespace and signature."""
+    m = re.search(r"\w+_kernel", key)
+    return m.group(0) if m else key
+
+
+def device_ms(fn, **kw) -> float:
+    """Device time per call of ``fn``, all its kernels summed."""
+    return sum(device_times(fn, **kw).values())
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = PEAK_BF16_FLOP_S):
@@ -199,14 +251,18 @@ def kernel_phase(gen: torch.Generator, seed: int):
         h, l = 16, 1024
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         ms = time_ms(lambda: fa.flash_fwd(q, k, v, scale=scale, causal=True), iters=10)
+        dev_ms = device_ms(lambda: fa.flash_fwd(q, k, v, scale=scale, causal=True))
         plain_ms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale, causal=True), iters=3, warmup=1)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=10)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        lib_event_ms = time_ms(sdpa, iters=10)
+        lib_ms = device_ms(sdpa)
         pairs = b * h * l * (l + 1) / 2
         bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
         k1_lines[b] = dict(name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
                            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117",
                            shape=f"q,k,v [{b},1024,16,64] bf16 causal ({what})", max_abs_err=err,
-                           ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+                           ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                           library_ms=lib_ms, library_event_ms=lib_event_ms)
     RESULTS["timings"]["flash_fwd"] = k1_lines
     lines["flash_fwd"] = k1_lines[8]
 
@@ -237,15 +293,22 @@ def kernel_phase(gen: torch.Generator, seed: int):
     k4("[2,4,200,64] fp32 causal kv_lengths 0,70", 2, 4, 200, 200, 64, torch.float32, kv_lengths=[0, 70])
     k4("[2,4,300,64] bf16 causal window=100", 2, 4, 300, 300, 64, torch.bfloat16, window=100)
     k4("[2,4,16,300,64] bf16 causal lq<lk", 2, 4, 16, 300, 64, torch.bfloat16)
+    k4_probe_err = exact_probes(seed)
     b, h, l = 8, 16, 1024
     kw = dict(scale=scale, causal=True)
     ms = time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), iters=10)
+    split = {short_name(name): t
+             for name, t in device_times(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)).items()}
+    dev_ms = sum(split.values())
+    log("K4 device ms by kernel: " + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
     plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
-    del out, qt, kt, vt, dot
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    lib_event_ms = time_ms(sdpa_bwd, iters=10)
+    lib_ms = device_ms(sdpa_bwd)
+    del out, qt, kt, vt, dot, sdpa_bwd
     pairs = b * h * l * (l + 1) / 2
     # q, k, v, o, dO read and dq, dk, dv written once, plus lse; 5 products
     # (s, dp, dv, dk, dq) of 2 * D FLOPs per live pair
@@ -253,8 +316,11 @@ def kernel_phase(gen: torch.Generator, seed: int):
     lines["flash_bwd"] = dict(name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
                               replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403",
                               shape="q,k,v,o,dO [8,1024,16,64] bf16 causal (training step)",
-                              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                              library_ms=lib_ms)
+                              max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                              bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                              library_event_ms=lib_event_ms, device_ms_by_kernel=split,
+                              exact_probe_max_abs_err=k4_probe_err)
+    RESULTS["timings"]["flash_bwd"] = lines["flash_bwd"]
 
     # -- K3 flash decode ------------------------------------------------------
     P = 1024
@@ -330,9 +396,21 @@ def kernel_phase(gen: torch.Generator, seed: int):
     lines.update(k6_cases(gen, seed))
     for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"],
                lines["moe_permute"], lines["sparse_fwd"], lines["sparse_bwd"]):
-        log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} plain_ms={ln['plain_ms']:.4f} "
-            f"library_ms={ln['library_ms']:.4f} bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
+        log_time(ln)
     return lines
+
+
+def log_time(ln: dict) -> None:
+    """One kernel's times; where measured, the device-side kernel and
+    library times (profiler sums) beside the event-timed ones."""
+    extra = ""
+    if "device_ms" in ln:
+        extra += f" kernel_device_ms={ln['device_ms']:.4f}"
+    if "library_event_ms" in ln:
+        extra += f" (library device-side; event-timed {ln['library_event_ms']:.4f})"
+    log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f}{extra} "
+        f"plain_ms={ln['plain_ms']:.4f} library_ms={ln['library_ms']:.4f} "
+        f"bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
 
 
 def compare_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -348,6 +426,44 @@ def compare_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     if not ok:
         raise AssertionError(f"{name}: differs from the plain version (max |err| {err:.3e})")
     return err
+
+
+#: exact-probe shapes of K1 and K4 (``deepspeed_tpu_torch.testing.exact_probe``):
+#: lq, lk, causal, kv_lengths, window
+PROBES = ((100, 100, True, None, None), (16, 130, True, None, None),
+          (64, 64, False, [64, 9, 0], None), (200, 200, True, None, 33),
+          (96, 160, True, [160, 100, 0], 100))
+
+
+def exact_probes(seed: int) -> float:
+    """K1 and K4 in bf16 on inputs whose result is exact (one-hot softmax
+    rows, small-integer v and dO, dead decoy keys past the mask boundaries):
+    o, lse, dq, dk and dv each within 1e-6 of the known answer (dq = dk =
+    0). Returns the largest |error|."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.testing import exact_probe
+    worst = 0.0
+    for lq, lk, causal, lens, window in PROBES:
+        p = exact_probe(3, lq, lk, 4, causal=causal, kv_lengths=lens, window=window, seed=seed,
+                        dtype=torch.bfloat16, device="cuda")
+        kw = dict(scale=p["scale"], causal=causal, kv_lengths=p["kv_lengths"], window=window)
+        o, lse = fa.flash_fwd(p["q"], p["k"], p["v"], **kw)
+        got = dict(zip(("dq", "dk", "dv"), fa.flash_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], **kw)),
+                   o=o, lse=lse)
+        torch.cuda.synchronize()
+        for name, g in got.items():
+            want = p[name].float()
+            err = (g.float() - want).abs().max().item()
+            tol = 1e-6 * max(1.0, want.abs().max().item())
+            ok = err <= tol
+            what = (f"exact probe [3,{lq},{lk},4,64] bf16 causal={causal} kv_lengths={lens} "
+                    f"window={window} {name}")
+            RESULTS["checks"].append({"name": what, "max_abs_err": err, "tol": tol, "ok": ok})
+            log(f"check {what}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{what}: |err| {err:.3e} > {tol:.1e}")
+            worst = max(worst, err)
+    return worst
 
 
 def routed_maps(gen, groups: int, tokens: int, experts: int, capacity: int):
@@ -544,20 +660,24 @@ def k6_cases(gen, seed: int) -> dict:
         (o, lse), err_f, err_b = k6_check(shape, q, k, v, do, lists, causal, block, torch.bfloat16)
         kw = dict(scale=d**-0.5, causal=causal, block=block)
         fwd_ms = time_ms(lambda: sa.sparse_fwd(q, k, v, *lists[:2], **kw), iters=10)
+        fwd_dev = device_ms(lambda: sa.sparse_fwd(q, k, v, *lists[:2], **kw))
         fwd_plain = time_ms(lambda: sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw), iters=3, warmup=1)
         bwd_ms = time_ms(lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw), iters=10)
+        bwd_dev = device_ms(lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw))
         bwd_plain = time_ms(lambda: sa.sparse_bwd_plain(q, k, v, o, lse, do, *lists, **kw), iters=3,
                             warmup=1)
         mask = layout_mask(layout, block, causal)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         compare(f"sparse_fwd {shape} vs SDPA with the layout mask", o, lib.transpose(1, 2), torch.bfloat16)
-        fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        fwd_lib_event, fwd_lib = time_ms(sdpa, iters=10), device_ms(sdpa)
         qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
         lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         dot = do.transpose(1, 2).contiguous()
-        bwd_lib = time_ms(lambda: torch.autograd.grad(lib, (qt, kt, vt), dot, retain_graph=True), iters=10)
-        del lib, qt, kt, vt, dot, mask
+        sdpa_bwd = lambda: torch.autograd.grad(lib, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+        bwd_lib_event, bwd_lib = time_ms(sdpa_bwd, iters=10), device_ms(sdpa_bwd)
+        del lib, qt, kt, vt, dot, mask, sdpa, sdpa_bwd
         pairs = b * live_pairs(layout, block, causal)
         elem = b * l * h * d * 2
         # q, k, v, o (and dO, dq, dk, dv) once and lse; 4 D FLOPs per live
@@ -569,19 +689,21 @@ def k6_cases(gen, seed: int) -> dict:
             "live_pairs": pairs, "active_blocks_per_row": float(np.asarray(layout, bool).sum(-1).mean()),
             "sparse_fwd": dict(name="sparse_fwd", source="deepspeed_tpu_torch/csrc/sparse_fwd.cu",
                                replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:54",
-                               max_abs_err=err_f, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_bnd,
-                               bound_by=f_by, library_ms=fwd_lib, **common),
+                               max_abs_err=err_f, ms=fwd_ms, device_ms=fwd_dev,
+                               plain_ms=fwd_plain, bound_ms=f_bnd,
+                               bound_by=f_by, library_ms=fwd_lib, library_event_ms=fwd_lib_event,
+                               **common),
             "sparse_bwd": dict(name="sparse_bwd", source="deepspeed_tpu_torch/csrc/sparse_bwd.cu",
                                replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:171",
-                               max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_bnd,
-                               bound_by=b_by, library_ms=bwd_lib, **common)}
+                               max_abs_err=err_b, ms=bwd_ms, device_ms=bwd_dev,
+                               plain_ms=bwd_plain, bound_ms=b_bnd,
+                               bound_by=b_by, library_ms=bwd_lib, library_event_ms=bwd_lib_event,
+                               **common)}
         log(f"sparse layout {name}: {pairs} live pairs, {timed[name]['active_blocks_per_row']:.2f} "
             f"active blocks per query block of {l // block}")
         if name != "fixed":
             for ln in (timed[name]["sparse_fwd"], timed[name]["sparse_bwd"]):
-                log(f"time {ln['name']} {ln['shape']}: kernel_ms={ln['ms']:.4f} "
-                    f"plain_ms={ln['plain_ms']:.4f} library_ms={ln['library_ms']:.4f} "
-                    f"bound_ms={ln['bound_ms']:.4f} ({ln['bound_by']})")
+                log_time(ln)
         del o, lse
     RESULTS["timings"]["sparse_attention"] = timed
     return {k: timed["fixed"][k] for k in SPARSE_KERNELS}
@@ -631,8 +753,9 @@ def device_events(prof) -> list:
 
 
 #: kernel families of the training step's profile, by name
-TRAIN_KERNEL_FAMILIES = (("K1 flash_fwd", ("flash_fwd_kernel",)),
-                         ("K4 flash_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+TRAIN_KERNEL_FAMILIES = (("K1 flash_fwd", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),
+                         ("K4 flash_bwd", ("dkdv_mma_kernel", "dq_mma_kernel", "dkdv_kernel",
+                                           "dq_kernel", "delta_kernel")),
                          ("K5 moe_permute", ("permute_kernel<",)),
                          ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
                          ("sort and scan (MoE gate)", ("Sort", "sort", "Scan", "scan")))
@@ -976,8 +1099,10 @@ def gradcheck_phase(seed: int, card: str) -> dict:
     out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
            "bf16_rounding_max_rel": max(rounding.values()),
            "loss": {f"{d}_{t}": float(r["loss"]) for (d, t), r in runs.items()}}
+    out["bf16_share_of_limit"] = served[worst] / (1.5 * out["bf16_rounding_max_rel"])
     log(f"gradcheck bf16: card vs plain max rel {served[worst]:.3e} ({worst}); plain bf16 vs plain "
-        f"fp32 max rel {out['bf16_rounding_max_rel']:.3e}; losses {out['loss']}")
+        f"fp32 max rel {out['bf16_rounding_max_rel']:.3e}; {out['bf16_share_of_limit']:.3f} of the "
+        f"1.5x-rounding limit; losses {out['loss']}")
     if not served[worst] <= 1.5 * out["bf16_rounding_max_rel"]:
         raise AssertionError(f"gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding "
                              f"{out['bf16_rounding_max_rel']:.3e}")
@@ -1115,8 +1240,10 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
            "bf16_routing_flips_plain_bf16_vs_fp32": flips(("cpu", "bfloat16"), ("cpu", "float32")),
            "tokens": int(ids.size),
            "loss": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in runs.items()}}
+    out["bf16_share_of_limit"] = served[worst] / (1.5 * out["bf16_rounding_max_rel"])
     log(f"moe gradcheck fp32: routing identical over {ids.size} tokens; bf16: card vs plain max rel "
-        f"{served[worst]:.3e} ({worst}); plain bf16 vs plain fp32 max rel "
+        f"{served[worst]:.3e} ({worst}), {out['bf16_share_of_limit']:.3f} of the 1.5x-rounding "
+        f"limit; plain bf16 vs plain fp32 max rel "
         f"{out['bf16_rounding_max_rel']:.3e}; routing flips card vs plain (bf16) "
         f"{out['bf16_routing_flips_card_vs_plain']}, plain bf16 vs fp32 "
         f"{out['bf16_routing_flips_plain_bf16_vs_fp32']}; losses {out['loss']}  [{card}]")
@@ -1310,7 +1437,7 @@ def main(argv=None) -> int:
         json.dump(RESULTS, f, indent=1, default=str)
     # launches: the serving, training, MoE training and sparse attention
     # paths' counts, each zeroed just before its path and read just after
-    kernels = [dict({k: v for k, v in lines[name].items() if k != "shape"},
+    kernels = [dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
                     launches=sum(c[name] for c in (serve_counts, train_counts, moe_counts, sparse_counts)))
                for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
                             "sparse_fwd", "sparse_bwd")]

@@ -8,46 +8,415 @@
 // cotangent dO, all [B, L, H, D]: delta = rowsum(dO * O) (the JAX package
 // computes it outside its kernels, :414), p = exp(s - lse) on live pairs and
 // 0 elsewhere, ds = p * (dp - delta) with dp = dO v^T; dq = ds k * scale, dk =
-// ds^T (q * scale), dv = p^T dO. q is scaled before q k^T, as on the TPU. A
-// row with no live key carries lse = NEG_INF/2 from K1; its pairs are all
-// masked, so p is exactly 0 and its gradients are 0, never NaN.
+// ds^T (q * scale), dv = p^T dO. A row with no live key carries lse =
+// NEG_INF/2 from K1; its pairs are all masked, so p and ds are exactly 0 and
+// its gradients are 0, never NaN.
 //
-// What bounds it on the H100: at the training slice's shape (B=8, H=16,
-// L=1024, D=64, causal, bf16) the function needs 5 products of 2*D FLOPs per
-// live (query, key) pair, 43 GFLOP, ~2.5x K1's, against ~135 MB of traffic
-// (q, k, v, o, dO read once, dq, dk, dv written once, lse): ~320 FLOP/byte,
-// just over the 295 FLOP/byte ridge, so bound by operations on the bf16
-// tensor cores (0.044 ms) with bytes close behind (0.040 ms). This first
-// version multiplies with fp32 FMAs (no mma/wgmma), so it runs far from
-// either bound; tensor cores are later work.
+// What bounds it on the H100: at the training shape (B=8, H=16, L=1024,
+// D=64, causal, bf16) the function needs 5 products of 2 D FLOPs per live
+// (query, key) pair, 43 GFLOP, against ~135 MB of traffic (q, k, v, o, dO
+// read once, dq, dk, dv written once, lse): ~320 FLOP/byte, over the 295
+// FLOP/byte ridge, so bound by operations on the bf16 tensor cores at 0.0435
+// ms, with bytes close behind (0.040 ms). FMA products (67 TFLOP/s fp32)
+// cannot come within 15x of that.
 //
 // What the design does about it: the TPU grid carried dq's accumulator
 // across its K-block steps and dk/dv's across its Q-block steps in VMEM
 // scratch. Here those sequential axes become loops inside a block, split as
 // FlashAttention-2 does into two kernels with no atomics, so the result is
-// deterministic:
-//   * dk/dv: one block per (64-key tile, head, batch) keeps K, V and the
-//     dk/dv accumulators on chip and loops over the live query tiles;
-//   * dq: one block per (64-query tile, head, batch) keeps Q, dO and the dq
-//     accumulator on chip and loops over the live key tiles;
-//   * delta: a small pre-pass, one warp per query row.
-// Both loops skip dead tiles (causal, sliding window, keys past
-// kv_lengths), which is what either JAX `bwd_skip` setting computes. A key
-// tile wholly past kv_lengths runs no iteration and writes zeros. The [L, L]
-// score matrix never reaches device memory: each tile pair recomputes s and
-// dp in registers (the dq pass repeats them, 7 products executed for 5
-// needed, the price of no atomics). 256 threads each own a 4x4 register tile
-// of every product and read 16-byte vectors from shared memory rows padded
-// to 68 floats, so the inner loops need one shared load per 4 FMAs. q, k,
-// v and dO are read in place through their strides (q, k, v are slices of
-// the fused QKV projection); o, lse and the outputs are contiguous.
+// deterministic: a delta pre-pass (one warp per query row); a dk/dv kernel,
+// one block per (64-key tile, head, batch) looping over the live query
+// tiles; a dq kernel, one block per (64-query tile, head, batch) looping
+// over the live key tiles. The dq pass recomputes s and dp, so 7 products
+// run for the 5 needed: the price of no atomics. Both loops skip dead tiles
+// (causal, sliding window, keys past kv_lengths), which is what either JAX
+// `bwd_skip` setting computes; a key tile wholly past kv_lengths writes
+// zeros. One ds_flash_bwd call is one launch of K4.
+//
+// bf16 runs every product on the tensor cores (mma.sync.m16n8k16, fp32
+// accumulators; csrc/mma.cuh), four warps of 16 rows each:
+//   * dk/dv: the warp's 16 keys are the M rows. S^T = K Q^T and dP^T =
+//     V dO^T (A from ldmatrix on K and V, B from ldmatrix on the Q and dO
+//     rows); P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) in
+//     fp32 registers, with lse and delta read per column from shared
+//     memory; then dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded
+//     to bf16 and taken from registers as A, and dO, Q through
+//     ldmatrix.trans.
+//   * dq: the warp's 16 queries are the M rows. S = Q K^T, dP = dO V^T
+//     with Q's and dO's fragments held in registers, then dQ += dS K with
+//     dS from registers and K through ldmatrix.trans.
+// Q/dO (dk/dv) and K/V (dq) tiles are double-buffered with 16-byte
+// cp.async into XOR-swizzled rows (rows past L zero-filled, never read);
+// the other operand pair stays in shared memory for the whole loop.
+// Accumulators stay in fp32 registers and are written once, rounded to the
+// tensors' dtype, dk and dq times scale. Only tiles that straddle a mask
+// boundary pay for the mask. P and dS are rounded to bf16 before their
+// second product, as FlashAttention-2 does; the plain version keeps them in
+// fp32. (K1 splits its P into bf16 hi + lo, because its O decides MoE
+// routing downstream; K4's rounding reaches only gradients, and the dense
+// bf16 gradcheck of chip_smoke.py stays at about half its limit with it.)
+//
+// fp32 inputs keep the FMA body below (256 threads, 4x4 register tiles of
+// every product from 68-float padded shared rows): a bf16 or TF32 product
+// cannot meet the fp32 checks' 1e-4. The C entry picks the body by the
+// dtype the caller passed; it is not a fallback.
+//
+// Next step: wgmma with TMA and warp-specialised pipelines, as in
+// FlashAttention-3: the only route to the full tensor-core rate, with a
+// warpgroup owning 64 rows instead of a warp owning 16.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using ds::from_f;
 using ds::to_f;
+using ds::mma::acc_to_a;
+using ds::mma::bf16;
+using ds::mma::cp_async4;
+using ds::mma::cp_async_commit;
+using ds::mma::cp_async_wait;
+using ds::mma::kRowBytes;
+using ds::mma::load_a;
+using ds::mma::load_b;
+using ds::mma::load_b_trans;
+using ds::mma::load_tile;
+using ds::mma::mma_bf16;
+using ds::mma::smem_addr;
+using ds::mma::store_rows;
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kT = 64;            // rows per tile (keys or queries)
+constexpr int kThreadsMMA = 128;  // four warps of 16 rows
+constexpr uint32_t kTileBytes = kT * kRowBytes;
+// K, V, then two stages of Q and of dO; then two stages of lse and delta
+constexpr int kDkdvSmem = 6 * kTileBytes + 4 * kT * static_cast<int>(sizeof(float));
+// Q, dO, then two stages of K and of V
+constexpr int kDqSmem = 6 * kTileBytes;
+
+// Whether query `row` (position row + off) reads key `key`.
+__device__ __forceinline__ bool live(int row, int key, int Lq, int kv_len, int off, int causal,
+                                     int window) {
+  if (row >= Lq || key >= kv_len) return false;
+  const int qpos = row + off;
+  if (causal && key > qpos) return false;
+  if (window > 0 && key <= qpos - window) return false;
+  return true;
+}
+
+// Whether every (query, key) pair of query rows q0..q0+63 and keys
+// k0..k0+63 is live, so the tile pair needs no mask.
+__device__ __forceinline__ bool interior(int q0, int k0, int Lq, int kv_len, int off, int causal,
+                                         int window) {
+  return q0 + kT <= Lq && k0 + kT <= kv_len && (!causal || k0 + kT - 1 <= q0 + off) &&
+         (window <= 0 || k0 > q0 + kT - 1 + off - window);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                 int H, int Lq, long long do_sb, long long do_sl, long long do_sh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * 8 + warp;  // (row, head) pair
+  const int b = blockIdx.y;
+  if (r >= Lq * H) return;
+  const int row = r / H, h = r % H;
+  const T* op = o + ((static_cast<long long>(b) * Lq + row) * H + h) * kT;
+  const T* dp = dout + b * do_sb + static_cast<long long>(row) * do_sl + h * do_sh;
+  float acc = to_f(op[lane]) * to_f(dp[lane]);
+  acc = fmaf(to_f(op[lane + 32]), to_f(dp[lane + 32]), acc);
+  acc = ds::warp_sum(acc);
+  if (lane == 0) delta[(static_cast<long long>(b) * H + h) * Lq + row] = acc;
+}
+
+__global__ void __launch_bounds__(kThreadsMMA)
+    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ kv_lengths, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal,
+                    int window, long long q_sb, long long q_sl, long long q_sh, long long k_sb,
+                    long long k_sl, long long k_sh, long long v_sb, long long v_sl,
+                    long long v_sh, long long do_sb, long long do_sl, long long do_sh) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sK = smem_addr(smem);
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sQ = sV + kTileBytes;      // [2][64 rows]
+  const uint32_t sdO = sQ + 2 * kTileBytes;  // [2][64 rows]
+  float* sL = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // lse [2][64]
+  float* sD = sL + 2 * kT;                                       // delta [2][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * kT;
+  const int off = Lk - Lq;  // query i sits at position i + off
+  const int kv_len = kv_lengths ? min(max(kv_lengths[b], 0), Lk) : Lk;
+
+  // live query tiles of this key tile (block-uniform); none past kv_lengths
+  int i_begin = 0, i_end = 0;
+  if (k0 < kv_len) {
+    const int k_last = min(k0 + kT, kv_len) - 1;
+    const int row_first = causal ? max(k0 - off, 0) : 0;
+    int row_last = Lq - 1;
+    if (window > 0) row_last = min(row_last, k_last + window - 1 - off);
+    if (row_last >= row_first) {
+      i_begin = row_first / kT;
+      i_end = row_last / kT + 1;
+    }
+  }
+
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* dob = dout + b * do_sb + h * do_sh;
+  const float* lse_bh = lse + (static_cast<long long>(b) * H + h) * Lq;
+  const float* delta_bh = delta + (static_cast<long long>(b) * H + h) * Lq;
+  auto load_queries = [&](int it, int stage) {
+    load_tile<kT, kThreadsMMA>(sQ + stage * kTileBytes, qb, it * kT, Lq, q_sl);
+    load_tile<kT, kThreadsMMA>(sdO + stage * kTileBytes, dob, it * kT, Lq, do_sl);
+    const int r = threadIdx.x & (kT - 1), row = it * kT + r;
+    const bool ok = row < Lq;
+    const float* src = threadIdx.x < kT ? lse_bh : delta_bh;
+    float* dst = (threadIdx.x < kT ? sL : sD) + stage * kT + r;
+    cp_async4(smem_addr(dst), src + (ok ? row : 0), ok);
+  };
+  if (i_begin < i_end) {
+    load_tile<kT, kThreadsMMA>(sK, k + b * k_sb + h * k_sh, k0, Lk, k_sl);
+    load_tile<kT, kThreadsMMA>(sV, v + b * v_sb + h * v_sh, k0, Lk, v_sl);
+    load_queries(i_begin, 0);
+    cp_async_commit();
+  }
+
+  const float sl2 = scale * kLog2e;
+  const int key_base = k0 + 16 * warp;  // this warp's first key
+  float acc_dk[8][4], acc_dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_dk[n][c] = acc_dv[n][c] = 0.f;
+
+  for (int it = i_begin; it < i_end; ++it) {
+    const int stage = (it - i_begin) & 1;
+    if (it + 1 < i_end) {  // the next query tile loads while this one is used
+      load_queries(it + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t tQ = sQ + stage * kTileBytes, tdO = sdO + stage * kTileBytes;
+    const float* Ls = sL + stage * kT;
+    const float* Ds = sD + stage * kT;
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys by the tile's 64 queries
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a(ka, sK, 16 * warp, 16 * kk, lane);
+      load_a(va, sV, 16 * warp, 16 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4], bo[4];
+        load_b(bq, tQ, 16 * np, 16 * kk, lane);
+        load_b(bo, tdO, 16 * np, 16 * kk, lane);
+        mma_bf16(st[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+        mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // P^T and dS^T in place; lse and delta belong to the columns (queries)
+    const int q0 = it * kT;
+    const bool full = interior(q0, k0, Lq, kv_len, off, causal, window);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * n + 2 * tq + (c & 1);
+        const float p = exp2f(fmaf(st[n][c], sl2, -Ls[col] * kLog2e));
+        const bool ok = full || live(q0 + col, key_base + g + 8 * (c >> 1), Lq, kv_len, off,
+                                     causal, window);
+        st[n][c] = ok ? p : 0.f;
+        dpt[n][c] = ok ? p * (dpt[n][c] - Ds[col]) : 0.f;
+      }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T from registers
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bo[4], bq[4];
+        load_b_trans(bo, tdO, 16 * np, 16 * kk, lane);
+        load_b_trans(bq, tQ, 16 * np, 16 * kk, lane);
+        mma_bf16(acc_dv[2 * np], pa, bo[0], bo[1]);
+        mma_bf16(acc_dv[2 * np + 1], pa, bo[2], bo[3]);
+        mma_bf16(acc_dk[2 * np], da, bq[0], bq[1]);
+        mma_bf16(acc_dk[2 * np + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const long long ld = static_cast<long long>(H) * kT;
+  const long long base = static_cast<long long>(b) * Lk * ld + h * kT;
+  store_rows(dk + base, ld, key_base, Lk, acc_dk, scale, scale, lane);
+  store_rows(dv + base, ld, key_base, Lk, acc_dv, 1.f, 1.f, lane);
+}
+
+__global__ void __launch_bounds__(kThreadsMMA)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ kv_lengths, bf16* __restrict__ dq, int H, int Lq,
+                  int Lk, float scale, int causal, int window, int n_qt, long long q_sb,
+                  long long q_sl, long long q_sh, long long k_sb, long long k_sl, long long k_sh,
+                  long long v_sb, long long v_sl, long long v_sh, long long do_sb,
+                  long long do_sl, long long do_sh) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sdO = sQ + kTileBytes;
+  const uint32_t sK = sdO + kTileBytes;      // [2][64 rows]
+  const uint32_t sV = sK + 2 * kTileBytes;   // [2][64 rows]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  // under causal the longest query tiles run first
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : blockIdx.y;
+  const int q0 = qt * kT;
+  const int off = Lk - Lq;
+  const int kv_len = kv_lengths ? min(max(kv_lengths[b], 0), Lk) : Lk;
+
+  // live key tiles of this query tile (the same range K1 walks)
+  const int q_first = q0 + off;
+  const int q_last = min(q0 + kT, Lq) - 1 + off;
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_first - window + 1);
+  const int t_begin = k_begin / kT;
+  const int t_end = k_end > k_begin ? (k_end + kT - 1) / kT : t_begin;
+
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  if (t_begin < t_end) {
+    load_tile<kT, kThreadsMMA>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
+    load_tile<kT, kThreadsMMA>(sdO, dout + b * do_sb + h * do_sh, q0, Lq, do_sl);
+    load_tile<kT, kThreadsMMA>(sK, kb, t_begin * kT, Lk, k_sl);
+    load_tile<kT, kThreadsMMA>(sV, vb, t_begin * kT, Lk, v_sl);
+    cp_async_commit();
+  }
+
+  const float sl2 = scale * kLog2e;
+  const int row_base = q0 + 16 * warp;  // this warp's first query row
+  float lse_l2[2], dlt[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row_base + g + 8 * hf;
+    const long long i = (static_cast<long long>(b) * H + h) * Lq + min(row, Lq - 1);
+    lse_l2[hf] = lse[i] * kLog2e;
+    dlt[hf] = delta[i];
+  }
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  uint32_t qf[4][4], dof[4][4];
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const uint32_t stage = ((t - t_begin) & 1) * kTileBytes;
+    if (t + 1 < t_end) {  // the next key tile loads while this one is used
+      load_tile<kT, kThreadsMMA>(sK + (kTileBytes - stage), kb, (t + 1) * kT, Lk, k_sl);
+      load_tile<kT, kThreadsMMA>(sV + (kTileBytes - stage), vb, (t + 1) * kT, Lk, v_sl);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == t_begin) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        load_a(qf[kk], sQ, 16 * warp, 16 * kk, lane);
+        load_a(dof[kk], sdO, 16 * warp, 16 * kk, lane);
+      }
+    }
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 queries by the tile's 64 keys
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        load_b(bk, sK + stage, 16 * np, 16 * kk, lane);
+        load_b(bv, sV + stage, 16 * np, 16 * kk, lane);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], dof[kk], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
+      }
+
+    // dS in place of dP; lse and delta belong to the rows
+    const int k0 = t * kT;
+    const bool full = interior(q0, k0, Lq, kv_len, off, causal, window);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hf = c >> 1;
+        const float p = exp2f(fmaf(s[n][c], sl2, -lse_l2[hf]));
+        const bool ok = full || live(row_base + g + 8 * hf, k0 + 8 * n + 2 * tq + (c & 1), Lq,
+                                     kv_len, off, causal, window);
+        dp[n][c] = ok ? p * (dp[n][c] - dlt[hf]) : 0.f;
+      }
+
+    // dQ += dS K, dS from registers, K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        load_b_trans(bk, sK + stage, 16 * np, 16 * kk, lane);
+        mma_bf16(acc[2 * np], da, bk[0], bk[1]);
+        mma_bf16(acc[2 * np + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const long long ld = static_cast<long long>(H) * kT;
+  store_rows(dq + static_cast<long long>(b) * Lq * ld + h * kT, ld, row_base, Lq, acc, scale,
+             scale, lane);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA body
+// ---------------------------------------------------------------------------
+// 256 threads each own a 4x4 register tile of every product and read
+// 16-byte vectors from shared memory rows padded to 68 floats, so the inner
+// loops need one shared load per 4 FMAs. q, k, v and dO are read in place
+// through their strides (q, k, v are slices of the fused QKV projection);
+// o, lse and the outputs are contiguous.
 constexpr int kB = 64;          // rows per tile (queries or keys), = D
 constexpr int kThreads = 256;   // 16 x 16 threads, a 4x4 register tile each
 constexpr int kLd = 68;         // shared row stride in floats: 16-byte rows, spread banks
@@ -58,13 +427,12 @@ constexpr int dq_smem_bytes() { return (5 * kTile + 2 * kB) * static_cast<int>(s
 
 // Rows row0..row0+63 of one (batch, head) slice of a [B, L, H, 64] tensor
 // into a shared tile, times `mul`; rows past L read as 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0, int L,
-                                          long long sl, float mul) {
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src, int row0,
+                                              int L, long long sl, float mul) {
   for (int idx = threadIdx.x; idx < kB * kB; idx += kThreads) {
     const int r = idx >> 6, c = idx & 63;
     const int row = row0 + r;
-    dst[r * kLd + c] = row < L ? to_f(src[static_cast<long long>(row) * sl + c]) * mul : 0.f;
+    dst[r * kLd + c] = row < L ? src[static_cast<long long>(row) * sl + c] * mul : 0.f;
   }
 }
 
@@ -76,16 +444,6 @@ __device__ __forceinline__ void load_stats(float* Ls, float* Ds, const float* __
     Ls[r] = row < Lq ? lse[row] : 0.f;
     Ds[r] = row < Lq ? delta[row] : 0.f;
   }
-}
-
-// Whether query `row` (position row + off) reads key `key`.
-__device__ __forceinline__ bool live(int row, int key, int Lq, int kv_len, int off, int causal,
-                                     int window) {
-  if (row >= Lq || key >= kv_len) return false;
-  const int qpos = row + off;
-  if (causal && key > qpos) return false;
-  if (window > 0 && key <= qpos - window) return false;
-  return true;
 }
 
 // acc[i][j] = sum_d A[ra + 16 i][d] * B[rb + 16 j][d] over one 64-wide tile pair.
@@ -133,34 +491,16 @@ __device__ __forceinline__ void cols_outer(const float* A, const float* B, int c
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-                 int H, int Lq, long long do_sb, long long do_sl, long long do_sh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kThreads / 32) + warp;  // (row, head) pair
-  const int b = blockIdx.y;
-  if (r >= Lq * H) return;
-  const int row = r / H, h = r % H;
-  const T* op = o + ((static_cast<long long>(b) * Lq + row) * H + h) * kB;
-  const T* dp = dout + b * do_sb + static_cast<long long>(row) * do_sl + h * do_sh;
-  float acc = to_f(op[lane]) * to_f(dp[lane]);
-  acc = fmaf(to_f(op[lane + 32]), to_f(dp[lane + 32]), acc);
-  acc = ds::warp_sum(acc);
-  if (lane == 0) delta[(static_cast<long long>(b) * H + h) * Lq + row] = acc;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
+    dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                const float* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const int* __restrict__ kv_lengths,
-                T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, float scale,
+                float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, int Lk, float scale,
                 int causal, int window, long long q_sb, long long q_sl, long long q_sh,
                 long long k_sb, long long k_sl, long long k_sh, long long v_sb, long long v_sl,
                 long long v_sh, long long do_sb, long long do_sl, long long do_sh) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;            // [64 keys][kLd]
+  extern __shared__ __align__(16) float smem_f[];
+  float* Ks = smem_f;            // [64 keys][kLd]
   float* Vs = Ks + kTile;
   float* Qs = Vs + kTile;      // [64 queries][kLd], pre-scaled
   float* dOs = Qs + kTile;
@@ -196,16 +536,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < 4; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
   if (i_end > i_begin) {
-    load_tile(Ks, k + b * k_sb + h * k_sh, k0, Lk, k_sl, 1.f);
-    load_tile(Vs, v + b * v_sb + h * v_sh, k0, Lk, v_sl, 1.f);
+    load_tile_f32(Ks, k + b * k_sb + h * k_sh, k0, Lk, k_sl, 1.f);
+    load_tile_f32(Vs, v + b * v_sb + h * v_sh, k0, Lk, v_sl, 1.f);
   }
   const float* lse_bh = lse + (static_cast<long long>(b) * H + h) * Lq;
   const float* delta_bh = delta + (static_cast<long long>(b) * H + h) * Lq;
   for (int it = i_begin; it < i_end; ++it) {
     const int q0 = it * kB;
     __syncthreads();  // the previous tile's readers are done
-    load_tile(Qs, q + b * q_sb + h * q_sh, q0, Lq, q_sl, scale);
-    load_tile(dOs, dout + b * do_sb + h * do_sh, q0, Lq, do_sl, 1.f);
+    load_tile_f32(Qs, q + b * q_sb + h * q_sh, q0, Lq, q_sl, scale);
+    load_tile_f32(dOs, dout + b * do_sb + h * do_sh, q0, Lq, do_sl, 1.f);
     load_stats(Ls, Ds, lse_bh, delta_bh, q0, Lq);
     __syncthreads();
 
@@ -239,23 +579,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     const long long base = ((static_cast<long long>(b) * Lk + key) * H + h) * kB + 4 * tc;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      dk[base + j] = from_f<T>(acc_dk[i][j]);
-      dv[base + j] = from_f<T>(acc_dv[i][j]);
+      dk[base + j] = acc_dk[i][j];
+      dv[base + j] = acc_dv[i][j];
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              const float* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, const int* __restrict__ kv_lengths,
-              T* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal, int window,
+              float* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal, int window,
               long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
               long long k_sh, long long v_sb, long long v_sl, long long v_sh, long long do_sb,
               long long do_sl, long long do_sh) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // [64 queries][kLd], pre-scaled
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;            // [64 queries][kLd], pre-scaled
   float* dOs = Qs + kTile;
   float* Ks = dOs + kTile;     // [64 keys][kLd]
   float* Vs = Ks + kTile;
@@ -279,8 +618,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t_begin = k_begin / kB;
   const int t_end = k_end > k_begin ? (k_end + kB - 1) / kB : t_begin;
 
-  load_tile(Qs, q + b * q_sb + h * q_sh, q0, Lq, q_sl, scale);
-  load_tile(dOs, dout + b * do_sb + h * do_sh, q0, Lq, do_sl, 1.f);
+  load_tile_f32(Qs, q + b * q_sb + h * q_sh, q0, Lq, q_sl, scale);
+  load_tile_f32(dOs, dout + b * do_sb + h * do_sh, q0, Lq, do_sl, 1.f);
   load_stats(Ls, Ds, lse + (static_cast<long long>(b) * H + h) * Lq,
              delta + (static_cast<long long>(b) * H + h) * Lq, q0, Lq);
 
@@ -293,8 +632,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // Q/dO are loaded; the previous tile's readers are done
-    load_tile(Ks, k + b * k_sb + h * k_sh, k0, Lk, k_sl, 1.f);
-    load_tile(Vs, v + b * v_sb + h * v_sh, k0, Lk, v_sl, 1.f);
+    load_tile_f32(Ks, k + b * k_sb + h * k_sh, k0, Lk, k_sl, 1.f);
+    load_tile_f32(Vs, v + b * v_sb + h * v_sh, k0, Lk, v_sl, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -323,45 +662,70 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row >= Lq) continue;
     const long long base = ((static_cast<long long>(b) * Lq + row) * H + h) * kB + 4 * tc;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dq[base + j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < 4; ++j) dq[base + j] = acc[i][j] * scale;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                   const void* dout, const void* kv_lengths, void* delta, void* dq, void* dk,
-                   void* dv, int B, int H, int Lq, int Lk, float scale, int causal, int window,
-                   const long long* st, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  const float* lsep = static_cast<const float*>(lse);
-  float* deltap = static_cast<float*>(delta);
-  const int* lens = static_cast<const int*>(kv_lengths);
-
-  dim3 dgrid((Lq * H + kThreads / 32 - 1) / (kThreads / 32), B);
-  delta_kernel<T><<<dgrid, kThreads, 0, stream>>>(static_cast<const T*>(o), dop, deltap, H, Lq,
-                                                   st[9], st[10], st[11]);
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, const int* lens, void* dq, void* dk,
+                        void* dv, int B, int H, int Lq, int Lk, float scale, int causal,
+                        int window, const long long* st, cudaStream_t stream) {
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  static cudaError_t dq_attr = ds::allow_smem(dq_kernel, dq_smem_bytes());
+  if (dq_attr != cudaSuccess) return dq_attr;
+  dim3 qgrid((Lq + kB - 1) / kB, H, B);
+  dq_kernel<<<qgrid, kThreads, dq_smem_bytes(), stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<float*>(dq), H, Lq, Lk, scale, causal,
+      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  static cudaError_t dq_attr = ds::allow_smem(dq_kernel<T>, dq_smem_bytes());
-  if (dq_attr != cudaSuccess) return dq_attr;
-  dim3 qgrid((Lq + kB - 1) / kB, H, B);
-  dq_kernel<T><<<qgrid, kThreads, dq_smem_bytes(), stream>>>(
-      qp, kp, vp, dop, lsep, deltap, lens, static_cast<T*>(dq), H, Lq, Lk, scale, causal, window,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  static cudaError_t kv_attr = ds::allow_smem(dkdv_kernel<T>, dkdv_smem_bytes());
+  static cudaError_t kv_attr = ds::allow_smem(dkdv_kernel, dkdv_smem_bytes());
   if (kv_attr != cudaSuccess) return kv_attr;
   dim3 kgrid((Lk + kB - 1) / kB, H, B);
-  dkdv_kernel<T><<<kgrid, kThreads, dkdv_smem_bytes(), stream>>>(
-      qp, kp, vp, dop, lsep, deltap, lens, static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk,
-      scale, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11]);
+  dkdv_kernel<<<kgrid, kThreads, dkdv_smem_bytes(), stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<float*>(dk), static_cast<float*>(dv), H, Lq,
+      Lk, scale, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, const int* lens, void* dq, void* dk,
+                        void* dv, int B, int H, int Lq, int Lk, float scale, int causal,
+                        int window, const long long* st, cudaStream_t stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const int n_qt = (Lq + kT - 1) / kT, n_kt = (Lk + kT - 1) / kT;
+  if (n_qt > 65535 || n_kt > 65535) return cudaErrorInvalidValue;
+  static cudaError_t dq_attr = ds::allow_smem(dq_mma_kernel, kDqSmem);
+  if (dq_attr != cudaSuccess) return dq_attr;
+  dq_mma_kernel<<<dim3(B * H, n_qt), kThreadsMMA, kDqSmem, stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<bf16*>(dq), H, Lq, Lk, scale, causal, window,
+      n_qt, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  static cudaError_t kv_attr = ds::allow_smem(dkdv_mma_kernel, kDkdvSmem);
+  if (kv_attr != cudaSuccess) return kv_attr;
+  dkdv_mma_kernel<<<dim3(B * H, n_kt), kThreadsMMA, kDkdvSmem, stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq,
+      Lk, scale, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int H, int Lq,
+                         const long long* st, cudaStream_t stream) {
+  delta_kernel<T><<<dim3((Lq * H + 7) / 8, B), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, Lq, st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -373,7 +737,9 @@ extern "C" {
 // (batch, len, head) for each; o: contiguous [B, Lq, H, D] of q's dtype;
 // lse: contiguous [B, H, Lq] fp32; kv_lengths: [B] int32 or null; delta:
 // [B, H, Lq] fp32 scratch; dq: contiguous [B, Lq, H, D] of q's dtype; dk,
-// dv: contiguous [B, Lk, H, D] of k's dtype; window <= 0 means none.
+// dv: contiguous [B, Lk, H, D] of k's dtype; window <= 0 means none. bf16
+// runs on the tensor cores and needs 16-byte aligned q/k/v/dout with strides
+// that are multiples of 8 elements; fp32 runs the FMA body.
 int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
                  const void* dout, const void* kv_lengths, void* delta, void* dq, void* dk,
                  void* dv, int dtype, int B, int H, int Lq, int Lk, int D, float scale,
@@ -385,12 +751,22 @@ int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, con
                             v_sb, v_sl, v_sh, do_sb, do_sl, do_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != kB) return cudaErrorInvalidValue;
-  if (dtype == ds::kFloat32)
-    return launch<float>(q, k, v, o, lse, dout, kv_lengths, delta, dq, dk, dv, B, H, Lq, Lk,
-                         scale, causal, window, st, s);
-  if (dtype == ds::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, dout, kv_lengths, delta, dq, dk, dv, B, H, Lq,
-                                 Lk, scale, causal, window, st, s);
+  const float* lsep = static_cast<const float*>(lse);
+  float* deltap = static_cast<float*>(delta);
+  const int* lens = static_cast<const int*>(kv_lengths);
+  cudaError_t err;
+  if (dtype == ds::kFloat32) {
+    err = launch_delta<float>(o, dout, deltap, B, H, Lq, st, s);
+    if (err != cudaSuccess) return err;
+    return launch_fp32(q, k, v, dout, lsep, deltap, lens, dq, dk, dv, B, H, Lq, Lk, scale, causal,
+                       window, st, s);
+  }
+  if (dtype == ds::kBFloat16) {
+    err = launch_delta<bf16>(o, dout, deltap, B, H, Lq, st, s);
+    if (err != cudaSuccess) return err;
+    return launch_bf16(q, k, v, dout, lsep, deltap, lens, dq, dk, dv, B, H, Lq, Lk, scale, causal,
+                       window, st, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,11 @@ the public boundary is ``[batch, length, heads, head_dim]`` (BLHD), as in
 the JAX package; the kernels read it in place through strides.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches the kernel or raises. The JAX backend falls back to XLA for a bias,
+launches the kernel or raises. K1 and K4 run bf16 on the tensor cores (K1
+carries p as a bf16 hi + lo pair into its second product, K4 rounds p and
+ds to bf16) and fp32 as FMAs; a bf16 tensor whose rows are not 16-byte
+aligned raises
+``ValueError``. The JAX backend falls back to XLA for a bias,
 an arbitrary mask or dropout; this backend raises instead, so the main path
 can never leave the kernel quietly. The backend goes through
 :class:`FlashAttention`, the ``torch.autograd.Function`` that ties K1 to
@@ -39,7 +43,7 @@ def _masked_softmax_av(s, valid, v):
     return o, m, l
 
 
-def _live_pairs(lq, lk, causal, kv_lengths, window, dev) -> torch.Tensor:
+def live_pairs(lq, lk, causal, kv_lengths, window, dev) -> torch.Tensor:
     """[B or 1, 1, Lq, Lk] mask of the (query, key) pairs attention reads:
     query i sits at position ``i + Lk - Lq``."""
     q_pos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
@@ -64,7 +68,7 @@ def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
     lq, lk = q.shape[1], k.shape[1]
     dev = q.device
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    valid = _live_pairs(lq, lk, causal, kv_lengths, window, dev)
+    valid = live_pairs(lq, lk, causal, kv_lengths, window, dev)
     o, m, l = _masked_softmax_av(s, valid, v)
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)),
                       torch.full((), NEG_INF / 2, device=dev))[..., 0]
@@ -83,7 +87,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool,
     qf = q.float() * scale
     kf, vf, dof = k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    valid = _live_pairs(lq, lk, causal, kv_lengths, window, q.device)
+    valid = live_pairs(lq, lk, causal, kv_lengths, window, q.device)
     p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, Lq]
@@ -132,6 +136,18 @@ def _check_operands(what, q, k, v):
                          f"v {tuple(v.shape)} do not agree")
 
 
+def _check_tensor_core_operands(what, **tensors):
+    """The bf16 bodies of K1 and K4 load rows with 16-byte ``cp.async``: each
+    tensor must start on a 16-byte boundary and step through its batch,
+    length and head axes in multiples of 8 elements (an axis of size 1 is
+    never stepped through)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{what}: bf16 {name} must start 16-byte aligned with batch, "
+                             f"length and head strides that are multiples of 8 elements; got "
+                             f"address offset {t.data_ptr() % 16} bytes, strides {t.stride()}")
+
+
 def _lengths_operand(what, lengths, b, device):
     if lengths.shape != (b,):
         raise ValueError(f"{what}: lengths must be [{b}], got {tuple(lengths.shape)}")
@@ -153,6 +169,8 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
                                kv_lengths=kv_lengths, window=window)
     _check_operands("flash_fwd", q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_operands("flash_fwd", q=q, k=k, v=v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     lens = None if kv_lengths is None else _lengths_operand("flash_fwd", kv_lengths, b, q.device)
@@ -184,6 +202,8 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
         raise ValueError(f"flash_bwd: do must match q [B, Lq, H, D] {q.dtype} with unit-stride "
                          f"head_dim, got {tuple(do.shape)} {do.dtype}")
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_operands("flash_bwd", q=q, k=k, v=v, do=do)
     if o.shape != q.shape or o.dtype != q.dtype or not o.is_contiguous():
         raise ValueError("flash_bwd: o must be K1's contiguous [B, Lq, H, D] output")
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():

@@ -5,7 +5,9 @@ These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
 slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
 in another order) and 2e-2 in bf16 (outputs are rounded to bf16); K5, a gather, must equal
 its plain version exactly. K6 (block-sparse attention) is held to its plain version for
-every layout block the kernel takes, per-head layouts, an empty row and a NaN probe.
+every layout block the kernel takes, per-head layouts, an empty row and a NaN probe. K1 and
+K4 are also held, in fp32 and bf16, within 1e-6 of inputs whose result is exact
+(``deepspeed_tpu_torch.testing.exact_probe``).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
 from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
 from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
+from deepspeed_tpu_torch.testing import exact_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +100,56 @@ def test_flash_autograd_runs_k1_and_k4(gen, policy):
     for g, r in zip((q.grad, k.grad, v.grad),
                     fa.flash_bwd_plain(q, k, v, o, lse, w, scale=0.125, causal=True)):
         _close(g, r, torch.float32)
+
+
+#: exact-probe shapes (``exact_probe``): lq, lk, causal, kv_lengths, window
+PROBES = [(100, 100, True, None, None), (16, 130, True, None, None),
+          (64, 64, False, [64, 9, 0], None), (200, 200, True, None, 33),
+          (96, 160, True, [160, 100, 0], 100)]
+
+
+def _exact(got, want):
+    """Within 1e-6 of an exactly known result (0 for dq and dk)."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-6 * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal,lengths,window", PROBES)
+def test_flash_fwd_bwd_exact_probe(gen, dtype, lq, lk, causal, lengths, window):
+    """One-hot softmax rows with small-integer v and do: the exact answer is
+    known, and in half the rows a dead key just past a mask boundary would
+    win the softmax if let in. So a live key masked out, a dead key let in,
+    or a wrong fragment-to-(row, key) mapping in the row reductions or an
+    output store shows as an error far above rounding."""
+    p = exact_probe(3, lq, lk, 4, causal=causal, kv_lengths=lengths, window=window, seed=1,
+                       dtype=dtype, device="cuda")
+    kw = dict(scale=p["scale"], causal=causal, kv_lengths=p["kv_lengths"], window=window)
+    o, lse = fa.flash_fwd(p["q"], p["k"], p["v"], **kw)
+    _exact(o, p["o"])
+    _exact(lse, p["lse"])
+    for name, g in zip(("dq", "dk", "dv"), fa.flash_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], **kw)):
+        _exact(g, p[name])
+
+
+def test_flash_refuses_misaligned_bf16(gen):
+    """The bf16 tensor-core bodies load 16-byte rows: a view one element off
+    a 16-byte boundary, or with a row stride that is not a multiple of 8,
+    raises ValueError naming the tensor instead of being copied."""
+    b, l, h = 2, 64, 4
+    n = b * l * h * 64
+    flat = _randn(gen, n + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(b, l, h, 64)  # 2 bytes past the allocation's 16-byte start
+    ok = _randn(gen, b, l, h, 64, dtype=torch.bfloat16)
+    wide = _randn(gen, b, l, h, 65, dtype=torch.bfloat16)[..., :64]  # strides 65 h, 65
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="flash_fwd: bf16 k"):
+            fa.flash_fwd(ok, bad, ok, scale=0.125, causal=True)
+    o, lse = fa.flash_fwd(ok, ok, ok, scale=0.125, causal=True)
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="flash_bwd: bf16 do"):
+            fa.flash_bwd(ok, ok, ok, o, lse, bad, scale=0.125, causal=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
