@@ -14,17 +14,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
               forward and backward) against its plain PyTorch version on the
               same inputs at the serving, training and sparse slices' shapes;
               max |err| / max |ref| must stay within 2e-2 in bf16 and 1e-4 in
-              fp32, and K5, a gather, must be exact. K1 and K4 in bf16 also
+              fp32, and K5, a gather, must be exact. K1, K4 and K6 also
               within 1e-6 of inputs whose result is exact (one-hot softmax
-              rows, with a dead decoy key past each mask boundary that
-              would win if let in: ``deepspeed_tpu_torch.testing``).
+              rows, with a dead decoy key past each mask boundary, or in a
+              block the layout leaves out, that would win if let in:
+              ``deepspeed_tpu_torch.testing``), K6 in bf16 and fp32.
               Times the kernel, its plain version and one PyTorch library
               call, and computes the least time the card could take
               (``bound_ms``). For K1, K4 and K6 the library time is the
               device time of the kernels SDPA launches (``torch.profiler``
               sums, so host launch gaps do not count), with the event-timed
               figure beside it, and the kernel's own device time
-              (``device_ms``) is measured the same way, K4's by kernel.
+              (``device_ms``) is measured the same way, K4's and K6's by
+              kernel (K6 also in natural launch order beside its
+              longest-first one). K6's registers, local-memory bytes, HMMA
+              and atomic instructions come from ``cuobjdump``: every bf16
+              K6 kernel must hold HMMA instructions and none an atomic.
 4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
@@ -61,8 +66,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. MoE gradcheck — one step of a 2-layer MoE model (layer 1 MoE, top-1, no
               RTS, so routing is deterministic) on the card and on the CPU:
               in fp32 every token's expert and slot identical and the loss
-              and every gradient within 1e-4; in bf16 within 1.5x the
-              measured rounding, with the routing flips counted.
+              and every gradient within 1e-4; in bf16, with the plain bf16
+              step's routing injected at the gate on the card and in the
+              plain fp32 yardstick, within 1.5x the measured rounding; the
+              free-routing share and the routing flips are reported.
 9. sparse attention — ``SparseSelfAttention(cfg)(q, k, v)`` and
               ``.backward()`` on a seeded cotangent, bf16, 2 warm-up and 10
               timed iterations each, in two published layouts: (a) Sparse
@@ -75,8 +82,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               K1/K4 never. Then the path's o, dq, dk and dv against the plain
               versions (bf16, and the same path in fp32), the NaN probe on
               the card (NaN K/V rows in a key block the layout leaves dead:
-              everything finite, dk = dv = 0 there), a dense layout against
-              K1 and K4 (causal and not), and K1 + K4 at shape (a).
+              everything finite, dk = dv = 0 there), one profile of the
+              path per layout (device busy and idle share; host time of
+              the module's forward, K6's backward wrapper and autograd's
+              rest), a dense layout against K1 and K4 (causal and not),
+              and K1 + K4 at shape (a).
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. Details go to
@@ -624,16 +634,119 @@ def k6_check(name, q, k, v, do, lists, causal: bool, block: int, dtype):
     return (o, lse), err_f, err_b
 
 
+#: K6 exact-probe shapes (``deepspeed_tpu_torch.testing.sparse_exact_probe``): block,
+#: length, 3 heads (at 80 rows the last thread block holds 3 of its 4 list groups)
+SPARSE_PROBES = ((16, 512), (64, 1024), (16, 80))
+
+
+def sparse_exact_probes(seed: int) -> float:
+    """K6 on inputs whose result is exact (one-hot rows over a random
+    per-head layout, dead decoys in left-out blocks and past the diagonal),
+    bf16 and fp32, blocks 16 and 64, causal and not, in the longest-first
+    launch order: o, lse, dq, dk and dv each within 1e-6 of the known
+    answer. Returns the largest |error|."""
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (index_lists_on,
+                                                                               launch_orders_on)
+    from deepspeed_tpu_torch.testing import sparse_exact_probe
+    worst = 0.0
+    for block, l in SPARSE_PROBES:
+        for causal in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                p = sparse_exact_probe(2, l, 3, block, causal=causal, seed=seed, dtype=dtype,
+                                       device="cuda")
+                lists = index_lists_on(p["layout"], "cuda")
+                q_order, k_order = launch_orders_on(p["layout"], block, "cuda")
+                kw = dict(scale=p["scale"], causal=causal, block=block)
+                o, lse = sa.sparse_fwd(p["q"], p["k"], p["v"], *lists[:2], order=q_order, **kw)
+                grads = sa.sparse_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], *lists,
+                                      q_order=q_order, k_order=k_order, **kw)
+                got = dict(zip(("dq", "dk", "dv"), grads), o=o, lse=lse)
+                torch.cuda.synchronize()
+                for name, g in got.items():
+                    want = p[name].float()
+                    err = (g.float() - want).abs().max().item()
+                    tol = 1e-6 * max(1.0, want.abs().max().item())
+                    ok = err <= tol
+                    what = (f"sparse exact probe [2,{l},3,64] block {block} {str(dtype)[6:]} "
+                            f"causal={causal} {name}")
+                    RESULTS["checks"].append({"name": what, "max_abs_err": err, "tol": tol, "ok": ok})
+                    log(f"check {what}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{what}: |err| {err:.3e} > {tol:.1e}")
+                    worst = max(worst, err)
+    return worst
+
+
+def kernel_symbol(mangled: str) -> str:
+    """``dkdv_kernel<f,32>`` from its Itanium-mangled symbol: the last name
+    of the nested name and its template arguments (numbers, builtin type
+    letters, names)."""
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else mangled, mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    if not rest.startswith("I"):
+        return name
+    args, rest = [], rest[1:]
+    while rest and rest[0] != "E":
+        m = re.match(r"Li(\d+)E|(\d+)|([a-z])", rest)
+        if not m:
+            break
+        if m.group(2):
+            n = int(m.group(2))
+            args.append(rest[len(m.group(2)):len(m.group(2)) + n])
+            rest = rest[len(m.group(2)) + n:]
+            continue
+        args.append(m.group(1) or m.group(3))
+        rest = rest[m.end():]
+    return f"{name}<{','.join(args)}>"
+
+
+def sass_stats(name: str) -> dict:
+    """Per kernel function of library ``name``: registers and local-memory
+    bytes (where spills land) from ``cuobjdump -res-usage``, and the HMMA
+    (tensor-core mma) and atomic (ATOM, ATOMS, ATOMG, RED) instructions in
+    its SASS from ``cuobjdump -sass``."""
+    from deepspeed_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    lib = str(build.library_path(name))
+    stats, fn = {}, None
+    for line in subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, check=True,
+                               timeout=120).stdout.splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            fn = kernel_symbol(m.group(1))
+        m = re.search(r"REG:(\d+).*LOCAL:(\d+)", line)
+        if m and fn:
+            stats[fn] = {"registers": int(m.group(1)), "local_bytes": int(m.group(2)), "hmma": 0,
+                         "atomics": 0}
+    for line in subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True,
+                               timeout=120).stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_symbol(m.group(1))
+            stats.setdefault(fn, {"hmma": 0, "atomics": 0})
+        elif fn and re.search(r"\bHMMA\b", line):
+            stats[fn]["hmma"] += 1
+        elif fn and re.search(r"\b(ATOM|ATOMS|ATOMG|RED)\b", line):
+            stats[fn]["atomics"] += 1
+    return stats
+
+
 def k6_cases(gen, seed: int) -> dict:
     """K6 against its plain versions for every block the kernel takes (16,
     32, 64, 128) on per-head layouts with an empty row, a row above the
     diagonal and a dead key block, fp32 and bf16, causal and not, q/k/v and
-    dO strided; then at the sparse slice's two shapes in bf16, where it
-    times the kernels, their plain versions and SDPA with the layout
+    dO strided; the exact probes; then at the sparse slice's two shapes in
+    bf16, where it times the kernels (event-timed, and device-side by
+    kernel: forward, delta, dq, dk/dv) in the longest-first launch order
+    and in natural order, their plain versions and SDPA with the layout
     expanded to a boolean mask (its output checked against the kernel's),
     and computes the bound from the layout's live pairs."""
     from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
-    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (index_lists_on,
+                                                                               launch_orders_on)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -649,21 +762,45 @@ def k6_cases(gen, seed: int) -> dict:
                 do = randn(2, l, h, 2, 64, dtype=dtype)[:, :, :, 0]
                 k6_check(f"[2,{l},{h},64] block {block} {str(dtype)[6:]} causal={causal} (edge layout)",
                          qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do, lists, causal, block, dtype)
+    probe_err = sparse_exact_probes(seed)
 
     timed = {}
     for name, (cfg, (b, l, h, d), causal) in sparse_configs(seed).items():
         layout = cfg.make_layout(l)
         block = cfg.block
         lists = index_lists_on(layout, "cuda")
+        q_order, k_order = launch_orders_on(layout, block, "cuda")
         q, k, v, do = (randn(b, l, h, d) for _ in range(4))
         shape = f"q,k,v [{b},{l},{h},{d}] bf16, {name} layout block {block}{' causal' if causal else ''}"
         (o, lse), err_f, err_b = k6_check(shape, q, k, v, do, lists, causal, block, torch.bfloat16)
         kw = dict(scale=d**-0.5, causal=causal, block=block)
-        fwd_ms = time_ms(lambda: sa.sparse_fwd(q, k, v, *lists[:2], **kw), iters=10)
-        fwd_dev = device_ms(lambda: sa.sparse_fwd(q, k, v, *lists[:2], **kw))
+        orders = {"longest_first": dict(order=q_order, q_order=q_order, k_order=k_order),
+                  "natural": dict(order=None, q_order=None, k_order=None)}
+
+        def fwd(order):
+            return lambda: sa.sparse_fwd(q, k, v, *lists[:2], order=order["order"], **kw)
+
+        def bwd(order):
+            return lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, q_order=order["q_order"],
+                                         k_order=order["k_order"], **kw)
+
+        by_order = {}
+        for which in ("longest_first", "natural", "natural", "longest_first"):  # in turns
+            order = orders[which]
+            split = {short_name(kn): t for kn, t in device_times(fwd(order)).items()}
+            split.update({short_name(kn): t for kn, t in device_times(bwd(order)).items()})
+            for kn, t in split.items():
+                by_order.setdefault(which, {}).setdefault(kn, []).append(t)
+        fwd_ms = time_ms(fwd(orders["longest_first"]), iters=10)
+        bwd_ms = time_ms(bwd(orders["longest_first"]), iters=10)
+        best = {w: {kn: min(ts) for kn, ts in split.items()} for w, split in by_order.items()}
+        fwd_dev = best["longest_first"]["sparse_fwd_mma_kernel"]
+        bwd_split = {kn: t for kn, t in best["longest_first"].items() if kn != "sparse_fwd_mma_kernel"}
+        bwd_dev = sum(bwd_split.values())
+        log(f"K6 {name} device ms by kernel (min of 2 profiles each, in turns): "
+            + "; ".join(f"{w}: " + ", ".join(f"{kn} {t:.4f}" for kn, t in split.items())
+                        for w, split in best.items()))
         fwd_plain = time_ms(lambda: sa.sparse_fwd_plain(q, k, v, *lists[:2], **kw), iters=3, warmup=1)
-        bwd_ms = time_ms(lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw), iters=10)
-        bwd_dev = device_ms(lambda: sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw))
         bwd_plain = time_ms(lambda: sa.sparse_bwd_plain(q, k, v, o, lse, do, *lists, **kw), iters=3,
                             warmup=1)
         mask = layout_mask(layout, block, causal)
@@ -687,17 +824,19 @@ def k6_cases(gen, seed: int) -> dict:
         common = dict(route="cuda", shape=shape)
         timed[name] = {
             "live_pairs": pairs, "active_blocks_per_row": float(np.asarray(layout, bool).sum(-1).mean()),
+            "device_ms_by_order": best,
             "sparse_fwd": dict(name="sparse_fwd", source="deepspeed_tpu_torch/csrc/sparse_fwd.cu",
                                replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:54",
                                max_abs_err=err_f, ms=fwd_ms, device_ms=fwd_dev,
                                plain_ms=fwd_plain, bound_ms=f_bnd,
                                bound_by=f_by, library_ms=fwd_lib, library_event_ms=fwd_lib_event,
-                               **common),
+                               exact_probe_max_abs_err=probe_err, **common),
             "sparse_bwd": dict(name="sparse_bwd", source="deepspeed_tpu_torch/csrc/sparse_bwd.cu",
                                replaces="deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:171",
                                max_abs_err=err_b, ms=bwd_ms, device_ms=bwd_dev,
                                plain_ms=bwd_plain, bound_ms=b_bnd,
                                bound_by=b_by, library_ms=bwd_lib, library_event_ms=bwd_lib_event,
+                               device_ms_by_kernel=bwd_split, exact_probe_max_abs_err=probe_err,
                                **common)}
         log(f"sparse layout {name}: {pairs} live pairs, {timed[name]['active_blocks_per_row']:.2f} "
             f"active blocks per query block of {l // block}")
@@ -705,6 +844,17 @@ def k6_cases(gen, seed: int) -> dict:
             for ln in (timed[name]["sparse_fwd"], timed[name]["sparse_bwd"]):
                 log_time(ln)
         del o, lse
+    for lib_name in SPARSE_KERNELS:
+        stats = sass_stats(lib_name)
+        RESULTS.setdefault("sass", {})[lib_name] = stats
+        log(f"{lib_name} registers / local bytes / HMMA / atomics by kernel: " + "; ".join(
+            f"{fn} {st.get('registers')} / {st.get('local_bytes')} / {st['hmma']} / {st['atomics']}"
+            for fn, st in sorted(stats.items())))
+        mma = {fn: st for fn, st in stats.items() if "mma_kernel" in fn}
+        if len(mma) < 4 or not all(st["hmma"] > 0 for st in mma.values()):
+            raise AssertionError(f"{lib_name}: a bf16 kernel without HMMA instructions: {mma}")
+        if any(st["atomics"] for st in stats.values()):
+            raise AssertionError(f"{lib_name}: atomic instructions in the SASS: {stats}")
     RESULTS["timings"]["sparse_attention"] = timed
     return {k: timed["fixed"][k] for k in SPARSE_KERNELS}
 
@@ -1190,10 +1340,19 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
     """One training step of a 2-layer MoE model at 350m width (layer 1 MoE,
     8 experts, top-1, no RTS: routing depends on the data alone) on the card
     and on the CPU (plain versions). fp32: every token's expert, slot and
-    keep identical, the loss and each gradient within 1e-4. bf16: the
-    largest relative error within 1.5x the same run's rounding (plain bf16
-    against plain fp32), with the routing flips of both counted."""
+    keep identical, the loss and each gradient within 1e-4. bf16: the card's
+    step runs under the plain bf16 step's routing, injected at the gate's
+    output (``deepspeed_tpu_torch.testing.injected_routing``), and its
+    largest relative error against the plain bf16 step is held within 1.5x
+    the rounding the same run measures under that same routing (plain bf16
+    against plain fp32 with the routing injected). A token that a bf16 ulp
+    routes apart moves a lightly loaded expert's gradient by its whole
+    share, beyond what any rounding yardstick covers; with the routing held
+    fixed, the check reads the kernels' arithmetic. The free-routing
+    comparison's share of the limit and the routing flips of both sides are
+    printed and kept, not gated."""
     from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    from deepspeed_tpu_torch.testing import injected_routing
 
     kw = dict(n_layer=2, vocab_size=50304, n_positions=512, remat=True, attention_backend="flash",
               fused_head_loss_chunk=1024, moe_num_experts=8, moe_layer_freq=2, moe_k=1,
@@ -1204,54 +1363,76 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
     del base
     ids = np.random.default_rng(seed + 3).integers(0, 50304, (2, 512)).astype(np.int32)
 
-    def one_step(device: str, dtype):
+    def one_step(device: str, dtype, routing=None):
         model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
         model.load_state_dict(state, strict=True)
         engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
                                      device=device)
-        loss = engine.train_batch({"input_ids": ids})
+        with injected_routing(routing):
+            loss = engine.train_batch({"input_ids": ids})
         out = {"loss": loss.detach().float().cpu().reshape(1)}
         out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
-        routing = model.h_1.moe.deepspeed_moe.last_routing
-        return out, {f: getattr(routing, f).cpu() for f in ("expert", "slot", "keep")}
+        used = model.h_1.moe.deepspeed_moe.last_routing  # [1, S, 1]: one token group
+        return out, type(used)(*(t[0].cpu() for t in used))
 
     runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
             for dev in ("cuda", "cpu")}
-    for f, ref in runs[("cpu", "float32")][1].items():
-        if not torch.equal(runs[("cuda", "float32")][1][f], ref):
-            n = int((runs[("cuda", "float32")][1][f] != ref).sum())
-            raise AssertionError(f"moe gradcheck fp32: routing field {f} differs in {n} token copies")
+    for f in ("expert", "slot", "keep"):
+        got, ref = getattr(runs[("cuda", "float32")][1], f), getattr(runs[("cpu", "float32")][1], f)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"moe gradcheck fp32: routing field {f} differs in "
+                                 f"{int((got != ref).sum())} token copies")
     RESULTS["checks"].append({"name": "moe gradcheck fp32 routing identical", "ok": True})
     for name, ref in runs[("cpu", "float32")][0].items():
         compare(f"moe gradcheck fp32 {name} (card vs plain)", runs[("cuda", "float32")][0][name], ref,
                 torch.float32)
 
     def flips(a, b):
-        return int((runs[a][1]["expert"] != runs[b][1]["expert"]).sum())
+        return int((a[1].expert != b[1].expert).sum())
 
-    served = {n: rel_err(g, runs[("cpu", "bfloat16")][0][n])[1]
-              for n, g in runs[("cuda", "bfloat16")][0].items()}
-    rounding = {n: rel_err(g, runs[("cpu", "float32")][0][n])[1]
-                for n, g in runs[("cpu", "bfloat16")][0].items()}
-    worst = max(served, key=served.get)
-    out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
-           "bf16_rounding_max_rel": max(rounding.values()),
-           "bf16_routing_flips_card_vs_plain": flips(("cuda", "bfloat16"), ("cpu", "bfloat16")),
-           "bf16_routing_flips_plain_bf16_vs_fp32": flips(("cpu", "bfloat16"), ("cpu", "float32")),
+    def worst_share(card_run, plain_bf16, plain_fp32):
+        served = {n: rel_err(g, plain_bf16[0][n])[1] for n, g in card_run[0].items()}
+        rounding = max(rel_err(g, plain_fp32[0][n])[1] for n, g in plain_bf16[0].items())
+        worst = max(served, key=served.get)
+        return worst, served[worst], rounding
+
+    # the gate: the card's bf16 step and the plain fp32 yardstick under the
+    # plain bf16 step's routing
+    fixed = runs[("cpu", "bfloat16")][1]
+    injected = {("cuda", "bfloat16"): one_step("cuda", torch.bfloat16, fixed),
+                ("cpu", "float32"): one_step("cpu", torch.float32, fixed)}
+    if any(flips(r, runs[("cpu", "bfloat16")]) for r in injected.values()):
+        raise AssertionError("moe gradcheck bf16: the injected routing was not followed")
+    worst, served, rounding = worst_share(injected[("cuda", "bfloat16")], runs[("cpu", "bfloat16")],
+                                          injected[("cpu", "float32")])
+    free_worst, free_served, free_rounding = worst_share(
+        runs[("cuda", "bfloat16")], runs[("cpu", "bfloat16")], runs[("cpu", "float32")])
+    out = {"bf16_served_vs_plain_max_rel": served, "bf16_served_worst_tensor": worst,
+           "bf16_rounding_max_rel": rounding, "bf16_share_of_limit": served / (1.5 * rounding),
+           "free_routing": {
+               "bf16_served_vs_plain_max_rel": free_served, "bf16_served_worst_tensor": free_worst,
+               "bf16_rounding_max_rel": free_rounding,
+               "bf16_share_of_limit": free_served / (1.5 * free_rounding),
+               "bf16_routing_flips_card_vs_plain": flips(runs[("cuda", "bfloat16")],
+                                                         runs[("cpu", "bfloat16")]),
+               "bf16_routing_flips_plain_bf16_vs_fp32": flips(runs[("cpu", "bfloat16")],
+                                                              runs[("cpu", "float32")])},
            "tokens": int(ids.size),
-           "loss": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in runs.items()}}
-    out["bf16_share_of_limit"] = served[worst] / (1.5 * out["bf16_rounding_max_rel"])
-    log(f"moe gradcheck fp32: routing identical over {ids.size} tokens; bf16: card vs plain max rel "
-        f"{served[worst]:.3e} ({worst}), {out['bf16_share_of_limit']:.3f} of the 1.5x-rounding "
-        f"limit; plain bf16 vs plain fp32 max rel "
-        f"{out['bf16_rounding_max_rel']:.3e}; routing flips card vs plain (bf16) "
-        f"{out['bf16_routing_flips_card_vs_plain']}, plain bf16 vs fp32 "
-        f"{out['bf16_routing_flips_plain_bf16_vs_fp32']}; losses {out['loss']}  [{card}]")
-    if not served[worst] <= 1.5 * out["bf16_rounding_max_rel"]:
-        raise AssertionError(f"moe gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding "
-                             f"{out['bf16_rounding_max_rel']:.3e}")
-    RESULTS["checks"].append({"name": "moe gradcheck bf16 (1.5x rounding)", "rel_err": served[worst],
-                              "tol": 1.5 * out["bf16_rounding_max_rel"], "ok": True})
+           "loss": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in runs.items()},
+           "loss_injected": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in injected.items()}}
+    fr = out["free_routing"]
+    log(f"moe gradcheck fp32: routing identical over {ids.size} tokens; bf16 under the plain bf16 "
+        f"routing: card vs plain max rel {served:.3e} ({worst}), {out['bf16_share_of_limit']:.3f} of "
+        f"the 1.5x-rounding limit (plain bf16 vs plain fp32 max rel {rounding:.3e}); free routing "
+        f"(not gated): {free_served:.3e} ({free_worst}), {fr['bf16_share_of_limit']:.3f} of its limit "
+        f"({free_rounding:.3e}), routing flips card vs plain (bf16) "
+        f"{fr['bf16_routing_flips_card_vs_plain']}, plain bf16 vs fp32 "
+        f"{fr['bf16_routing_flips_plain_bf16_vs_fp32']}; losses {out['loss']}  [{card}]")
+    if not served <= 1.5 * rounding:
+        raise AssertionError(f"moe gradcheck bf16 (injected routing): {served:.3e} > 1.5 x rounding "
+                             f"{rounding:.3e}")
+    RESULTS["checks"].append({"name": "moe gradcheck bf16 under one routing (1.5x rounding)",
+                              "rel_err": served, "tol": 1.5 * rounding, "ok": True})
     return out
 
 
@@ -1275,6 +1456,57 @@ def _compare_path(name, got, ref, dtype) -> float:
     return max(compare(f"{name} {x}", g, r, dtype) for x, g, r in zip(("o", "dq", "dk", "dv"), got, ref))
 
 
+def _host_ms(fn, n: int = 50) -> float:
+    """Host time per call of ``fn``: the loop is timed before the device is
+    waited for (each call launches at most four kernels, so the launch
+    queue never fills and blocks the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def _profile_sparse(run, step, name: str, lists, orders, card: str, iters: int = 5) -> dict:
+    """Where one iteration of the sparse path spends its time, after the
+    counted run: its kernels' device time and the device's idle share
+    against the unprofiled wall time (``torch.profiler``), and the host
+    time of its parts, unprofiled: the module's forward (no graph
+    recorded), K6's backward wrapper alone, and the whole iteration, whose
+    rest is autograd's own (the Function's graph and ``backward()``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
+    attn, causal, cot = run["attn"], run["causal"], run["cot"]
+    q, k, v = (x.detach() for x in run["inputs"])
+    kw = dict(scale=q.shape[-1]**-0.5, causal=causal, block=attn.sparsity_config.block)
+    o, lse = sa.sparse_fwd(q, k, v, *lists[:2], order=orders[0], **kw)
+
+    def forward():
+        with torch.no_grad():
+            attn(q, k, v)
+
+    host = {"iteration": _host_ms(step), "module_forward_no_grad": _host_ms(forward),
+            "backward_wrapper": _host_ms(lambda: sa.sparse_bwd(
+                q, k, v, o, lse, cot, *lists, q_order=orders[0], k_order=orders[1], **kw))}
+    host["autograd_rest"] = host["iteration"] - host["module_forward_no_grad"] - host["backward_wrapper"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / iters
+    result = {"device_busy_ms_per_iteration": busy,
+              "device_idle_share": 1.0 - busy / run["ms"], "host_ms_per_call": host}
+    log(f"sparse {name} profile: device busy {busy:.4f} ms per iteration of {run['ms']:.4f}, idle "
+        f"share {result['device_idle_share']:.3f}; host ms per call (unprofiled): iteration "
+        f"{host['iteration']:.4f} = module forward without a graph "
+        f"{host['module_forward_no_grad']:.4f} + K6 backward wrapper {host['backward_wrapper']:.4f} "
+        f"+ autograd's rest {host['autograd_rest']:.4f}  [{card}]")
+    return result
+
+
 def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
@@ -1290,7 +1522,8 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
     runs = {}
     for name, (cfg, shape, causal) in sparse_configs(seed).items():
         attn = SparseSelfAttention(cfg)
-        attn.get_index_lists(shape[1], "cuda")  # layout and index lists: set-up, once
+        attn.get_index_lists(shape[1], "cuda")  # layout, index lists and launch orders: set-up, once
+        attn.get_launch_orders(shape[1], "cuda")
         runs[name] = dict(attn=attn, shape=shape, causal=causal,
                           inputs=_leaves(*(randn(*shape) for _ in range(3))), cot=randn(*shape))
     torch.cuda.synchronize()
@@ -1367,6 +1600,8 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
             f"SparseSelfAttention forward + backward {run['ms']:.3f} ms per iteration over {iters} "
             f"(after {warmup}); launches {run['launches']['sparse_fwd']} forward, "
             f"{run['launches']['sparse_bwd']} backward  [{card}]")
+        out[name]["profile"] = _profile_sparse(run, lambda: iteration(run), name, lists,
+                                               attn.get_launch_orders(l, "cuda"), card)
     del runs
 
     # a dense layout against K1 and K4 on the same inputs, and K1 + K4 at shape (a)

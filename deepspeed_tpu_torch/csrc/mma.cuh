@@ -1,6 +1,7 @@
-// Tensor-core building blocks for the bf16 attention kernels (K1, K4):
-// cp.async tile loads into swizzled shared memory, ldmatrix fragment loads
-// and the mma.sync m16n8k16 bf16 product with fp32 accumulation.
+// Tensor-core building blocks for the bf16 attention kernels (K1, K4, K6):
+// cp.async tile loads into swizzled shared memory (rows in order, or
+// gathered from a block list), ldmatrix fragment loads and the mma.sync
+// m16n8k16 bf16 product with fp32 accumulation.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane l with g = l / 4 and t = l % 4:
@@ -65,18 +66,47 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows row0 .. row0 + ROWS - 1 of a [L, 64] bf16 slice with row stride `ld`
-// elements into a swizzled shared tile, by THREADS threads; rows >= L are
-// zero-filled and never read. Needs a 16-byte aligned `src` and `ld` a
-// multiple of 8 (the Python wrappers check both).
+// elements into a swizzled shared tile, by the THREADS threads numbered
+// `tid` = 0 .. THREADS - 1 (the thread block, one warp, or the warps that
+// share a block list in K6); rows >= L are zero-filled and never read.
+// Needs a 16-byte aligned `src` and `ld` a multiple of 8 (the Python
+// wrappers check both).
 template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict__ src, int row0,
-                                          int L, long long ld) {
+__device__ __forceinline__ void load_tile_by(uint32_t tile, const bf16* __restrict__ src, int row0,
+                                             int L, long long ld, int tid) {
 #pragma unroll
-  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
+  for (int i = tid; i < ROWS * 8; i += THREADS) {
     const int r = i >> 3, chunk = i & 7;
     const int row = row0 + r;
     const bool ok = row < L;
     cp_async16(tile + swizzle(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
+  }
+}
+
+// load_tile_by the whole thread block of THREADS threads
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict__ src, int row0,
+                                          int L, long long ld) {
+  load_tile_by<ROWS, THREADS>(tile, src, row0, L, ld, threadIdx.x);
+}
+
+// A gathered tile (K6): tile row r holds slot s0 + r of the concatenation
+// of the blocks of a compacted block list, block list[j] of BLK rows at
+// slots j BLK .. j BLK + BLK - 1. Slots past the n_live listed blocks are
+// padding: zero-filled, nothing read. Loaded by THREADS threads numbered
+// `tid`; the same alignment rule as load_tile.
+template <int ROWS, int BLK, int THREADS>
+__device__ __forceinline__ void load_tile_gathered(uint32_t tile, const bf16* __restrict__ src,
+                                                   const int* list, int n_live, int s0,
+                                                   long long ld, int tid) {
+#pragma unroll
+  for (int i = tid; i < ROWS * 8; i += THREADS) {
+    const int r = i >> 3, chunk = i & 7;
+    const int s = s0 + r;
+    const int blk = s / BLK;
+    const bool ok = blk < n_live;
+    const long long row = ok ? static_cast<long long>(list[blk]) * BLK + s % BLK : 0;
+    cp_async16(tile + swizzle(r, chunk), src + row * ld + chunk * 8, ok);
   }
 }
 

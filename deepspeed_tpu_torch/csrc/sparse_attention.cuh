@@ -1,26 +1,41 @@
 // Shared pieces of K6, the block-sparse flash attention kernels
 // (csrc/sparse_fwd.cu and csrc/sparse_bwd.cu).
 //
-// A thread block owns one layout block of BLK rows (a query block in the
-// forward and dq passes, a key block in the dk/dv pass) of one (batch,
-// head) and walks the other side's active blocks from the layout's index
-// lists. Those blocks are not contiguous in memory, so each pass stages them
-// into 64-row shared tiles taken from the concatenation of the live blocks
-// in list order: four blocks of 16, two of 32, one of 64, or half of a 128
-// block per tile. Slots past the last live block are padding: they are
-// never loaded (their rows read 0) and every pair with them is dead.
+// Both passes own one side's rows (query rows in the forward and dq passes,
+// key rows in the dk/dv pass) and walk the other side's active blocks from
+// the layout's index lists. Those blocks are not contiguous in memory, so
+// each pass stages them into shared tiles taken from the concatenation of
+// the live blocks in list order. Slots past the last live block are
+// padding: they are never loaded (their rows read 0) and every pair with
+// them is dead. The lists are compacted first with warp ballots (which
+// entries a pass keeps: `Keep`).
 //
-// Thread layout: (BLK / RI) x 16 threads. Thread (tr, tc) owns rows tr +
-// TR i (i < RI) of its block; in a [BLK, 64] score tile it owns the staged
-// slots tc + 16 j, in a [BLK, 64] output tile the head-dim columns 4 tc +
-// j (j < 4). The 16 threads of one row group are 16 consecutive lanes of a
-// warp, so row maxima and sums reduce with four shuffles and a row's
-// probabilities are written and read back by the same lanes (__syncwarp).
-// Shared rows are padded to 68 floats: 16-byte vector loads along a row,
-// and the 16 rows one load instruction touches fall in distinct banks.
+// bf16 (`MmaGeo`, the tensor-core bodies on csrc/mma.cuh): a thread block
+// of four warps owns 64 rows, one m16 tile per warp. The warps that own one
+// layout block share its list: at block 16 each warp walks its own block's
+// list, at 32 pairs of warps do, at 64 and 128 all four (a 128 block spans
+// two thread blocks). Each list group stages its live blocks KS rows at a
+// time with cp.async into swizzled tiles, double-buffered, and meets only
+// its own warps at a barrier, so groups that walk lists of other lengths
+// never wait for each other. Which rows a group owns comes from a unit
+// order (`unit_of_group`): longest list first, so the groups that share a
+// thread block walk lists of like length and the longest start first.
+//
+// fp32 (`Geo`, the FMA bodies): a thread block owns one layout block of BLK
+// rows of one (batch, head) and stages 64-row tiles: four blocks of 16, two
+// of 32, one of 64, or half of a 128 block per tile. Thread layout: (BLK /
+// RI) x 16 threads. Thread (tr, tc) owns rows tr + TR i (i < RI) of its
+// block; in a [BLK, 64] score tile it owns the staged slots tc + 16 j, in a
+// [BLK, 64] output tile the head-dim columns 4 tc + j (j < 4). The 16
+// threads of one row group are 16 consecutive lanes of a warp, so row
+// maxima and sums reduce with four shuffles and a row's probabilities are
+// written and read back by the same lanes (__syncwarp). Shared rows are
+// padded to 68 floats: 16-byte vector loads along a row, and the 16 rows
+// one load instruction touches fall in distinct banks.
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ds {
 namespace sparse {
@@ -44,24 +59,30 @@ struct Geo {
 enum Keep { kKeepAll = 0, kKeepAtMost = 1, kKeepAtLeast = 2 };
 
 // Copy the in-range entries idx[t] (t < cnt) that `keep` admits, in order,
-// into list; returns their number. Warp 0 compacts with ballots; every
-// thread must call it (it ends in a barrier).
+// into list, by one warp with ballots; every lane returns their number.
+__device__ __forceinline__ int compact_warp(const int* __restrict__ idx, int cnt, int n, int keep,
+                                            int pivot, int* list, int lane) {
+  int base = 0;
+  for (int t0 = 0; t0 < cnt; t0 += 32) {
+    const int t = t0 + lane;
+    const int j = t < cnt ? idx[t] : -1;
+    bool ok = j >= 0 && j < n;
+    if (keep == kKeepAtMost) ok = ok && j <= pivot;
+    if (keep == kKeepAtLeast) ok = ok && j >= pivot;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (ok) list[base + __popc(ballot & ((1u << lane) - 1u))] = j;
+    base += __popc(ballot);
+  }
+  return base;
+}
+
+// compact_warp by warp 0 for the whole thread block; every thread must
+// call it (it ends in a barrier) and gets the count.
 __device__ __forceinline__ int compact(const int* __restrict__ idx, int cnt, int n, int keep,
                                        int pivot, int* list, int* count) {
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int base = 0;
-    for (int t0 = 0; t0 < cnt; t0 += 32) {
-      const int t = t0 + lane;
-      const int j = t < cnt ? idx[t] : -1;
-      bool ok = j >= 0 && j < n;
-      if (keep == kKeepAtMost) ok = ok && j <= pivot;
-      if (keep == kKeepAtLeast) ok = ok && j >= pivot;
-      const unsigned ballot = __ballot_sync(0xffffffffu, ok);
-      if (ok) list[base + __popc(ballot & ((1u << lane) - 1u))] = j;
-      base += __popc(ballot);
-    }
-    if (lane == 0) *count = base;
+    const int base = compact_warp(idx, cnt, n, keep, pivot, list, threadIdx.x);
+    if (threadIdx.x == 0) *count = base;
   }
   __syncthreads();
   return *count;
@@ -75,6 +96,83 @@ __device__ __forceinline__ int slot_pos(const int* list, int n_live, int tt, int
   return blk < n_live ? list[blk] * BLK + v % BLK : -1;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core geometry
+// ---------------------------------------------------------------------------
+template <int BLK>
+struct MmaGeo {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kGroupWarps = BLK >= 64 ? kWarps : BLK / 16;  // warps per list
+  static constexpr int kGroups = kWarps / kGroupWarps;                 // lists per thread block
+  static constexpr int kGroupThreads = 32 * kGroupWarps;
+  static constexpr int kUnitRows = 16 * kGroupWarps;  // rows a list group owns
+  // rows staged per step: 32 at block 16 keeps four groups' double buffers
+  // at 64 KB (three thread blocks per SM), 64 otherwise
+  static constexpr int KS = BLK == 16 ? 32 : 64;
+};
+
+// The barrier of one list group: a warp, a named barrier of two warps, or
+// the whole thread block.
+template <int GROUP_WARPS>
+__device__ __forceinline__ void group_sync(int group) {
+  if constexpr (GROUP_WARPS == 1) {
+    __syncwarp();
+  } else if constexpr (GROUP_WARPS == 4) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(32 * GROUP_WARPS) : "memory");
+  }
+}
+
+// What this warp's list group owns: a unit of kUnitRows rows (a layout
+// block, or half of a 128 block) of one (batch, head). The grid is 1-D, B
+// thread blocks per kGroups consecutive slots of the unit order `order`
+// (h * n_units + unit each; the wrapper's longest-list-first schedule, so
+// one thread block's groups walk lists of like length), or of the natural
+// order when it is null. Sets row0 = L for a slot past the last unit (the
+// group then owns nothing).
+template <int BLK>
+__device__ __forceinline__ void unit_of_group(const int* __restrict__ order, int B, int H, int L,
+                                              int& b, int& h, int& row0) {
+  using G = MmaGeo<BLK>;
+  const int n_units = L / G::kUnitRows;
+  const int idx = blockIdx.x;
+  const int slot = (idx / B) * G::kGroups + (threadIdx.x >> 5) / G::kGroupWarps;
+  b = idx % B;
+  h = 0;
+  row0 = L;
+  if (slot < H * n_units) {
+    const int e = order ? order[slot] : slot;
+    h = e / n_units;
+    row0 = (e % n_units) * G::kUnitRows;
+  }
+}
+
+// The list of the group this warp belongs to (the one of layout block
+// `blk` of head h), compacted by the group's first warp into `list`; an
+// out-of-range block (the tail tile of a length that is not a multiple of
+// 64) gets none. Every thread must call it (it ends in a barrier).
+template <int BLK>
+__device__ __forceinline__ int compact_group(const int* __restrict__ idx,
+                                             const int* __restrict__ cnt, int h, int nb, int blk,
+                                             int max_len, int keep, int* list, int* count) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp % MmaGeo<BLK>::kGroupWarps == 0) {
+    int n = 0;
+    if (blk < nb) {
+      const long long row = static_cast<long long>(h) * nb + blk;
+      n = compact_warp(idx + row * max_len, min(cnt[row], max_len), nb, keep, blk, list, lane);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA bodies
+// ---------------------------------------------------------------------------
 // Staged tile tt of one (batch, head) slice of a [B, L, H, 64] tensor (`src`
 // at that slice, row stride sl) into dst [64][kLd], times mul; padding reads 0.
 template <typename T, int BLK, int NT>

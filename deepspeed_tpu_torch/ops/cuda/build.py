@@ -53,8 +53,8 @@ SIGNATURES = {
     "quant_matmul": ("ds_quant_matmul",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _P]),
     "moe_permute": ("ds_moe_permute", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "sparse_fwd": ("ds_sparse_fwd", [_P] * 7 + [_I] * 7 + [_F, _I] + [_LL] * 9 + [_P]),
-    "sparse_bwd": ("ds_sparse_bwd", [_P] * 14 + [_I] * 8 + [_F, _I] + [_LL] * 12 + [_P]),
+    "sparse_fwd": ("ds_sparse_fwd", [_P] * 8 + [_I] * 7 + [_F, _I] + [_LL] * 9 + [_P]),
+    "sparse_bwd": ("ds_sparse_bwd", [_P] * 16 + [_I] * 8 + [_F, _I] + [_LL] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

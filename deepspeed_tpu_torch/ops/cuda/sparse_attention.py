@@ -24,20 +24,49 @@ convention; the flash kernels use ``NEG_INF / 2``) and zero gradients.
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. The plain versions take any head dim and
 block; the kernels take head dim 64, blocks 16, 32, 64 and 128, fp32 or
-bf16.
+bf16. bf16 runs on the tensor cores, whose 16-byte loads need q, k, v and
+dO to start 16-byte aligned with strides that are multiples of 8 elements
+(``ValueError`` otherwise, no copy, as K1 and K4); fp32 runs FMA bodies.
+The bf16 bodies take the rows each warp group owns in the order an
+optional :func:`launch_order` gives (longest list first); without one, in
+natural order, with the same result.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
 from deepspeed_tpu_torch.ops.cuda.attention_geometry import KERNEL_HEAD_DIMS
+from deepspeed_tpu_torch.ops.cuda.flash_attention import _check_tensor_core_operands
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
 
 #: layout blocks the kernels are instantiated for
 KERNEL_BLOCKS = (16, 32, 64, 128)
+
+#: rows of one list group of the bf16 bodies (``csrc/sparse_attention.cuh``
+#: ``MmaGeo::kUnitRows``): a layout block, or half of a 128 block; four
+#: groups of 16 rows, two of 32 or one of 64 share a thread block
+UNIT_ROWS = 64
+
+
+def launch_order(cnt, block: int) -> np.ndarray:
+    """Longest-first unit order of the bf16 bodies, from one side's list
+    lengths ``cnt`` [H, L / block] or [H, L / block, 1] (``kcnt`` for the
+    forward and dq passes, ``qcnt`` for dk/dv): int32 ``h * n_units + unit`` of every
+    (head, unit) once, a unit being a layout block (half of one at block
+    128), by its list length, ties in natural order. The kernels give
+    consecutive entries to the list groups of one thread block, so those
+    walk lists of like length, and run all batches of one thread block's
+    entries before the next, so the few long lists (global rows and
+    columns) start in the first wave instead of trailing the last. Under
+    ``causal`` the kernels skip list entries above the diagonal, which the
+    counts still hold: the order is a schedule, not part of the result."""
+    cnt = np.asarray(cnt).reshape(np.shape(cnt)[0], -1)
+    work = np.repeat(cnt, max(block // UNIT_ROWS, 1), axis=1)
+    return np.argsort(-work.reshape(-1), kind="stable").astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +218,16 @@ def _check_operands(what, q, k, v, block):
     _check_block(what, q.shape[1], block)
 
 
+def _order_operand(what, order, h, l, block, device):
+    if order is None:
+        return None
+    n = h * (l // min(block, UNIT_ROWS))
+    if order.shape != (n,) or order.device != device or order.dtype != torch.int32:
+        raise ValueError(f"{what}: a launch order must be [{n}] int32 on {device}, got "
+                         f"{tuple(order.shape)} {order.dtype} on {order.device}")
+    return order.contiguous()
+
+
 def _list_operands(what, idx, cnt, h, n, device):
     if idx.dim() != 3 or idx.shape[:2] != (h, n) or cnt.shape != (h, n, 1):
         raise ValueError(f"{what}: index lists must be [{h}, {n}, max] and [{h}, {n}, 1], got "
@@ -199,31 +238,39 @@ def _list_operands(what, idx, cnt, h, n, device):
     return idx.contiguous(), cnt.contiguous()
 
 
-def sparse_fwd(q, k, v, kidx, kcnt, *, scale: float, causal: bool,
-               block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def sparse_fwd(q, k, v, kidx, kcnt, *, scale: float, causal: bool, block: int,
+               order: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 forward: ``(o [B, L, H, D], lse [B, H, L] fp32)`` of block-sparse
-    attention over the active key blocks ``kidx`` / ``kcnt``."""
+    attention over the active key blocks ``kidx`` / ``kcnt``; ``order`` is
+    :func:`launch_order` of ``kcnt`` on the device, or None."""
     if q.device.type == "cpu":
         return sparse_fwd_plain(q, k, v, kidx, kcnt, scale=scale, causal=causal, block=block)
     _check_operands("sparse_fwd", q, k, v, block)
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_operands("sparse_fwd", q=q, k=k, v=v)
     b, l, h, d = q.shape
     kidx, kcnt = _list_operands("sparse_fwd", kidx, kcnt, h, l // block, q.device)
+    order = _order_operand("sparse_fwd", order, h, l, block, q.device)
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = build.load("sparse_fwd")
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), kidx.data_ptr(),
-        kcnt.data_ptr(), build.dtype_code(q, "sparse_fwd"), b, h, l, d, block, kidx.shape[-1],
-        float(scale), int(bool(causal)), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        build.stream_ptr(q.device))
+        kcnt.data_ptr(), build.ptr(order), build.dtype_code(q, "sparse_fwd"), b, h, l, d, block,
+        kidx.shape[-1], float(scale), int(bool(causal)), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], build.stream_ptr(q.device))
     LAUNCHES["sparse_fwd"] += 1
     return o, lse
 
 
 def sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, *, scale: float, causal: bool,
-               block: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               block: int, q_order: Optional[torch.Tensor] = None,
+               k_order: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6 backward: ``(dq, dk, dv)`` of :func:`sparse_fwd`'s output given
     its ``o``, ``lse`` and the output cotangent ``do``: one delta pre-pass,
-    then dq over ``kidx`` and dk/dv over ``qidx``, one launch counted."""
+    then dq over ``kidx`` and dk/dv over ``qidx``, one launch counted.
+    ``q_order`` / ``k_order`` are :func:`launch_order` of ``kcnt`` / ``qcnt``
+    on the device, or None."""
     if q.device.type == "cpu":
         return sparse_bwd_plain(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, scale=scale,
                                 causal=causal, block=block)
@@ -232,6 +279,8 @@ def sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, *, scale: float, cau
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
         raise ValueError(f"sparse_bwd: do must match q [B, L, H, D] {q.dtype} with unit-stride "
                          f"head_dim, got {tuple(do.shape)} {do.dtype}")
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_operands("sparse_bwd", q=q, k=k, v=v, do=do)
     if o.shape != q.shape or o.dtype != q.dtype or not o.is_contiguous():
         raise ValueError("sparse_bwd: o must be the forward's contiguous [B, L, H, D] output")
     if lse.shape != (b, h, l) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -239,17 +288,19 @@ def sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, *, scale: float, cau
     n = l // block
     kidx, kcnt = _list_operands("sparse_bwd", kidx, kcnt, h, n, q.device)
     qidx, qcnt = _list_operands("sparse_bwd", qidx, qcnt, h, n, q.device)
+    q_order = _order_operand("sparse_bwd", q_order, h, l, block, q.device)
+    k_order = _order_operand("sparse_bwd", k_order, h, l, block, q.device)
     dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = build.load("sparse_bwd")
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        kidx.data_ptr(), kcnt.data_ptr(), qidx.data_ptr(), qcnt.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.dtype_code(q, "sparse_bwd"), b, h, l, d,
-        block, kidx.shape[-1], qidx.shape[-1], float(scale), int(bool(causal)),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        build.stream_ptr(q.device))
+        kidx.data_ptr(), kcnt.data_ptr(), qidx.data_ptr(), qcnt.data_ptr(), build.ptr(q_order),
+        build.ptr(k_order), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        build.dtype_code(q, "sparse_bwd"), b, h, l, d, block, kidx.shape[-1], qidx.shape[-1],
+        float(scale), int(bool(causal)), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], build.stream_ptr(q.device))
     LAUNCHES["sparse_bwd"] += 1
     return dq, dk, dv
 
@@ -258,21 +309,23 @@ class SparseAttention(torch.autograd.Function):
     """K6 forward, K6 backward: the port of the custom VJP
     ``_sparse_attention_bhld`` with ``_sparse_fwd_rule`` /
     ``_sparse_bwd_rule`` (JAX ``sparse_self_attention.py:217-232``), over
-    BLHD tensors. It saves ``o`` and ``lse`` for the backward."""
+    BLHD tensors, with the launch orders of the query and key side (or
+    None). It saves ``o`` and ``lse`` for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kidx, kcnt, qidx, qcnt, scale, causal, block):
-        o, lse = sparse_fwd(q, k, v, kidx, kcnt, scale=scale, causal=causal, block=block)
-        ctx.save_for_backward(q, k, v, o, lse, kidx, kcnt, qidx, qcnt)
+    def forward(ctx, q, k, v, kidx, kcnt, qidx, qcnt, q_order, k_order, scale, causal, block):
+        o, lse = sparse_fwd(q, k, v, kidx, kcnt, scale=scale, causal=causal, block=block,
+                            order=q_order)
+        ctx.save_for_backward(q, k, v, o, lse, kidx, kcnt, qidx, qcnt, q_order, k_order)
         ctx.args = (scale, causal, block)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kidx, kcnt, qidx, qcnt = ctx.saved_tensors
+        q, k, v, o, lse, kidx, kcnt, qidx, qcnt, q_order, k_order = ctx.saved_tensors
         scale, causal, block = ctx.args
         if do.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
             do = do.contiguous()
         dq, dk, dv = sparse_bwd(q, k, v, o, lse, do, kidx, kcnt, qidx, qcnt, scale=scale,
-                                causal=causal, block=block)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                                causal=causal, block=block, q_order=q_order, k_order=k_order)
+        return (dq, dk, dv) + (None,) * 9

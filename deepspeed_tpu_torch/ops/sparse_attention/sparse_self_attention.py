@@ -8,9 +8,10 @@ K6 (``ops/cuda/sparse_attention.py``: ``csrc/sparse_fwd.cu`` and
 so masked-out K blocks are skipped, not computed and masked.
 
 :class:`SparseSelfAttention` caches the layout per sequence length, as the
-JAX wrapper does, and also the index lists on the device per ``(seq_len,
-device)``: the JAX wrapper rebuilds them on every call, where a copy from
-the host on every forward would be a sync here.
+JAX wrapper does, and also the index lists and the kernels' launch orders
+(longest list first, :func:`launch_orders_on`) on the device per
+``(seq_len, device)``: the JAX wrapper rebuilds the lists on every call,
+where a copy from the host on every forward would be a sync here.
 """
 
 from typing import Dict, Optional, Tuple
@@ -18,10 +19,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.cuda.sparse_attention import SparseAttention
+from deepspeed_tpu_torch.ops.cuda.sparse_attention import SparseAttention, launch_order
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import SparsityConfig
 
 IndexLists = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+LaunchOrders = Tuple[torch.Tensor, torch.Tensor]
 
 
 def layout_index_lists(layout: np.ndarray):
@@ -53,11 +55,27 @@ def index_lists_on(layout: np.ndarray, device) -> IndexLists:
     return tuple(torch.as_tensor(x).to(device) for x in layout_index_lists(layout))
 
 
-def _attend(q, k, v, lists: IndexLists, block: int, causal: bool,
+def launch_orders_on(layout: np.ndarray, block: int, device) -> LaunchOrders:
+    """The kernels' longest-first launch orders of the query side (forward
+    and dq: by each query block's count) and of the key side (dk/dv: by
+    each key block's count), int32 on ``device``."""
+    layout = np.asarray(layout, dtype=bool)
+    return tuple(torch.as_tensor(launch_order(cnt, block)).to(device)
+                 for cnt in (layout.sum(axis=2), layout.sum(axis=1)))
+
+
+def _attend(q, k, v, lists: IndexLists, orders: LaunchOrders, block: int, causal: bool,
             scale: Optional[float]) -> torch.Tensor:
     if scale is None:
         scale = q.shape[-1]**-0.5
-    return SparseAttention.apply(q, k, v, *lists, float(scale), bool(causal), int(block))
+    return SparseAttention.apply(q, k, v, *lists, *orders, float(scale), bool(causal), int(block))
+
+
+def _cache_key(seq_len: int, device) -> Tuple[int, torch.device]:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # "cuda" is the current card
+        device = torch.device("cuda", torch.cuda.current_device())
+    return seq_len, device
 
 
 def _check_layout(q, layout: np.ndarray, block: int) -> None:
@@ -76,15 +94,16 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     length must be a multiple of it. Differentiable through K6's backward."""
     layout = np.asarray(layout)
     _check_layout(q, layout, block)
-    return _attend(q, k, v, index_lists_on(layout, q.device), block, causal, scale)
+    return _attend(q, k, v, index_lists_on(layout, q.device),
+                   launch_orders_on(layout, block, q.device), block, causal, scale)
 
 
 class SparseSelfAttention:
     """Reference-surface wrapper (``sparse_self_attention.py``
     ``SparseSelfAttention(sparsity_config, ...)``): holds a config, caches
-    the layout per sequence length and its index lists per sequence length
-    and device, applies K6. ``key_padding_mask_mode`` and ``attn_mask_mode``
-    are stored and unused, as in the JAX package."""
+    the layout per sequence length and its index lists and launch orders
+    per sequence length and device, applies K6. ``key_padding_mask_mode``
+    and ``attn_mask_mode`` are stored and unused, as in the JAX package."""
 
     def __init__(self, sparsity_config: SparsityConfig, key_padding_mask_mode="add",
                  attn_mask_mode="mul"):
@@ -93,6 +112,7 @@ class SparseSelfAttention:
         self.attn_mask_mode = attn_mask_mode
         self._layouts = {}
         self._index_lists: Dict[Tuple[int, torch.device], IndexLists] = {}
+        self._launch_orders: Dict[Tuple[int, torch.device], LaunchOrders] = {}
 
     def get_layout(self, seq_len: int) -> np.ndarray:
         if seq_len not in self._layouts:
@@ -100,13 +120,17 @@ class SparseSelfAttention:
         return self._layouts[seq_len]
 
     def get_index_lists(self, seq_len: int, device) -> IndexLists:
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:  # "cuda" is the current card
-            device = torch.device("cuda", torch.cuda.current_device())
-        key = (seq_len, device)
+        key = _cache_key(seq_len, device)
         if key not in self._index_lists:
-            self._index_lists[key] = index_lists_on(self.get_layout(seq_len), device)
+            self._index_lists[key] = index_lists_on(self.get_layout(seq_len), key[1])
         return self._index_lists[key]
+
+    def get_launch_orders(self, seq_len: int, device) -> LaunchOrders:
+        key = _cache_key(seq_len, device)
+        if key not in self._launch_orders:
+            self._launch_orders[key] = launch_orders_on(self.get_layout(seq_len),
+                                                        self.sparsity_config.block, key[1])
+        return self._launch_orders[key]
 
     def __call__(self, query, key, value, *, causal: Optional[bool] = None,
                  scale: Optional[float] = None):
@@ -116,5 +140,5 @@ class SparseSelfAttention:
                 == "unidirectional"
         block = self.sparsity_config.block
         _check_layout(query, self.get_layout(seq_len), block)
-        return _attend(query, key, value, self.get_index_lists(seq_len, query.device), block,
-                       causal, scale)
+        return _attend(query, key, value, self.get_index_lists(seq_len, query.device),
+                       self.get_launch_orders(seq_len, query.device), block, causal, scale)

@@ -1,14 +1,19 @@
-"""Inputs with exactly known answers, for holding the flash-attention
-kernels (K1, K4) to their result exactly rather than at a rounding
-tolerance. Used by the card tests and ``chip_smoke.py``; nothing in the
-port's paths calls it.
+"""Inputs with exactly known answers, for holding the attention kernels
+(K1 and K4: :func:`exact_probe`; K6: :func:`sparse_exact_probe`) to their
+result exactly rather than at a rounding tolerance, and
+:func:`injected_routing`, which holds the MoE gate to given decisions so
+that two runs can be compared under one routing. Used by the tests and
+``chip_smoke.py``; nothing in the port's paths calls it.
 """
 
-from typing import Optional
+import contextlib
+from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from deepspeed_tpu_torch.moe import sharded_moe
 from deepspeed_tpu_torch.ops.cuda.flash_attention import live_pairs
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
 
@@ -50,7 +55,6 @@ def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
     lens = None if kv_lengths is None else torch.tensor(kv_lengths, dtype=torch.int32)
     valid = live_pairs(lq, lk, causal, lens, window, "cpu").expand(b, 1, lq, lk)[:, 0].numpy()
     rng = np.random.default_rng(seed)
-    keys = np.arange(lk)
     pick = np.full((b, lq, h), -1)
     decoy = np.full((b, lq, h), -1)
     for bi in range(b):
@@ -68,19 +72,25 @@ def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
                         pick[bi, r, hi], decoy[bi, r, hi] = near[rng.integers(len(near))], d
                         continue
                 pick[bi, r, hi] = live[rng.integers(len(live))]
+    return _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, NEG_INF / 2)
 
+
+def _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, dead_lse) -> dict:
+    """The probe's tensors for chosen ``pick`` / ``decoy`` keys [b, lq, h]:
+    q, k, v, do and the exact o, lse, dq, dk, dv (see :func:`exact_probe`)."""
+    b, _, h = pick.shape
     # a decoy row weighs c once and d twice, a plain row c twice; a dead row d once
     has_d = decoy >= 0
     q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick)
          + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy)).astype(np.float32)
-    k = _code(np.broadcast_to(keys[None, :, None], (b, lk, h)))
+    k = _code(np.broadcast_to(np.arange(lk)[None, :, None], (b, lk, h)))
     v = rng.integers(-4, 5, (b, lk, h, 64)).astype(np.float32)
-    do = rng.integers(-4, 5, (b, lq, h, 64)).astype(np.float32)
+    do = rng.integers(-4, 5, pick.shape + (64,)).astype(np.float32)
     o, dv = np.zeros_like(do), np.zeros_like(v)
     bi, ri, hi = np.nonzero(pick >= 0)
     o[bi, ri, hi] = v[bi, pick[bi, ri, hi], hi]
     np.add.at(dv, (bi, pick[bi, ri, hi], hi), do[bi, ri, hi])
-    lse = np.where(pick >= 0, 512.0, NEG_INF / 2).astype(np.float32).transpose(0, 2, 1)
+    lse = np.where(pick >= 0, 512.0, dead_lse).astype(np.float32).transpose(0, 2, 1)
 
     def put(x, dt=dtype):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dt)
@@ -89,3 +99,124 @@ def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
                 kv_lengths=None if lens is None else lens.to(device), o=put(o),
                 lse=put(lse, torch.float32), dq=put(np.zeros_like(q)), dk=put(np.zeros_like(k)),
                 dv=put(dv), pick=pick, decoy=decoy)
+
+
+def _probe_layout(h: int, n: int, *, causal: bool, seed: int = 0) -> np.ndarray:
+    """A per-head random [h, n, n] 0/1 layout in which every query block has
+    a live block: under ``causal`` the diagonal is always in it (no query
+    block is left above the diagonal only); otherwise each row has at least
+    one block and, for n >= 3, key block n - 2 is read by no query block."""
+    rng = np.random.default_rng(seed)
+    layout = rng.random((h, n, n)) < 0.35
+    if causal:
+        layout[:, np.arange(n), np.arange(n)] = True
+    else:
+        if n >= 3:
+            layout[:, :, n - 2] = False
+        for hi, r in zip(*np.nonzero(~layout.any(axis=2))):
+            layout[hi, r, rng.choice([j for j in range(n) if n < 3 or j != n - 2])] = True
+    return layout.astype(np.int64)
+
+
+def sparse_exact_probe(b: int, l: int, h: int, block: int, *, causal: bool, seed: int = 0,
+                       layout: Optional[np.ndarray] = None, dtype=torch.bfloat16,
+                       device="cpu") -> dict:
+    """Block-sparse attention inputs whose outputs and gradients are exact
+    in bf16: :func:`exact_probe`'s one-hot rows over a layout (``layout``
+    [h, l / block, l / block], by default :func:`_probe_layout`) in which
+    every query block has live blocks, so every row has a live key. Each
+    (batch, row, head) picks a live key; in about half the rows a dead
+    decoy would win the softmax if let in: a key in a block the row's
+    layout leaves out, or under ``causal`` the key just past the row inside
+    its diagonal block. o is v's picked row, lse 512, dv sums the rows of do
+    that picked each key, dq = dk = 0; a live key masked out, a dead block
+    loaded, a wrong list entry or a wrong fragment-to-(row, key) mapping
+    each show as an error of a whole v row.
+
+    Returns :func:`exact_probe`'s keys (``kv_lengths`` None) and the
+    ``layout``; ``decoy_kind`` [b, l, h] is 1 for a decoy in a dead block,
+    2 for one past the diagonal, 0 for none."""
+    if l > 1024 or l % block:
+        raise ValueError(f"sparse_exact_probe codes at most 1024 keys in whole blocks, got "
+                         f"{l} keys in blocks of {block}")
+    n = l // block
+    layout = _probe_layout(h, n, causal=causal, seed=seed) if layout is None else layout
+    layout = np.asarray(layout, bool)
+    if layout.shape != (h, n, n):
+        raise ValueError(f"layout {layout.shape} != ({h}, {n}, {n})")
+    valid = layout.repeat(block, 1).repeat(block, 2)  # [h, l, l]
+    if causal:
+        valid &= np.tri(l, dtype=bool)
+    rng = np.random.default_rng(seed)
+    pick = np.full((b, l, h), -1)
+    decoy = np.full((b, l, h), -1)
+    kind = np.zeros((b, l, h), np.int64)
+    for hi in range(h):
+        for r in range(l):
+            live = np.nonzero(valid[hi, r])[0]
+            if not len(live):
+                raise ValueError(f"query row {r} of head {hi} has no live key in the layout")
+            dead_blocks = np.nonzero(~layout[hi, r // block])[0]
+            past = r + 1 if causal and (r + 1) % block else -1
+            for bi in range(b):
+                choice = []
+                if len(dead_blocks):
+                    choice.append((1, dead_blocks[rng.integers(len(dead_blocks))] * block
+                                   + rng.integers(block)))
+                if past >= 0:
+                    choice.append((2, past))
+                if choice and rng.random() < 0.5:
+                    kd, d = choice[rng.integers(len(choice))]
+                    near = live[(live % 32 == d % 32) | (live // 32 == d // 32)]
+                    if len(near):
+                        pick[bi, r, hi], decoy[bi, r, hi] = near[rng.integers(len(near))], d
+                        kind[bi, r, hi] = kd
+                        continue
+                pick[bi, r, hi] = live[rng.integers(len(live))]
+    out = _one_hot_inputs(pick, decoy, l, rng, None, dtype, device, NEG_INF)
+    out.update(layout=layout.astype(np.int64), decoy_kind=kind)
+    return out
+
+
+@contextlib.contextmanager
+def injected_routing(routing: Optional[sharded_moe.SortedRouting] = None,
+                     record: Optional[List[sharded_moe.SortedRouting]] = None):
+    """Inside the block, every top-1 gate call of the sorted route
+    (``sharded_moe.top1routing``) appends its own decisions to ``record``
+    (when given) and, when ``routing`` is given, returns that routing's
+    expert, slot and keep instead, with what follows from them on this
+    call's logits: the combine weight is the gate probability of the
+    injected expert (0 where dropped), and the load-balancing loss and the
+    expert counts are those of the injected choices. So a bf16 step and its
+    plain version can be compared under one routing: a token that the two
+    would route apart on a bf16 ulp no longer moves an expert's gradient by
+    its whole share. Injecting a call's own decisions returns them
+    unchanged. Groups of one, as the port's single-device route has."""
+    free = sharded_moe.top1routing
+
+    def gate(logits, capacity_factor, min_capacity, used_token=None, noisy_gate_policy=None,
+             drop_tokens=True, use_rts=True, gumbel=None, rts=None):
+        out = free(logits, capacity_factor, min_capacity, used_token, noisy_gate_policy,
+                   drop_tokens, use_rts, gumbel, rts)
+        if record is not None:
+            record.append(sharded_moe.SortedRouting(*(t.detach().cpu() for t in out[1])))
+        if routing is None:
+            return out
+        dev = logits.device
+        expert, slot, keep = (t.reshape(-1, 1).to(dev) for t in
+                              (routing.expert, routing.slot, routing.keep))
+        num_experts = logits.shape[1]
+        gates = torch.softmax(logits.float(), dim=1)
+        mask1 = F.one_hot(expert[:, 0].long(), num_experts)
+        if used_token is not None:
+            mask1 = mask1 * used_token[:, None].to(mask1.dtype)
+        l_aux = (gates.mean(dim=0) * mask1.float().mean(dim=0)).sum() * num_experts
+        weight = gates.gather(1, expert.long()) * keep.float()
+        return (l_aux, sharded_moe.SortedRouting(expert.int(), slot.int(), weight, keep.int()),
+                mask1.sum(dim=0).int())
+
+    sharded_moe.top1routing = gate
+    try:
+        yield
+    finally:
+        sharded_moe.top1routing = free

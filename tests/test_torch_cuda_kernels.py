@@ -5,9 +5,9 @@ These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
 slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
 in another order) and 2e-2 in bf16 (outputs are rounded to bf16); K5, a gather, must equal
 its plain version exactly. K6 (block-sparse attention) is held to its plain version for
-every layout block the kernel takes, per-head layouts, an empty row and a NaN probe. K1 and
-K4 are also held, in fp32 and bf16, within 1e-6 of inputs whose result is exact
-(``deepspeed_tpu_torch.testing.exact_probe``).
+every layout block the kernel takes, per-head layouts, an empty row and a NaN probe. K1, K4
+and K6 are also held, in fp32 and bf16, within 1e-6 of inputs whose result is exact
+(``deepspeed_tpu_torch.testing.exact_probe`` and ``sparse_exact_probe``).
 """
 
 import numpy as np
@@ -19,9 +19,10 @@ from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
 from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
 from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
-from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (index_lists_on,
+                                                                           launch_orders_on)
 from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
-from deepspeed_tpu_torch.testing import exact_probe
+from deepspeed_tpu_torch.testing import exact_probe, sparse_exact_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -372,3 +373,67 @@ def test_sparse_refuses_what_the_kernel_does_not_take(gen):
         sa.sparse_fwd(q, q, q, kidx.long(), kcnt, scale=1.0, causal=False, block=16)
     with pytest.raises(ValueError, match="multiple"):
         sa.sparse_fwd(q[:, :60], q[:, :60], q[:, :60], kidx, kcnt, scale=1.0, causal=False, block=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,l", [(16, 256), (64, 512), (16, 80), (32, 96)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sparse_exact_probe(gen, dtype, block, l, causal):
+    """K6 on one-hot rows over a random per-head layout, half of them with a
+    dead decoy (in a block the layout leaves out, or past the diagonal) that
+    would win if let in: o, lse, dq, dk and dv within 1e-6 of the exact
+    answer, in the longest-first launch order. At 80 and 96 rows the last
+    thread block holds fewer list groups than it has room for."""
+    p = sparse_exact_probe(2, l, 3, block, causal=causal, seed=1, dtype=dtype, device="cuda")
+    lists = index_lists_on(p["layout"], "cuda")
+    q_order, k_order = launch_orders_on(p["layout"], block, "cuda")
+    kw = dict(scale=p["scale"], causal=causal, block=block)
+    o, lse = sa.sparse_fwd(p["q"], p["k"], p["v"], *lists[:2], order=q_order, **kw)
+    _exact(o, p["o"])
+    _exact(lse, p["lse"])
+    grads = sa.sparse_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], *lists, q_order=q_order,
+                          k_order=k_order, **kw)
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        _exact(g, p[name])
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_sparse_launch_order_leaves_the_result_as_it_is(gen, block):
+    """Each output tile has one owner whatever the order the tiles run in:
+    the longest-first order gives the natural order's result bit for bit."""
+    b, h, n = 2, 3, 8
+    l = n * block
+    layout = _sparse_layout(block + 1, h, n)
+    lists = index_lists_on(layout, "cuda")
+    q_order, k_order = launch_orders_on(layout, block, "cuda")
+    q, k, v, do = _sparse_inputs(gen, b, l, h, torch.bfloat16)
+    kw = dict(scale=0.125, causal=True, block=block)
+    o, lse = sa.sparse_fwd(q, k, v, *lists[:2], **kw)
+    o2, lse2 = sa.sparse_fwd(q, k, v, *lists[:2], order=q_order, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    got = sa.sparse_bwd(q, k, v, o, lse, do, *lists, **kw)
+    got2 = sa.sparse_bwd(q, k, v, o, lse, do, *lists, q_order=q_order, k_order=k_order, **kw)
+    for g, g2 in zip(got, got2):
+        assert torch.equal(g, g2)
+
+
+def test_sparse_refuses_misaligned_bf16(gen):
+    """The bf16 tensor-core bodies load 16-byte rows: a view one element off
+    a 16-byte boundary, or with a row stride that is not a multiple of 8,
+    raises ValueError naming the tensor instead of being copied."""
+    b, l, h = 1, 64, 2
+    lists = index_lists_on(np.ones((h, 4, 4), np.int64), "cuda")
+    flat = _randn(gen, b * l * h * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(b, l, h, 64)  # 2 bytes past the allocation's 16-byte start
+    ok = _randn(gen, b, l, h, 64, dtype=torch.bfloat16)
+    wide = _randn(gen, b, l, h, 65, dtype=torch.bfloat16)[..., :64]  # strides 65 h, 65
+    kw = dict(scale=0.125, causal=False, block=16)
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="sparse_fwd: bf16 v"):
+            sa.sparse_fwd(ok, ok, bad, *lists[:2], **kw)
+    o, lse = sa.sparse_fwd(ok, ok, ok, *lists[:2], **kw)
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="sparse_bwd: bf16 do"):
+            sa.sparse_bwd(ok, ok, ok, o, lse, bad, *lists, **kw)
+    with pytest.raises(ValueError, match="launch order"):
+        sa.sparse_fwd(ok, ok, ok, *lists[:2], order=lists[1].flatten()[:3], **kw)
