@@ -18,7 +18,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
               within 1e-6 of inputs whose result is exact (one-hot softmax
               rows, with a dead decoy key past each mask boundary, or in a
               block the layout leaves out, that would win if let in:
-              ``deepspeed_tpu_torch.testing``), K6 in bf16 and fp32.
+              ``deepspeed_tpu_torch.testing``), K6 in bf16 and fp32. K3 in both
+              operand forms (bf16 values, and int8 codes with scales, which
+              must give the value form's bits on the dequantised pool) at Lq 1
+              and 16, and within 1e-6 of its own exact probe in both forms;
+              K2's three bodies (decode M <= 16, prefill M > 16, the general
+              FMA body) at every serving shape, ragged M and N, int8 and int4,
+              and bit for bit equal to the plain version on inputs where every
+              summation order gives the same bits (integer x; power-of-two or
+              non-bf16 scales).
               Times the kernel, its plain version and one PyTorch library
               call, and computes the least time the card could take
               (``bound_ms``). For K1, K4 and K6 the library time is the
@@ -29,14 +37,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               kernel (K6 also in natural launch order beside its
               longest-first one). K6's registers, local-memory bytes, HMMA
               and atomic instructions come from ``cuobjdump``: every bf16
-              K6 kernel must hold HMMA instructions and none an atomic.
+              K6 kernel must hold HMMA instructions and none an atomic. K2 and
+              its library call (a bf16 matmul over the dequantised weight) are
+              timed device-side over rotating weight copies larger than the
+              L2, at every serving shape; K3 device-side beside masked SDPA
+              over the dequantised pool, whose dequantise pass is timed too.
 4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
               prompts; (b) ``ContinuousBatchingScheduler`` with int8 weights and
               int8 KV serving 16 greedy requests from a seeded trace; launch
               counts are zeroed just before (a) and read just after (b), and
-              each kernel must have launched; (c) the first prefill and decode
+              each kernel must have launched; a profile of 5 prefill ticks (8
+              slots x 16 tokens) and of 10 decode ticks, each split into K2, K3,
+              the int8 KV dequantise pass (none may be left on the flash path)
+              and the rest; (c) the first prefill and decode
               ticks again through the same model on the CPU, where every
               kernel wrapper computes its plain version: logits held to 1e-4
               with both sides in fp32 (the check that catches a kernel
@@ -89,7 +104,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               and K1 + K4 at shape (a).
 
 It prints the ``kernels`` JSON line and the card line before the last line,
-which is ``{"ok": true, "device": {...}}``. Details go to
+which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
+only K2's and K3's value-form timings and phase 4, through the API that
+earlier commits share: copied into an earlier checkout, the script measures
+that commit the same way (no ``kernels`` line then). Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -221,11 +239,129 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, dtype, tol: float =
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
+#: K3's cache length, and the lengths of the 8 slots it is timed at: the
+#: serving mix of the timed decode tick, and one long slot beside 7 empty
+P = 1024
+K3_MIXES = {"serving mix": [0, 1, 37, 300, 517, 777, 1000, 1024],
+            "one long slot": [1024, 0, 0, 0, 0, 0, 0, 0]}
+#: K2's (K, N) on the serving path: GPT-2 350m's QKV, attention out, MLP in
+#: and MLP out projections (M = 8 a decode tick, 128 a prefill tick)
+K2_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+#: bytes of weights the cold-L2 timings rotate through (the H100's L2 is 50 MB)
+ROTATE_BYTES = 64 << 20
+
+
+def k3_pool(gen, s: int, dtype, hh: int = 16, d: int = 64):
+    """A random int8 KV pool [s, P, hh, d] (codes for k and v) and its
+    per-(slot, position, head) scales in ``dtype``."""
+    dev = torch.device("cuda")
+    kc, vc = torch.randint(-127, 128, (2, s, P, hh, d), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+    ks, vs = (torch.rand(2, s, P, hh, 1, generator=gen, device=dev) * 0.05 + 1e-3).to(dtype)
+    return kc, vc, ks, vs
+
+
+def k3_pairs(lengths, lq: int) -> int:
+    """(query row, live key) pairs of one head of a K3 call."""
+    return sum(max(0, min(min(max(x, 0), P), x - lq + r + 1)) for x in lengths for r in range(lq))
+
+
+def k2_operands(gen, m: int, kk: int, n: int, bits: int, dtype=torch.bfloat16):
+    """Random K2 operands at group 64: x [m, kk], the codes as stored (int4
+    packed), per-(group, column) scales, the unpacked codes and the group
+    count."""
+    from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups
+    from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
+    dev = torch.device("cuda")
+    g = divisor_groups(kk, 64)
+    codes = torch.randint(-127 if bits == 8 else -7, 128 if bits == 8 else 8, (kk, n),
+                          generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    qw = codes if bits == 8 else pack_rows(codes)
+    scale = (torch.rand(g, n, generator=gen, device=dev) * 0.02 + 1e-3).float()
+    x = torch.randn(m, kk, generator=gen, device=dev).to(dtype)
+    return x, qw, scale, codes, g
+
+
+def rotating(make, nbytes: int):
+    """Copies of an operand set, enough to exceed ``ROTATE_BYTES``, and a
+    function that returns the next copy: a call timed over them finds its
+    operands in device memory, not in the L2, as the served weights are."""
+    copies = [make() for _ in range(max(2, -(-ROTATE_BYTES // nbytes)))]
+    state = [0]
+
+    def nxt():
+        state[0] = (state[0] + 1) % len(copies)
+        return copies[state[0]]
+
+    return copies, nxt
+
+
+def kernel_times(gen) -> dict:
+    """K2 at every serving shape and K3's value form at Lq 1 and 16 over
+    the two length mixes: the kernel's event-timed and device-side time,
+    the plain version's and one library call's (device-side, event-timed
+    beside it), and the bound. K2 and its library call (a bf16 matmul over
+    the dequantised weight) are timed over rotating weight copies larger
+    than the L2. Uses only the wrappers' value-form API, so the same code
+    times an earlier commit's bodies (``--phases times``)."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+    dev = torch.device("cuda")
+    out = {"quant_matmul": {}, "flash_decode": {}, "k3_ops": {}}
+    for kk, n in K2_SHAPES:
+        for m in (8, 128):
+            for bits in (8, 4):
+                x, qw, scale, codes, g = k2_operands(gen, m, kk, n, bits)
+                w = (codes.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(torch.bfloat16)
+                copies, nxt = rotating(lambda: (qw.clone(), scale.clone(), w.clone()),
+                                       qw.numel() + scale.numel() * 4)
+                kernel = lambda: qm.quant_matmul(x, *nxt()[:2], bits=bits)  # noqa: E731
+                library = lambda: torch.matmul(x, nxt()[2])  # noqa: E731
+                dev_ms = device_ms(kernel, iters=len(copies))
+                lib_ms = device_ms(library, iters=len(copies))
+                ms = time_ms(kernel, iters=len(copies))
+                lib_event_ms = time_ms(library, iters=len(copies))
+                plain_ms = time_ms(lambda: qm.quant_matmul_plain(x, qw, scale, bits), iters=10)
+                nbytes = m * kk * 2 + qw.numel() + scale.numel() * 4 + m * n * 2
+                bnd, by = bound_ms(nbytes, 2 * m * kk * n)
+                key = f"int{bits} M={m} K={kk} N={n}"
+                out["quant_matmul"][key] = dict(
+                    shape=f"x [{m},{kk}] bf16 @ int{bits} [{kk},{n}], scales [{g},{n}]", mkn_bits=(m, kk, n, bits),
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_event_ms=lib_event_ms, bound_ms=bnd, bound_by=by, rotated_copies=len(copies))
+                log(f"time quant_matmul {key} (cold L2, {len(copies)} copies): kernel_ms={ms:.4f} "
+                    f"kernel_device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"(bf16 matmul over the dequantised weight, device-side; event-timed "
+                    f"{lib_event_ms:.4f}) bound_ms={bnd:.4f} ({by})")
+                del copies, kernel, library
+    kpos = torch.arange(P, device=dev)
+    for lq in (1, 16):
+        for mix, lengths in K3_MIXES.items():
+            q = torch.randn(8, lq, 16, 64, generator=gen, device=dev).to(torch.bfloat16)
+            kc, vc, ks, vs = k3_pool(gen, 8, torch.bfloat16)
+            k, v = kc.to(torch.bfloat16) * ks, vc.to(torch.bfloat16) * vs  # the dequantised pool
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            kernel = lambda: fa.flash_decode(q, k, v, lens)  # noqa: E731
+            qpos = lens.long()[:, None] - lq + torch.arange(lq, device=dev)[None, :]  # [S, Lq]
+            mask = ((kpos[None, None, :] <= qpos[:, :, None])
+                    & (kpos[None, None, :] < lens.long().clamp(0, P)[:, None, None]))[:, None]
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+            live = sum(min(x, P) for x in lengths)
+            nbytes = live * 16 * 64 * 2 * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+            bnd, by = bound_ms(nbytes, 4 * 64 * 16 * k3_pairs(lengths, lq))
+            out["flash_decode"][f"Lq={lq} {mix} bf16"] = dict(
+                shape=f"q [8,{lq},16,64], k/v [8,1024,16,64] bf16, lengths {lengths}",
+                ms=time_ms(kernel, iters=50), device_ms=device_ms(kernel),
+                plain_ms=time_ms(lambda: fa.flash_decode_plain(q, k, v, lens, scale=0.125), iters=5, warmup=1),
+                library_ms=device_ms(sdpa), library_event_ms=time_ms(sdpa, iters=50), bound_ms=bnd, bound_by=by)
+            out["k3_ops"][(lq, mix)] = dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, lens=lens)
+    return out
+
+
 def kernel_phase(gen: torch.Generator, seed: int):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
-    from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups
-    from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
 
     dev = torch.device("cuda")
     lines = {}
@@ -332,80 +468,94 @@ def kernel_phase(gen: torch.Generator, seed: int):
                               exact_probe_max_abs_err=k4_probe_err)
     RESULTS["timings"]["flash_bwd"] = lines["flash_bwd"]
 
-    # -- K3 flash decode ------------------------------------------------------
-    P = 1024
-    serve_lengths = [0, 1, 37, 300, 517, 777, 1000, 1024]  # the timed decode tick's mix
-
+    # -- K3 flash decode: the value and int8 forms, Lq 1 and 16 --------------
     def k3(name, lq, lengths, dtype, d=64, hh=16):
-        s = len(lengths)
-        q, k, v = randn(s, lq, hh, d, dtype=dtype), randn(s, P, hh, d, dtype=dtype), randn(s, P, hh, d, dtype=dtype)
+        q = randn(len(lengths), lq, hh, d, dtype=dtype)
+        kc, vc, ks, vs = k3_pool(gen, len(lengths), dtype)
+        k, v = fa.dequantize_kv(kc, ks, dtype), fa.dequantize_kv(vc, vs, dtype)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         o = fa.flash_decode(q, k, v, lens)
-        ro = fa.flash_decode_plain(q, k, v, lens, scale=d**-0.5)
-        return q, k, v, lens, compare(f"flash_decode {name}", o, ro, dtype)
+        err = compare(f"flash_decode {name} values", o, fa.flash_decode_plain(q, k, v, lens, scale=d**-0.5),
+                      dtype)
+        o8 = fa.flash_decode(q, kc, vc, lens, k_scale=ks, v_scale=vs)
+        err8 = compare(f"flash_decode {name} int8", o8,
+                       fa.flash_decode_plain(q, kc, vc, lens, scale=d**-0.5, k_scale=ks, v_scale=vs), dtype)
+        compare_exact(f"flash_decode {name}: int8 form = value form on the dequantised pool", o8, o)
+        return err, err8
 
     k3("S=8 Lq=16 P=1024 bf16 lengths 0,1,P,P+Lq", 16, [0, 1, 15, 16, 300, 1000, P, P + 16], torch.bfloat16)
     k3("S=8 Lq=1 P=1024 bf16 lengths 0,1,P,P+Lq", 1, [0, 1, 2, 64, 65, 1000, P, P + 1], torch.bfloat16)
     k3("S=4 Lq=16 P=1024 fp32", 16, [5, 16, 700, P + 16], torch.float32)
-    q, k, v, lens, err = k3("S=8 Lq=1 P=1024 bf16 serving mix", 1, serve_lengths, torch.bfloat16)
-    ms = time_ms(lambda: fa.flash_decode(q, k, v, lens), iters=50)
-    plain_ms = time_ms(lambda: fa.flash_decode_plain(q, k, v, lens, scale=64**-0.5), iters=10)
-    kpos = torch.arange(P, device=dev)
-    mask = (kpos[None, None, None, :] < lens.long()[:, None, None, None])  # [S,1,1,P]
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=50)
-    live = sum(min(x, P) for x in serve_lengths)
-    nbytes = live * 16 * 64 * 2 * 2 + 2 * q.numel() * 2 + lens.numel() * 4
-    bnd, by = bound_ms(nbytes, 4 * 64 * 16 * live)
+    k3("S=4 Lq=1 P=1024 fp32", 1, [5, 16, 700, P + 1], torch.float32)
+    k3_errs = {(lq, mix): k3(f"S=8 Lq={lq} P=1024 bf16 {mix}", lq, lengths, torch.bfloat16)
+               for lq in (1, 16) for mix, lengths in K3_MIXES.items()}
+    k3_probe_err = decode_exact_probes(seed)
+
+    # -- K2 quant matmul: every body against its plain version --------------
+    def k2(m, kk, n, bits, dtype=torch.bfloat16):
+        x, qw, scale, _, g = k2_operands(gen, m, kk, n, bits, dtype)
+        body = qm.qmm_body(m, kk, n, kk // g, dtype == torch.bfloat16, True)
+        return compare(f"quant_matmul int{bits} M={m} K={kk} N={n} {str(dtype)[6:]} ({body} body)",
+                       qm.quant_matmul(x, qw, scale, bits=bits), qm.quant_matmul_plain(x, qw, scale, bits),
+                       dtype)
+
+    k2_errs = {(m, kk, n, bits): k2(m, kk, n, bits) for kk, n in K2_SHAPES for m in (8, 128) for bits in (8, 4)}
+    for m, kk, n, bits in ((1, 1024, 1024, 8), (16, 1024, 3072, 4), (17, 1024, 3072, 8),
+                           (130, 4096, 1024, 8), (130, 1024, 1024, 4), (16, 320, 272, 8)):
+        k2(m, kk, n, bits)
+    k2(128, 1024, 3072, 8, torch.float32)
+    k2(8, 4096, 1024, 4, torch.float32)
+    k2(8, 96, 40, 8)  # N not a multiple of 16: the general body in bf16
+    k2_probe_err = quant_matmul_probes(seed)
+
+    # -- K2 and K3 times -------------------------------------------------------
+    times = kernel_times(gen)
+    for key, t in times["quant_matmul"].items():
+        m, kk, n, bits = t["mkn_bits"]
+        t["max_abs_err"] = k2_errs[(m, kk, n, bits)]
+    for (lq, mix), (err, err8) in k3_errs.items():
+        ops = times["k3_ops"][(lq, mix)]
+        lengths, q, lens = K3_MIXES[mix], ops["q"], ops["lens"]
+        times["flash_decode"][f"Lq={lq} {mix} bf16"]["max_abs_err"] = err
+        kw = dict(k_scale=ops["ks"], v_scale=ops["vs"])
+        int8 = lambda: fa.flash_decode(q, ops["kc"], ops["vc"], lens, **kw)  # noqa: E731
+        deq = lambda: (fa.dequantize_kv(ops["kc"], ops["ks"], torch.bfloat16),  # noqa: E731
+                       fa.dequantize_kv(ops["vc"], ops["vs"], torch.bfloat16))
+        live = sum(min(x, P) for x in lengths)
+        # codes (1 byte) and a bf16 scale per live key, head and operand, q read, o written
+        nbytes = live * 16 * (64 + 2) * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+        bnd, by = bound_ms(nbytes, 4 * 64 * 16 * k3_pairs(lengths, lq))
+        values = times["flash_decode"][f"Lq={lq} {mix} bf16"]
+        times["flash_decode"][f"Lq={lq} {mix} int8"] = dict(
+            shape=f"q [8,{lq},16,64] bf16, k/v [8,1024,16,64] int8 + bf16 scales, lengths {lengths}",
+            max_abs_err=err8, ms=time_ms(int8, iters=50), device_ms=device_ms(int8),
+            plain_ms=time_ms(lambda: fa.flash_decode_plain(q, ops["kc"], ops["vc"], lens, scale=0.125, **kw),
+                             iters=5, warmup=1),
+            library_ms=values["library_ms"], library_event_ms=values["library_event_ms"],
+            dequantise_ms=device_ms(deq), bound_ms=bnd, bound_by=by)
+    del times["k3_ops"]
+    RESULTS["timings"]["quant_matmul"] = times["quant_matmul"]
+    RESULTS["timings"]["flash_decode"] = times["flash_decode"]
+    for key, t in times["flash_decode"].items():
+        log(f"time flash_decode {key}: kernel_ms={t['ms']:.4f} kernel_device_ms={t['device_ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} (masked SDPA, device-side; "
+            f"event-timed {t['library_event_ms']:.4f})"
+            + (f" dequantise_ms={t['dequantise_ms']:.4f}" if "dequantise_ms" in t else "")
+            + f" bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
     lines["flash_decode"] = dict(name="flash_decode", route="cuda",
                                  source="deepspeed_tpu_torch/csrc/flash_decode.cu",
                                  replaces="deepspeed_tpu/ops/pallas/flash_attention.py:555",
-                                 shape=f"q [8,1,16,64], k/v [8,1024,16,64] bf16, lengths {serve_lengths}",
-                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                                 library_ms=lib_ms)
-
-    # -- K2 quant matmul ------------------------------------------------------
-    def k2(m, kk, n, bits, dtype=torch.bfloat16):
-        g = divisor_groups(kk, 64)
-        codes = torch.randint(-127 if bits == 8 else -7, 128 if bits == 8 else 8, (kk, n),
-                              generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
-        qw = codes if bits == 8 else pack_rows(codes)
-        scale = (torch.rand(g, n, generator=gen, device=dev) * 0.02 + 1e-3).float()
-        x = randn(m, kk, dtype=dtype)
-        out = qm.quant_matmul(x, qw, scale, bits=bits)
-        ref = qm.quant_matmul_plain(x, qw, scale, bits)
-        err = compare(f"quant_matmul int{bits} M={m} K={kk} N={n} {str(dtype)[6:]}", out, ref, dtype)
-        return x, qw, scale, codes, g, err
-
-    timed = {}
-    for kk, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
-        for m in (8, 128):
-            for bits in (8, 4):
-                x, qw, scale, codes, g, err = k2(m, kk, n, bits)
-                ms = time_ms(lambda: qm.quant_matmul(x, qw, scale, bits=bits), iters=50)
-                plain_ms = time_ms(lambda: qm.quant_matmul_plain(x, qw, scale, bits), iters=10)
-                w = (codes.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(torch.bfloat16)
-                lib_ms = time_ms(lambda: torch.matmul(x, w), iters=50)
-                nbytes = m * kk * 2 + qw.numel() + scale.numel() * 4 + m * n * 2
-                bnd, by = bound_ms(nbytes, 2 * m * kk * n)
-                key = f"int{bits} M={m} K={kk} N={n}"
-                timed[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=bnd, bound_by=by)
-                log(f"time quant_matmul {key}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by})")
-    k2(128, 1024, 3072, 8, torch.float32)
-    k2(8, 4096, 1024, 4, torch.float32)
-    RESULTS["timings"]["quant_matmul"] = timed
-    main = timed["int8 M=8 K=1024 N=4096"]
+                                 exact_probe_max_abs_err=k3_probe_err,
+                                 **times["flash_decode"]["Lq=1 serving mix int8"])
     lines["quant_matmul"] = dict(name="quant_matmul", route="cuda",
                                  source="deepspeed_tpu_torch/csrc/quant_matmul.cu",
                                  replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:74",
-                                 shape="x [8,1024] bf16 @ int8 [1024,4096], scales [16,4096]",
-                                 **main)
+                                 exact_probe_max_abs_err=k2_probe_err,
+                                 **times["quant_matmul"]["int8 M=8 K=1024 N=4096"])
     lines["moe_permute"] = k5_cases(gen)
     lines.update(k6_cases(gen, seed))
-    for ln in (k1_lines[4], k1_lines[8], lines["flash_decode"], lines["flash_bwd"],
-               lines["moe_permute"], lines["sparse_fwd"], lines["sparse_bwd"]):
+    for ln in (k1_lines[4], k1_lines[8], lines["flash_bwd"], lines["moe_permute"],
+               lines["sparse_fwd"], lines["sparse_bwd"]):
         log_time(ln)
     return lines
 
@@ -473,6 +623,64 @@ def exact_probes(seed: int) -> float:
             if not ok:
                 raise AssertionError(f"{what}: |err| {err:.3e} > {tol:.1e}")
             worst = max(worst, err)
+    return worst
+
+
+def decode_exact_probes(seed: int) -> float:
+    """K3 in bf16 and fp32, in both operand forms, at Lq 1 and 16, on inputs
+    whose output is exact (one-hot softmax rows, with a dead decoy key just
+    past each live range, or in the next slot past a full pool, that would
+    win if read: ``deepspeed_tpu_torch.testing.decode_exact_probe``): o
+    within 1e-6 of the known answer, 0 where no key is live. Returns the
+    largest |error|."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.testing import decode_exact_probe
+    worst = 0.0
+    for lq, lengths in ((1, [0, 1, 64, 65, 129, 255, 256, 257]), (16, [0, 1, 15, 16, 100, 256, 272, 250])):
+        for part in (lengths[:4], lengths[4:]):
+            for dtype in (torch.bfloat16, torch.float32):
+                p = decode_exact_probe(part, lq, 256, 16, seed=seed, dtype=dtype, device="cuda")
+                for form in ("values", "int8"):
+                    if form == "values":
+                        o = fa.flash_decode(p["q"], p["k"], p["v"], p["lengths"], scale=p["scale"])
+                    else:
+                        o = fa.flash_decode(p["q"], p["k_codes"], p["v_codes"], p["lengths"], scale=p["scale"],
+                                            k_scale=p["k_scale"], v_scale=p["v_scale"])
+                    torch.cuda.synchronize()
+                    err = (o.float() - p["o"].float()).abs().max().item()
+                    tol = 1e-6 * max(1.0, p["o"].float().abs().max().item())
+                    ok = err <= tol
+                    what = f"exact probe flash_decode [4,{lq},16,64] P=256 {str(dtype)[6:]} {form} lengths {part}"
+                    RESULTS["checks"].append({"name": what, "max_abs_err": err, "tol": tol, "ok": ok})
+                    log(f"check {what}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{what}: |err| {err:.3e} > {tol:.1e}")
+                    worst = max(worst, err)
+    return worst
+
+
+def quant_matmul_probes(seed: int) -> float:
+    """K2's three bodies (decode M = 8, prefill M = 128, the general body in
+    fp32), int8 and int4, on inputs where every summation order gives the
+    same bits (``deepspeed_tpu_torch.testing.quant_matmul_probe``): integer
+    x, the codes' whole range, power-of-two scales (the integer probe) and
+    scales whose products are not bf16 values (the probe that sees a bf16
+    weight left unrounded before the product). Kernel and plain version
+    must agree bit for bit. Returns the largest |error| (0)."""
+    from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+    from deepspeed_tpu_torch.testing import quant_matmul_probe
+    worst = 0.0
+    for bits in (8, 4):
+        for m in (8, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                for round_scales in (False, True):
+                    p = quant_matmul_probe(m, 1024, 3072, bits, round_scales=round_scales, seed=seed + m + bits,
+                                           dtype=dtype, device="cuda")
+                    body = qm.qmm_body(m, 1024, 3072, 64, dtype == torch.bfloat16, True)
+                    what = (f"exact probe quant_matmul int{bits} M={m} K=1024 N=3072 {str(dtype)[6:]} ({body} body) "
+                            f"{'rounding' if round_scales else 'integer'} scales")
+                    worst = max(worst, compare_exact(what, qm.quant_matmul(p["x"], p["qw"], p["scale"], bits=bits),
+                                                     qm.quant_matmul_plain(p["x"], p["qw"], p["scale"], bits)))
     return worst
 
 
@@ -917,24 +1125,99 @@ MOE_OPS = ("aten::bmm", "aten::sort", "aten::cumsum", "aten::scatter_", "aten::i
            "aten::one_hot", "aten::mm")
 
 
-def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
-    """Where a steady decode tick's time goes: 8 requests are prefilled,
-    then ``n_ticks`` decode ticks run on the wall clock and ``n_ticks`` more
-    under ``torch.profiler``. Reports the device's busy time per tick (the
+#: kernel families of the serving ticks' profile, by kernel name (the
+#: bodies of earlier commits too, so a parent profiles the same way)
+SERVE_KERNEL_FAMILIES = (("K2 quant_matmul", ("qmm_gemv_kernel", "qmm_mma_kernel", "qmm_fma_kernel",
+                                              "quant_matmul_kernel", "reduce_splits_kernel")),
+                         ("K3 flash_decode", ("decode_rows_kernel", "decode_tile_kernel",
+                                              "flash_decode_kernel")))
+
+
+def tick_split(prof, events, n_ticks: int, pool_shape) -> dict:
+    """Device ms per tick of K2, K3, the int8 KV pool's dequantise pass (the
+    pool-shaped copy to bf16 and multiply by the scales that ran before K3
+    until K3 read the codes itself: the CPU ops ``aten::copy_`` and
+    ``aten::mul`` on a pool-shaped first operand, by their own kernels) and
+    everything else."""
+    split = {name: 0.0 for name, _ in SERVE_KERNEL_FAMILIES}
+    for e in events:
+        for name, keys in SERVE_KERNEL_FAMILIES:
+            if any(key in e.key for key in keys):
+                split[name] += e.self_device_time_total
+                break
+    split["KV dequantise"] = sum(e.self_device_time_total for e in prof.key_averages(group_by_input_shape=True)
+                                 if e.key in ("aten::copy_", "aten::mul") and e.input_shapes
+                                 and list(e.input_shapes[0]) == list(pool_shape))
+    split["rest"] = sum(e.self_device_time_total for e in events) - sum(split.values())
+    return {name: t / 1e3 / n_ticks for name, t in split.items()}
+
+
+def _tick_window(sched, kind: str, n_ticks: int) -> float:
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        if sched.step() != kind:
+            raise AssertionError(f"timed window left the steady {kind} state")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_ticks
+
+
+def _profile_ticks(sched, kind: str, n_ticks: int, card: str, pool_shape) -> dict:
+    """``n_ticks`` ticks of ``kind`` on the wall clock, then ``n_ticks`` more
+    under ``torch.profiler``: the device's busy time per tick (the
     device-side events only: a CPU op's device time repeats its kernels'),
-    its idle share of the unprofiled tick, and the kernels that took the
-    most device time. The requests are then served to the end."""
+    split by kernel family (:func:`tick_split`), its idle share of the
+    unprofiled tick, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
+    wall_ms = _tick_window(sched, kind, n_ticks)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        profiled_wall_ms = _tick_window(sched, kind, n_ticks)
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_ticks
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    result = {"ticks": n_ticks, "wall_ms_per_tick": wall_ms,
+              "profiled_wall_ms_per_tick": profiled_wall_ms,
+              "device_busy_ms_per_tick": busy_ms if events else None,
+              "device_idle_share": 1.0 - busy_ms / wall_ms if events else None,
+              "busy_ms_per_tick_by_kernel": tick_split(prof, events, n_ticks, pool_shape) if events else None,
+              "top_kernels": [{"name": e.key[:90], "calls_per_tick": e.count / n_ticks,
+                               "device_ms_per_tick": e.self_device_time_total / 1e3 / n_ticks}
+                              for e in top]}
+    if not events:
+        log(f"profile: no device time recorded by torch.profiler; device busy share not measured "
+            f"(wall {wall_ms:.2f} ms/tick)  [{card}]")
+        return result
+    log(f"profile of {n_ticks} {kind} ticks (8 slots): wall {wall_ms:.2f} ms/tick "
+        f"({profiled_wall_ms:.2f} under the profiler), device busy {busy_ms:.2f} ms/tick, "
+        f"idle share {result['device_idle_share']:.3f}  [{card}]")
+    log(f"  {kind} tick busy ms by kernel: " + ", ".join(
+        f"{name} {t:.3f}" for name, t in result["busy_ms_per_tick_by_kernel"].items()))
+    for k in result["top_kernels"]:
+        log(f"  {k['device_ms_per_tick']:.3f} ms/tick, {k['calls_per_tick']:.0f} calls/tick: {k['name']}")
+    return result
 
+
+def _profile_prefill_ticks(sched, rng, vocab: int, card: str, pool_shape, n_ticks: int = 5) -> dict:
+    """Where a prefill tick's time goes: 8 requests whose prompts take
+    ``2 n_ticks + 2`` chunks fill every slot, so every tick of both windows
+    prefills all 8 (M = 128 rows through K2, Lq = 16 through K3); they are
+    then served to the end (one new token each)."""
+    from deepspeed_tpu_torch.inference.serving import Request
+    length = sched.config.prefill_chunk * (2 * n_ticks + 2)
+    for _ in range(sched.slots):
+        sched.submit(Request(rng.integers(0, vocab, size=length).astype(np.int32), max_new_tokens=1))
+    if sched.step() != "prefill":
+        raise AssertionError("the prefill window did not start with a prefill tick")
+    torch.cuda.synchronize()
+    result = _profile_ticks(sched, "prefill", n_ticks, card, pool_shape)
+    sched.run_until_drained()
+    return result
+
+
+def _profile_decode_ticks(sched, prompts, card, pool_shape, n_ticks: int = 10) -> dict:
+    """Where a steady decode tick's time goes: 8 requests are prefilled,
+    then :func:`_profile_ticks` over decode ticks. The requests are then
+    served to the end."""
     from deepspeed_tpu_torch.inference.serving import ACTIVE, Request
-
-    def decode_ticks():
-        t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            if sched.step() != "decode":
-                raise AssertionError("timed window left the steady decode state")
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n_ticks
 
     # a short prompt decodes while a long one still prefills: its budget
     # must outlast every prefill tick, or it finishes before the windows
@@ -944,29 +1227,8 @@ def _profile_decode_ticks(sched, prompts, card, n_ticks: int = 10) -> dict:
     while not all(r.state == ACTIVE for r in reqs):
         sched.step()
     torch.cuda.synchronize()
-    wall_ms = decode_ticks()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_wall_ms = decode_ticks()
+    result = _profile_ticks(sched, "decode", n_ticks, card, pool_shape)
     sched.run_until_drained()
-    events = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_ticks
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    result = {"ticks": n_ticks, "wall_ms_per_tick": wall_ms,
-              "profiled_wall_ms_per_tick": profiled_wall_ms,
-              "device_busy_ms_per_tick": busy_ms if events else None,
-              "device_idle_share": 1.0 - busy_ms / wall_ms if events else None,
-              "top_kernels": [{"name": e.key[:90], "calls_per_tick": e.count / n_ticks,
-                               "device_ms_per_tick": e.self_device_time_total / 1e3 / n_ticks}
-                              for e in top]}
-    if not events:
-        log(f"profile: no device time recorded by torch.profiler; device busy share not measured "
-            f"(wall {wall_ms:.2f} ms/tick)  [{card}]")
-        return result
-    log(f"profile of {n_ticks} decode ticks (8 slots): wall {wall_ms:.2f} ms/tick "
-        f"({profiled_wall_ms:.2f} under the profiler), device busy {busy_ms:.2f} ms/tick, "
-        f"idle share {result['device_idle_share']:.3f}  [{card}]")
-    for k in result["top_kernels"]:
-        log(f"  {k['device_ms_per_tick']:.3f} ms/tick, {k['calls_per_tick']:.0f} calls/tick: {k['name']}")
     return result
 
 
@@ -1036,7 +1298,9 @@ def slice_phase(seed: int, card: str):
         f"{stats['ticks']}  [{card}]")
     log(f"slice launches on the main path: {counts}")
 
-    out["profile"] = _profile_decode_ticks(sched, prompts[:8], card)
+    pool_shape = (scfg.slots, sched.capacity, cfg.n_head, cfg.n_embd // cfg.n_head)
+    out["prefill_profile"] = _profile_prefill_ticks(sched, rng, cfg.vocab_size, card, pool_shape)
+    out["profile"] = _profile_decode_ticks(sched, prompts[:8], card, pool_shape)
 
     # ---- (c) the first prefill and decode ticks against the plain versions ----
     # Both in fp32 with an fp KV cache, held to 1e-4: there neither bf16
@@ -1634,7 +1898,15 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="all",
+                    help="'all' (the default: every phase and the kernels line), or a comma list of "
+                         "'times' (K2's and K3's value-form timings alone) and 'serving' (phase 4), "
+                         "which use only the API earlier commits share, so that copied into an "
+                         "earlier checkout this script measures that commit the same way")
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= {"all", "times", "serving"} or ("all" in phases and len(phases) > 1):
+        ap.error(f"--phases takes 'all' or a comma list of 'times' and 'serving', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1656,27 +1928,43 @@ def main(argv=None) -> int:
     per = build.build(verbose=True)
     RESULTS["build_s"] = time.perf_counter() - t0
     log(f"build: {RESULTS['build_s']:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
-    lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
-    RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
-    RESULTS["train"], train_counts = train_phase(args.seed, card)
-    RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
-    torch.cuda.empty_cache()
-    RESULTS["moe_train"], moe_counts = moe_train_phase(args.seed, card)
-    torch.cuda.empty_cache()
-    RESULTS["moe_gradcheck"] = moe_gradcheck_phase(args.seed, card)
-    torch.cuda.empty_cache()
-    RESULTS["sparse"], sparse_counts = sparse_phase(args.seed, card)
+    if "all" not in phases:
+        if "times" in phases:
+            times = kernel_times(torch.Generator(device="cuda").manual_seed(args.seed))
+            del times["k3_ops"]
+            RESULTS["timings"] = times
+            for key, t in times["flash_decode"].items():
+                log(f"time flash_decode {key}: kernel_ms={t['ms']:.4f} kernel_device_ms={t['device_ms']:.4f} "
+                    f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f}")
+        if "serving" in phases:
+            RESULTS["slice"] = slice_phase(args.seed, card)[0]
+    else:
+        lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
+        RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
+        for tick in ("prefill_profile", "profile"):
+            split = RESULTS["slice"][tick]["busy_ms_per_tick_by_kernel"]
+            if split is not None and split["KV dequantise"] > 0:
+                raise AssertionError(f"the int8 KV pool is still dequantised before K3 ({tick}: {split})")
+        RESULTS["train"], train_counts = train_phase(args.seed, card)
+        RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
+        torch.cuda.empty_cache()
+        RESULTS["moe_train"], moe_counts = moe_train_phase(args.seed, card)
+        torch.cuda.empty_cache()
+        RESULTS["moe_gradcheck"] = moe_gradcheck_phase(args.seed, card)
+        torch.cuda.empty_cache()
+        RESULTS["sparse"], sparse_counts = sparse_phase(args.seed, card)
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
-    # launches: the serving, training, MoE training and sparse attention
-    # paths' counts, each zeroed just before its path and read just after
-    kernels = [dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
-                    launches=sum(c[name] for c in (serve_counts, train_counts, moe_counts, sparse_counts)))
-               for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
-                            "sparse_fwd", "sparse_bwd")]
-    log(json.dumps({"kernels": kernels}))
+    if "all" in phases:
+        # launches: the serving, training, MoE training and sparse attention
+        # paths' counts, each zeroed just before its path and read just after
+        kernels = [dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
+                        launches=sum(c[name] for c in (serve_counts, train_counts, moe_counts, sparse_counts)))
+                   for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
+                                "sparse_fwd", "sparse_bwd")]
+        log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -49,6 +49,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A split reduction finished by its last block, in one launch (K2's split
+// over K, K3's split over the cache). Every block of a group stores its
+// fp32 partial, then counts itself in on the group's counter; the block
+// that arrives last sees every partial and reads them in the split's fixed
+// order, so the result does not depend on which block came last, and only
+// the count is atomic. That block also returns the counter to 0, so the
+// wrapper's zeroed counter buffer is zeroed again for the next launch on
+// the stream. Every thread of the block must call it; the last block then
+// reads the partials with __ldcg (L2, never a stale L1 line).
+__device__ __forceinline__ bool arrive_last(int* counter, int expected) {
+  __shared__ int last;
+  __threadfence();  // this thread's partial stores are visible device-wide
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == expected - 1;
+    if (last) atomicExch(counter, 0);
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
 // Raise the dynamic shared-memory cap of one kernel instantiation once
 // (above 48 KB a kernel must opt in before its first launch).
 template <typename Kernel>

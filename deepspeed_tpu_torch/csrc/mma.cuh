@@ -110,6 +110,15 @@ __device__ __forceinline__ void load_tile_gathered(uint32_t tile, const bf16* __
   }
 }
 
+// 16 bytes from registers into shared memory (a tile the thread filled
+// itself, e.g. int8 codes dequantised to bf16 on their way in)
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -384,7 +384,7 @@ class SelfAttention(nn.Module):
                 plans: Optional[dict] = None, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         q, k, v = self.c_attn(x)
-        causal, decode_lengths = True, None
+        causal, decode_lengths, k_scale, v_scale = True, None, None, None
         if cache is not None:
             b, l = x.shape[0], x.shape[1]
             pool_k, pool_v = cache[prefix + "cached_key"], cache[prefix + "cached_value"]
@@ -418,17 +418,21 @@ class SelfAttention(nn.Module):
                 pool_v[:, start:start + l] = v
                 decode_lengths = torch.full((b,), start + l, dtype=torch.int32, device=x.device)
             idx += l  # in place: the cache dict is the caller's
+            k, v = pool_k, pool_v
             if kv_q:
-                # dequantize-on-read: attention reads fp values, the pool holds codes
-                k = pool_k.to(q.dtype) * cache[prefix + "cached_key_scale"]
-                v = pool_v.to(q.dtype) * cache[prefix + "cached_value_scale"]
-            else:
-                k, v = pool_k, pool_v
+                # dequantize-on-read: the pool holds codes. The flash backend
+                # hands codes and scales to K3, which dequantises as it
+                # reads; other backends read the dequantised pool
+                k_scale = cache[prefix + "cached_key_scale"]
+                v_scale = cache[prefix + "cached_value_scale"]
+                if cfg.attention_backend != "flash":
+                    k, v = k.to(q.dtype) * k_scale, v.to(q.dtype) * v_scale
+                    k_scale = v_scale = None
             causal = False
         rate = cfg.dropout if generator is not None else 0.0
         attn_out = dot_product_attention(q, k, v, backend=cfg.attention_backend, causal=causal,
                                          decode_lengths=decode_lengths, dropout_rate=rate,
-                                         generator=generator)
+                                         generator=generator, k_scale=k_scale, v_scale=v_scale)
         return dropout(self.c_proj(attn_out), rate, generator)
 
 

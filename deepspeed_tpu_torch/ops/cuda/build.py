@@ -48,10 +48,9 @@ SIGNATURES = {
     "flash_bwd": ("ds_flash_bwd",
                   [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _I, _I] + [_LL] * 12 + [_P]),
     "flash_decode": ("ds_flash_decode",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F]
-                     + [_LL] * 9 + [_P]),
+                     [_P] * 9 + [_I] * 7 + [_F] + [_LL] * 15 + [_P]),
     "quant_matmul": ("ds_quant_matmul",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _P]),
+                     [_P] * 6 + [_I] * 7 + [_LL, _I, _I, _P]),
     "moe_permute": ("ds_moe_permute", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sparse_fwd": ("ds_sparse_fwd", [_P] * 8 + [_I] * 7 + [_F, _I] + [_LL] * 9 + [_P]),
     "sparse_bwd": ("ds_sparse_bwd", [_P] * 16 + [_I] * 8 + [_F, _I] + [_LL] * 12 + [_P]),
@@ -59,6 +58,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, "KernelLibrary"] = {}
+_counters: Dict[torch.device, torch.Tensor] = {}
 
 
 class KernelLibrary:
@@ -178,3 +178,17 @@ def stream_ptr(device: torch.device) -> int:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` arrival counters on
+    ``device``, shared by the kernels that finish a split reduction in its
+    last block (K3, K2's general body: ``csrc/common.cuh`` ``arrive_last``). Each such
+    launch returns every counter it used to 0, so the buffer is zeroed again
+    for the next launch on the stream; launches that share it must run on
+    one stream, in turn, as the port's do."""
+    with _lock:
+        buf = _counters.get(device)
+        if buf is None or buf.numel() < n:
+            buf = _counters[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        return buf

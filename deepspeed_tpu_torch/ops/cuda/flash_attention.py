@@ -11,10 +11,11 @@ On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches the kernel or raises. K1 and K4 run bf16 on the tensor cores (K1
 carries p as a bf16 hi + lo pair into its second product, K4 rounds p and
 ds to bf16) and fp32 as FMAs; a bf16 tensor whose rows are not 16-byte
-aligned raises
-``ValueError``. The JAX backend falls back to XLA for a bias,
-an arbitrary mask or dropout; this backend raises instead, so the main path
-can never leave the kernel quietly. The backend goes through
+aligned raises ``ValueError``. K3 splits the cache over thread blocks and
+reads it either as values of q's dtype or as the int8 KV pool's codes with
+their scales, dequantised on read (:func:`flash_decode`). The JAX backend
+falls back to XLA for a bias, an arbitrary mask or dropout; this backend
+raises instead, so the main path can never leave the kernel quietly. The backend goes through
 :class:`FlashAttention`, the ``torch.autograd.Function`` that ties K1 to
 K4 (the JAX custom VJP ``_flash_attention_bhld``), so one call serves
 inference (no graph is recorded) and training.
@@ -26,7 +27,8 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
-from deepspeed_tpu_torch.ops.cuda.attention_geometry import KERNEL_HEAD_DIMS
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_BODIES, DECODE_CHUNK,
+                                                              KERNEL_HEAD_DIMS, decode_body)
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF, register_backend
 
 
@@ -98,10 +100,23 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 KV codes [S, P, H, D] times their per-(slot, position, head)
+    scales [S, P, H, 1], in ``dtype``: the pool K3's int8 form reads (the
+    serving model's dequantise-on-read, ``models/gpt2.py``)."""
+    return codes.to(dtype) * scale
+
+
+def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K3: row i of slot s sits at position
     ``lengths[s] - Lq + i`` and sees cache positions at or before it, inside
-    ``min(lengths[s], P)``; rows with no live key, and length 0, give 0."""
+    ``min(lengths[s], P)``; rows with no live key, and length 0, give 0.
+    With ``k_scale``/``v_scale``, k and v are int8 codes, dequantised first
+    (:func:`dequantize_kv`)."""
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
     lq = q.shape[1]
     p_len = k.shape[1]
     dev = q.device
@@ -259,23 +274,76 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def flash_decode(q, k, v, lengths: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
+def _check_decode_operands(q, k, v, k_scale, v_scale):
+    """K3's operands: values of q's dtype, or int8 codes with scales
+    [S, P, H, 1] of q's dtype. K and V stream as 16-byte vectors, so each
+    must start 16-byte aligned and step through slots, positions and heads
+    in multiples of 16 bytes; the bf16 tile body loads q with cp.async too
+    (K1's rule). Nothing is copied: what does not fit raises."""
+    what = "flash_decode"
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: pass both k_scale and v_scale (int8 KV) or neither")
+    tensors = (q, k, v) if k_scale is None else (q, k, v, k_scale, v_scale)
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what}: q, k, v (and scales) must lie on one CUDA device")
+    build.dtype_code(q, what)
+    kv_dtype = q.dtype if k_scale is None else torch.int8
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise ValueError(f"{what}: k and v must be {kv_dtype} for q {q.dtype}"
+                         f"{'' if k_scale is None else ' with scales'}, got {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: expected [S, L, H, D] tensors")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{what}: head_dim must be the unit-stride axis")
+    d = q.shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != k.shape[:3] + (1,) or t.dtype != q.dtype:
+                raise ValueError(f"{what}: {name} must be {q.dtype} {tuple(k.shape[:3]) + (1,)}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{what}: {name} must start 16-byte aligned with slot, position and "
+                             f"head strides of whole 16 bytes; got address offset "
+                             f"{t.data_ptr() % 16} bytes, strides {t.stride()}")
+
+
+def flash_decode(q, k, v, lengths: torch.Tensor, *, scale: Optional[float] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: length-masked attention of ``q`` [S, Lq, H, D] (each slot's
     newest Lq tokens) against a cache [S, P, H, D] with ``lengths`` [S]
-    live positions per slot."""
+    live positions per slot. With ``k_scale``/``v_scale`` [S, P, H, 1] in
+    q's dtype, k and v are int8 codes that the kernel dequantises on read,
+    exactly as :func:`dequantize_kv` does, so it gives the bits of the call
+    on the dequantised pool."""
     if scale is None:
         scale = q.shape[-1]**-0.5
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths, scale=scale)
-    _check_operands("flash_decode", q, k, v)
+        return flash_decode_plain(q, k, v, lengths, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    _check_decode_operands(q, k, v, k_scale, v_scale)
     s, lq, h, d = q.shape
     p_len = k.shape[1]
+    body = decode_body(q.dtype == torch.bfloat16, lq)
+    if body == "tiles":
+        _check_tensor_core_operands("flash_decode", q=q)
     lens = _lengths_operand("flash_decode", lengths, s, q.device)
     o = torch.empty((s, lq, h, d), dtype=q.dtype, device=q.device)
+    chunks = -(-p_len // DECODE_CHUNK[body])
+    ws = torch.empty(s * h * lq * chunks * (d + 2), dtype=torch.float32, device=q.device)
+    scale_strides = [0] * 6 if k_scale is None else [*k_scale.stride()[:3], *v_scale.stride()[:3]]
     lib = build.load("flash_decode")
-    lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
-        build.dtype_code(q, "flash_decode"), s, h, lq, p_len, d, float(scale),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], build.stream_ptr(q.device))
+    lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), build.ptr(k_scale), build.ptr(v_scale),
+        lens.data_ptr(), o.data_ptr(), ws.data_ptr(), build.counters(q.device, s * h * lq).data_ptr(),
+        build.dtype_code(q, "flash_decode"), DECODE_BODIES.index(body), s, h, lq, p_len, d,
+        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *scale_strides,
+        build.stream_ptr(q.device))
     LAUNCHES["flash_decode"] += 1
     return o
 
@@ -294,9 +362,12 @@ def flash_attention(q: torch.Tensor,
                     decode_lengths: Optional[torch.Tensor] = None,
                     kv_lengths: Optional[torch.Tensor] = None,
                     window: Optional[int] = None,
-                    policy: str = "lse") -> torch.Tensor:
+                    policy: str = "lse",
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flash attention over BLHD tensors: K3 when ``decode_lengths`` is
-    given (cache decode), else K1 with K4 as its backward
+    given (cache decode; with ``k_scale``/``v_scale``, k and v are the int8
+    KV pool's codes), else K1 with K4 as its backward
     (:class:`FlashAttention`). A bias, an arbitrary mask or dropout raise
     ``ValueError``: use the ``"xla"`` backend for those."""
     del generator  # dropout is refused below; the argument mirrors the plain backend
@@ -314,7 +385,11 @@ def flash_attention(q: torch.Tensor,
                          "attends the whole cache")
     if scale is None:
         scale = q.shape[-1]**-0.5
+    if k_scale is not None and decode_lengths is None:
+        raise ValueError("k_scale/v_scale (int8 KV codes) are a cache-decode operand: "
+                         "pass decode_lengths")
     if decode_lengths is not None:
-        return flash_decode(q, k, v, decode_lengths, scale=scale)
+        return flash_decode(q, k, v, decode_lengths, scale=scale, k_scale=k_scale,
+                            v_scale=v_scale)
     return FlashAttention.apply(q, k, v, kv_lengths, float(scale), bool(causal),
                                 None if window is None else int(window), policy)

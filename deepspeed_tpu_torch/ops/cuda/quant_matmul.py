@@ -5,21 +5,25 @@ Counterpart of ``deepspeed_tpu/ops/pallas/quant_matmul.py``. The served
 kernel arrives as int8 codes (int4: two per byte along the contraction
 axis, ``ops/quantizer/weights.py`` layout) plus per-(K-group, output column)
 fp32 scales ``[G, N]``; the kernel reads the codes and expands them only in
-shared memory. On a CPU tensor the wrapper computes the plain version (the
-JAX package's ``_xla_quant_matmul``); on a CUDA tensor it launches the
-kernel or raises.
+registers or shared memory. On a CPU tensor the wrapper computes the plain
+version (the JAX package's ``_xla_quant_matmul``); on a CUDA tensor it
+launches the kernel or raises. The kernel has three bodies, picked by
+:func:`qmm_body` from x's dtype, M and the operands' layout.
 """
 
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
-from deepspeed_tpu_torch.ops.cuda.attention_geometry import QMM_BLOCK_K, QMM_BLOCK_M, QMM_BLOCK_N
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import (QMM_BODIES, QMM_GEMV_MAX_K_CHUNK,
+                                                              QMM_GEMV_MAX_M, QMM_K_STEP,
+                                                              QMM_MAX_CLUSTER, QMM_TILES)
 from deepspeed_tpu_torch.ops.quantizer.weights import unpack_rows
 
-#: thread blocks to aim for when the output alone has too few tiles
-#: (two per streaming multiprocessor of an H100)
-TARGET_BLOCKS = 264
+#: thread blocks to aim for when the output alone has too few tiles: two
+#: per streaming multiprocessor of an H100, and for the prefill body, whose
+#: blocks hold 8 warps and 101 KB of shared memory, about one and a half
+TARGET_BLOCKS = {"fma": 264, "gemv": 264, "mma": 192}
 
 
 def quant_matmul_plain(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
@@ -33,15 +37,40 @@ def quant_matmul_plain(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
-def split_k(m: int, k: int, n: int):
-    """``(k_chunk, splits)`` for the kernel: split K over blocks until about
-    ``TARGET_BLOCKS`` are in flight. ``k_chunk`` is a multiple of the K step
-    (so an int4 byte never straddles two splits)."""
-    tiles = -(-m // QMM_BLOCK_M) * -(-n // QMM_BLOCK_N)
-    steps = -(-k // QMM_BLOCK_K)
-    want = max(1, min(steps, -(-TARGET_BLOCKS // tiles)))
+def qmm_body(m: int, k: int, n: int, group_size: int, bf16: bool, aligned: bool) -> str:
+    """K2's body for a call: on the tensor cores for bf16 x, the decode
+    body up to ``QMM_GEMV_MAX_M`` rows (and K it can split into at most
+    ``QMM_MAX_CLUSTER`` ranges it stages) and the prefill body otherwise,
+    where N and the group size are multiples of 16 and x (rows too), codes
+    and scales start 16-byte aligned (``aligned``); else the general FMA
+    body, which takes any shape (and every fp32 call: an fp32 product on
+    the tensor cores could not meet the fp32 checks)."""
+    if not (bf16 and aligned and n % 16 == 0 and group_size % 16 == 0):
+        return "fma"
+    fits = k <= QMM_MAX_CLUSTER * QMM_GEMV_MAX_K_CHUNK
+    return "gemv" if m <= QMM_GEMV_MAX_M and fits else "mma"
+
+
+def split_k(m: int, k: int, n: int, body: str = None, bits: int = 8):
+    """``(k_chunk, splits)`` for ``body`` (default: the bf16 body for M):
+    split K over blocks until about ``TARGET_BLOCKS[body]`` are in flight. The
+    tensor-core bodies sum a tile's splits within one thread-block cluster,
+    so they take at most ``QMM_MAX_CLUSTER``; the general body's splits
+    write fp32 partials to device memory, which stay under the code bytes
+    (``splits * m * n * 4 <= k * n * bits / 8``). ``k_chunk`` is a multiple
+    of the 64-row K step (so an int4 byte never straddles two splits); the
+    decode body stages at most ``QMM_GEMV_MAX_K_CHUNK`` rows of x."""
+    if body is None:
+        body = "gemv" if m <= QMM_GEMV_MAX_M else "mma"
+    bm, bn = QMM_TILES[body]
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // QMM_K_STEP)
+    cap = max(1, k * bits // (32 * m)) if body == "fma" else QMM_MAX_CLUSTER
+    want = max(1, min(steps, cap, -(-TARGET_BLOCKS[body] // tiles)))
     chunk_steps = -(-steps // want)
-    k_chunk = chunk_steps * QMM_BLOCK_K
+    if body == "gemv":
+        chunk_steps = min(chunk_steps, QMM_GEMV_MAX_K_CHUNK // QMM_K_STEP)
+    k_chunk = chunk_steps * QMM_K_STEP
     return k_chunk, -(-k // k_chunk)
 
 
@@ -57,14 +86,19 @@ def _kernel_quant_matmul(x, qw, scale, bits):
     scale = scale.contiguous()
     m, k = x.shape
     g, n = scale.shape
-    k_chunk, splits = split_k(m, k, n)
+    aligned = x.stride(0) % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, qw, scale))
+    body = qmm_body(m, k, n, k // g, x.dtype == torch.bfloat16, aligned)
+    k_chunk, splits = split_k(m, k, n, body, bits)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    workspace = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-                 if splits > 1 else None)
+    workspace = counters = None
+    if body == "fma" and splits > 1:
+        bm, bn = QMM_TILES[body]
+        workspace = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        counters = build.counters(x.device, -(-m // bm) * -(-n // bn))
     lib = build.load("quant_matmul")
     lib(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), build.ptr(workspace),
-        build.dtype_code(x, what), bits, m, k, n, k // g, x.stride(0), k_chunk, splits,
-        build.stream_ptr(x.device))
+        build.ptr(counters), build.dtype_code(x, what), bits, QMM_BODIES.index(body), m, k, n,
+        k // g, x.stride(0), k_chunk, splits, build.stream_ptr(x.device))
     LAUNCHES["quant_matmul"] += 1
     return out
 

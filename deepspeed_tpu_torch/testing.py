@@ -1,6 +1,8 @@
 """Inputs with exactly known answers, for holding the attention kernels
-(K1 and K4: :func:`exact_probe`; K6: :func:`sparse_exact_probe`) to their
-result exactly rather than at a rounding tolerance, and
+(K1 and K4: :func:`exact_probe`; K6: :func:`sparse_exact_probe`; K3:
+:func:`decode_exact_probe`) to their result exactly rather than at a
+rounding tolerance, inputs on which K2 must give its plain version's bits
+(:func:`quant_matmul_probe`), and
 :func:`injected_routing`, which holds the MoE gate to given decisions so
 that two runs can be compared under one routing. Used by the tests and
 ``chip_smoke.py``; nothing in the port's paths calls it.
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.moe import sharded_moe
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import decode_row_limit
 from deepspeed_tpu_torch.ops.cuda.flash_attention import live_pairs
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
 
@@ -220,3 +223,99 @@ def injected_routing(routing: Optional[sharded_moe.SortedRouting] = None,
         yield
     finally:
         sharded_moe.top1routing = free
+
+
+def decode_exact_probe(lengths: List[int], lq: int, p_len: int, h: int, *, seed: int = 0,
+                       dtype=torch.bfloat16, device="cpu") -> dict:
+    """Decode attention inputs (K3) whose output is exact, in both operand
+    forms: :func:`exact_probe`'s one-hot rows over a per-slot cache
+    ``[S, p_len, h, 64]`` with ``lengths`` [S] (S * p_len at most 1024, so
+    every cache row of every slot has its own code: key j of slot s is coded
+    ``s * p_len + j``). Each (slot, row, head) with live keys picks one; in
+    about half of them a dead decoy that would win the softmax if read sits
+    just past the row's live range: the key after the row's position or
+    after the slot's length, or, where the row reads the whole pool (a
+    parked slot's length is ``p_len + lq``), the next slot's first key,
+    which a read past the pool would reach. A row with no live key gets a
+    decoy among all keys and must give 0.
+
+    Returns ``q`` [S, lq, h, 64], ``k`` and ``v`` (values of ``dtype``),
+    the same pool as int8 codes ``k_codes``, ``v_codes`` with scales
+    ``k_scale``, ``v_scale`` [S, p_len, h, 1] of ``dtype`` (exact: codes
+    times 0.5), int32 ``lengths``, ``scale`` 1/8 and the exact ``o``."""
+    s_n = len(lengths)
+    if s_n * p_len > 1024:
+        raise ValueError(f"decode_exact_probe codes at most 1024 cache rows, got {s_n} x {p_len}")
+    rng = np.random.default_rng(seed)
+    pick = np.full((s_n, lq, h), -1)
+    decoy = np.full((s_n, lq, h), -1)
+    for si, length in enumerate(lengths):
+        for r in range(lq):
+            limit = decode_row_limit(length, lq, p_len, r)
+            if limit < p_len:
+                edge = si * p_len + limit
+            else:
+                edge = (si + 1) * p_len if si + 1 < s_n else -1
+            live = si * p_len + np.arange(limit)
+            for hi in range(h):
+                if not limit:
+                    decoy[si, r, hi] = rng.integers(s_n * p_len)
+                    continue
+                if edge >= 0 and rng.random() < 0.5:
+                    near = live[(live % 32 == edge % 32) | (live // 32 == edge // 32)]
+                    if len(near):
+                        pick[si, r, hi], decoy[si, r, hi] = near[rng.integers(len(near))], edge
+                        continue
+                pick[si, r, hi] = live[rng.integers(len(live))]
+    has_d = decoy >= 0
+    q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick)
+         + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy)).astype(np.float32)
+    k = _code(np.broadcast_to((np.arange(s_n)[:, None] * p_len + np.arange(p_len))[..., None],
+                              (s_n, p_len, h)))
+    v = rng.integers(-4, 5, (s_n, p_len, h, 64)).astype(np.float32)
+    o = np.zeros(q.shape, np.float32)
+    si, ri, hi = np.nonzero(pick >= 0)
+    o[si, ri, hi] = v.reshape(s_n * p_len, h, 64)[pick[si, ri, hi], hi]
+
+    def put(x, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dt)
+
+    half = put(np.full((s_n, p_len, h, 1), 0.5, np.float32))
+    return dict(q=put(q), k=put(k), v=put(v), k_codes=put(2 * k, torch.int8),
+                v_codes=put(2 * v, torch.int8), k_scale=half, v_scale=half.clone(),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=device), scale=0.125,
+                o=put(o), pick=pick, decoy=decoy)
+
+
+def quant_matmul_probe(m: int, k: int, n: int, bits: int, *, group: int = 64, hot: int = 4,
+                       round_scales: bool = True, seed: int = 0, dtype=torch.bfloat16,
+                       device="cpu") -> dict:
+    """K2 inputs on which every order of summation gives the same bits, so
+    a kernel must equal its plain version exactly: each row of x holds
+    ``hot`` (at most 4) entries of +-1, the codes span their whole range,
+    and the scales are ``(1 + r 2^-10) 2^-e`` with e in 0..4. Every
+    dequantised weight is then a multiple of 2^-14 under 2^8 (rounded to
+    bf16 or not), every partial sum is exact in fp32, and only the final
+    rounding to x's dtype remains. With ``round_scales`` r is drawn from
+    1..1023, so a weight times its scale is mostly not a bf16 value: a bf16
+    kernel that skips rounding the dequantised weight before the product
+    gives other bits in some outputs. With ``round_scales=False`` (r = 0,
+    powers of two) every weight is exact in bf16: the integer probe.
+
+    Returns ``x`` [m, k] of ``dtype``, ``qw`` (int8 [k, n], or int4 packed
+    [k/2, n]), ``codes`` (unpacked int8) and ``scale`` fp32 [k/group, n]."""
+    from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
+    if hot > 4 or k % group:
+        raise ValueError(f"quant_matmul_probe: hot <= 4 and group | k, got {hot}, {group}, {k}")
+    rng = np.random.default_rng(seed)
+    x = np.zeros((m, k), np.float32)
+    for r in range(m):
+        x[r, rng.choice(k, size=hot, replace=False)] = rng.choice([-1.0, 1.0], size=hot)
+    lo, hi = (-127, 127) if bits == 8 else (-8, 7)
+    codes = rng.integers(lo, hi + 1, (k, n)).astype(np.int8)
+    r = rng.integers(1, 1024, (k // group, n)) if round_scales else 0
+    scale = ((1.0 + r * 2.0**-10) * 2.0**-rng.integers(0, 5, (k // group, n))).astype(np.float32)
+    codes_t = torch.from_numpy(codes).to(device)
+    return dict(x=torch.from_numpy(x).to(device=device, dtype=dtype),
+                qw=codes_t if bits == 8 else pack_rows(codes_t), codes=codes_t,
+                scale=torch.from_numpy(scale).to(device))

@@ -5,9 +5,12 @@ These need a card (and ``nvcc`` to build the kernels) and skip elsewhere;
 slices' full shapes. Tolerances: max |err| / max |ref| within 1e-4 in fp32 (the sums run
 in another order) and 2e-2 in bf16 (outputs are rounded to bf16); K5, a gather, must equal
 its plain version exactly. K6 (block-sparse attention) is held to its plain version for
-every layout block the kernel takes, per-head layouts, an empty row and a NaN probe. K1, K4
-and K6 are also held, in fp32 and bf16, within 1e-6 of inputs whose result is exact
-(``deepspeed_tpu_torch.testing.exact_probe`` and ``sparse_exact_probe``).
+every layout block the kernel takes, per-head layouts, an empty row and a NaN probe. K1, K4,
+K6 and K3 (both operand forms) are also held, in fp32 and bf16, within 1e-6 of inputs whose
+result is exact (``deepspeed_tpu_torch.testing.exact_probe``, ``sparse_exact_probe`` and
+``decode_exact_probe``); K2's three bodies must give their plain version's bits on
+``quant_matmul_probe``'s inputs, and K3's int8 form the bits of its value form on the
+dequantised pool.
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (index_lists_on,
                                                                            launch_orders_on)
 from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
-from deepspeed_tpu_torch.testing import exact_probe, sparse_exact_probe
+from deepspeed_tpu_torch.testing import (decode_exact_probe, exact_probe, quant_matmul_probe,
+                                        sparse_exact_probe)
 
 pytestmark = pytest.mark.cuda
 
@@ -182,6 +186,124 @@ def test_quant_matmul_matches_plain(gen, dtype, bits, m, k, n, groups):
     out = qm.quant_matmul(x, qw, scale, bits=bits)
     assert LAUNCHES["quant_matmul"] == before + 1
     _close(out, qm.quant_matmul_plain(x, qw, scale, bits), dtype)
+
+
+def _quant_operands(gen, m, k, n, groups, bits, dtype):
+    qmax = 127 if bits == 8 else 7
+    codes = torch.randint(-qmax, qmax + 1, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    qw = codes if bits == 8 else pack_rows(codes)
+    scale = torch.rand(groups, n, generator=gen, device="cuda") * 0.02 + 1e-3
+    return _randn(gen, m, k, dtype=dtype), qw, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 128, 130])
+@pytest.mark.parametrize("k,n,groups", [(1024, 1024, 16), (320, 272, 5), (4096, 1024, 64)])
+def test_quant_matmul_bodies_match_plain(gen, dtype, bits, m, k, n, groups):
+    """Every body at ragged M, N not a multiple of the decode body's 128 or
+    the prefill body's 64 columns, K not a multiple of a split's 64-row
+    step times its split count, and the path's K splits."""
+    x, qw, scale = _quant_operands(gen, m, k, n, groups, bits, dtype)
+    body = qm.qmm_body(m, k, n, k // groups, dtype == torch.bfloat16, True)
+    assert body == ("fma" if dtype == torch.float32 else "gemv" if m <= 16 else "mma")
+    before = LAUNCHES["quant_matmul"]
+    out = qm.quant_matmul(x, qw, scale, bits=bits)
+    assert LAUNCHES["quant_matmul"] == before + 1
+    _close(out, qm.quant_matmul_plain(x, qw, scale, bits), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("round_scales", [False, True])
+def test_quant_matmul_probe_is_exact(dtype, bits, m, round_scales):
+    """Inputs on which every summation order gives the same bits: the
+    kernel must equal its plain version exactly, so a weight put in the
+    wrong (row, column), a wrong group's scale, a wrong nibble or sign, or
+    (round_scales, bf16) a weight not rounded to bf16 before the product
+    shows as a wrong output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    p = quant_matmul_probe(m, 1024, 1024, bits, round_scales=round_scales, seed=m + bits,
+                           dtype=dtype, device="cuda")
+    out = qm.quant_matmul(p["x"], p["qw"], p["scale"], bits=bits)
+    ref = qm.quant_matmul_plain(p["x"], p["qw"], p["scale"], bits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_quant_matmul_odd_shapes_take_the_general_body(gen):
+    """bf16 with N or the group size not a multiple of 16 runs the FMA body."""
+    for k, n, groups in ((96, 40, 3), (96, 48, 4)):
+        x, qw, scale = _quant_operands(gen, 8, k, n, groups, 8, torch.bfloat16)
+        assert qm.qmm_body(8, k, n, k // groups, True, True) == "fma"
+        _close(qm.quant_matmul(x, qw, scale), qm.quant_matmul_plain(x, qw, scale, 8),
+               torch.bfloat16)
+
+
+def _int8_pool(gen, s, p_len, h, dtype):
+    codes = torch.randint(-127, 128, (2, s, p_len, h, 64), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    scales = (torch.rand(2, s, p_len, h, 1, generator=gen, device="cuda") * 0.05 + 1e-3).to(dtype)
+    return codes[0], codes[1], scales[0], scales[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lengths", [(1, [0, 1, 63, 64, 65, 200, 256, 257]),
+                                        (16, [0, 1, 15, 16, 100, 256, 272, 5]),
+                                        (1, [256, 0, 0, 0]), (16, [256, 0, 0, 0])])
+def test_flash_decode_int8_form(gen, dtype, lq, lengths):
+    """The int8 operand form against its plain version (dequantise, then
+    flash_decode_plain), and bit for bit against the value form of the
+    same kernel on the dequantised pool."""
+    s = len(lengths)
+    q = _randn(gen, s, lq, 4, 64, dtype=dtype)
+    kc, vc, ks, vs = _int8_pool(gen, s, 256, 4, dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = LAUNCHES["flash_decode"]
+    o = fa.flash_decode(q, kc, vc, lens, k_scale=ks, v_scale=vs)
+    assert LAUNCHES["flash_decode"] == before + 1
+    _close(o, fa.flash_decode_plain(q, kc, vc, lens, scale=0.125, k_scale=ks, v_scale=vs), dtype)
+    k, v = fa.dequantize_kv(kc, ks, dtype), fa.dequantize_kv(vc, vs, dtype)
+    o_values = fa.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_values)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["values", "int8"])
+@pytest.mark.parametrize("lq,lengths", [(1, [0, 1, 64, 65, 129, 255, 256, 257]),
+                                        (16, [0, 1, 15, 16, 100, 256, 272, 250])])
+def test_flash_decode_exact_probe(dtype, form, lq, lengths):
+    """One-hot softmax rows with a dead decoy just past each live range (or
+    in the next slot, past a full pool) that would win if read: o within
+    1e-6 of v's picked row, 0 where no key is live."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for half in (lengths[:4], lengths[4:]):
+        p = decode_exact_probe(half, lq, 256, 4, seed=lq, dtype=dtype, device="cuda")
+        kw = {} if form == "values" else dict(k_scale=p["k_scale"], v_scale=p["v_scale"])
+        k, v = (p["k"], p["v"]) if form == "values" else (p["k_codes"], p["v_codes"])
+        o = fa.flash_decode(p["q"], k, v, p["lengths"], scale=p["scale"], **kw)
+        torch.cuda.synchronize()
+        assert (o.float() - p["o"].float()).abs().max().item() <= 1e-6 * 4
+
+
+def test_flash_decode_refuses_what_the_kernel_does_not_take(gen):
+    q = _randn(gen, 2, 1, 4, 64, dtype=torch.bfloat16)
+    kc, vc, ks, vs = _int8_pool(gen, 2, 64, 4, torch.bfloat16)
+    lens = torch.tensor([3, 64], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        fa.flash_decode(q, kc, vc, lens, k_scale=ks)
+    with pytest.raises(ValueError, match="must be torch.int8"):
+        fa.flash_decode(q, kc.to(torch.bfloat16), vc, lens, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        fa.flash_decode(q, kc, vc, lens, k_scale=ks.float(), v_scale=vs)
+    wide = torch.zeros(2, 64, 4, 72, dtype=torch.int8, device="cuda")[..., 4:68]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_decode(q, wide, vc, lens, k_scale=ks, v_scale=vs)
 
 
 def test_flash_backend_raises_on_cuda_for_bias(gen):

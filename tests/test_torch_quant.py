@@ -4,7 +4,9 @@
 JAX's (int8, and int4 packing); the port's ``quant_matmul`` and
 ``quant_dense_general`` (on CPU tensors: the plain version of kernel K2)
 are held to JAX ``_xla_quant_matmul`` in fp32 with ``atol=1e-5`` (the
-Pallas interpret path is not the yardstick: it fails on the seed tree).
+Pallas interpret path is not the yardstick: it fails on the seed tree), and
+bit for bit, in bf16 and fp32, on ``testing.quant_matmul_probe``'s inputs,
+which a bf16 product over an unrounded dequantised weight gets wrong.
 """
 
 import importlib
@@ -22,6 +24,7 @@ from deepspeed_tpu.ops.quantizer import weights as jax_weights
 from deepspeed_tpu_torch.models.common import flatten_tree
 from deepspeed_tpu_torch.ops.cuda import quant_matmul as port_qmm
 from deepspeed_tpu_torch.ops.quantizer import core, weights
+from deepspeed_tpu_torch.testing import quant_matmul_probe
 
 jax_qmm = importlib.import_module("deepspeed_tpu.ops.pallas.quant_matmul")
 
@@ -158,3 +161,20 @@ def test_split_k_covers_k():
         k_chunk, splits = port_qmm.split_k(m, k, n)
         assert k_chunk % 32 == 0 and splits >= 1
         assert (splits - 1) * k_chunk < k <= splits * k_chunk
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)])
+def test_quant_matmul_probe_is_exact_and_sees_the_rounding(bits, dtype, jdtype):
+    """On the probe every summation order gives the same bits: the plain
+    version equals JAX's reference bit for bit, and in bf16 a product over
+    the dequantised weight left unrounded differs from it in some outputs,
+    so the kernels' bit-for-bit check on the card sees a skipped rounding."""
+    p = quant_matmul_probe(16, 256, 64, bits, seed=bits, dtype=dtype)
+    out = port_qmm.quant_matmul(p["x"], p["qw"], p["scale"], bits=bits)
+    ref = jax_qmm._xla_quant_matmul(jnp.asarray(p["x"].float().numpy(), jdtype),
+                                    jnp.asarray(p["qw"].numpy()), jnp.asarray(p["scale"].numpy()), bits)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    w = p["codes"].float().reshape(4, 64, 64) * p["scale"][:, None, :]
+    unrounded = (p["x"].float() @ w.reshape(256, 64)).to(dtype)
+    assert (unrounded != out).any() == (dtype == torch.bfloat16)
