@@ -29,13 +29,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
               non-bf16 scales).
               Times the kernel, its plain version and one PyTorch library
               call, and computes the least time the card could take
-              (``bound_ms``). For K1, K4 and K6 the library time is the
-              device time of the kernels SDPA launches (``torch.profiler``
-              sums, so host launch gaps do not count), with the event-timed
-              figure beside it, and the kernel's own device time
-              (``device_ms``) is measured the same way, K4's and K6's by
-              kernel (K6 also in natural launch order beside its
-              longest-first one). K6's registers, local-memory bytes, HMMA
+              (``bound_ms``). For K1, K4, K5 and K6 the library time is the
+              device time of the kernels SDPA (K5: ``index_select``)
+              launches (``torch.profiler`` sums, so host launch gaps do not
+              count), with the event-timed figure beside it, and the
+              kernel's own device time (``device_ms``) is measured the same
+              way, K4's and K6's by kernel (K6 also in natural launch order
+              beside its longest-first one). K6's registers, local-memory bytes, HMMA
               and atomic instructions come from ``cuobjdump``: every bf16
               K6 kernel must hold HMMA instructions and none an atomic. K2 and
               its library call (a bf16 matmul over the dequantised weight) are
@@ -102,6 +102,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
               the module's forward, K6's backward wrapper and autograd's
               rest), a dense layout against K1 and K4 (causal and not),
               and K1 + K4 at shape (a).
+10. engine API and checkpoints — GPT-2 350m as in phase 5 at
+              ``train_batch_size`` 16, micro-batch 8, ``gas`` 2: (a) 4 steps
+              of ``train_batch`` twice from one seeded init (the card's own
+              bit-determinism) and the same 8 micro-batches through
+              ``forward``/``backward``/``step`` (``step()`` between
+              boundaries must leave ``global_steps``): losses and final
+              parameters bit-equal, on the ``"flash"`` backend at dropout 0
+              (launch counts zeroed just before each side and read just
+              after: K1 and K4 on both), and at dropout 0.1 on the ``"xla"``
+              backend (the flash kernels take no dropout); (b) that dropout
+              run saves ``step2`` and ``step4``, and a fresh engine loads
+              ``step2`` (``verify_checkpoint="full"``) and trains steps 3-4
+              to the same bits; (c) on hard-linked copies of the tags: a
+              flipped byte and a truncated file in ``step4`` each fall back
+              to ``step2`` with the error logged, and an explicit ``tag=``
+              of a corrupt tag with nothing older raises
+              ``CheckpointCorruptError``; (d) ``save_16bit_model``: 2 bytes a
+              parameter, its bits equal to the parameters rounded to bf16;
+              (e) a 2-layer MoE model at full width (8 experts, top-1, cf
+              1.25, RTS): both APIs bit-equal, then save, load and resume
+              bit-exact, K1, K4 and K5 launched; and, right after phase 7,
+              ``moe_gate_stats`` on phase 7's engine leaves its next loss
+              bit-equal. It prints the step ms of both APIs (6 pairs in
+              turns on one warm engine) and the save's and the loads'
+              seconds and GB, split by part; the checkpoints live in a temp
+              dir, deleted at the end.
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
@@ -115,10 +141,13 @@ CUDA is unavailable or the package is missing.
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -141,8 +170,8 @@ RESULTS = {"checks": [], "timings": {}}
 
 #: the keys of each kernel in the ``kernels`` line (``launches`` is added);
 #: ``device_ms``, the kernel's own device-side time, only where
-#: ``library_ms`` is device-side too (K1, K4, K6), so the two compare on one
-#: clock
+#: ``library_ms`` is device-side too (K1, K4, K5, K6), so the two compare on
+#: one clock
 KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms", "device_ms",
                     "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -702,7 +731,9 @@ def k5_cases(gen) -> dict:
     VJP (``PermuteRows``' backward, K5 on the inverse map) against the plain
     gather and its autograd, exactly. Times dispatch and combine in bf16,
     each launch reading one of three copies of the input so that no launch
-    finds its input in the 50 MB L2 cache."""
+    finds its input in the 50 MB L2 cache: K5 and ``index_select`` over the
+    same rows device-side (``torch.profiler``), the event-timed figures
+    beside them."""
     import itertools
 
     from deepspeed_tpu_torch.moe.sharded_moe import _gate_capacity
@@ -748,9 +779,13 @@ def k5_cases(gen) -> dict:
         copies = [randn(1, n_rows, M, dtype=torch.bfloat16) for _ in range(3)]
         nxt = itertools.cycle(copies).__next__
         clamped = fwd[0].clamp(max=n_rows - 1).long()
-        ms = time_ms(lambda: md.moe_permute(nxt(), fwd), iters=60)
+        kernel = lambda: md.moe_permute(nxt(), fwd)  # noqa: E731
+        library = lambda: torch.index_select(nxt()[0], 0, clamped)  # noqa: E731
+        ms = time_ms(kernel, iters=60)
+        dev_ms = device_ms(kernel, iters=30)
         plain_ms = time_ms(lambda: md.moe_permute_plain(nxt(), fwd), iters=30)
-        lib_ms = time_ms(lambda: torch.index_select(nxt()[0], 0, clamped), iters=60)
+        lib_event_ms = time_ms(library, iters=60)
+        lib_ms = device_ms(library, iters=30)
         live = int((fwd < n_rows).sum())
         r = fwd.shape[1]
         # live source rows read once, every output row written, the index read
@@ -760,10 +795,12 @@ def k5_cases(gen) -> dict:
         timed[what] = dict(name="moe_permute", route="cuda",
                            source="deepspeed_tpu_torch/csrc/moe_permute.cu",
                            replaces="deepspeed_tpu/ops/pallas/moe_dispatch.py:76", shape=shape,
-                           max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                           bound_by=by, library_ms=lib_ms)
-        log(f"time moe_permute {shape}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} (index_select of the clamped index, no zeroing) "
+                           max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                           library_event_ms=lib_event_ms)
+        log(f"time moe_permute {shape}: kernel_ms={ms:.4f} kernel_device_ms={dev_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (index_select of the clamped "
+            f"index, no zeroing; device-side; event-timed {lib_event_ms:.4f}) "
             f"bound_ms={bnd:.4f} ({by})")
     RESULTS["timings"]["moe_permute"] = timed
     return timed["dispatch"]
@@ -1597,7 +1634,7 @@ def moe_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
         f"{out['peak_memory_gb']:.2f} GB  [{card}]")
     log(f"moe train launches on the main path: {counts}; per step {per_step}  [{card}]")
     out["profile"] = _profile_train_step(engine, batch, card, step_ms)
-    return out, counts
+    return out, counts, engine, batch
 
 
 def moe_gradcheck_phase(seed: int, card: str) -> dict:
@@ -1895,6 +1932,422 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the engine's own API and its checkpoints
+# ---------------------------------------------------------------------------
+#: phase 10's model
+API_MODEL = dict(name="350m", vocab_size=50304, n_positions=1024, fused_head_loss_chunk=1024)
+API_GAS = 2
+
+
+def api_config() -> dict:
+    """Phase 10's engine config: the training phase's at ``train_batch_size``
+    16 over two micro-batches of 8, every loaded leaf re-hashed."""
+    return dict(train_config(8, 1.0, True), train_batch_size=16, gradient_accumulation_steps=API_GAS,
+                resilience={"verify_checkpoint": "full", "fallback_on_corruption": True})
+
+
+def _api_engine(seed: int, **model_kw):
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    kw = dict(API_MODEL, remat=True, dtype=torch.bfloat16)
+    kw.update(model_kw)
+    cfg = get_gpt2_config(kw.pop("name"), **kw)
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    return initialize(model=model, config=api_config(), device="cuda")[0]
+
+
+def _params(engine) -> list:
+    return [p.detach().clone() for p in engine.module.parameters()]
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+#: where a checkpoint save and load spend their time: (label, file suffix,
+#: function name) of the calls whose cumulative time ``cProfile`` reads;
+#: the rest is mostly ``torch.save`` / ``torch.load`` (which ``cProfile``
+#: does not list under their own names)
+SAVE_PARTS = (("device-to-host copies", "torch_engine.py", "_host_copy"),
+              ("leaf digests", "manifest.py", "state_leaf_entries"),
+              ("file digests", "manifest.py", "file_inventory"),
+              ("fsync", "manifest.py", "fsync_tree"))
+LOAD_PARTS = (("file digests", "manifest.py", "verify_checkpoint_dir"),
+              ("leaf digests", "manifest.py", "verify_state_leaves"),
+              ("copies into the live tensors", "~", "<method 'copy_' of 'torch._C.TensorBase' objects>"))
+INTERLEAVED_PAIRS = 6
+
+
+def _profiled(fn, parts) -> dict:
+    """``fn()`` under ``cProfile``: its seconds, and the cumulative seconds
+    of each of ``parts``."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    split = {label: sum(v[3] for (f, _, name), v in stats.items() if f.endswith(suffix) and name == func)
+             for label, suffix, func in parts}
+    split["rest (torch.save or torch.load)"] = total - sum(split.values())
+    return {"s": total, "by_part_s": split}
+
+
+def _run_train_batch(engine, batches, first: int = 0, saves=None):
+    """``train_batch`` over ``batches``; ``saves``: ``{step: (dir, tag)}``
+    saved after that step (counted from 1), timed and split by part.
+    Returns the losses, the ms of each step and the saves' seconds and
+    GB."""
+    losses, step_ms, saved = [], [], {}
+    for i, b in enumerate(batches, start=first + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(b))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if saves and i in saves:
+            where, tag = saves[i]
+            saved[tag] = _profiled(lambda: engine.save_checkpoint(where, tag=tag), SAVE_PARTS)
+            saved[tag]["gb"] = _dir_bytes(os.path.join(where, tag)) / 1e9
+    return losses, step_ms, saved
+
+
+def _run_shims(engine, batches):
+    """The same steps through forward/backward/step: each batch's two
+    micro-batches, ``step()`` after each backward (a no-op after the
+    first). Returns the mean micro-batch losses and the ms of each step."""
+    losses, step_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        micro = []
+        n = b.shape[0] // API_GAS
+        for j in range(API_GAS):
+            loss = engine.forward({"input_ids": b[j * n:(j + 1) * n]})
+            engine.backward(loss)
+            micro.append(loss.detach().float())
+            steps = engine.global_steps
+            engine.step()
+            if j < API_GAS - 1 and engine.global_steps != steps:
+                raise AssertionError("engine api: step() between boundaries moved global_steps")
+        losses.append(torch.stack(micro).mean())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def _ms_summary(ms: list) -> dict:
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    return {"median": float(med), "q1": float(q1), "q3": float(q3), "min": min(ms), "max": max(ms),
+            "n": len(ms)}
+
+
+def _check_api_pair(what: str, seed: int, batches, counts: dict, saves=None, **model_kw):
+    """(a) for one model: ``train_batch`` twice from one init (the card's
+    own bit-determinism; the first run makes ``saves``) and
+    forward/backward/step once; losses and final parameters bit-equal.
+    Launch counts of each side zeroed just before it and read just after,
+    summed into ``counts``. Returns the results and the first run's final
+    parameters."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    sides = {}
+    for side in ("train_batch", "train_batch again", "forward/backward/step"):
+        engine = _api_engine(seed, **model_kw)
+        reset_launches()
+        if side == "train_batch":
+            losses, step_ms, saved = _run_train_batch(engine, batches, saves=saves)
+        elif side == "train_batch again":
+            losses, step_ms, _ = _run_train_batch(engine, batches)
+        else:
+            losses, step_ms = _run_shims(engine, batches)
+        side_counts = launches()
+        for k, c in side_counts.items():
+            counts[k] = counts.get(k, 0) + c
+        sides[side] = dict(losses=[float(x) for x in losses], loss_bits=losses, params=_params(engine),
+                           step_ms=step_ms, launches=side_counts, steps=engine.global_steps)
+        if side == "forward/backward/step":
+            # the step's ms by API on this warm engine, in turns, each pair
+            # in the other order than the one before
+            runs = (("train_batch", _run_train_batch), ("forward/backward/step", _run_shims))
+            interleaved = {name: [] for name, _ in runs}
+            for i in range(INTERLEAVED_PAIRS):
+                for name, run in (runs if i % 2 == 0 else runs[::-1]):
+                    interleaved[name] += run(engine, [batches[i % len(batches)]])[1]
+        del engine
+    ref, again, shims = (sides[k] for k in ("train_batch", "train_batch again", "forward/backward/step"))
+    deterministic = (all(torch.equal(x, y) for x, y in zip(ref["loss_bits"], again["loss_bits"]))
+                     and _same_bits(ref["params"], again["params"]))
+    if not deterministic:
+        raise AssertionError(f"engine api {what}: two train_batch runs from one init differ on the card "
+                             f"(losses {ref['losses']} vs {again['losses']})")
+    if not (all(torch.equal(x, y) for x, y in zip(ref["loss_bits"], shims["loss_bits"]))
+            and _same_bits(ref["params"], shims["params"])):
+        raise AssertionError(f"engine api {what}: forward/backward/step differs from train_batch "
+                             f"(losses {shims['losses']} vs {ref['losses']})")
+    if not ref["steps"] == shims["steps"] == len(batches):
+        raise AssertionError(f"engine api {what}: global_steps {ref['steps']} / {shims['steps']}")
+    timed = {k: _ms_summary(v["step_ms"][1:]) for k, v in sides.items()}
+    RESULTS["checks"].append({"name": f"engine api {what}: train_batch == forward/backward/step, bit for bit",
+                              "ok": True})
+    return {"losses": ref["losses"], "step_ms": timed, "saved": saved,
+            "interleaved_step_ms": {k: _ms_summary(v) for k, v in interleaved.items()},
+            "launches": {k: v["launches"] for k, v in sides.items()}}, ref["params"]
+
+
+def _linked_copy(src: str, dst: str) -> None:
+    """A copy of a checkpoint dir whose files are hard links (no bytes
+    copied); :func:`_own_file` gives a file its own bytes before it is
+    damaged."""
+    shutil.copytree(src, dst, copy_function=os.link)
+
+
+def _own_file(path: str) -> None:
+    shutil.copyfile(path, path + ".copy")
+    os.replace(path + ".copy", path)
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _corruption_probes(engine, base: str, work: str, batches, want_losses) -> dict:
+    """(c) on copies of the dense tags ``step2`` and ``step4``: a flipped
+    byte in the newest tag's module file and a truncated optimizer file must
+    each fall back to ``step2``, with the error logged (the flipped-byte
+    fallback then trains steps 3-4 to the uninterrupted losses); an explicit
+    ``tag=`` of a corrupt tag with no older tag must raise."""
+    from deepspeed_tpu_torch.runtime.resilience.manifest import CheckpointCorruptError
+    records = _Records()
+    logging.getLogger("deepspeed_tpu_torch").addHandler(records)
+    out = {}
+    try:
+        for probe in ("flipped byte", "truncated file"):
+            copy = os.path.join(work, probe.replace(" ", "_"))
+            _linked_copy(base, copy)
+            target = os.path.join(copy, "step4", "state",
+                                  "module.pt" if probe == "flipped byte" else "optimizer.pt")
+            _own_file(target)
+            size = os.path.getsize(target)
+            if probe == "flipped byte":
+                with open(target, "r+b") as f:
+                    f.seek(size // 2)
+                    byte = f.read(1)
+                    f.seek(size // 2)
+                    f.write(bytes([byte[0] ^ 0x10]))
+            else:
+                os.truncate(target, size // 2)
+            records.messages.clear()
+            t0 = time.perf_counter()
+            engine.load_checkpoint(copy)
+            load_s = time.perf_counter() - t0
+            logged = [m for m in records.messages if "step4" in m and "corrupt" in m]
+            if engine.loaded_checkpoint_tag != "step2" or engine.global_steps != 2 or not logged:
+                raise AssertionError(f"corruption probe {probe}: loaded {engine.loaded_checkpoint_tag} "
+                                     f"at step {engine.global_steps}, logged {records.messages}")
+            out[probe] = {"fell_back_to": "step2", "load_s": load_s, "logged": logged[0][:300]}
+            if probe == "flipped byte":
+                losses = [float(x) for x in _run_train_batch(engine, batches[2:], first=2)[0]]
+                if losses != want_losses[2:]:
+                    raise AssertionError(f"corruption probe: steps 3-4 after the fallback {losses} vs "
+                                         f"{want_losses[2:]}")
+            shutil.rmtree(copy)
+        alone = os.path.join(work, "explicit")
+        os.makedirs(alone)
+        _linked_copy(os.path.join(base, "step2"), os.path.join(alone, "step2"))
+        target = os.path.join(alone, "step2", "state", "rng.pt")
+        _own_file(target)
+        with open(target, "r+b") as f:
+            byte = f.read(1)
+            f.seek(0)
+            f.write(bytes([byte[0] ^ 0x01]))
+        try:
+            engine.load_checkpoint(alone, tag="step2")
+        except CheckpointCorruptError as e:
+            out["explicit corrupt tag, nothing older"] = {"raised": str(e)[:300]}
+        else:
+            raise AssertionError("corruption probe: an explicit corrupt tag with nothing older loaded")
+        shutil.rmtree(alone)
+    finally:
+        logging.getLogger("deepspeed_tpu_torch").removeHandler(records)
+    RESULTS["checks"].append({"name": "engine api corruption probes (fallback to the older tag, or raise)",
+                              "ok": True})
+    return out
+
+
+def _check_16bit(engine, where: str) -> dict:
+    """(d) ``save_16bit_model``: 2 bytes a parameter, and its bits read
+    back equal to the parameters rounded to bf16, under the JAX paths."""
+    from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
+    t0 = time.perf_counter()
+    path = engine.save_16bit_model(where)
+    save_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    want = params_to_jax({k: p.detach().to(torch.bfloat16) for k, p in engine.module.named_parameters()})
+    with np.load(path) as z:
+        dtypes = json.loads(bytes(z["__dtypes__"]).decode())
+        arrays = {k: z[k] for k in z.files if k != "__dtypes__"}
+    if set(arrays) != set(want) or set(dtypes.values()) != {"bfloat16"}:
+        raise AssertionError(f"16-bit model: keys or dtypes differ ({sorted(set(arrays) ^ set(want))[:4]})")
+    if sum(a.nbytes for a in arrays.values()) != 2 * n_params:
+        raise AssertionError("16-bit model: not 2 bytes a parameter")
+    bad = [k for k, a in arrays.items() if not np.array_equal(a, want[k])]
+    if bad:
+        raise AssertionError(f"16-bit model: bits differ from the parameters rounded to bf16: {bad[:4]}")
+    size = os.path.getsize(path)
+    RESULTS["checks"].append({"name": "engine api 16-bit model: bf16 bits, 2 bytes a parameter", "ok": True})
+    return {"path": os.path.basename(path), "bytes": size, "n_params": n_params,
+            "bytes_per_param": size / n_params, "save_s": save_s}
+
+
+def _check_resume(what: str, seed: int, batches, ref_losses, ref_params, where: str, **model_kw):
+    """(b) a fresh engine loads ``step2`` and trains steps 3-4: the losses
+    and the parameters bit-equal to the uninterrupted run's. Returns the
+    engine and the load's seconds by part."""
+    engine = _api_engine(seed + 100, **model_kw)  # other weights, so the load must take
+    loaded = _profiled(lambda: engine.load_checkpoint(where, tag="step2"), LOAD_PARTS)
+    losses = [float(x) for x in _run_train_batch(engine, batches[2:], first=2)[0]]
+    if losses != ref_losses[2:] or not _same_bits(_params(engine), ref_params):
+        raise AssertionError(f"engine api {what}: the resumed run differs from the uninterrupted one "
+                             f"(losses {losses} vs {ref_losses[2:]})")
+    RESULTS["checks"].append({"name": f"engine api {what}: load step2 + 2 steps == uninterrupted, bit for bit",
+                              "ok": True})
+    return engine, {"load": loaded, "losses_3_4": losses}
+
+
+def _snapshot(engine):
+    return ({k: v.detach().clone() for k, v in engine.checkpoint_state().items()},
+            (engine.global_steps, engine.global_samples, engine.micro_steps, engine.skipped_steps))
+
+
+def _restore(engine, snap) -> None:
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import OPTIMIZER_GROUP
+    from deepspeed_tpu_torch.runtime.engine import RNG_KEY
+    state, counters = snap
+    live = engine.checkpoint_state()
+    with torch.no_grad():
+        for k, v in state.items():
+            live[k].copy_(v)
+    engine.optimizer.count = int(state[f"{OPTIMIZER_GROUP}/count"])
+    engine.generator.set_state(state[RNG_KEY])
+    engine.global_steps, engine.global_samples, engine.micro_steps, engine.skipped_steps = counters
+
+
+def _check_gate_stats(engine, batch, card: str) -> dict:
+    """(e) ``moe_gate_stats`` on phase 7's engine leaves its next step as it
+    was: from one snapshot, the next loss and gradient norm with and
+    without a stats call before them agree in every bit, and the call
+    leaves the engine's generator as it was."""
+    snap = _snapshot(engine)
+    want = engine.train_batch(batch)
+    want_norm = engine.get_global_grad_norm()
+    _restore(engine, snap)
+    del snap
+    gen = engine.generator.get_state()
+    t0 = time.perf_counter()
+    stats = engine.moe_gate_stats(batch)
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t0
+    if not torch.equal(engine.generator.get_state(), gen):
+        raise AssertionError("moe_gate_stats drew from the training generator")
+    got = engine.train_batch(batch)
+    if not torch.equal(got, want) or engine.get_global_grad_norm() != want_norm:
+        raise AssertionError(f"moe_gate_stats changed the next step: loss {float(got)} vs {float(want)}")
+    layers = {k: {"kept": int(v["kept_counts"].sum()), "routed": int(v["exp_counts"].sum()),
+                  "capacity_slots": v["capacity_slots"], "max_expert": int(v["exp_counts"].max())}
+              for k, v in stats.items()}
+    log(f"engine api moe_gate_stats: {len(stats)} MoE layers, {stats_s:.3f} s; next loss "
+        f"{float(got):.6f} bit-equal with and without the call; {layers}  [{card}]")
+    RESULTS["checks"].append({"name": "engine api moe_gate_stats leaves the next step unchanged", "ok": True})
+    return {"layers": layers, "stats_s": stats_s, "next_loss": float(got)}
+
+
+def engine_api_phase(seed: int, card: str):
+    """Phase 10 (module docstring) but for (e)'s ``moe_gate_stats`` check,
+    which runs on phase 7's engine (:func:`_check_gate_stats`). Returns its
+    results and the launch counts of its main path: every run of (a) and
+    (e), each zeroed just before and read just after."""
+    counts = {}
+    out = {}
+    rng = np.random.default_rng(seed + 10)
+    vocab = API_MODEL["vocab_size"]
+    batches = [rng.integers(0, vocab, (16, API_MODEL["n_positions"])).astype(np.int32) for _ in range(4)]
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out["free_gb_at_start"] = shutil.disk_usage(work).free / 1e9
+        # (a) flash, dropout 0: K1 and K4 on both APIs
+        flash = out["a_flash"] = _check_api_pair("flash", seed + 10, batches, counts,
+                                                 attention_backend="flash")[0]
+        missing = [k for k in TRAINING_KERNELS if any(v[k] <= 0 for v in flash["launches"].values())]
+        if missing:
+            raise AssertionError(f"engine api: {missing} never launched on one side: {flash['launches']}")
+        # (a) dropout 0.1: the "xla" backend (the flash kernels take no
+        # dropout); its first run saves step2 and step4
+        drop = dict(attention_backend="xla", dropout=0.1)
+        dense = os.path.join(work, "dense")
+        out["a_dropout"], ref_params = _check_api_pair(
+            "dropout 0.1", seed + 10, batches, counts,
+            saves={2: (dense, "step2"), 4: (dense, "step4")}, **drop)
+        # (b) resume from step2 with verify "full"
+        engine, out["b_resume"] = _check_resume("dropout 0.1 resume", seed + 10, batches,
+                                                out["a_dropout"]["losses"], ref_params, dense, **drop)
+        # (c) corruption probes, (d) the 16-bit model
+        out["c_corruption"] = _corruption_probes(engine, dense, work, batches,
+                                                 out["a_dropout"]["losses"])
+        out["d_16bit"] = _check_16bit(engine, os.path.join(work, "bf16"))
+        del engine, ref_params
+        shutil.rmtree(dense)
+        # (e) MoE at 2 layers: both APIs, then save, load, resume bit-exact
+        # (the RTS draws cross with the generator's state)
+        moe = dict(n_layer=2, attention_backend="flash", moe_num_experts=8, moe_layer_freq=2, moe_k=1,
+                   moe_use_rts=True)
+        moe_dir = os.path.join(work, "moe")
+        before = dict(counts)
+        out["e_moe"], moe_params = _check_api_pair("MoE RTS", seed + 11, batches, counts,
+                                                   saves={2: (moe_dir, "step2")}, **moe)
+        missing = [k for k in MOE_TRAINING_KERNELS if counts[k] - before.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"engine api MoE: {missing} never launched: {out['e_moe']['launches']}")
+        engine, out["e_moe"]["resume"] = _check_resume("MoE RTS resume", seed + 11, batches,
+                                                       out["e_moe"]["losses"], moe_params, moe_dir, **moe)
+        del engine, moe_params
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sv, ld = out["a_dropout"]["saved"]["step2"], out["b_resume"]["load"]
+
+    def ms(d):
+        return ", ".join(f"{k} {v['median']:.2f} [{v['q1']:.2f}, {v['q3']:.2f}] (n {v['n']})"
+                         for k, v in d.items())
+
+    def parts(d):
+        return ", ".join(f"{k} {v:.2f}" for k, v in d["by_part_s"].items())
+
+    log(f"engine api (a): flash, dropout 0: train_batch == forward/backward/step bit for bit over 4 "
+        f"steps, losses {flash['losses']}; step ms median [q1, q3], steps 2-4 of each run: "
+        f"{ms(flash['step_ms'])}; in turns on one warm engine: {ms(flash['interleaved_step_ms'])}; "
+        f"launches per side {flash['launches']['forward/backward/step']}  [{card}]")
+    log(f"engine api (a): xla, dropout 0.1: bit for bit, losses {out['a_dropout']['losses']}; step "
+        f"ms in turns: {ms(out['a_dropout']['interleaved_step_ms'])}  [{card}]")
+    log(f"engine api (b): save step2 {sv['s']:.2f} s ({parts(sv)}), {sv['gb']:.3f} GB; load (verify "
+        f"full) {ld['s']:.2f} s ({parts(ld)}); steps 3-4 bit-equal to the uninterrupted run  [{card}]")
+    log(f"engine api (c): {out['c_corruption']}  [{card}]")
+    log(f"engine api (d): 16-bit model {out['d_16bit']}  [{card}]")
+    log(f"engine api (e): MoE 2 layers, RTS: train_batch == forward/backward/step bit for bit; load "
+        f"step2 {out['e_moe']['resume']['load']['s']:.2f} s, steps 3-4 bit-equal; launches on the "
+        f"path {counts}  [{card}]")
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1948,20 +2401,27 @@ def main(argv=None) -> int:
         RESULTS["train"], train_counts = train_phase(args.seed, card)
         RESULTS["gradcheck"] = gradcheck_phase(args.seed, card)
         torch.cuda.empty_cache()
-        RESULTS["moe_train"], moe_counts = moe_train_phase(args.seed, card)
+        RESULTS["moe_train"], moe_counts, moe_engine, moe_batch = moe_train_phase(args.seed, card)
+        gate_stats = _check_gate_stats(moe_engine, moe_batch, card)  # phase 10 (e), on this engine
+        del moe_engine
         torch.cuda.empty_cache()
         RESULTS["moe_gradcheck"] = moe_gradcheck_phase(args.seed, card)
         torch.cuda.empty_cache()
         RESULTS["sparse"], sparse_counts = sparse_phase(args.seed, card)
+        torch.cuda.empty_cache()
+        RESULTS["engine_api"], api_counts = engine_api_phase(args.seed, card)
+        RESULTS["engine_api"]["e_moe_gate_stats"] = gate_stats
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
     if "all" in phases:
-        # launches: the serving, training, MoE training and sparse attention
-        # paths' counts, each zeroed just before its path and read just after
+        # launches: the serving, training, MoE training, sparse attention and
+        # engine API paths' counts, each zeroed just before its path and read
+        # just after
+        paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts)
         kernels = [dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
-                        launches=sum(c[name] for c in (serve_counts, train_counts, moe_counts, sparse_counts)))
+                        launches=sum(c.get(name, 0) for c in paths))
                    for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
                                 "sparse_fwd", "sparse_bwd")]
         log(json.dumps({"kernels": kernels}))

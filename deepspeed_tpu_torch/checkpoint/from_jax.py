@@ -6,7 +6,9 @@ the port's state dict. The layouts are identical, so this is a renaming:
 ``h_0/attn/c_attn/kernel`` -> ``h_0.attn.c_attn.kernel`` and
 ``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``. ``opt_state_from_jax`` does
 the same for the JAX ``fused_adam`` state, so that both packages can resume
-from one mid-training state. An MoE model's keys carry over the same way
+from one mid-training state; ``params_to_jax`` goes the other way (the JAX
+paths and numpy arrays of a port state dict, as the engine's
+``save_16bit_model`` writes them). An MoE model's keys carry over the same way
 (``h_1/moe/deepspeed_moe/gate/wg`` -> ``h_1.moe.deepspeed_moe.gate.wg``, the
 experts' stacked ``[E, ...]`` leaves as they are), and the config inferred
 from such a tree has its ``moe_num_experts``, ``moe_layer_freq`` and
@@ -32,8 +34,28 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+#: the port's LayerNorm modules (``ln_1``, ``ln_2``, ``ln_f``), whose leaves
+#: sit one flax scope deeper in the JAX tree
+_NORM_PREFIX = "ln_"
+
+
 def _torch_key(path: str) -> str:
     return ".".join(p for p in path.split("/") if p != _FLAX_NORM_SCOPE)
+
+
+def _jax_path(key: str) -> str:
+    """The inverse of :func:`_torch_key`."""
+    parts = key.split(".")
+    if len(parts) >= 2 and parts[-2].startswith(_NORM_PREFIX):
+        parts.insert(len(parts) - 1, _FLAX_NORM_SCOPE)
+    return "/".join(parts)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits as uint16
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def _infer_config(sd: Dict[str, torch.Tensor]) -> GPT2Config:
@@ -88,6 +110,14 @@ def params_from_jax(tree: dict, config: Optional[GPT2Config] = None,
     if bad:
         raise ValueError("params_from_jax: shape mismatch — " + "; ".join(bad[:8]))
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: ``{JAX path: numpy array}``
+    (``h_0.ln_1.scale`` -> ``h_0/ln_1/LayerNorm_0/scale``), flat, on the
+    host. A bf16 tensor comes back as its bits in a ``uint16`` array, the
+    form the JAX package's npz files store bf16 in."""
+    return {_jax_path(k): _to_numpy(v) for k, v in state_dict.items()}
 
 
 def opt_state_from_jax(adam_state) -> dict:

@@ -88,6 +88,16 @@ class FusedAdam(torch.optim.Optimizer):
                 torch._foreach_add_(upd, torch._foreach_mul(params, wd))
             torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
 
+    def named_state(self, named_params: Dict[str, torch.Tensor]) -> dict:
+        """The state keyed by the parameter names of ``named_params``, the
+        inverse of :meth:`load_named_state`: ``{"count": int, "exp_avg":
+        {name: tensor}, "exp_avg_sq": {name: tensor}}``, holding the live
+        moment tensors (not copies)."""
+        out = {"count": self.count}
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[key] = {name: self.state[p][key] for name, p in named_params.items()}
+        return out
+
     def load_named_state(self, named_params: Dict[str, torch.Tensor], state: dict) -> None:
         """Load ``{"count": int, "exp_avg": {name: tensor}, "exp_avg_sq":
         {name: tensor}}`` (``checkpoint/from_jax.opt_state_from_jax``) for

@@ -5,11 +5,16 @@ Read: the batch triangle (``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``) on one
 device, ``optimizer`` (Adam/AdamW), ``scheduler``, ``bf16``,
 ``gradient_clipping``, ``zero_optimization`` at stage 0, ``steps_per_print``,
-``seed`` and the ``"moe"`` block (``route``, ``kernel``: the MoE dispatch
-route and permutation, ``moe/routing.py``). Everything else raises
+``seed``, ``dataloader_drop_last``, the ``"moe"`` block (``route``,
+``kernel``: the MoE dispatch route and permutation, ``moe/routing.py``) and
+the ``"resilience"`` block's checkpoint keys (``verify_checkpoint``:
+"off", "files" or "full", default "full"; ``fallback_on_corruption``,
+default true; JAX ``config.py:221-238``). Everything else raises
 ``NotImplementedError`` naming the slice of the port it belongs to, so that
 a setting is never dropped quietly: fp16 (the kernels take fp32 and bf16
-only), ZeRO stages 1-3 and offload, other optimizers, and any other block.
+only), ZeRO stages 1-3 and offload, other optimizers, the resilience
+block's other keys (preemption, overflow abort, heartbeats), an enabled
+``"nebula"`` block (async checkpoints), and any other block.
 """
 
 import json
@@ -26,10 +31,15 @@ OPTIMIZER_PARAMS = ("lr", "betas", "eps", "weight_decay", "adam_w_mode", "bias_c
 
 _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
           "optimizer", "scheduler", "bf16", "bfloat16", "fp16", "gradient_clipping",
-          "zero_optimization", "steps_per_print", "seed", "moe")
+          "zero_optimization", "steps_per_print", "seed", "moe", "dataloader_drop_last",
+          "resilience", "nebula")
 
 #: keys of the ``"moe"`` block (JAX ``MoEConfig``)
 MOE_KEYS = ("route", "kernel")
+
+#: keys of the ``"resilience"`` block the port reads (JAX ``ResilienceConfig``)
+RESILIENCE_KEYS = ("verify_checkpoint", "fallback_on_corruption")
+VERIFY_CHECKPOINT_MODES = ("off", "files", "full")
 
 
 class DeepSpeedConfigError(Exception):
@@ -66,6 +76,19 @@ class DeepSpeedConfig:
             raise ValueError(f"unknown keys {unknown} in the moe block; it takes {list(MOE_KEYS)}")
         self.moe_route = moe.get("route")
         self.moe_kernel = moe.get("kernel")
+        self.dataloader_drop_last = bool(config.get("dataloader_drop_last", False))
+
+        resilience = dict(config.get("resilience") or {})
+        unported = sorted(set(resilience) - set(RESILIENCE_KEYS))
+        if unported:
+            raise _later(f"resilience keys {unported}", "preemption and resilience")
+        self.verify_checkpoint = resilience.get("verify_checkpoint", "full")
+        if self.verify_checkpoint not in VERIFY_CHECKPOINT_MODES:
+            raise ValueError(f"resilience.verify_checkpoint must be one of "
+                             f"{list(VERIFY_CHECKPOINT_MODES)}, got {self.verify_checkpoint!r}")
+        self.fallback_on_corruption = bool(resilience.get("fallback_on_corruption", True))
+        if dict(config.get("nebula") or {}).get("enabled", False):
+            raise _later("nebula (async checkpoint saves)", "async-checkpoint")
 
         opt = config.get("optimizer")
         self.optimizer_name = opt["type"].lower() if opt and "type" in opt else None

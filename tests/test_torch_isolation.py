@@ -29,7 +29,9 @@ def _port_sources():
                    "moe/mappings.py", "moe/utils.py", "ops/cuda/sparse_attention.py",
                    "ops/sparse_attention/__init__.py",
                    "ops/sparse_attention/sparse_self_attention.py",
-                   "ops/sparse_attention/sparsity_config.py"):
+                   "ops/sparse_attention/sparsity_config.py", "runtime/dataloader.py",
+                   "runtime/resilience/manifest.py", "runtime/checkpoint_engine/checkpoint_engine.py",
+                   "runtime/checkpoint_engine/torch_engine.py", "utils/tensor_fragment.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
