@@ -42,6 +42,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
               timed device-side over rotating weight copies larger than the
               L2, at every serving shape; K3 device-side beside masked SDPA
               over the dequantised pool, whose dequantise pass is timed too.
+              At head dim 128 (the LLaMA family) K1, K4 and K3 again: K1 and
+              K4 in bf16 and fp32 with causal, kv_lengths and window masks,
+              K3's row and tile bodies (Lq 1 and 16) in both operand forms,
+              against their plain versions (2e-2 bf16, 1e-4 fp32) and within
+              1e-6 of their exact probes at head dim 128; then at the LLaMA
+              shapes (K1 [4,2048,16,128] causal, LLaMA-1b training, and
+              [4,2048,32,128], LLaMA-7b's forward; K4 [4,2048,16,128]; K3
+              q [4,1|16,32,128] over a [4,2048,32,128] cache) the kernel's
+              event-timed and device time, its plain version's, SDPA's
+              device time and the bound, and every head-dim-128 instance's
+              registers and local-memory (spill) bytes from ``cuobjdump``.
 4. serving  — GPT-2 350m (full width, 24 layers, random seeded weights, bf16):
               (a) ``init_inference(kernel_inject=True, use_flash_prefill=True)``,
               ``forward`` on [4, 1024] tokens and ``generate`` of 32 tokens for 2
@@ -129,6 +140,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
               seconds and GB, split by part; the checkpoints live in a temp
               dir, deleted at the end.
 
+11. LLaMA-1b training — 24 layers, hidden 2048, 16 heads of 128, FFN 5504,
+              vocab 32000 (random seeded weights) through ``initialize`` and
+              ``train_batch``: micro-batch 4 at seq 2048, bf16 over fp32
+              masters, remat, the fused head on the untied [E, V] kernel
+              (chunk 1024), the ``"flash"`` backend, AdamW lr 1e-4 wd 0.01,
+              clipping 1.0; 2 warm-up and 10 timed steps with launch counts
+              zeroed just before and read just after (K1 48 and K4 24 a
+              step), finite and falling loss, step ms, tokens/s, model
+              TFLOP/s (the JAX bench's formula), peak memory and one
+              profiled step by kernel family.
+12. LLaMA gradcheck — one step on the card and on the CPU (plain
+              versions), fp32 within 1e-4 and bf16 within 1.5x the measured
+              rounding, as phase 6: (a) LLaMA-1b's width at 2 layers, batch
+              2 x seq 512; (b) Mistral-7b's width at 2 layers (GQA 32/8, FFN
+              14336) with ``sliding_window`` overridden from 4096 to 256 at
+              seq 1024, so that the window mask bites in K1 and K4.
+13. LLaMA-7b serving — 32 layers, 32 heads of 128, cache 2048, bf16
+              (random seeded weights), ``init_inference(kernel_inject=True,
+              use_flash_prefill=True)``: ``forward`` on [4, 2048] (K1 once a
+              layer) and ``generate`` of 1 and of 64 greedy tokens for 4
+              prompts of 512 (the chunked prefill, K3's tile body at Lq 16,
+              then the token loop, its row body at Lq 1), launch counts
+              zeroed just before and read just after; tokens/s, ms per
+              token step and TTFT (the 1-token generate); then the first
+              prefill chunk's and decode step's logits at 2 layers of full
+              width, card against CPU, as phase 4 (c) holds them.
+
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
 only K2's and K3's value-form timings and phase 4, through the API that
@@ -167,6 +205,10 @@ TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 MOE_TRAINING_KERNELS = ("flash_fwd", "flash_bwd", "moe_permute")
 
 RESULTS = {"checks": [], "timings": {}}
+
+#: the head dims each kernel takes on the card (K2 and K5 have none)
+HEAD_DIMS = {"flash_fwd": [64, 128], "flash_bwd": [64, 128], "flash_decode": [64, 128],
+             "quant_matmul": None, "moe_permute": None, "sparse_fwd": [64], "sparse_bwd": [64]}
 
 #: the keys of each kernel in the ``kernels`` line (``launches`` is added);
 #: ``device_ms``, the kernel's own device-side time, only where
@@ -621,10 +663,10 @@ def compare_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
 #: lq, lk, causal, kv_lengths, window
 PROBES = ((100, 100, True, None, None), (16, 130, True, None, None),
           (64, 64, False, [64, 9, 0], None), (200, 200, True, None, 33),
-          (96, 160, True, [160, 100, 0], 100))
+          (96, 160, True, [160, 100, 0], 100), (300, 300, True, None, 100))
 
 
-def exact_probes(seed: int) -> float:
+def exact_probes(seed: int, head_dim: int = 64) -> float:
     """K1 and K4 in bf16 on inputs whose result is exact (one-hot softmax
     rows, small-integer v and dO, dead decoy keys past the mask boundaries):
     o, lse, dq, dk and dv each within 1e-6 of the known answer (dq = dk =
@@ -634,7 +676,7 @@ def exact_probes(seed: int) -> float:
     worst = 0.0
     for lq, lk, causal, lens, window in PROBES:
         p = exact_probe(3, lq, lk, 4, causal=causal, kv_lengths=lens, window=window, seed=seed,
-                        dtype=torch.bfloat16, device="cuda")
+                        dtype=torch.bfloat16, device="cuda", head_dim=head_dim)
         kw = dict(scale=p["scale"], causal=causal, kv_lengths=p["kv_lengths"], window=window)
         o, lse = fa.flash_fwd(p["q"], p["k"], p["v"], **kw)
         got = dict(zip(("dq", "dk", "dv"), fa.flash_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], **kw)),
@@ -645,7 +687,7 @@ def exact_probes(seed: int) -> float:
             err = (g.float() - want).abs().max().item()
             tol = 1e-6 * max(1.0, want.abs().max().item())
             ok = err <= tol
-            what = (f"exact probe [3,{lq},{lk},4,64] bf16 causal={causal} kv_lengths={lens} "
+            what = (f"exact probe [3,{lq},{lk},4,{head_dim}] bf16 causal={causal} kv_lengths={lens} "
                     f"window={window} {name}")
             RESULTS["checks"].append({"name": what, "max_abs_err": err, "tol": tol, "ok": ok})
             log(f"check {what}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
@@ -655,7 +697,7 @@ def exact_probes(seed: int) -> float:
     return worst
 
 
-def decode_exact_probes(seed: int) -> float:
+def decode_exact_probes(seed: int, head_dim: int = 64) -> float:
     """K3 in bf16 and fp32, in both operand forms, at Lq 1 and 16, on inputs
     whose output is exact (one-hot softmax rows, with a dead decoy key just
     past each live range, or in the next slot past a full pool, that would
@@ -668,7 +710,8 @@ def decode_exact_probes(seed: int) -> float:
     for lq, lengths in ((1, [0, 1, 64, 65, 129, 255, 256, 257]), (16, [0, 1, 15, 16, 100, 256, 272, 250])):
         for part in (lengths[:4], lengths[4:]):
             for dtype in (torch.bfloat16, torch.float32):
-                p = decode_exact_probe(part, lq, 256, 16, seed=seed, dtype=dtype, device="cuda")
+                p = decode_exact_probe(part, lq, 256, 16, seed=seed, dtype=dtype, device="cuda",
+                                       head_dim=head_dim)
                 for form in ("values", "int8"):
                     if form == "values":
                         o = fa.flash_decode(p["q"], p["k"], p["v"], p["lengths"], scale=p["scale"])
@@ -679,7 +722,8 @@ def decode_exact_probes(seed: int) -> float:
                     err = (o.float() - p["o"].float()).abs().max().item()
                     tol = 1e-6 * max(1.0, p["o"].float().abs().max().item())
                     ok = err <= tol
-                    what = f"exact probe flash_decode [4,{lq},16,64] P=256 {str(dtype)[6:]} {form} lengths {part}"
+                    what = (f"exact probe flash_decode [4,{lq},16,{head_dim}] P=256 {str(dtype)[6:]} {form} "
+                            f"lengths {part}")
                     RESULTS["checks"].append({"name": what, "max_abs_err": err, "tol": tol, "ok": ok})
                     log(f"check {what}: max_abs_err={err:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
                     if not ok:
@@ -1513,26 +1557,19 @@ def train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
     return out, counts
 
 
-def gradcheck_phase(seed: int, card: str) -> dict:
-    """One training step of GPT-2 350m's width at 2 layers on the card and
-    on the CPU, where every kernel wrapper computes its plain version: the
-    loss and each parameter's gradient (no clipping) held to 1e-4 in fp32;
-    in bf16 the largest relative error over those tensors is held to 1.5x
-    the same largest error of plain bf16 against plain fp32."""
-    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
-
-    kw = dict(n_layer=2, vocab_size=50304, n_positions=512, remat=True, attention_backend="flash",
-              fused_head_loss_chunk=1024)
-    base = GPT2LMHeadModel(get_gpt2_config("350m", **kw), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(seed + 1))
-    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
-    del base
-    ids = np.random.default_rng(seed + 1).integers(0, 50304, (2, 512)).astype(np.int32)
+def gradcheck(label: str, build, state: dict, ids: np.ndarray) -> dict:
+    """One training step (no clipping) of the model ``build(device,
+    dtype)`` with weights ``state`` on ``ids``, on the card and on the CPU,
+    where every kernel wrapper computes its plain version: the loss and
+    each parameter's gradient held to 1e-4 in fp32; in bf16 the largest
+    relative error over those tensors is held to 1.5x the same largest
+    error of plain bf16 against plain fp32."""
+    from deepspeed_tpu_torch import initialize
 
     def one_step(device: str, dtype) -> dict:
-        model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
+        model = build(device, dtype)
         model.load_state_dict(state, strict=True)
-        engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
+        engine, _, _, _ = initialize(model=model, config=train_config(ids.shape[0], 0.0, dtype == torch.bfloat16),
                                      device=device)
         loss = engine.train_batch({"input_ids": ids})
         out = {"loss": loss.detach().float().cpu().reshape(1)}
@@ -1542,7 +1579,7 @@ def gradcheck_phase(seed: int, card: str) -> dict:
     runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
             for dev in ("cuda", "cpu")}
     for name, ref in runs[("cpu", "float32")].items():
-        compare(f"gradcheck fp32 {name} (card vs plain)", runs[("cuda", "float32")][name], ref,
+        compare(f"{label} fp32 {name} (card vs plain)", runs[("cuda", "float32")][name], ref,
                 torch.float32)
     served = {n: rel_err(g, runs[("cpu", "bfloat16")][n])[1] for n, g in runs[("cuda", "bfloat16")].items()}
     rounding = {n: rel_err(g, runs[("cpu", "float32")][n])[1] for n, g in runs[("cpu", "bfloat16")].items()}
@@ -1551,15 +1588,31 @@ def gradcheck_phase(seed: int, card: str) -> dict:
            "bf16_rounding_max_rel": max(rounding.values()),
            "loss": {f"{d}_{t}": float(r["loss"]) for (d, t), r in runs.items()}}
     out["bf16_share_of_limit"] = served[worst] / (1.5 * out["bf16_rounding_max_rel"])
-    log(f"gradcheck bf16: card vs plain max rel {served[worst]:.3e} ({worst}); plain bf16 vs plain "
+    log(f"{label} bf16: card vs plain max rel {served[worst]:.3e} ({worst}); plain bf16 vs plain "
         f"fp32 max rel {out['bf16_rounding_max_rel']:.3e}; {out['bf16_share_of_limit']:.3f} of the "
         f"1.5x-rounding limit; losses {out['loss']}")
     if not served[worst] <= 1.5 * out["bf16_rounding_max_rel"]:
-        raise AssertionError(f"gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding "
+        raise AssertionError(f"{label} bf16: {served[worst]:.3e} > 1.5 x rounding "
                              f"{out['bf16_rounding_max_rel']:.3e}")
-    RESULTS["checks"].append({"name": "gradcheck bf16 (1.5x rounding)", "rel_err": served[worst],
+    RESULTS["checks"].append({"name": f"{label} bf16 (1.5x rounding)", "rel_err": served[worst],
                               "tol": 1.5 * out["bf16_rounding_max_rel"], "ok": True})
     return out
+
+
+def gradcheck_phase(seed: int, card: str) -> dict:
+    """One training step of GPT-2 350m's width at 2 layers, seq 512, batch
+    2 (:func:`gradcheck`)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config
+
+    kw = dict(n_layer=2, vocab_size=50304, n_positions=512, remat=True, attention_backend="flash",
+              fused_head_loss_chunk=1024)
+    base = GPT2LMHeadModel(get_gpt2_config("350m", **kw), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    ids = np.random.default_rng(seed + 1).integers(0, 50304, (2, 512)).astype(np.int32)
+    return gradcheck("gradcheck", lambda device, dtype: GPT2LMHeadModel(
+        get_gpt2_config("350m", dtype=dtype, **kw), device=device), state, ids)
 
 
 def active_params(n_params: int, cfg) -> int:
@@ -2348,6 +2401,413 @@ def engine_api_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3 at head dim 128: K1, K4 and K3 at the LLaMA family's width
+# ---------------------------------------------------------------------------
+#: the LLaMA shapes of K1, K4 and K3: LLaMA-1b training (micro-batch 4, seq
+#: 2048, 16 heads), LLaMA-7b serving (4 rows, 2048 positions, 32 heads)
+LLAMA_TRAIN_SHAPE = (4, 2048, 16, 128)
+LLAMA_SERVE_SHAPE = (4, 2048, 32, 128)
+#: K3's LLaMA-7b calls: the token loop's mid-generate lengths (512 prompt +
+#: 32 generated) at Lq 1, and the last 16-token prefill chunk at Lq 16
+LLAMA_K3_CALLS = ((1, [544] * 4), (16, [512] * 4))
+
+
+def _d128_stats() -> dict:
+    """Registers and local-memory bytes of every head-dim-128 instance of
+    K1, K4 and K3 (``cuobjdump -res-usage``), by library and kernel."""
+    out = {}
+    for lib_name in ("flash_fwd", "flash_bwd", "flash_decode"):
+        stats = sass_stats(lib_name)
+        RESULTS.setdefault("sass", {})[lib_name] = stats
+        out[lib_name] = {fn: {"registers": st.get("registers"), "local_bytes": st.get("local_bytes"),
+                              "hmma": st["hmma"]}
+                         for fn, st in stats.items() if "128" in fn}
+        log(f"{lib_name} head dim 128 registers / local bytes / HMMA by kernel: " + "; ".join(
+            f"{fn} {st['registers']} / {st['local_bytes']} / {st['hmma']}"
+            for fn, st in sorted(out[lib_name].items())))
+        mma = {fn: st for fn, st in out[lib_name].items() if "mma" in fn or "tile" in fn}
+        if not mma or not all(st["hmma"] > 0 for st in mma.values()):
+            raise AssertionError(f"{lib_name}: a head-dim-128 bf16 kernel without HMMA instructions: "
+                                 f"{out[lib_name]}")
+    return out
+
+
+def kernel_phase_d128(gen: torch.Generator, seed: int) -> dict:
+    """K1, K4 and K3 at head dim 128: against their plain versions (causal,
+    kv_lengths, window, fp32 and bf16, K3's row and tile bodies in both
+    operand forms) and their exact probes, then timed at the LLaMA shapes
+    beside their plain versions, SDPA (device-side) and the bound, with
+    each instance's registers and spills. Returns the kernels line's
+    ``at_head_dim_128`` entries."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    dev = torch.device("cuda")
+    d = 128
+    scale = d**-0.5
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def k1k4(name, b, h, lq, lk, dtype, causal=True, kv_lengths=None, window=None):
+        q, k, v = randn(b, lq, h, d, dtype=dtype), randn(b, lk, h, d, dtype=dtype), randn(b, lk, h, d, dtype=dtype)
+        do = randn(b, lq, h, d, dtype=dtype)
+        lens = None if kv_lengths is None else torch.tensor(kv_lengths, dtype=torch.int32, device=dev)
+        kw = dict(scale=scale, causal=causal, kv_lengths=lens, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+        err_f = compare(f"flash_fwd {name}", o, ro, dtype)
+        live = rlse > -1e30
+        if not torch.equal(live, lse > -1e30):
+            raise AssertionError(f"flash_fwd {name}: rows with no live key differ")
+        compare(f"flash_fwd {name} lse", lse[live], rlse[live], torch.float32 if dtype == torch.float32 else dtype)
+        del ro, rlse
+        got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        err_b = max(compare(f"flash_bwd {name} d{x}", g, r, dtype) for x, g, r in zip("qkv", got, ref))
+        return (q, k, v, o, lse, do), err_f, err_b
+
+    k1k4("[2,4,256,128] fp32 causal", 2, 4, 256, 256, torch.float32)
+    k1k4("[2,4,200,128] fp32 causal kv_lengths 0,70", 2, 4, 200, 200, torch.float32, kv_lengths=[0, 70])
+    k1k4("[3,4,200,128] bf16 kv_lengths 200,77,0", 3, 4, 200, 200, torch.bfloat16, causal=False,
+         kv_lengths=[200, 77, 0])
+    k1k4("[2,4,130,128] bf16 causal kv_lengths 130,50", 2, 4, 130, 130, torch.bfloat16, kv_lengths=[130, 50])
+    k1k4("[2,4,300,128] bf16 causal window=100", 2, 4, 300, 300, torch.bfloat16, window=100)
+    k1k4("[1,8,1024,128] bf16 causal window=256 (phase 12's Mistral width)", 1, 8, 1024, 1024,
+         torch.bfloat16, window=256)
+    k1k4("[2,4,16,300,128] bf16 causal lq<lk", 2, 4, 16, 300, torch.bfloat16)
+
+    k1k4_probe_err = exact_probes(seed, head_dim=d)
+    k3_probe_err = decode_exact_probes(seed, head_dim=d)
+
+    # K3 against its plain version: both bodies, both forms, fp32 and bf16
+    def k3(name, lq, lengths, dtype, h, p_len):
+        q = randn(len(lengths), lq, h, d, dtype=dtype)
+        codes = torch.randint(-127, 128, (2, len(lengths), p_len, h, d), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+        scales = (torch.rand(2, len(lengths), p_len, h, 1, generator=gen, device=dev) * 0.05 + 1e-3).to(dtype)
+        k, v = fa.dequantize_kv(codes[0], scales[0], dtype), fa.dequantize_kv(codes[1], scales[1], dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        o = fa.flash_decode(q, k, v, lens)
+        err = compare(f"flash_decode {name} values", o, fa.flash_decode_plain(q, k, v, lens, scale=scale), dtype)
+        o8 = fa.flash_decode(q, codes[0], codes[1], lens, k_scale=scales[0], v_scale=scales[1])
+        compare_exact(f"flash_decode {name}: int8 form = value form on the dequantised pool", o8, o)
+        return q, k, v, lens, err
+
+    k3("S=8 Lq=16 P=1024 h=4 bf16 lengths 0,1,P,P+Lq", 16, [0, 1, 15, 16, 300, 1000, 1024, 1040],
+       torch.bfloat16, 4, 1024)
+    k3("S=8 Lq=1 P=1024 h=4 bf16 lengths 0,1,P,P+Lq", 1, [0, 1, 2, 64, 65, 1000, 1024, 1025],
+       torch.bfloat16, 4, 1024)
+    k3("S=4 Lq=16 P=1024 h=4 fp32", 16, [5, 16, 700, 1040], torch.float32, 4, 1024)
+    k3("S=4 Lq=1 P=1024 h=4 fp32", 1, [5, 16, 700, 1025], torch.float32, 4, 1024)
+    k3_ops = {}
+    for lq, lengths in LLAMA_K3_CALLS:
+        k3_ops[lq] = k3(f"[4,{lq},32,128] P=2048 bf16 lengths {lengths} (LLaMA-7b generate)", lq, lengths,
+                        torch.bfloat16, 32, 2048)
+
+    # timings at the LLaMA shapes
+    lines = {}
+    fwd_times = {}
+    for shape, what in ((LLAMA_TRAIN_SHAPE, "LLaMA-1b training"), (LLAMA_SERVE_SHAPE, "LLaMA-7b serving forward")):
+        b, l, h, _ = shape
+        (q, k, v, o, lse, do), err_f, err_b = k1k4(f"[{b},{l},{h},128] bf16 causal ({what})", b, h, l, l,
+                                                   torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fwd = lambda: fa.flash_fwd(q, k, v, scale=scale, causal=True)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        pairs = b * h * l * (l + 1) / 2
+        bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
+        fwd_times[what] = dict(
+            name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117",
+            shape=f"q,k,v [{b},{l},{h},128] bf16 causal ({what})", max_abs_err=err_f,
+            ms=time_ms(fwd, iters=10), device_ms=device_ms(fwd),
+            plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale, causal=True), iters=2, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa), library_event_ms=time_ms(sdpa, iters=10))
+        log_time(fwd_times[what])
+        if what != "LLaMA-1b training":
+            del q, k, v, o, lse, do, qt, kt, vt
+            continue
+        kw = dict(scale=scale, causal=True)
+        bwd = lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+        split = {short_name(name): t for name, t in device_times(bwd).items()}
+        log("K4 head dim 128 device ms by kernel: " + ", ".join(f"{n} {t:.4f}" for n, t in split.items()))
+        qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)  # noqa: E731
+        lib_split = {name[:60]: t for name, t in device_times(sdpa_bwd).items()}
+        log("SDPA backward head dim 128 device ms by kernel: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in lib_split.items()))
+        bnd, by = bound_ms(8 * b * h * l * d * 2 + b * h * l * 4, 10 * d * pairs)
+        lines["flash_bwd"] = dict(
+            name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403",
+            shape=f"q,k,v,o,dO [{b},{l},{h},128] bf16 causal (LLaMA-1b training)", max_abs_err=err_b,
+            ms=time_ms(bwd, iters=10), device_ms=sum(split.values()),
+            plain_ms=time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=2, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=sum(lib_split.values()),
+            library_event_ms=time_ms(sdpa_bwd, iters=10), device_ms_by_kernel=split,
+            library_device_ms_by_kernel=lib_split, exact_probe_max_abs_err=k1k4_probe_err)
+        log_time(lines["flash_bwd"])
+        del q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, out, dot, sdpa_bwd
+    lines["flash_fwd"] = dict(fwd_times["LLaMA-1b training"], exact_probe_max_abs_err=k1k4_probe_err,
+                              serving_forward=fwd_times["LLaMA-7b serving forward"])
+
+    dec = {}
+    kpos = torch.arange(2048, device=dev)
+    for lq, lengths in LLAMA_K3_CALLS:
+        q, k, v, lens, err = k3_ops[lq]
+        qpos = lens.long()[:, None] - lq + torch.arange(lq, device=dev)[None, :]
+        mask = ((kpos[None, None, :] <= qpos[:, :, None])
+                & (kpos[None, None, :] < lens.long().clamp(0, 2048)[:, None, None]))[:, None]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kernel = lambda: fa.flash_decode(q, k, v, lens)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        live = sum(min(x, 2048) for x in lengths)
+        nbytes = live * 32 * d * 2 * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+        s, _, h, _ = q.shape
+        pairs = sum(max(0, min(x, x - lq + r + 1)) for x in lengths for r in range(lq))
+        bnd, by = bound_ms(nbytes, 4 * d * h * pairs)
+        body = "tile" if lq > 1 else "row"
+        dec[lq] = dict(name="flash_decode", route="cuda", source="deepspeed_tpu_torch/csrc/flash_decode.cu",
+                       replaces="deepspeed_tpu/ops/pallas/flash_attention.py:555",
+                       shape=f"q [4,{lq},32,128], k/v [4,2048,32,128] bf16, lengths {lengths} ({body} body)",
+                       max_abs_err=err, ms=time_ms(kernel, iters=50), device_ms=device_ms(kernel),
+                       plain_ms=time_ms(lambda: fa.flash_decode_plain(q, k, v, lens, scale=scale), iters=5,
+                                        warmup=1),
+                       bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa), library_event_ms=time_ms(sdpa, iters=50))
+        log_time(dec[lq])
+    lines["flash_decode"] = dict(dec[1], exact_probe_max_abs_err=k3_probe_err, tile_body_lq16=dec[16])
+    stats = _d128_stats()
+    for name in lines:
+        lines[name]["registers_and_local_bytes"] = stats[name]
+    RESULTS["timings"]["head_dim_128"] = lines
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: the LLaMA family, training LLaMA-1b and serving LLaMA-7b
+# ---------------------------------------------------------------------------
+def llama_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
+    """LLaMA-1b through ``initialize`` and ``train_batch``: micro-batch 4 at
+    seq 2048, bf16 over fp32 masters, remat, the fused head on the untied
+    [E, V] kernel, the flash backend, AdamW lr 1e-4 wd 0.01, clipping 1.0,
+    one seeded batch repeated."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, get_llama_config, initialize
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    micro, seq = 4, 2048
+    cfg = get_llama_config("1b", remat=True, attention_backend="flash", dtype=torch.bfloat16,
+                           fused_head_loss_chunk=1024)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    engine, _, _, _ = initialize(model=model, config=train_config(micro, 1.0, True))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro, seq)).astype(np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"LLaMA training: losses not finite and falling: {losses}")
+    per_step = {k: c / (warmup + steps) for k, c in counts.items()}
+    layers = cfg.num_hidden_layers
+    if per_step["flash_fwd"] != 2 * layers or per_step["flash_bwd"] != layers:
+        raise AssertionError(f"LLaMA training: expected K1 {2 * layers} (forward, remat recompute) and "
+                             f"K4 {layers} launches per step, got {per_step}")
+    step_ms = dt / steps * 1e3
+    tokens_s = micro * seq * steps / dt
+    fpt = flops_per_token(n_params, layers, cfg.hidden_size, seq)
+    out = dict(n_params=n_params, losses=losses, launches=counts, launches_per_step=per_step,
+               step_ms=step_ms, tokens_per_s=tokens_s, model_tflops=fpt * tokens_s / 1e12,
+               flops_per_token=fpt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               grad_norm=engine.get_global_grad_norm())
+    log(f"llama train: LLaMA-1b ({n_params} params), seq {seq}, micro-batch {micro}, bf16, remat, fused "
+        f"[E, V] head, flash; losses {losses[0]:.4f} -> {losses[-1]:.4f} over {warmup}+{steps} steps  [{card}]")
+    log(f"llama train: {step_ms:.2f} ms/step, {tokens_s:.1f} tokens/s, {out['model_tflops']:.2f} model "
+        f"TFLOP/s ({fpt:.4g} FLOP/token), peak memory {out['peak_memory_gb']:.2f} GB  [{card}]")
+    log(f"llama train launches on the main path: {counts}; per step {per_step}  [{card}]")
+    out["profile"] = _profile_train_step(engine, batch, card, step_ms)
+    return out, counts
+
+
+def _llama_gradcheck(name: str, cfg_kw: dict, batch: int, seq: int, seed: int) -> dict:
+    """:func:`gradcheck` of a LLaMA model (remat, flash, the fused head)."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, get_llama_config
+
+    kw = dict(remat=True, attention_backend="flash", fused_head_loss_chunk=1024, **cfg_kw)
+    base = LlamaForCausalLM(get_llama_config("test", **kw), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 2))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    ids = np.random.default_rng(seed + 2).integers(0, kw["vocab_size"], (batch, seq)).astype(np.int32)
+    return gradcheck(f"llama gradcheck {name}", lambda device, dtype: LlamaForCausalLM(
+        get_llama_config("test", dtype=dtype, **kw), device=device), state, ids)
+
+
+def llama_gradcheck_phase(seed: int, card: str) -> dict:
+    """(a) LLaMA-1b's width at 2 layers, batch 2 x seq 512; (b) Mistral-7b's
+    width at 2 layers (GQA 32/8, FFN 14336) with ``sliding_window``
+    overridden from 4096 to 256 at seq 1024, batch 1, so that the window
+    mask bites in K1 and K4."""
+    from deepspeed_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    def width(preset, **over):
+        keep = ("vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
+                "num_key_value_heads", "rope_theta", "sliding_window")
+        return dict({k: v for k, v in LLAMA_CONFIGS[preset].items() if k in keep}, vocab_size=32000,
+                    num_hidden_layers=2, **over)
+
+    out = {"llama_1b_width": _llama_gradcheck("(a) LLaMA-1b width", dict(width("1b"), max_position_embeddings=512),
+                                              2, 512, seed)}
+    torch.cuda.empty_cache()
+    out["mistral_7b_width_window_256"] = _llama_gradcheck(
+        "(b) Mistral-7b width, window 256", dict(width("mistral-7b", sliding_window=256),
+                                                 max_position_embeddings=1024), 1, 1024, seed)
+    return out
+
+
+def _profile_generate(engine, prompts: np.ndarray, card: str, new_tokens: int = 9) -> dict:
+    """Device busy time against the wall of one ``generate`` of
+    ``new_tokens`` after one 16-token prefill chunk (so mostly token
+    steps), from ``torch.profiler``'s device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    families = {}
+    for e in events:
+        family = next((f for f, keys in TRAIN_KERNEL_FAMILIES + SERVE_KERNEL_FAMILIES
+                       if any(k in e.key for k in keys)), "other (elementwise, reductions, copies)")
+        families[family] = families.get(family, 0.0) + e.self_device_time_total / 1e3
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms if events else None,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if events else None,
+           "device_ms_by_family": families}
+    if events:
+        log(f"llama serve profile of generate({new_tokens} tokens after 16): wall {wall_ms:.2f} ms under "
+            f"the profiler, device busy {busy_ms:.2f} ms, idle share {out['device_idle_share']:.3f}; "
+            + ", ".join(f"{f} {ms:.2f} ms" for f, ms in sorted(families.items(), key=lambda kv: -kv[1]))
+            + f"  [{card}]")
+    return out
+
+
+def llama_serving_phase(seed: int, card: str):
+    """LLaMA-7b (32 layers, 32 heads of 128, cache 2048, bf16, random seeded
+    weights) through ``init_inference(kernel_inject=True,
+    use_flash_prefill=True)``: ``forward`` on [4, 2048] and ``generate`` of
+    64 greedy tokens for 4 prompts of 512, launch counts zeroed just before
+    and read just after (K1 and K3 must launch); then the first prefill
+    chunk's and the first decode step's logits at 2 layers of full width on
+    the card against the CPU, as phase 4 (c) holds them."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, get_llama_config, init_inference
+    from deepspeed_tpu_torch.models.common import init_cache
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    cfg = get_llama_config("7b", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    engine = init_inference(model, dtype="bf16", kernel_inject=True, use_flash_prefill=True)
+    del model
+    torch.cuda.empty_cache()
+    if engine.module.config.attention_backend != "flash":
+        raise AssertionError("kernel injection did not select the flash backend")
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, 2048)), device="cuda")
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, 512))
+    engine.generate(prompts[:, :32], max_new_tokens=2)  # warm-up: cuBLAS handles, kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(tokens)
+    torch.cuda.synchronize()
+    out["forward_s"] = time.perf_counter() - t0
+    if logits.shape != (4, 2048, cfg.vocab_size) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"forward: bad logits {tuple(logits.shape)}")
+    del logits
+    forward_counts = launches()
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, max_new_tokens=1)
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generated = engine.generate(prompts, max_new_tokens=64)
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    if tuple(generated.shape) != (4, 512 + 64) or not (generated[:, :512].numpy() == prompts).all():
+        raise AssertionError(f"generate: bad output {tuple(generated.shape)}")
+    if not torch.equal(generated[:, :513], first):
+        raise AssertionError("generate: the first token differs between the 1-token and 64-token runs")
+    missing = [k for k in ("flash_fwd", "flash_decode") if counts[k] <= 0]
+    if missing or forward_counts["flash_fwd"] != cfg.num_hidden_layers:
+        raise AssertionError(f"LLaMA serving: kernels not launched as expected: forward {forward_counts}, "
+                             f"all {counts}")
+    # prefill: 512 / 16 chunks, then 63 decode steps, each through every layer
+    want_k3 = (512 // 16 + 63 + 512 // 16) * cfg.num_hidden_layers
+    if counts["flash_decode"] != want_k3:
+        raise AssertionError(f"LLaMA serving: K3 launched {counts['flash_decode']} times, expected {want_k3}")
+    out.update(launches=counts, forward_launches=forward_counts, generate_s=gen_s, ttft_s=ttft,
+               ms_per_token=(gen_s - ttft) / 63 * 1e3, tokens_per_s=4 * 64 / gen_s,
+               forward_tokens_per_s=4 * 2048 / out["forward_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"llama serve: LLaMA-7b bf16 forward [4,2048] {out['forward_s']:.3f} s "
+        f"({out['forward_tokens_per_s']:.1f} tokens/s); generate 4x64 after 512-token prompts "
+        f"{gen_s:.3f} s: {out['tokens_per_s']:.1f} tokens/s, {out['ms_per_token']:.2f} ms per token step, "
+        f"TTFT {ttft * 1e3:.1f} ms  [{card}]")
+    log(f"llama serve launches on the main path: {counts}")
+    out["profile"] = _profile_generate(engine, prompts[:, :16], card)
+    del engine
+    torch.cuda.empty_cache()
+
+    # the first prefill chunk and decode step at 2 layers of full width
+    small = get_llama_config("7b", num_hidden_layers=2, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                             attention_backend="flash")
+    base = LlamaForCausalLM(small, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 4))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    ids = torch.as_tensor(prompts[:, :16])
+    runs = {}
+    for name, device, dtype in (("served_bf16", "cuda", torch.bfloat16), ("plain_bf16", "cpu", torch.bfloat16),
+                                ("served_fp32", "cuda", torch.float32), ("plain_fp32", "cpu", torch.float32)):
+        m = LlamaForCausalLM(dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device=device)
+        m.load_state_dict({k: v.to(dtype) for k, v in state.items()}, strict=True)
+        with torch.inference_mode():
+            cache = init_cache(m, 4)
+            prefill = m(ids.to(device), cache)[:, -1].float().cpu()
+            nxt = prefill.argmax(-1) if name == "served_bf16" else runs["served_bf16"]["next"]
+            decode = m(nxt[:, None].to(device), cache)[:, 0].float().cpu()
+        runs[name] = {"prefill": prefill, "decode": decode, "next": nxt}
+        del m, cache
+    for tick in ("prefill", "decode"):
+        compare(f"llama serve {tick} logits fp32 (card vs plain)", runs["served_fp32"][tick],
+                runs["plain_fp32"][tick], torch.float32)
+        rounding = rel_err(runs["plain_bf16"][tick], runs["plain_fp32"][tick])[1]
+        out[f"{tick}_bf16_rounding_rel"] = rounding
+        compare(f"llama serve {tick} logits bf16 (card vs plain, 1.5x rounding)", runs["served_bf16"][tick],
+                runs["plain_bf16"][tick], torch.bfloat16, tol=1.5 * rounding)
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2392,8 +2852,16 @@ def main(argv=None) -> int:
         if "serving" in phases:
             RESULTS["slice"] = slice_phase(args.seed, card)[0]
     else:
+        phase_s = {}
+        t_phase = time.perf_counter()
         lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
+        lines_d128 = kernel_phase_d128(torch.Generator(device="cuda").manual_seed(args.seed + 100), args.seed)
+        phase_s["3 kernels"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
         RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
+        phase_s["4 serving"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
         for tick in ("prefill_profile", "profile"):
             split = RESULTS["slice"][tick]["busy_ms_per_tick_by_kernel"]
             if split is not None and split["KV dequantise"] > 0:
@@ -2411,19 +2879,44 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         RESULTS["engine_api"], api_counts = engine_api_phase(args.seed, card)
         RESULTS["engine_api"]["e_moe_gate_stats"] = gate_stats
+        phase_s["5-10 training, MoE, sparse, engine API"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["llama_train"], llama_train_counts = llama_train_phase(args.seed, card)
+        phase_s["11 LLaMA-1b training"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["llama_gradcheck"] = llama_gradcheck_phase(args.seed, card)
+        phase_s["12 LLaMA gradcheck"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["llama_serve"], llama_serve_counts = llama_serving_phase(args.seed, card)
+        phase_s["13 LLaMA-7b serving"] = time.perf_counter() - t_phase
+        RESULTS["phase_s"] = phase_s
+        log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
     if "all" in phases:
-        # launches: the serving, training, MoE training, sparse attention and
-        # engine API paths' counts, each zeroed just before its path and read
-        # just after
-        paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts)
-        kernels = [dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
-                        launches=sum(c.get(name, 0) for c in paths))
-                   for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
-                                "sparse_fwd", "sparse_bwd")]
+        # launches: the serving, training, MoE training, sparse attention,
+        # engine API, LLaMA training and LLaMA serving paths' counts, each
+        # zeroed just before its path and read just after. K1, K4 and K3
+        # also carry their head-dim-128 entry (the LLaMA shapes), with the
+        # launches of the LLaMA paths, which run at head dim 128 only.
+        paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
+                 llama_train_counts, llama_serve_counts)
+        llama_paths = (llama_train_counts, llama_serve_counts)
+        kernels = []
+        for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
+                     "sparse_fwd", "sparse_bwd"):
+            entry = dict({k: v for k, v in lines[name].items() if k in KERNEL_LINE_KEYS},
+                         launches=sum(c.get(name, 0) for c in paths), head_dims=HEAD_DIMS[name])
+            if name in lines_d128:
+                entry["at_head_dim_128"] = dict(
+                    {k: v for k, v in lines_d128[name].items() if k in KERNEL_LINE_KEYS + ("shape",)},
+                    launches=sum(c.get(name, 0) for c in llama_paths))
+            kernels.append(entry)
         log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")
     log(card)

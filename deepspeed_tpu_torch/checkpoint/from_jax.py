@@ -1,11 +1,12 @@
 """Carry weights from the JAX package to the port.
 
-``params_from_jax`` takes the JAX package's flax param tree of a GPT-2 as
-nested dicts of numpy arrays (``jax.device_get(engine.params)``) and returns
-the port's state dict. The layouts are identical, so this is a renaming:
-``h_0/attn/c_attn/kernel`` -> ``h_0.attn.c_attn.kernel`` and
-``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``. ``opt_state_from_jax`` does
-the same for the JAX ``fused_adam`` state, so that both packages can resume
+``params_from_jax`` takes the JAX package's flax param tree of a GPT-2 or a
+LLaMA-family model as nested dicts of numpy arrays
+(``jax.device_get(engine.params)``) and returns the port's state dict. The
+layouts are identical, so this is a renaming: ``h_0/attn/c_attn/kernel`` ->
+``h_0.attn.c_attn.kernel``, ``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``,
+``layers_0/self_attn/q_proj/kernel`` -> ``layers_0.self_attn.q_proj.kernel``.
+``opt_state_from_jax`` does the same for the JAX ``fused_adam`` state, so that both packages can resume
 from one mid-training state; ``params_to_jax`` goes the other way (the JAX
 paths and numpy arrays of a port state dict, as the engine's
 ``save_16bit_model`` writes them). An MoE model's keys carry over the same way
@@ -15,13 +16,17 @@ from such a tree has its ``moe_num_experts``, ``moe_layer_freq`` and
 ``moe_use_residual``.
 """
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.models import gpt2, llama
 from deepspeed_tpu_torch.models.common import flatten_tree
-from deepspeed_tpu_torch.models.gpt2 import GPT2Config, param_shapes
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+ModelConfig = Union[GPT2Config, LlamaConfig]
 
 #: flax's inner scope of ``nn.LayerNorm`` inside the model's LayerNorm wrapper
 _FLAX_NORM_SCOPE = "LayerNorm_0"
@@ -58,7 +63,33 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _infer_config(sd: Dict[str, torch.Tensor]) -> GPT2Config:
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """State-dict key -> (shape, dtype) of the model family ``cfg`` builds."""
+    return (llama if isinstance(cfg, LlamaConfig) else gpt2).param_shapes(cfg)
+
+
+def _infer_llama_config(sd: Dict[str, torch.Tensor]) -> LlamaConfig:
+    """A LLaMA tree's config as far as its shapes tell it. The context
+    length, RoPE base, norm epsilon and sliding window leave no trace in the
+    parameters and keep ``LlamaConfig``'s defaults: pass ``config=`` for a
+    model that sets them."""
+    q = sd.get("layers_0.self_attn.q_proj.kernel")
+    if q is None or q.dim() != 3:
+        raise KeyError("params_from_jax: no [E, H, D] layers_0/self_attn/q_proj/kernel to infer "
+                       "the config from; pass config=")
+    vocab, hidden = sd["embed_tokens"].shape
+    return LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                       intermediate_size=sd["layers_0.mlp.gate_proj.kernel"].shape[1],
+                       num_hidden_layers=len({k.split(".")[0] for k in sd if k.startswith("layers_")}),
+                       num_attention_heads=q.shape[1],
+                       num_key_value_heads=sd["layers_0.self_attn.k_proj.kernel"].shape[1],
+                       attention_bias="layers_0.self_attn.q_proj.bias" in sd,
+                       param_dtype=sd["embed_tokens"].dtype)
+
+
+def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
+    if "embed_tokens" in sd:
+        return _infer_llama_config(sd)
     n_layer = len({k.split(".")[0] for k in sd if k.startswith("h_")})
     vocab, n_embd = sd["wte"].shape
     qkv = sd.get("h_0.attn.c_attn.kernel")
@@ -81,9 +112,11 @@ def _infer_config(sd: Dict[str, torch.Tensor]) -> GPT2Config:
                       n_layer=n_layer, n_head=qkv.shape[2], param_dtype=sd["wte"].dtype, **moe)
 
 
-def params_from_jax(tree: dict, config: Optional[GPT2Config] = None,
+def params_from_jax(tree: dict, config: Optional[ModelConfig] = None,
                     scales: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-    """The port's GPT-2 state dict from a JAX param tree.
+    """The port's state dict of a GPT-2 or a LLaMA-family model from a JAX
+    param tree (the family read from ``config``, or from the tree: LLaMA's
+    has ``embed_tokens``).
 
     ``scales`` is the ``"quant"`` mirror tree of a quantized tree (JAX
     ``quantize_params`` output); its ``kernel_scale`` leaves join the state

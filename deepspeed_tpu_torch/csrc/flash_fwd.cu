@@ -14,9 +14,14 @@
 // streaming; a kernel that multiplies with fp32 FMAs (67 TFLOP/s) cannot get
 // within 10x of it.
 //
+// At head dim 128 (the LLaMA family: [4, 2048, 16, 128] causal in training)
+// a pair costs twice the FLOPs for the same bytes per row: 68.7 GFLOP
+// against 134.7 MB, bound by operations at 0.0695 ms.
+//
 // What the bf16 design does about it (FlashAttention-2's): one thread block
 // of four warps per (tile of 128 query rows, head, batch); each warp owns
-// 32 query rows and runs every product as
+// 32 query rows (at head dim 128: 64 rows a block, 16 a warp, FwdTile
+// below) and runs every product as
 // mma.sync.m16n8k16 bf16 with fp32 accumulators (csrc/mma.cuh). Q, K and V
 // tiles reach shared memory with 16-byte cp.async into XOR-swizzled rows, so
 // that ldmatrix reads them without bank conflicts; the next 64-key K/V tile
@@ -43,7 +48,9 @@
 // the three) and about a fifth more time.
 //
 // fp32 inputs keep the FMA body below (two threads per query row, fp32
-// products from padded shared rows): a bf16 or TF32 tensor-core product
+// products from padded shared rows; instantiated for head dims 64 and 128,
+// where a thread holds its 128-float query row and 64 output columns in
+// registers): a bf16 or TF32 tensor-core product
 // cannot meet the fp32 checks' 1e-4. The C entry picks the body by the
 // dtype the caller passed; it is not a fallback.
 //
@@ -64,13 +71,30 @@ constexpr float kLog2e = 1.4426950408889634f;
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kRowsBF16 = 128;       // query rows per block
-constexpr int kMT = kRowsBF16 / 64;  // m16 tiles per warp
-constexpr int kKeys = 64;            // keys per K/V tile
+constexpr int kKeys = 64;  // keys per K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreadsBF16 = 32 * kWarps;
-constexpr int kSmemBF16 = (kRowsBF16 + 4 * kKeys) * kRowBytes;  // Q + two K/V stages
 
+// The tile geometry of head dim D. Each warp holds its O accumulator
+// (16 kMT rows x D fp32) and Q's fragments (16 kMT rows x D bf16) in
+// registers for the whole loop, beside one tile of S (16 kMT x 64 fp32). At
+// D = 64 a warp takes 32 rows (kMT = 2): 128 query rows per block, 48 KB of
+// shared memory. At D = 128 the same 32 rows would double the accumulator
+// and the fragments, past the 255 registers a thread has; a warp takes 16
+// rows (kMT = 1) instead, so a block covers 64 query rows and a thread holds
+// what it held at D = 64, less one S tile. Q stays in registers (reading it
+// from shared memory at every tile would add D / 16 ldmatrix per key tile
+// for no saved product), and the K/V tiles, 256-byte rows, take 80 KB.
+template <int D>
+struct FwdTile {
+  static_assert(D == 64 || D == 128, "K1 is instantiated for head dims 64 and 128");
+  static constexpr int kMT = D == 64 ? 2 : 1;        // m16 tiles per warp
+  static constexpr int kRows = 16 * kMT * kWarps;    // query rows per block
+  static constexpr int kRowB = row_bytes<D>();
+  static constexpr int kSmem = (kRows + 4 * kKeys) * kRowB;  // Q + two K/V stages
+};
+
+template <int D>
 __global__ void __launch_bounds__(kThreadsBF16)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
@@ -78,24 +102,27 @@ __global__ void __launch_bounds__(kThreadsBF16)
                          int causal, int window, int n_qt, long long q_sb, long long q_sl,
                          long long q_sh, long long k_sb, long long k_sl, long long k_sh,
                          long long v_sb, long long v_sl, long long v_sh) {
+  using Tile = FwdTile<D>;
+  constexpr int kMT = Tile::kMT, kRows = Tile::kRows;
+  constexpr int kKD = D / 16;  // k16 steps of Q K^T; n16 pairs of P V
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = smem_addr(smem);
-  const uint32_t sK = sQ + kRowsBF16 * kRowBytes;  // [2][kKeys rows]
-  const uint32_t sV = sK + 2 * kKeys * kRowBytes;  // [2][kKeys rows]
-  constexpr uint32_t kStage = kKeys * kRowBytes;
+  const uint32_t sK = sQ + kRows * Tile::kRowB;    // [2][kKeys rows]
+  const uint32_t sV = sK + 2 * kKeys * Tile::kRowB;  // [2][kKeys rows]
+  constexpr uint32_t kStage = kKeys * Tile::kRowB;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : blockIdx.y;
-  const int q0 = qt * kRowsBF16;
+  const int q0 = qt * kRows;
   const int off = Lk - Lq;  // query i sits at position i + off
   const int kv_len = kv_lengths ? min(max(kv_lengths[b], 0), Lk) : Lk;
 
   // live key tiles of the whole block (block-uniform: every thread runs the
   // same loop, so the barriers inside it are safe)
   const int q_first = q0 + off;
-  const int q_last = min(q0 + kRowsBF16, Lq) - 1 + off;
+  const int q_last = min(q0 + kRows, Lq) - 1 + off;
   int k_end = kv_len;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -106,32 +133,32 @@ __global__ void __launch_bounds__(kThreadsBF16)
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
   if (t_begin < t_end) {  // a block with no live key loads nothing
-    load_tile<kRowsBF16, kThreadsBF16>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
-    load_tile<kKeys, kThreadsBF16>(sK, kb, t_begin * kKeys, Lk, k_sl);
-    load_tile<kKeys, kThreadsBF16>(sV, vb, t_begin * kKeys, Lk, v_sl);
+    load_tile<kRows, kThreadsBF16, D>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
+    load_tile<kKeys, kThreadsBF16, D>(sK, kb, t_begin * kKeys, Lk, k_sl);
+    load_tile<kKeys, kThreadsBF16, D>(sV, vb, t_begin * kKeys, Lk, v_sl);
     cp_async_commit();
   }
 
   const float sl2 = scale * kLog2e;
   const int row_base = q0 + warp * 16 * kMT;  // this warp's first query row
-  float acc[kMT][8][4];
+  float acc[kMT][D / 8][4];
   float m[kMT][2], l[kMT][2];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][n][c] = 0.f;
     m[mt][0] = m[mt][1] = -INFINITY;
     l[mt][0] = l[mt][1] = 0.f;
   }
-  uint32_t qf[kMT][4][4];
+  uint32_t qf[kMT][kKD][4];
 
   for (int t = t_begin; t < t_end; ++t) {
     const uint32_t stage = ((t - t_begin) & 1) * kStage;
     if (t + 1 < t_end) {  // the next tile loads while this one is multiplied
-      load_tile<kKeys, kThreadsBF16>(sK + (kStage - stage), kb, (t + 1) * kKeys, Lk, k_sl);
-      load_tile<kKeys, kThreadsBF16>(sV + (kStage - stage), vb, (t + 1) * kKeys, Lk, v_sl);
+      load_tile<kKeys, kThreadsBF16, D>(sK + (kStage - stage), kb, (t + 1) * kKeys, Lk, k_sl);
+      load_tile<kKeys, kThreadsBF16, D>(sV + (kStage - stage), vb, (t + 1) * kKeys, Lk, v_sl);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -142,8 +169,8 @@ __global__ void __launch_bounds__(kThreadsBF16)
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          load_a(qf[mt][kk], sQ, (row_base - q0) + 16 * mt, 16 * kk, lane);
+        for (int kk = 0; kk < kKD; ++kk)
+          load_a<D>(qf[mt][kk], sQ, (row_base - q0) + 16 * mt, 16 * kk, lane);
     }
 
     // S = Q K^T for this warp's rows and the tile's 64 keys
@@ -155,11 +182,11 @@ __global__ void __launch_bounds__(kThreadsBF16)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[mt][n][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kKD; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
-        load_b(bk, sK + stage, 16 * np, 16 * kk, lane);
+        load_b<D>(bk, sK + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma_bf16(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
@@ -170,9 +197,9 @@ __global__ void __launch_bounds__(kThreadsBF16)
 
     // mask only a tile that straddles a boundary of some row of the block
     const int k0 = t * kKeys;
-    const bool interior = q0 + kRowsBF16 <= Lq && k0 + kKeys <= kv_len &&
+    const bool interior = q0 + kRows <= Lq && k0 + kKeys <= kv_len &&
                           (!causal || k0 + kKeys - 1 <= q_first) &&
-                          (window <= 0 || k0 > q0 + kRowsBF16 - 1 + off - window);
+                          (window <= 0 || k0 > q0 + kRows - 1 + off - window);
     if (!interior) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -215,6 +242,9 @@ __global__ void __launch_bounds__(kThreadsBF16)
             s[mt][n][2 * hf + e] = p;
             sum += p;
           }
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
           acc[mt][n][2 * hf] *= alpha;
           acc[mt][n][2 * hf + 1] *= alpha;
         }
@@ -224,15 +254,15 @@ __global__ void __launch_bounds__(kThreadsBF16)
 
     // O += P V, P from registers as bf16 hi + lo
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
       uint32_t pa[kMT][4], pl[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
         acc_to_a_split(pa[mt], pl[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < kKD; ++np) {
         uint32_t bv[4];
-        load_b_trans(bv, sV + stage, 16 * np, 16 * kk, lane);
+        load_b_trans<D>(bv, sV + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma_bf16(acc[mt][2 * np], pa[mt], bv[0], bv[1]);
@@ -246,7 +276,7 @@ __global__ void __launch_bounds__(kThreadsBF16)
   }
 
   float* lse_bh = lse + (static_cast<long long>(b) * H + h) * Lq;
-  bf16* o_bh = o + static_cast<long long>(b) * Lq * H * 64 + h * 64;
+  bf16* o_bh = o + static_cast<long long>(b) * Lq * H * D + h * D;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
     float inv[2];
@@ -260,7 +290,7 @@ __global__ void __launch_bounds__(kThreadsBF16)
       if (tq == 0 && row < Lq)
         lse_bh[row] = sum > 0.f ? m[mt][hf] * scale + logf(sum) : ds::kNegInf / 2;
     }
-    store_rows(o_bh, static_cast<long long>(H) * 64, row_base + 16 * mt, Lq, acc[mt], inv[0],
+    store_rows(o_bh, static_cast<long long>(H) * D, row_base + 16 * mt, Lq, acc[mt], inv[0],
                inv[1], lane);
   }
 }
@@ -393,11 +423,12 @@ __global__ void __launch_bounds__(kThreads)
   if (half == 0) lse[((long long)b * H + h) * Lq + row] = l > 0.f ? m + logf(l) : ds::kNegInf / 2;
 }
 
+template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
                         const void* kv_lengths, int B, int H, int Lq, int Lk, float scale,
                         int causal, int window, const long long* st, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<64>;
-  const int smem = smem_bytes<64>();
+  auto kernel = flash_fwd_kernel<D>;
+  const int smem = smem_bytes<D>();
   static cudaError_t attr = ds::allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
@@ -409,15 +440,17 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, vo
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         const void* kv_lengths, int B, int H, int Lq, int Lk, float scale,
                         int causal, int window, const long long* st, cudaStream_t stream) {
-  static cudaError_t attr = ds::allow_smem(flash_fwd_mma_kernel, kSmemBF16);
+  using Tile = FwdTile<D>;
+  static cudaError_t attr = ds::allow_smem(flash_fwd_mma_kernel<D>, Tile::kSmem);
   if (attr != cudaSuccess) return attr;
-  const int n_qt = (Lq + kRowsBF16 - 1) / kRowsBF16;
+  const int n_qt = (Lq + Tile::kRows - 1) / Tile::kRows;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   dim3 grid(B * H, n_qt);
-  flash_fwd_mma_kernel<<<grid, kThreadsBF16, kSmemBF16, stream>>>(
+  flash_fwd_mma_kernel<D><<<grid, kThreadsBF16, Tile::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_lengths), H,
       Lq, Lk, scale, causal, window, n_qt, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
@@ -425,13 +458,27 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+                   const void* kv_lengths, int B, int H, int Lq, int Lk, float scale, int causal,
+                   int window, const long long* st, cudaStream_t stream) {
+  if (dtype == ds::kFloat32)
+    return launch_fp32<D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st,
+                          stream);
+  if (dtype == ds::kBFloat16)
+    return launch_bf16<D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st,
+                          stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // q/k/v: [B, L, H, D] with unit stride on D and element strides (batch, len,
-// head) for each; o: contiguous [B, Lq, H, D] of q's dtype; lse: contiguous
-// [B, H, Lq] fp32; kv_lengths: [B] int32 or null; window <= 0 means none.
+// head) for each, D 64 or 128; o: contiguous [B, Lq, H, D] of q's dtype; lse:
+// contiguous [B, H, Lq] fp32; kv_lengths: [B] int32 or null; window <= 0
+// means none.
 // bf16 runs on the tensor cores and needs 16-byte aligned q/k/v with strides
 // that are multiples of 8 elements; fp32 runs the FMA body.
 int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -441,11 +488,13 @@ int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
                  long long v_sl, long long v_sh, void* stream) {
   const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D != 64) return cudaErrorInvalidValue;
-  if (dtype == ds::kFloat32)
-    return launch_fp32(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st, s);
-  if (dtype == ds::kBFloat16)
-    return launch_bf16(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st, s);
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (D == 64)
+    return launch<64>(dtype, q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
+                      st, s);
+  if (D == 128)
+    return launch<128>(dtype, q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
+                       st, s);
   return cudaErrorInvalidValue;
 }
 

@@ -15,10 +15,13 @@
 // are, packed to bf16 pairs, exactly the A operand of one k16 step: a
 // product's output feeds the next product from registers.
 //
-// Shared tiles hold rows of 64 bf16 (128 bytes, eight 16-byte chunks).
-// Chunk c of row r sits at chunk c ^ (r % 8), so the eight rows one
-// ldmatrix 8x8 matrix reads fall in eight different bank groups, and the
-// 16-byte cp.async writes of eight consecutive chunks do too.
+// Shared tiles hold rows of COLS bf16 (the head dim: 64 or 128, i.e. 128
+// or 256 bytes, eight or sixteen 16-byte chunks). Chunk c of row r sits at
+// chunk c ^ (r % 8), so the eight rows one ldmatrix 8x8 matrix reads fall in
+// eight different bank groups, and the 16-byte cp.async writes of eight
+// consecutive chunks do too. COLS defaults to 64, so a caller that names no
+// width (K2, K3 at head dim 64, K6) compiles to what it did before the width
+// became a parameter.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,15 +32,23 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowBytes = 128;  // one row of a shared tile: 64 bf16
+constexpr int kRowBytes = 128;  // one row of a shared tile of the default width: 64 bf16
+
+// bytes of one row of a shared tile of COLS bf16
+template <int COLS>
+__host__ __device__ constexpr int row_bytes() {
+  static_assert(COLS % 64 == 0, "rows are whole multiples of eight 16-byte chunks");
+  return COLS * 2;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
+template <int COLS = 64>
 __device__ __forceinline__ uint32_t swizzle(int row, int chunk) {
-  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+  return row * row_bytes<COLS>() + ((chunk ^ (row & 7)) << 4);
 }
 
 // 16 bytes global -> shared, asynchronously; with valid false nothing is
@@ -65,29 +76,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + ROWS - 1 of a [L, 64] bf16 slice with row stride `ld`
-// elements into a swizzled shared tile, by the THREADS threads numbered
+// Rows row0 .. row0 + ROWS - 1 of a [L, COLS] bf16 slice with row stride
+// `ld` elements into a swizzled shared tile, by the THREADS threads numbered
 // `tid` = 0 .. THREADS - 1 (the thread block, one warp, or the warps that
 // share a block list in K6); rows >= L are zero-filled and never read.
 // Needs a 16-byte aligned `src` and `ld` a multiple of 8 (the Python
 // wrappers check both).
-template <int ROWS, int THREADS>
+template <int ROWS, int THREADS, int COLS = 64>
 __device__ __forceinline__ void load_tile_by(uint32_t tile, const bf16* __restrict__ src, int row0,
                                              int L, long long ld, int tid) {
+  constexpr int kChunks = COLS / 8;  // 16-byte chunks per row
+  // log2(kChunks): a shift and a mask, where a signed i / kChunks would add
+  // a sign fix-up and change the code of the default width
+  constexpr int kShift = COLS == 64 ? 3 : 4;
+  static_assert(kChunks == 1 << kShift, "rows of 64 or 128 bf16");
 #pragma unroll
-  for (int i = tid; i < ROWS * 8; i += THREADS) {
-    const int r = i >> 3, chunk = i & 7;
+  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+    const int r = i >> kShift, chunk = i & (kChunks - 1);
     const int row = row0 + r;
     const bool ok = row < L;
-    cp_async16(tile + swizzle(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
+    cp_async16(tile + swizzle<COLS>(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
   }
 }
 
 // load_tile_by the whole thread block of THREADS threads
-template <int ROWS, int THREADS>
+template <int ROWS, int THREADS, int COLS = 64>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict__ src, int row0,
                                           int L, long long ld) {
-  load_tile_by<ROWS, THREADS>(tile, src, row0, L, ld, threadIdx.x);
+  load_tile_by<ROWS, THREADS, COLS>(tile, src, row0, L, ld, threadIdx.x);
 }
 
 // A gathered tile (K6): tile row r holds slot s0 + r of the concatenation
@@ -133,22 +149,26 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // A operand of rows m0..m0+15, k k0..k0+15 of a swizzled row-major tile
+template <int COLS = 64>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile, int m0, int k0, int lane) {
-  ldsm_x4(a, tile + swizzle(m0 + (lane & 15), (k0 >> 3) + (lane >> 4)));
+  ldsm_x4(a, tile + swizzle<COLS>(m0 + (lane & 15), (k0 >> 3) + (lane >> 4)));
 }
 
 // B operands of the two n-tiles n0..n0+7 and n0+8..n0+15 at k k0..k0+15,
 // where the tile holds B transposed: row n, contiguous in k (K for Q K^T).
 // b[0], b[1] are the first n-tile's b0, b1; b[2], b[3] the second's.
+template <int COLS = 64>
 __device__ __forceinline__ void load_b(uint32_t (&b)[4], uint32_t tile, int n0, int k0, int lane) {
-  ldsm_x4(b, tile + swizzle(n0 + (lane & 7) + ((lane >> 4) << 3), (k0 >> 3) + ((lane >> 3) & 1)));
+  ldsm_x4(b, tile + swizzle<COLS>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                                  (k0 >> 3) + ((lane >> 3) & 1)));
 }
 
 // B operands of the two n-tiles n0.. and n0+8.. at k k0..k0+15, where the
 // tile holds B as it is: row k, contiguous in n (V for P V).
+template <int COLS = 64>
 __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], uint32_t tile, int n0, int k0,
                                              int lane) {
-  ldsm_x4_trans(b, tile + swizzle(k0 + (lane & 15), (n0 >> 3) + (lane >> 4)));
+  ldsm_x4_trans(b, tile + swizzle<COLS>(k0 + (lane & 15), (n0 >> 3) + (lane >> 4)));
 }
 
 // d += a * b over one m16n8k16 step, bf16 inputs, fp32 accumulators
@@ -197,11 +217,12 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)
   split_bf16(hi[3], lo[3], c1[2], c1[3]);
 }
 
-// out[n][d] (n-tiles of a 16 x 64 result) times `mul`, rounded to bf16 and
-// stored as pairs into rows row0 + g and row0 + g + 8 of a [rows, 64]
-// tensor with row stride `ld`; rows >= rows_end are skipped.
+// acc[n][c] (the N8 n-tiles of a 16 x 8 N8 result) times `mul`, rounded to
+// bf16 and stored as pairs into rows row0 + g and row0 + g + 8 of a
+// [rows, 8 N8] tensor with row stride `ld`; rows >= rows_end are skipped.
+template <int N8>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long ld, int row0,
-                                           int rows_end, const float (&acc)[8][4], float mul0,
+                                           int rows_end, const float (&acc)[N8][4], float mul0,
                                            float mul1, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -211,7 +232,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long ld,
     const float mul = half ? mul1 : mul0;
     bf16* p = dst + row * ld + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < N8; ++n)
       *reinterpret_cast<uint32_t*>(p + 8 * n) =
           pack_bf16(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
   }

@@ -48,10 +48,11 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator], do
 
 def replace_transformer_layer(model, config: DeepSpeedInferenceConfig, device: torch.device,
                               params: Optional[dict] = None):
-    """Kernel injection: rebuild ``model`` with the serving dtype (weights
-    cast to it) and, with ``replace_with_kernel_inject`` and
-    ``use_flash_prefill``, the CUDA flash attention backend. Weights come
-    from ``params`` (a state dict) or the model itself."""
+    """Kernel injection: rebuild ``model`` (its own class: GPT-2 or a LLaMA
+    family model) with the serving dtype (weights cast to it) and, with
+    ``replace_with_kernel_inject`` and ``use_flash_prefill``, the CUDA flash
+    attention backend. Weights come from ``params`` (a state dict) or the
+    model itself."""
     mcfg = model.config
     updates = {}
     if config.dtype is not None:
@@ -80,7 +81,10 @@ class InferenceEngine:
         self.module = replace_transformer_layer(model, self.config, self.device, params)
         self.mcfg = self.module.config
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._max_len = int(self.mcfg.n_positions)
+        # the context and decode-cache length: LLaMA's max_position_embeddings
+        # or GPT-2's n_positions (JAX _model_max_len)
+        self._max_len = int(getattr(self.mcfg, "max_position_embeddings", None)
+                            or self.mcfg.n_positions)
 
     @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:

@@ -77,6 +77,15 @@ class ContinuousBatchingScheduler:
             config = ServingConfig()
         elif isinstance(config, dict):
             config = ServingConfig(**config)
+        mcfg = engine.module.config
+        if not any(f.name == "serve_weight_dtype" for f in dataclasses.fields(mcfg)):
+            # as the JAX scheduler refuses it (its _quant_view and
+            # _probe_slot_decode): the LLaMA family decodes against the
+            # lockstep cache only
+            raise NotImplementedError(
+                f"{type(engine.module).__name__} does not support the per-slot (ragged) decode "
+                f"cache and the serve_weight_dtype seam the scheduler serves with; serve it with "
+                f"init_inference(...).generate")
         self.config = config
         self.engine = engine
         self.device = engine.device

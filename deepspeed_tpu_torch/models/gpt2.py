@@ -44,8 +44,9 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.common import (config_from, dense_init, embed_lookup,
-                                               fused_head_loss_output, maybe_remat)
+from deepspeed_tpu_torch.models.common import (config_from, cross_entropy_loss,  # noqa: F401
+                                               dense_init, embed_lookup, fused_head_loss_output,
+                                               maybe_remat)
 from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
 from deepspeed_tpu_torch.ops.quantizer.weights import quant_bits
@@ -596,16 +597,3 @@ class GPT2LMHeadModel(nn.Module):
         if cfg.moe_num_experts > 0:
             return logits, aux_total * cfg.moe_aux_loss_coef
         return logits
-
-
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
-    """Mean token cross-entropy with label masking: the log-sum-exp in fp32,
-    the label logit read in the logits' dtype (JAX ``gpt2.py:636-651``)."""
-    labels = labels.to(logits.device).long()
-    valid = labels != ignore_index
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logz = torch.logsumexp(logits.float(), dim=-1)
-    label_logit = logits.gather(-1, safe[..., None])[..., 0].float()
-    nll = (logz - label_logit) * valid
-    return nll.sum() / valid.sum().clamp_min(1)

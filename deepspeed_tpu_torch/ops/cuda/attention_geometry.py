@@ -27,9 +27,21 @@ DECODE_BODIES = ("rows", "tiles")
 DECODE_CHUNK = {"rows": 64, "tiles": 256}
 DECODE_TILE_ROWS = 16
 
-#: head dims the attention kernels are instantiated for (GPT-2 125m/350m/xl
-#: use 64; each more width is another template instance and more build time)
-KERNEL_HEAD_DIMS = (64,)
+#: head dims the attention kernels K1, K4 and K3 are instantiated for (GPT-2
+#: 125m/350m use 64, the LLaMA family 128; each more width is another
+#: template instance and more build time). Their tiles per head dim are
+#: compile-time constants of the sources (``FwdTile``, ``BwdTile``, ``Dim``):
+#: no wrapper sizes anything by them.
+KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the block-sparse kernels K6 take (``csrc/sparse_fwd.cu``)
+SPARSE_HEAD_DIMS = (64,)
+
+
+def check_head_dim(what: str, d: int) -> None:
+    """Raise ``ValueError`` for a head dim the CUDA kernels are not built
+    for; the wrappers call it before they build or launch anything."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
 
 
 def decode_body(bf16: bool, lq: int) -> str:

@@ -10,10 +10,12 @@ the JAX package; the kernels read it in place through strides.
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches the kernel or raises. K1 and K4 run bf16 on the tensor cores (K1
 carries p as a bf16 hi + lo pair into its second product, K4 rounds p and
-ds to bf16) and fp32 as FMAs; a bf16 tensor whose rows are not 16-byte
-aligned raises ``ValueError``. K3 splits the cache over thread blocks and
-reads it either as values of q's dtype or as the int8 KV pool's codes with
-their scales, dequantised on read (:func:`flash_decode`). The JAX backend
+ds to bf16) and fp32 as FMAs, at head dim 64 or 128 (any other raises
+``ValueError`` before anything is built or launched); a bf16 tensor whose
+rows are not 16-byte aligned raises ``ValueError``. K3 splits the cache
+over thread blocks and reads it either as values of q's dtype or as the
+int8 KV pool's codes with their scales, dequantised on read
+(:func:`flash_decode`). The JAX backend
 falls back to XLA for a bias, an arbitrary mask or dropout; this backend
 raises instead, so the main path can never leave the kernel quietly. The backend goes through
 :class:`FlashAttention`, the ``torch.autograd.Function`` that ties K1 to
@@ -28,7 +30,7 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
 from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_BODIES, DECODE_CHUNK,
-                                                              KERNEL_HEAD_DIMS, decode_body)
+                                                              check_head_dim, decode_body)
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF, register_backend
 
 
@@ -134,6 +136,7 @@ def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _check_operands(what, q, k, v):
+    check_head_dim(what, q.shape[-1])  # first: a head dim without a kernel never reaches the build
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"{what}: q, k and v must lie on one CUDA device")
     if q.dtype != k.dtype or q.dtype != v.dtype:
@@ -143,9 +146,6 @@ def _check_operands(what, q, k, v):
         raise ValueError(f"{what}: expected [B, L, H, D] tensors")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what}: head_dim must be the unit-stride axis")
-    d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
@@ -281,6 +281,7 @@ def _check_decode_operands(q, k, v, k_scale, v_scale):
     in multiples of 16 bytes; the bf16 tile body loads q with cp.async too
     (K1's rule). Nothing is copied: what does not fit raises."""
     what = "flash_decode"
+    check_head_dim(what, q.shape[-1])  # first: a head dim without a kernel never reaches the build
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: pass both k_scale and v_scale (int8 KV) or neither")
     tensors = (q, k, v) if k_scale is None else (q, k, v, k_scale, v_scale)
@@ -295,9 +296,6 @@ def _check_decode_operands(q, k, v, k_scale, v_scale):
         raise ValueError(f"{what}: expected [S, L, H, D] tensors")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what}: head_dim must be the unit-stride axis")
-    d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")

@@ -39,7 +39,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
-from deepspeed_tpu_torch.ops.cuda.attention_geometry import KERNEL_HEAD_DIMS
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import SPARSE_HEAD_DIMS
 from deepspeed_tpu_torch.ops.cuda.flash_attention import _check_tensor_core_operands
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
 
@@ -211,8 +211,8 @@ def _check_operands(what, q, k, v, block):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what}: head_dim must be the unit-stride axis")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {q.shape[-1]} not in the kernel's {KERNEL_HEAD_DIMS}")
+    if q.shape[-1] not in SPARSE_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {q.shape[-1]} not in the kernel's {SPARSE_HEAD_DIMS}")
     if block not in KERNEL_BLOCKS:
         raise ValueError(f"{what}: layout block {block} not in the kernel's {KERNEL_BLOCKS}")
     _check_block(what, q.shape[1], block)

@@ -57,7 +57,7 @@ import torch
 
 from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.gpt2 import cross_entropy_loss
+from deepspeed_tpu_torch.models.common import cross_entropy_loss
 from deepspeed_tpu_torch.moe import routing as moe_routing
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
@@ -106,12 +106,13 @@ class DeepSpeedEngine:
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the engine runs on "
                              f"{self.device}; build the model with device={str(self.device)!r}")
-        if mcfg.param_dtype != torch.float32 or mcfg.serve_weight_dtype is not None:
-            raise ValueError("training needs fp32 master parameters (GPT2Config.param_dtype="
-                             "torch.float32, serve_weight_dtype=None)")
+        cfg_name = type(mcfg).__name__
+        if mcfg.param_dtype != torch.float32 or getattr(mcfg, "serve_weight_dtype", None) is not None:
+            raise ValueError(f"training needs fp32 master parameters ({cfg_name}.param_dtype="
+                             "torch.float32, no serve_weight_dtype)")
         if config.bfloat16_enabled and mcfg.dtype != torch.bfloat16:
             raise ValueError("bf16 is enabled but the model computes in "
-                             f"{mcfg.dtype}; build it with GPT2Config.dtype=torch.bfloat16")
+                             f"{mcfg.dtype}; build it with {cfg_name}.dtype=torch.bfloat16")
         self.module = model
         self.config = config
         moe_routing.set_default_route(config.moe_route, config.moe_kernel)
@@ -175,7 +176,8 @@ class DeepSpeedEngine:
         mcfg = self.module.config
         ids = mb["input_ids"]
         moe = mcfg.moe_num_experts > 0
-        stochastic = train and (mcfg.dropout > 0.0 or moe)
+        # a family without dropout (LLaMA) has no ``dropout`` field
+        stochastic = train and (getattr(mcfg, "dropout", 0.0) > 0.0 or moe)
         kwargs = dict(deterministic=not stochastic,
                       generator=self.generator if stochastic else None)
         # a fused-head model computes the loss itself (no [B, L, V] logits);

@@ -21,20 +21,30 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import live_pairs
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
 
 
-def _code(j: np.ndarray) -> np.ndarray:
-    """Key j as ``32 (e[j % 32] + e[32 + j // 32])`` over 64 dims (0 for j < 0)."""
-    out = np.zeros(j.shape + (64,), np.float32)
+def _code(j: np.ndarray, head_dim: int = 64) -> np.ndarray:
+    """Key j as ``32 (e[j % m] + e[m + j // m])`` over ``head_dim`` dims,
+    m = head_dim / 2 (0 for j < 0): at most m^2 keys, 1024 at head dim 64
+    and 4096 at 128."""
+    m = head_dim // 2
+    out = np.zeros(j.shape + (head_dim,), np.float32)
     idx = np.nonzero(j >= 0)
-    out[idx + (j[idx] % 32,)] = 32.0
-    out[idx + (32 + j[idx] // 32,)] = 32.0
+    out[idx + (j[idx] % m,)] = 32.0
+    out[idx + (m + j[idx] // m,)] = 32.0
     return out
+
+
+def _near(live: np.ndarray, d: int, head_dim: int) -> np.ndarray:
+    """The keys of ``live`` whose code shares a coordinate with key d's."""
+    m = head_dim // 2
+    return live[(live % m == d % m) | (live // m == d // m)]
 
 
 def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
                 kv_lengths: Optional[list] = None, window: Optional[int] = None, seed: int = 0,
-                dtype=torch.bfloat16, device="cpu") -> dict:
+                dtype=torch.bfloat16, device="cpu", head_dim: int = 64) -> dict:
     """Attention inputs whose outputs and gradients are exact in bf16. Head
-    dim 64, scale 1/8; keys are coded as in :func:`_code` (at most 1024).
+    dim ``head_dim`` (64 or 128), scale 1/8; keys are coded as in
+    :func:`_code` (at most 1024 keys at head dim 64, 4096 at 128).
 
     Each (batch, row, head) picks one live key c, which the softmax must
     return one-hot: c scores 4096 (512 after scaling, a power of two, so
@@ -53,8 +63,9 @@ def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
     Returns the inputs (``q, k, v, do, kv_lengths`` [int32 or None],
     ``scale``), the exact results (``o, lse, dq, dk, dv``) and the numpy
     ``[b, lq, h]`` arrays ``pick`` and ``decoy`` (-1 where none)."""
-    if lk > 1024:
-        raise ValueError(f"exact_probe codes at most 1024 keys, got {lk}")
+    if lk > (head_dim // 2)**2:
+        raise ValueError(f"exact_probe codes at most {(head_dim // 2)**2} keys at head dim "
+                         f"{head_dim}, got {lk}")
     lens = None if kv_lengths is None else torch.tensor(kv_lengths, dtype=torch.int32)
     valid = live_pairs(lq, lk, causal, lens, window, "cpu").expand(b, 1, lq, lk)[:, 0].numpy()
     rng = np.random.default_rng(seed)
@@ -70,25 +81,25 @@ def exact_probe(b: int, lq: int, lk: int, h: int, *, causal: bool,
                     continue
                 if edges and rng.random() < 0.5:
                     d = edges[rng.integers(len(edges))]
-                    near = live[(live % 32 == d % 32) | (live // 32 == d // 32)]
+                    near = _near(live, d, head_dim)
                     if len(near):
                         pick[bi, r, hi], decoy[bi, r, hi] = near[rng.integers(len(near))], d
                         continue
                 pick[bi, r, hi] = live[rng.integers(len(live))]
-    return _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, NEG_INF / 2)
+    return _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, NEG_INF / 2, head_dim)
 
 
-def _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, dead_lse) -> dict:
+def _one_hot_inputs(pick, decoy, lk, rng, lens, dtype, device, dead_lse, head_dim=64) -> dict:
     """The probe's tensors for chosen ``pick`` / ``decoy`` keys [b, lq, h]:
     q, k, v, do and the exact o, lse, dq, dk, dv (see :func:`exact_probe`)."""
     b, _, h = pick.shape
     # a decoy row weighs c once and d twice, a plain row c twice; a dead row d once
     has_d = decoy >= 0
-    q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick)
-         + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy)).astype(np.float32)
-    k = _code(np.broadcast_to(np.arange(lk)[None, :, None], (b, lk, h)))
-    v = rng.integers(-4, 5, (b, lk, h, 64)).astype(np.float32)
-    do = rng.integers(-4, 5, pick.shape + (64,)).astype(np.float32)
+    q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick, head_dim)
+         + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy, head_dim)).astype(np.float32)
+    k = _code(np.broadcast_to(np.arange(lk)[None, :, None], (b, lk, h)), head_dim)
+    v = rng.integers(-4, 5, (b, lk, h, head_dim)).astype(np.float32)
+    do = rng.integers(-4, 5, pick.shape + (head_dim,)).astype(np.float32)
     o, dv = np.zeros_like(do), np.zeros_like(v)
     bi, ri, hi = np.nonzero(pick >= 0)
     o[bi, ri, hi] = v[bi, pick[bi, ri, hi], hi]
@@ -170,7 +181,7 @@ def sparse_exact_probe(b: int, l: int, h: int, block: int, *, causal: bool, seed
                     choice.append((2, past))
                 if choice and rng.random() < 0.5:
                     kd, d = choice[rng.integers(len(choice))]
-                    near = live[(live % 32 == d % 32) | (live // 32 == d // 32)]
+                    near = _near(live, d, 64)
                     if len(near):
                         pick[bi, r, hi], decoy[bi, r, hi] = near[rng.integers(len(near))], d
                         kind[bi, r, hi] = kd
@@ -226,12 +237,12 @@ def injected_routing(routing: Optional[sharded_moe.SortedRouting] = None,
 
 
 def decode_exact_probe(lengths: List[int], lq: int, p_len: int, h: int, *, seed: int = 0,
-                       dtype=torch.bfloat16, device="cpu") -> dict:
+                       dtype=torch.bfloat16, device="cpu", head_dim: int = 64) -> dict:
     """Decode attention inputs (K3) whose output is exact, in both operand
     forms: :func:`exact_probe`'s one-hot rows over a per-slot cache
-    ``[S, p_len, h, 64]`` with ``lengths`` [S] (S * p_len at most 1024, so
-    every cache row of every slot has its own code: key j of slot s is coded
-    ``s * p_len + j``). Each (slot, row, head) with live keys picks one; in
+    ``[S, p_len, h, head_dim]`` with ``lengths`` [S] (S * p_len at most 1024
+    at head dim 64, 4096 at 128, so every cache row of every slot has its own
+    code: key j of slot s is coded ``s * p_len + j``). Each (slot, row, head) with live keys picks one; in
     about half of them a dead decoy that would win the softmax if read sits
     just past the row's live range: the key after the row's position or
     after the slot's length, or, where the row reads the whole pool (a
@@ -239,13 +250,14 @@ def decode_exact_probe(lengths: List[int], lq: int, p_len: int, h: int, *, seed:
     which a read past the pool would reach. A row with no live key gets a
     decoy among all keys and must give 0.
 
-    Returns ``q`` [S, lq, h, 64], ``k`` and ``v`` (values of ``dtype``),
+    Returns ``q`` [S, lq, h, head_dim], ``k`` and ``v`` (values of ``dtype``),
     the same pool as int8 codes ``k_codes``, ``v_codes`` with scales
     ``k_scale``, ``v_scale`` [S, p_len, h, 1] of ``dtype`` (exact: codes
     times 0.5), int32 ``lengths``, ``scale`` 1/8 and the exact ``o``."""
     s_n = len(lengths)
-    if s_n * p_len > 1024:
-        raise ValueError(f"decode_exact_probe codes at most 1024 cache rows, got {s_n} x {p_len}")
+    if s_n * p_len > (head_dim // 2)**2:
+        raise ValueError(f"decode_exact_probe codes at most {(head_dim // 2)**2} cache rows at head "
+                         f"dim {head_dim}, got {s_n} x {p_len}")
     rng = np.random.default_rng(seed)
     pick = np.full((s_n, lq, h), -1)
     decoy = np.full((s_n, lq, h), -1)
@@ -262,20 +274,20 @@ def decode_exact_probe(lengths: List[int], lq: int, p_len: int, h: int, *, seed:
                     decoy[si, r, hi] = rng.integers(s_n * p_len)
                     continue
                 if edge >= 0 and rng.random() < 0.5:
-                    near = live[(live % 32 == edge % 32) | (live // 32 == edge // 32)]
+                    near = _near(live, edge, head_dim)
                     if len(near):
                         pick[si, r, hi], decoy[si, r, hi] = near[rng.integers(len(near))], edge
                         continue
                 pick[si, r, hi] = live[rng.integers(len(live))]
     has_d = decoy >= 0
-    q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick)
-         + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy)).astype(np.float32)
+    q = (np.where(has_d, 1.0, 2.0)[..., None] * _code(pick, head_dim)
+         + np.where(pick >= 0, 2.0, 1.0)[..., None] * _code(decoy, head_dim)).astype(np.float32)
     k = _code(np.broadcast_to((np.arange(s_n)[:, None] * p_len + np.arange(p_len))[..., None],
-                              (s_n, p_len, h)))
-    v = rng.integers(-4, 5, (s_n, p_len, h, 64)).astype(np.float32)
+                              (s_n, p_len, h)), head_dim)
+    v = rng.integers(-4, 5, (s_n, p_len, h, head_dim)).astype(np.float32)
     o = np.zeros(q.shape, np.float32)
     si, ri, hi = np.nonzero(pick >= 0)
-    o[si, ri, hi] = v.reshape(s_n * p_len, h, 64)[pick[si, ri, hi], hi]
+    o[si, ri, hi] = v.reshape(s_n * p_len, h, head_dim)[pick[si, ri, hi], hi]
 
     def put(x, dt=dtype):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dt)

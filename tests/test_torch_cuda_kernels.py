@@ -10,7 +10,8 @@ K6 and K3 (both operand forms) are also held, in fp32 and bf16, within 1e-6 of i
 result is exact (``deepspeed_tpu_torch.testing.exact_probe``, ``sparse_exact_probe`` and
 ``decode_exact_probe``); K2's three bodies must give their plain version's bits on
 ``quant_matmul_probe``'s inputs, and K3's int8 form the bits of its value form on the
-dequantised pool.
+dequantised pool. K1, K4 and K3 run at head dims 64 and 128 (the ``_d128``
+cases: the same comparisons and probes at the LLaMA family's width).
 """
 
 import numpy as np
@@ -136,6 +137,93 @@ def test_flash_fwd_bwd_exact_probe(gen, dtype, lq, lk, causal, lengths, window):
     _exact(lse, p["lse"])
     for name, g in zip(("dq", "dk", "dv"), fa.flash_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], **kw)):
         _exact(g, p[name])
+
+
+# ---------------------------------------------------------------------------
+# head dim 128 (the LLaMA family): K1, K4 and K3's own instances
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal,lengths,window", [
+    (100, 100, True, None, None), (16, 130, True, None, None), (64, 64, False, [64, 9, 0], None),
+    (90, 90, True, [90, 40, 1], None), (200, 200, True, None, 33), (130, 130, False, None, None)])
+def test_flash_fwd_bwd_match_plain_d128(gen, dtype, lq, lk, causal, lengths, window):
+    """K1 and K4 at head dim 128 against their plain versions, q, k and v
+    strided slices of one fused tensor where lq == lk, do strided."""
+    b, h, d = 3, 4, 128
+    if lq == lk:
+        qkv = _randn(gen, b, lq, 3, h, d, dtype=dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (_randn(gen, b, n, h, d, dtype=dtype) for n in (lq, lk, lk))
+    do = _randn(gen, b, lq, h, 2, d, dtype=dtype)[:, :, :, 0]
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(scale=d**-0.5, causal=causal, kv_lengths=lens, window=window)
+    before = dict(LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    assert LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    _close(o, ro, dtype)
+    _close(lse, rlse, torch.float32)
+    for g, r in zip(got, fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)):
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal,lengths,window", PROBES + [(300, 300, True, None, 100)])
+def test_flash_fwd_bwd_exact_probe_d128(gen, dtype, lq, lk, causal, lengths, window):
+    """The exact probe at head dim 128 (keys coded over 128 dims)."""
+    p = exact_probe(3, lq, lk, 4, causal=causal, kv_lengths=lengths, window=window, seed=2,
+                    dtype=dtype, device="cuda", head_dim=128)
+    kw = dict(scale=p["scale"], causal=causal, kv_lengths=p["kv_lengths"], window=window)
+    o, lse = fa.flash_fwd(p["q"], p["k"], p["v"], **kw)
+    _exact(o, p["o"])
+    _exact(lse, p["lse"])
+    for name, g in zip(("dq", "dk", "dv"), fa.flash_bwd(p["q"], p["k"], p["v"], o, lse, p["do"], **kw)):
+        _exact(g, p[name])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lengths", [(1, [0, 1, 63, 64, 65, 200, 256, 257]),
+                                        (16, [0, 1, 15, 16, 100, 256, 272, 5]),
+                                        (20, [3, 40, 256, 276])])
+def test_flash_decode_matches_plain_d128(gen, dtype, lq, lengths):
+    """K3 at head dim 128, both operand forms: values against the plain
+    version, int8 codes against the plain version of the dequantised pool
+    and bit for bit against the value form on it."""
+    s, d = len(lengths), 128
+    q = _randn(gen, s, lq, 4, d, dtype=dtype)
+    codes = torch.randint(-127, 128, (2, s, 256, 4, d), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    scales = (torch.rand(2, s, 256, 4, 1, generator=gen, device="cuda") * 0.05 + 1e-3).to(dtype)
+    k, v = fa.dequantize_kv(codes[0], scales[0], dtype), fa.dequantize_kv(codes[1], scales[1], dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = LAUNCHES["flash_decode"]
+    o = fa.flash_decode(q, k, v, lens)
+    o8 = fa.flash_decode(q, codes[0], codes[1], lens, k_scale=scales[0], v_scale=scales[1])
+    assert LAUNCHES["flash_decode"] == before + 2
+    _close(o, fa.flash_decode_plain(q, k, v, lens, scale=d**-0.5), dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(o8, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["values", "int8"])
+@pytest.mark.parametrize("lq,lengths", [(1, [0, 1, 64, 65, 129, 255, 256, 257]),
+                                        (16, [0, 1, 15, 16, 100, 256, 272, 250])])
+def test_flash_decode_exact_probe_d128(dtype, form, lq, lengths):
+    """K3's exact probe at head dim 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for half in (lengths[:4], lengths[4:]):
+        p = decode_exact_probe(half, lq, 256, 4, seed=lq + 1, dtype=dtype, device="cuda",
+                               head_dim=128)
+        kw = {} if form == "values" else dict(k_scale=p["k_scale"], v_scale=p["v_scale"])
+        k, v = (p["k"], p["v"]) if form == "values" else (p["k_codes"], p["v_codes"])
+        o = fa.flash_decode(p["q"], k, v, p["lengths"], scale=p["scale"], **kw)
+        torch.cuda.synchronize()
+        assert (o.float() - p["o"].float()).abs().max().item() <= 1e-6 * 4
 
 
 def test_flash_refuses_misaligned_bf16(gen):
