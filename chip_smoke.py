@@ -20,10 +20,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
               block the layout leaves out, that would win if let in:
               ``deepspeed_tpu_torch.testing``), K6 in bf16 and fp32. K3 in both
               operand forms (bf16 values, and int8 codes with scales, which
-              must give the value form's bits on the dequantised pool) at Lq 1
+              must give the value form's bits on the dequantised pool) at Lq 1,
+              5 (phase 14's verify block: 5 of the tile body's 16 rows live)
               and 16, and within 1e-6 of its own exact probe in both forms;
               K2's three bodies (decode M <= 16, prefill M > 16, the general
-              FMA body) at every serving shape, ragged M and N, int8 and int4,
+              FMA body) at every serving shape (M 8, 40 and 128: a decode
+              tick, the verify block of 8 slots x 5, a prefill tick), ragged M
+              and N, int8 and int4,
               and bit for bit equal to the plain version on inputs where every
               summation order gives the same bits (integer x; power-of-two or
               non-bf16 scales).
@@ -167,11 +170,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
               prefill chunk's and decode step's logits at 2 layers of full
               width, card against CPU, as phase 4 (c) holds them.
 
+14. serving at the JAX defaults — GPT-2 350m as in phase 4 (full width and
+              depth, random seeded weights, bf16, int8 weights, int8 KV) through
+              ``ContinuousBatchingScheduler`` with every other ``ServingConfig``
+              field at its default (prefix cache on, a tick event a tick, a
+              heartbeat a second): (a) 32 greedy requests from 4 templates (a
+              512-token shared prefix, a 32-96-token tail, 24-40 new tokens)
+              with the cache on and off at one byte budget (``kv_pool_bytes``,
+              1.5x slots x context); (b) phase 4 (b)'s 16 requests with
+              speculation (k 4) off (with the prefix cache off, then on: the
+              default's cost on traffic that shares no prefix), on with a
+              4-layer student drafter (layers
+              0, 8, 16, 23 and the embeddings, ``student_initialization``), and
+              on with the target's own 24 layers as the drafter (which
+              accepts, so the accept and refeed paths run; its rounds must
+              make one host sync each, the copy of drafts and verdicts,
+              where no request retires: ``torch.cuda.set_sync_debug_mode``
+              counts them; each round's launches are read around each
+              step's calls); the reference run's share of positions whose
+              top-2 margin is within the margin rule's limit; speculation
+              at full depth in fp32 (the 24-layer drafter, fp KV) token for
+              token against spec off; the first verify
+              tick at 2 layers of full width, card against CPU, as (c) of
+              phase 4; (c) 24 requests and a SIGTERM after 6 ticks through a
+              passed guard: ``serve`` returns 143, every request in flight then
+              finishes in full, every queued one is refused, the pool is free;
+              (d) on (c)'s run, the telemetry JSONL (every ``serve_*`` event
+              valid, a ``serve_tick`` a tick) and the heartbeat file (the
+              serving role block). Launch counts are zeroed just before each
+              run and read just after: K2 and K3 launch in each, and in (b)
+              they equal what the tick mix implies, the drafter's counted.
+              Greedy outputs of cache on and speculation on must equal the
+              reference run's, or first diverge where the reference's top-2
+              logit margin is within 1.5x phase 4 (c)'s measured rounding.
+
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
 only K2's and K3's value-form timings and phase 4, through the API that
 earlier commits share: copied into an earlier checkout, the script measures
-that commit the same way (no ``kernels`` line then). Details go to
+that commit the same way (no ``kernels`` line then); ``--phases
+kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -318,6 +356,13 @@ K3_MIXES = {"serving mix": [0, 1, 37, 300, 517, 777, 1000, 1024],
 #: K2's (K, N) on the serving path: GPT-2 350m's QKV, attention out, MLP in
 #: and MLP out projections (M = 8 a decode tick, 128 a prefill tick)
 K2_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+#: K2's timed (M, bits): a decode tick (M = 8, the drafter's too), the
+#: speculation verify block (M = 8 slots x (k + 1) = 40 at k = 4) and a
+#: prefill tick (M = 128)
+K2_TIMED = ((8, 8), (8, 4), (40, 8), (128, 8), (128, 4))
+#: K3's timed query rows: a decode tick, the verify block (k + 1 = 5) and a
+#: prefill chunk
+K3_LQ = (1, 5, 16)
 #: bytes of weights the cold-L2 timings rotate through (the H100's L2 is 50 MB)
 ROTATE_BYTES = 64 << 20
 
@@ -368,7 +413,7 @@ def rotating(make, nbytes: int):
 
 
 def kernel_times(gen) -> dict:
-    """K2 at every serving shape and K3's value form at Lq 1 and 16 over
+    """K2 at every serving shape and K3's value form at Lq 1, 5 and 16 over
     the two length mixes: the kernel's event-timed and device-side time,
     the plain version's and one library call's (device-side, event-timed
     beside it), and the bound. K2 and its library call (a bf16 matmul over
@@ -380,33 +425,32 @@ def kernel_times(gen) -> dict:
     dev = torch.device("cuda")
     out = {"quant_matmul": {}, "flash_decode": {}, "k3_ops": {}}
     for kk, n in K2_SHAPES:
-        for m in (8, 128):
-            for bits in (8, 4):
-                x, qw, scale, codes, g = k2_operands(gen, m, kk, n, bits)
-                w = (codes.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(torch.bfloat16)
-                copies, nxt = rotating(lambda: (qw.clone(), scale.clone(), w.clone()),
-                                       qw.numel() + scale.numel() * 4)
-                kernel = lambda: qm.quant_matmul(x, *nxt()[:2], bits=bits)  # noqa: E731
-                library = lambda: torch.matmul(x, nxt()[2])  # noqa: E731
-                dev_ms = device_ms(kernel, iters=len(copies))
-                lib_ms = device_ms(library, iters=len(copies))
-                ms = time_ms(kernel, iters=len(copies))
-                lib_event_ms = time_ms(library, iters=len(copies))
-                plain_ms = time_ms(lambda: qm.quant_matmul_plain(x, qw, scale, bits), iters=10)
-                nbytes = m * kk * 2 + qw.numel() + scale.numel() * 4 + m * n * 2
-                bnd, by = bound_ms(nbytes, 2 * m * kk * n)
-                key = f"int{bits} M={m} K={kk} N={n}"
-                out["quant_matmul"][key] = dict(
-                    shape=f"x [{m},{kk}] bf16 @ int{bits} [{kk},{n}], scales [{g},{n}]", mkn_bits=(m, kk, n, bits),
-                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    library_event_ms=lib_event_ms, bound_ms=bnd, bound_by=by, rotated_copies=len(copies))
-                log(f"time quant_matmul {key} (cold L2, {len(copies)} copies): kernel_ms={ms:.4f} "
-                    f"kernel_device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                    f"(bf16 matmul over the dequantised weight, device-side; event-timed "
-                    f"{lib_event_ms:.4f}) bound_ms={bnd:.4f} ({by})")
-                del copies, kernel, library
+        for m, bits in K2_TIMED:
+            x, qw, scale, codes, g = k2_operands(gen, m, kk, n, bits)
+            w = (codes.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(torch.bfloat16)
+            copies, nxt = rotating(lambda: (qw.clone(), scale.clone(), w.clone()),
+                                   qw.numel() + scale.numel() * 4)
+            kernel = lambda: qm.quant_matmul(x, *nxt()[:2], bits=bits)  # noqa: E731
+            library = lambda: torch.matmul(x, nxt()[2])  # noqa: E731
+            dev_ms = device_ms(kernel, iters=len(copies))
+            lib_ms = device_ms(library, iters=len(copies))
+            ms = time_ms(kernel, iters=len(copies))
+            lib_event_ms = time_ms(library, iters=len(copies))
+            plain_ms = time_ms(lambda: qm.quant_matmul_plain(x, qw, scale, bits), iters=10)
+            nbytes = m * kk * 2 + qw.numel() + scale.numel() * 4 + m * n * 2
+            bnd, by = bound_ms(nbytes, 2 * m * kk * n)
+            key = f"int{bits} M={m} K={kk} N={n}"
+            out["quant_matmul"][key] = dict(
+                shape=f"x [{m},{kk}] bf16 @ int{bits} [{kk},{n}], scales [{g},{n}]", mkn_bits=(m, kk, n, bits),
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_event_ms=lib_event_ms, bound_ms=bnd, bound_by=by, rotated_copies=len(copies))
+            log(f"time quant_matmul {key} (cold L2, {len(copies)} copies): kernel_ms={ms:.4f} "
+                f"kernel_device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"(bf16 matmul over the dequantised weight, device-side; event-timed "
+                f"{lib_event_ms:.4f}) bound_ms={bnd:.4f} ({by})")
+            del copies, kernel, library
     kpos = torch.arange(P, device=dev)
-    for lq in (1, 16):
+    for lq in K3_LQ:
         for mix, lengths in K3_MIXES.items():
             q = torch.randn(8, lq, 16, 64, generator=gen, device=dev).to(torch.bfloat16)
             kc, vc, ks, vs = k3_pool(gen, 8, torch.bfloat16)
@@ -558,8 +602,11 @@ def kernel_phase(gen: torch.Generator, seed: int):
     k3("S=8 Lq=1 P=1024 bf16 lengths 0,1,P,P+Lq", 1, [0, 1, 2, 64, 65, 1000, P, P + 1], torch.bfloat16)
     k3("S=4 Lq=16 P=1024 fp32", 16, [5, 16, 700, P + 16], torch.float32)
     k3("S=4 Lq=1 P=1024 fp32", 1, [5, 16, 700, P + 1], torch.float32)
+    # the speculation verify block: the tile body with 5 of its 16 rows live
+    k3("S=8 Lq=5 P=1024 bf16 lengths 0,1,P,P+Lq", 5, [0, 1, 4, 5, 300, 1000, P, P + 5], torch.bfloat16)
+    k3("S=4 Lq=5 P=1024 fp32", 5, [5, 16, 700, P + 5], torch.float32)
     k3_errs = {(lq, mix): k3(f"S=8 Lq={lq} P=1024 bf16 {mix}", lq, lengths, torch.bfloat16)
-               for lq in (1, 16) for mix, lengths in K3_MIXES.items()}
+               for lq in K3_LQ for mix, lengths in K3_MIXES.items()}
     k3_probe_err = decode_exact_probes(seed)
 
     # -- K2 quant matmul: every body against its plain version --------------
@@ -570,7 +617,8 @@ def kernel_phase(gen: torch.Generator, seed: int):
                        qm.quant_matmul(x, qw, scale, bits=bits), qm.quant_matmul_plain(x, qw, scale, bits),
                        dtype)
 
-    k2_errs = {(m, kk, n, bits): k2(m, kk, n, bits) for kk, n in K2_SHAPES for m in (8, 128) for bits in (8, 4)}
+    k2_errs = {(m, kk, n, bits): k2(m, kk, n, bits) for kk, n in K2_SHAPES for m in (8, 40, 128)
+               for bits in (8, 4)}
     for m, kk, n, bits in ((1, 1024, 1024, 8), (16, 1024, 3072, 4), (17, 1024, 3072, 8),
                            (130, 4096, 1024, 8), (130, 1024, 1024, 4), (16, 320, 272, 8)):
         k2(m, kk, n, bits)
@@ -623,6 +671,11 @@ def kernel_phase(gen: torch.Generator, seed: int):
                                  replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:74",
                                  exact_probe_max_abs_err=k2_probe_err,
                                  **times["quant_matmul"]["int8 M=8 K=1024 N=4096"])
+    # the speculation verify block (k = 4): K3's tile body at Lq 5 and K2's
+    # prefill body at M = 40, each projection
+    lines["flash_decode"]["verify_block"] = times["flash_decode"]["Lq=5 serving mix int8"]
+    lines["quant_matmul"]["verify_block"] = {key: t for key, t in times["quant_matmul"].items()
+                                             if t["mkn_bits"][0] == 40}
     lines["moe_permute"] = k5_cases(gen)
     lines.update(k6_cases(gen, seed))
     for ln in (k1_lines[4], k1_lines[8], lines["flash_bwd"], lines["moe_permute"],
@@ -698,7 +751,7 @@ def exact_probes(seed: int, head_dim: int = 64) -> float:
 
 
 def decode_exact_probes(seed: int, head_dim: int = 64) -> float:
-    """K3 in bf16 and fp32, in both operand forms, at Lq 1 and 16, on inputs
+    """K3 in bf16 and fp32, in both operand forms, at Lq 1, 5 and 16, on inputs
     whose output is exact (one-hot softmax rows, with a dead decoy key just
     past each live range, or in the next slot past a full pool, that would
     win if read: ``deepspeed_tpu_torch.testing.decode_exact_probe``): o
@@ -707,7 +760,8 @@ def decode_exact_probes(seed: int, head_dim: int = 64) -> float:
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.testing import decode_exact_probe
     worst = 0.0
-    for lq, lengths in ((1, [0, 1, 64, 65, 129, 255, 256, 257]), (16, [0, 1, 15, 16, 100, 256, 272, 250])):
+    for lq, lengths in ((1, [0, 1, 64, 65, 129, 255, 256, 257]), (5, [0, 1, 4, 5, 100, 256, 261, 250]),
+                        (16, [0, 1, 15, 16, 100, 256, 272, 250])):
         for part in (lengths[:4], lengths[4:]):
             for dtype in (torch.bfloat16, torch.float32):
                 p = decode_exact_probe(part, lq, 256, 16, seed=seed, dtype=dtype, device="cuda",
@@ -744,7 +798,7 @@ def quant_matmul_probes(seed: int) -> float:
     from deepspeed_tpu_torch.testing import quant_matmul_probe
     worst = 0.0
     for bits in (8, 4):
-        for m in (8, 128):
+        for m in (8, 40, 128):
             for dtype in (torch.bfloat16, torch.float32):
                 for round_scales in (False, True):
                     p = quant_matmul_probe(m, 1024, 3072, bits, round_scales=round_scales, seed=seed + m + bits,
@@ -1313,6 +1367,12 @@ def _profile_decode_ticks(sched, prompts, card, pool_shape, n_ticks: int = 10) -
     return result
 
 
+def serving_trace(rng, vocab: int) -> list:
+    """Phase 4 (b)'s 16 prompts of 32-256 tokens (phase 14 (b) serves them
+    again)."""
+    return [rng.integers(0, vocab, size=int(p)).astype(np.int32) for p in rng.integers(32, 257, size=16)]
+
+
 def slice_phase(seed: int, card: str):
     from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
     from deepspeed_tpu_torch.inference.serving import (FINISHED, ContinuousBatchingScheduler,
@@ -1327,12 +1387,14 @@ def slice_phase(seed: int, card: str):
     del model
     if engine.module.config.attention_backend != "flash":
         raise AssertionError("kernel injection did not select the flash backend")
-    scfg = ServingConfig(slots=8, prefill_chunk=16, kv_quant=True, weight_dtype="int8")
+    # the prefix cache and tick telemetry off, as the port served before it
+    # had them, so that this trace's numbers compare with earlier commits'
+    scfg = ServingConfig(slots=8, prefill_chunk=16, kv_quant=True, weight_dtype="int8",
+                         prefix_cache="off", tick_telemetry_every=0)
     sched = ContinuousBatchingScheduler(engine, scfg)
     sched.warmup()
     rng = np.random.default_rng(seed)
-    prompt_lens = rng.integers(32, 257, size=16)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(p)).astype(np.int32) for p in prompt_lens]
+    prompts = serving_trace(rng, cfg.vocab_size)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, 1024)), device="cuda")
     gen_prompts = rng.integers(0, cfg.vocab_size, size=(2, 64))
     torch.cuda.synchronize()
@@ -2808,6 +2870,617 @@ def llama_serving_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: serving at the JAX package's defaults
+# ---------------------------------------------------------------------------
+#: the speculation drafter: a 4-layer student of GPT-2 350m, seeded from
+#: these teacher layers, with the embeddings and the final norm copied
+DRAFTER_LAYERS = [0, 8, 16, 23]
+SPEC_K = 4
+#: K2 launches per GPT-2 layer and call (QKV, attention out, MLP in, MLP out)
+K2_PER_LAYER = 4
+
+
+def drafter_recipe() -> dict:
+    return {"compression_training": {"layer_reduction": {
+        "enabled": True, "module_name_prefix": "h", "teacher_layer": DRAFTER_LAYERS,
+        "other_module_name": ["wte", "wpe", "ln_f"]}}}
+
+
+def prefix_trace(rng, vocab: int, n: int, templates: int = 4, prefix: int = 512) -> list:
+    """``n`` greedy requests from ``templates`` prompt templates: a shared
+    ``prefix``-token system prompt, a 32-96-token tail and 24-40 new tokens
+    each (jittered, so that the cache-off arm does not prefill in lockstep
+    waves)."""
+    shared = [rng.integers(0, vocab, size=prefix).astype(np.int32) for _ in range(templates)]
+    trace = []
+    for _ in range(n):
+        tail = rng.integers(0, vocab, size=int(rng.integers(32, 97))).astype(np.int32)
+        trace.append((np.concatenate([shared[int(rng.integers(0, templates))], tail]),
+                      int(rng.integers(24, 41))))
+    return trace
+
+
+def first_divergence(a, b):
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def check_lossless(what: str, module, trace, ref, got, rounding: float, card: str) -> dict:
+    """Greedy outputs ``got`` against the reference run's ``ref`` (cache
+    off, speculation off): equal, or each request's first divergence falls
+    where the reference's top-2 logit margin is within 1.5x the rounding
+    this run measured (phase 4 (c): max |plain bf16 - plain fp32| over max
+    |logits|, times max |logits| at that position). The reference's logits
+    there come from a full forward of the served module over the prompt and
+    the reference's tokens before the position."""
+    rows = []
+    for i, ((prompt, _), a, b) in enumerate(zip(trace, ref, got)):
+        j = first_divergence(a, b)
+        if j is None:
+            continue
+        ids = np.concatenate([prompt, np.asarray(a[:j], np.int32)]).astype(np.int64)[None]
+        with torch.inference_mode():
+            logits = module(torch.as_tensor(ids, device="cuda"))[0, -1].float()
+        top = logits.topk(2).values
+        margin, limit = (top[0] - top[1]).item(), 1.5 * rounding * logits.abs().max().item()
+        rows.append(dict(request=i, position=j, margin=margin, limit=limit, ok=margin <= limit))
+    ok = all(r["ok"] for r in rows)
+    RESULTS["checks"].append({"name": f"{what}: lossless (margin rule)", "divergent": rows, "ok": ok})
+    log(f"check {what}: {len(trace) - len(rows)}/{len(trace)} requests token-identical; first "
+        f"divergences {[(r['request'], r['position'], round(r['margin'], 4), round(r['limit'], 4)) for r in rows]} "
+        f"(request, position, top-2 margin, 1.5x rounding) {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise AssertionError(f"{what}: a divergence where the reference's margin exceeds 1.5x the "
+                             f"rounding: {rows}")
+    return {"identical": len(trace) - len(rows), "divergent": rows}
+
+
+def margin_share(module, trace, ref, rounding: float) -> dict:
+    """Over every generated position of the reference run ``ref``: how many
+    have a top-2 logit margin within 1.5x ``rounding`` (the positions where
+    the margin rule would let a divergence pass), and how many are exact
+    ties. The logits come from one forward of ``module`` a request over its
+    prompt and its reference tokens."""
+    within = ties = total = 0
+    for (prompt, _), out in zip(trace, ref):
+        ids = np.concatenate([prompt, np.asarray(out[:-1], np.int32)]).astype(np.int64)[None]
+        with torch.inference_mode():
+            logits = module(torch.as_tensor(ids, device="cuda"))[0, len(prompt) - 1:].float()
+        top = logits.topk(2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        within += int((margin <= 1.5 * rounding * logits.abs().amax(-1)).sum())
+        ties += int((margin == 0).sum())
+        total += margin.numel()
+    return dict(positions=total, within_limit=within, exact_ties=ties, share_within_limit=within / total)
+
+
+def _read_launches(fn, into: list):
+    """Wrap the step ``fn``: the launch counts of each call, zeroed just
+    before it and read just after, are appended to ``into`` and added back
+    to the counts of the run around it."""
+    from deepspeed_tpu_torch.ops.cuda import LAUNCHES, launches, reset_launches
+
+    def wrapped(*args):
+        before = launches()
+        reset_launches()
+        try:
+            return fn(*args)
+        finally:
+            got = launches()
+            into.append(got)
+            for name, n in before.items():
+                LAUNCHES[name] = n + got[name]
+
+    return wrapped
+
+
+def _round_launches(sched) -> list:
+    """Read the launches of each speculation round's steps (the target's
+    verify, the drafter's k decodes and its refeed) around each call;
+    returns the list the rounds are appended to, one ``{step: [counts of
+    each call]}`` a round."""
+    rounds: list = []
+    calls = {"target verify": [], "drafter decode": [], "drafter refeed": []}
+    sched.fns = dict(sched.fns, verify=_read_launches(sched.fns["verify"], calls["target verify"]))
+    sched.dfns = dict(sched.dfns, decode=_read_launches(sched.dfns["decode"], calls["drafter decode"]),
+                      verify=_read_launches(sched.dfns["verify"], calls["drafter refeed"]))
+    orig = sched._spec_tick
+
+    def spec_tick(slots):
+        for v in calls.values():
+            v.clear()
+        orig(slots)
+        rounds.append({step: [dict(c) for c in v] for step, v in calls.items()})
+
+    sched._spec_tick = spec_tick
+    return rounds
+
+
+def per_round_launches(rounds: list) -> dict:
+    """The launch counts a round measured, by step (its calls in the round
+    summed) and kernel: the distinct values over the rounds that ran the
+    step."""
+    out: dict = {}
+    for rnd in rounds:
+        for step, calls in rnd.items():
+            if calls:
+                for name in ("quant_matmul", "flash_decode"):
+                    out.setdefault(step, {}).setdefault(name, set()).add(sum(c[name] for c in calls))
+    return {step: {name: sorted(v) for name, v in d.items()} for step, d in out.items()}
+
+
+def _timed_ticks(sched) -> dict:
+    """Wrap ``sched.step`` to time each tick by kind (a tick ends at its
+    host sync)."""
+    times: dict = {}
+    orig = sched.step
+
+    def step(admit: bool = True):
+        t0 = time.perf_counter()
+        kind = orig(admit=admit)
+        times.setdefault(kind, []).append(time.perf_counter() - t0)
+        return kind
+
+    sched.step = step
+    return times
+
+
+def _timed_calls(obj, name: str) -> list:
+    """Wrap the method ``name`` of ``obj`` to time each call on the host
+    clock; returns the list the seconds are appended to."""
+    times: list = []
+    orig = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+    return times
+
+
+def _calls_ms(times: list) -> dict:
+    return dict(calls=len(times), total_ms=sum(times) * 1e3,
+                mean_ms=float(np.mean(times)) * 1e3 if times else None,
+                max_ms=max(times) * 1e3 if times else None)
+
+
+class GcTimer:
+    """Python's garbage collections (count, host ms, full ones) while
+    installed: a pause inside a tick is host time the card waits."""
+
+    def __init__(self):
+        self.ms, self.count, self.full, self._t0 = 0.0, 0, 0, None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.count += 1
+            self.full += info["generation"] == 2
+
+    def __enter__(self):
+        import gc
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self)
+
+
+def _count_syncs(sched) -> list:
+    """Wrap ``sched._spec_tick`` to count each round's synchronizing CUDA
+    calls (``torch.cuda.set_sync_debug_mode``), beside whether a request
+    retired in it (a retirement copies its KV rows to the host, one copy a
+    leaf)."""
+    import warnings
+    rounds = []
+    orig = sched._spec_tick
+
+    def spec_tick(slots):
+        finished = len(sched.finished)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                orig(slots)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rounds.append((sum("synchroniz" in str(w.message) for w in caught), len(sched.finished) > finished))
+
+    sched._spec_tick = spec_tick
+    return rounds
+
+
+def _serve_run(what: str, engine, scfg, trace, card: str, drafter=None, telemetry=None,
+               guard=None, on_tick=None, count_syncs=False):
+    """Serve ``trace`` through a fresh scheduler at ``scfg``, warmed up
+    first, launch counts zeroed just before ``serve`` and read just after.
+    Returns (the scheduler, its requests, the run's numbers)."""
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler, Request
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    sched = ContinuousBatchingScheduler(engine, scfg, drafter=drafter, telemetry=telemetry)
+    sched.warmup()
+    tick_s = _timed_ticks(sched)
+    if on_tick is not None:
+        timed = sched.step
+
+        def step(admit: bool = True):
+            kind = timed(admit=admit)
+            on_tick(sched)
+            return kind
+
+        sched.step = step
+    rounds = _round_launches(sched) if sched.spec_k else []
+    publish, kv_rows = _timed_calls(sched, "_publish_prefix"), _timed_calls(sched, "_kv_rows")
+    restore = _timed_calls(sched, "_restore_prefix")
+    syncs = _count_syncs(sched) if count_syncs else None
+    reqs = [Request(p, max_new_tokens=n) for p, n in trace]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with GcTimer() as gc_time:
+        rc = sched.serve(reqs, guard=guard)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    missing = [k for k in ("quant_matmul", "flash_decode") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing} ({counts})")
+    st = sched.stats()
+    # exact percentiles over the requests (the scheduler's histogram
+    # interpolates within x2 buckets)
+    ttfts = [r.ttft for r in reqs if r.ttft is not None]
+    gaps = [b - a for r in reqs for a, b in zip(r.token_times, r.token_times[1:])]
+    out = dict(rc=rc, wall_s=wall, generated_tokens=st["generated_tokens"],
+               tokens_per_s=st["generated_tokens"] / wall, ticks=st["ticks"],
+               ms_per_tick={k: float(np.mean(v)) * 1e3 for k, v in tick_s.items()},
+               ttft_p50_ms=float(np.percentile(ttfts, 50)) * 1e3,
+               ttft_p99_ms=float(np.percentile(ttfts, 99)) * 1e3,
+               per_token_p50_ms=float(np.percentile(gaps, 50)) * 1e3 if gaps else None,
+               per_token_p99_ms=float(np.percentile(gaps, 99)) * 1e3 if gaps else None,
+               cached_prefix_tokens=st["cached_prefix_tokens"], pool=st["pool"], launches=counts,
+               publish=_calls_ms(publish), publish_copies=_calls_ms(kv_rows), restore=_calls_ms(restore),
+               gc=dict(collections=gc_time.count, full=gc_time.full, ms=gc_time.ms))
+    if sched.spec_k:
+        out.update(rounds=len(rounds), refeeds=sum(1 for r in rounds if r["drafter refeed"]),
+                   launches_per_round=per_round_launches(rounds))
+    if syncs is not None:
+        # the round's one host sync is the copy of drafts and verdicts
+        quiet = sorted({n for n, retired in syncs if not retired})
+        out["host_syncs_per_round"] = dict(without_retirement=quiet,
+                                           with_retirement=sorted({n for n, retired in syncs if retired}))
+        if quiet != [1]:
+            raise AssertionError(f"{what}: host syncs in a round without a retirement: {quiet}, not [1]")
+    for key in ("spec_k", "drafted", "accepted", "acceptance_rate"):
+        if key in st:
+            out[key] = st[key]
+    log(f"phase 14 {what}: rc {rc}, {out['generated_tokens']} tokens in {wall:.3f} s, "
+        f"{out['tokens_per_s']:.1f} tokens/s, ticks {st['ticks']}, ms/tick "
+        f"{ {k: round(v, 2) for k, v in out['ms_per_tick'].items()} }, TTFT p50/p99 "
+        f"{out['ttft_p50_ms']:.1f}/{out['ttft_p99_ms']:.1f} ms, "
+        f"cached prefix tokens {st['cached_prefix_tokens']}, hit rate {st['pool']['prefix_hit_rate']}, "
+        f"evictions {st['pool']['prefix_evictions']}, publish {out['publish']['calls']} calls "
+        f"{out['publish']['total_ms']:.1f} ms (host copies {out['publish_copies']['calls']} calls "
+        f"{out['publish_copies']['total_ms']:.1f} ms), restore {out['restore']['calls']} calls "
+        f"{out['restore']['total_ms']:.1f} ms, garbage collections {gc_time.count} "
+        f"({gc_time.full} full) {gc_time.ms:.1f} ms, launches {counts}"
+        + (f", acceptance {st['acceptance_rate']:.3f} ({st['accepted']}/{st['drafted']}), refeeds "
+           f"{out['refeeds']} of {out['rounds']} rounds, launches a round {out['launches_per_round']}"
+           if sched.spec_k else "") + f"  [{card}]")
+    return sched, reqs, out
+
+
+def _verify_tick(module, ids, block, device, kv_quant):
+    """The first prefill chunk (every slot from position 0), then one
+    verify block right after it, through ``module``: the verify logits."""
+    from deepspeed_tpu_torch.inference.serving.programs import (make_apply_fn, make_slot_cache,
+                                                                stamp_lengths)
+    apply_fn = make_apply_fn(module)
+    cache = make_slot_cache(module, ids.shape[0], kv_quant=kv_quant)
+    zeros = np.zeros(ids.shape[0], np.int64)
+    apply_fn(stamp_lengths(cache, zeros), ids.to(device))
+    return apply_fn(stamp_lengths(cache, zeros + ids.shape[1]), block.to(device)).cpu()
+
+
+def verify_tick_check(seed: int, card: str) -> dict:
+    """The first verify tick (k + 1 = 5 tokens after a 16-token chunk, 8
+    slots) at 2 layers of GPT-2 350m's width, int8 weights: the served model
+    on the card against the same model on the CPU (plain versions), fp32
+    within 1e-4 (fp KV), bf16 as served (int8 KV) within 1.5x the rounding
+    this check measures (plain bf16 against plain fp32), as phase 4 (c)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler, ServingConfig
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    cfg = get_gpt2_config("350m", n_layer=2, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    engine = init_inference(GPT2LMHeadModel(cfg, device="cuda", generator=gen), dtype="bf16",
+                            kernel_inject=True, use_flash_prefill=True)
+    served = ContinuousBatchingScheduler(engine, ServingConfig(slots=8, weight_dtype="int8")).module
+    rng = np.random.default_rng(seed + 14)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 16)))
+    block = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, SPEC_K + 1)))
+    cpu = torch.device("cpu")
+    logits = {}
+    for name, device, dtype in (("served_bf16", torch.device("cuda"), torch.bfloat16),
+                                ("plain_bf16", cpu, torch.bfloat16),
+                                ("served_fp32", torch.device("cuda"), torch.float32),
+                                ("plain_fp32", cpu, torch.float32)):
+        module = served if name == "served_bf16" else _copy_module(served, device, dtype)
+        logits[name] = _verify_tick(module, ids, block, device, kv_quant=dtype == torch.bfloat16)
+    out = {}
+    compare("phase 14 verify tick logits fp32 (served vs plain)", logits["served_fp32"],
+            logits["plain_fp32"], torch.float32)
+    out["plain_bf16_vs_plain_fp32_rel"] = rounding = rel_err(logits["plain_bf16"], logits["plain_fp32"])[1]
+    out["served_bf16_vs_plain_fp32_rel"] = rel_err(logits["served_bf16"], logits["plain_fp32"])[1]
+    compare("phase 14 verify tick logits bf16 (served vs plain, 1.5x rounding)", logits["served_bf16"],
+            logits["plain_bf16"], torch.bfloat16, tol=1.5 * rounding)
+    out["greedy_agreement"] = (logits["served_bf16"].argmax(-1) == logits["plain_bf16"].argmax(-1)
+                               ).float().mean().item()
+    log(f"phase 14 (b) verify tick [8,{SPEC_K + 1}] at 2 layers: rounding {rounding:.3e}, greedy "
+        f"agreement served vs plain (bf16) {out['greedy_agreement']:.3f}  [{card}]")
+    return out
+
+
+def fp32_spec_check(engine, trace, card: str):
+    """Speculation at full depth in fp32 (int8 weights, fp KV: K2's FMA
+    body and K3's row body at every Lq), held token for token: the target's
+    own 24 layers as the drafter (it accepts, so the accept, refeed and
+    rollback paths run) with the prefix cache on, against spec off with the
+    cache off. There no bf16 near-tie can flip a token, so a fault of the
+    verify path fails this check. Returns (its numbers, its launch counts)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, init_inference
+    from deepspeed_tpu_torch.compression import student_initialization
+    from deepspeed_tpu_torch.inference.serving import FINISHED, ServingConfig
+
+    engine32 = init_inference(_copy_module(engine.module, torch.device("cuda"), torch.float32),
+                              dtype=torch.float32, kernel_inject=True, use_flash_prefill=True)
+    cfg = engine32.module.config
+    full = {"compression_training": {"layer_reduction": dict(
+        drafter_recipe()["compression_training"]["layer_reduction"], teacher_layer=list(range(cfg.n_layer)))}}
+    d_model = GPT2LMHeadModel(cfg, device="cuda")
+    drafter = (d_model, student_initialization(d_model.state_dict(), engine32.module.state_dict(), full))
+    runs, outputs, total = {}, {}, {}
+    for on in (False, True):
+        scfg = ServingConfig(slots=8, weight_dtype="int8", kv_quant=False,
+                             prefix_cache=None if on else "off", speculation={"enabled": on, "k": SPEC_K})
+        sched, reqs, runs[on] = _serve_run(f"(b) fp32, speculation {'on, the 24-layer drafter' if on else 'off'}",
+                                           engine32, scfg, trace, card, drafter=drafter if on else None)
+        if not all(r.state == FINISHED and len(r.output) == n for r, (_, n) in zip(reqs, trace)):
+            raise AssertionError("(b) fp32: not every request finished in full")
+        outputs[on] = [list(r.output) for r in reqs]
+        for k, v in runs[on]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    same = sum(a == b for a, b in zip(outputs[False], outputs[True]))
+    ok = same == len(trace) and runs[True]["accepted"] > 0 and runs[True]["refeeds"] > 0
+    RESULTS["checks"].append({"name": "phase 14 (b) fp32 speculation on vs off: token-identical",
+                              "identical": same, "requests": len(trace), "ok": ok})
+    log(f"check phase 14 (b) fp32 speculation on (24-layer drafter, cache on) vs off (cache off): "
+        f"{same}/{len(trace)} requests token-identical, acceptance {runs[True]['acceptance_rate']:.3f}, "
+        f"refeeds {runs[True]['refeeds']} {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise AssertionError(f"(b) fp32: speculation changed the tokens of {len(trace) - same} requests, "
+                             f"or accepted nothing in full")
+    return dict(identical=same, runs={"off": runs[False], "on": runs[True]}), total
+
+
+def measured_rounding(slice_out: dict) -> float:
+    """Phase 4 (c)'s measured bf16 rounding of the served logits (plain bf16
+    with int8 KV against plain fp32), the larger of its two ticks'."""
+    return max(slice_out["prefill_plain_bf16_vs_plain_fp32_rel"],
+               slice_out["decode_plain_bf16_vs_plain_fp32_rel"])
+
+
+def defaults_phase(seed: int, card: str, rounding: float):
+    """Phase 14: GPT-2 350m at full width and depth (random seeded weights,
+    bf16, int8 weights, int8 KV) through ``init_inference(kernel_inject=True,
+    use_flash_prefill=True)`` and ``ContinuousBatchingScheduler`` with every
+    other ``ServingConfig`` field at its default (the JAX package's):
+    (a) the prefix cache on against off on one shared-prefix trace at one
+    byte budget; (b) speculation (k 4, a 4-layer student drafter) on against
+    off on phase 4 (b)'s trace, and the first verify tick against the CPU;
+    (c) the drain on SIGTERM; (d) telemetry and the heartbeat, on (c)'s run.
+    ``rounding`` is phase 4 (c)'s measured bf16 rounding (the margin rule).
+    Returns (its numbers, the launch counts of its runs summed)."""
+    import signal
+
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.compression import student_initialization
+    from deepspeed_tpu_torch.elasticity import HEARTBEAT_ENV, read_heartbeat
+    from deepspeed_tpu_torch.inference.serving import (FINISHED, REFUSED, ServingConfig,
+                                                       iter_serve_events, validate_event)
+    from deepspeed_tpu_torch.runtime.resilience.signals import PreemptionGuard
+    from deepspeed_tpu_torch.runtime.telemetry import TELEMETRY_FILE, RuntimeTelemetry, TelemetryConfig
+
+    out, total = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    engine = init_inference(GPT2LMHeadModel(cfg, device="cuda", generator=gen), dtype="bf16",
+                            kernel_inject=True, use_flash_prefill=True)
+    slots = 8
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- (a) the prefix cache, on against off, at 1.5x slots x context ----
+    head_dim = cfg.n_embd // cfg.n_head
+    per_token = cfg.n_layer * 2 * cfg.n_head * (head_dim + 2)  # int8 codes + a bf16 scale a head
+    budget = int(1.5 * slots * cfg.n_positions * per_token)
+    trace = prefix_trace(np.random.default_rng(seed + 1), cfg.vocab_size, 32)
+    runs = {}
+    for mode in ("off", "on"):
+        scfg = ServingConfig(slots=slots, weight_dtype="int8", kv_pool_bytes=budget, prefix_cache=mode)
+        sched, reqs, runs[mode] = _serve_run(f"(a) prefix cache {mode}", engine, scfg, trace, card)
+        if sched._kv_bytes_per_token() != per_token:
+            raise AssertionError(f"KV bytes per token {sched._kv_bytes_per_token()} != {per_token}")
+        pool = runs[mode]["pool"]
+        if not all(r.state == FINISHED and len(r.output) == n for r, (_, n) in zip(reqs, trace)):
+            raise AssertionError(f"(a) {mode}: not every request finished in full")
+        if pool["used_blocks"] != 0 or pool["total_allocs"] != pool["total_frees"]:
+            raise AssertionError(f"(a) {mode}: the pool did not return to empty: {pool}")
+        runs[mode]["outputs"] = [list(r.output) for r in reqs]
+        add(runs[mode]["launches"])
+        if mode == "on":
+            served = sched.module
+    if runs["on"]["cached_prefix_tokens"] <= 0 or runs["on"]["pool"]["prefix_evictions"] != 0:
+        raise AssertionError(f"(a) the cache did not hit, or thrashed: {runs['on']['pool']}")
+    out["a_prefix"] = dict(kv_pool_bytes=budget, kv_bytes_per_token=per_token, runs=runs,
+                           margins=margin_share(served, trace, runs["off"]["outputs"], rounding),
+                           lossless=check_lossless("phase 14 (a) cache on vs off", served, trace,
+                                                   runs["off"]["outputs"], runs["on"]["outputs"],
+                                                   rounding, card))
+    for mode in ("off", "on"):
+        del runs[mode]["outputs"]
+    del served, sched
+
+    # ---- (b) speculation, k 4, a 4-layer student, on against off ----
+    d_model = GPT2LMHeadModel(get_gpt2_config("350m", n_layer=len(DRAFTER_LAYERS), dtype=torch.bfloat16,
+                                              param_dtype=torch.bfloat16), device="cuda")
+    d_state = student_initialization(d_model.state_dict(), engine.module.state_dict(), drafter_recipe())
+    # the target's own 24 layers as a drafter too: random weights give the
+    # 4-layer student next to no acceptance, and this one accepts, so the
+    # accept and refeed paths run on the card
+    full = {"compression_training": {"layer_reduction": dict(
+        drafter_recipe()["compression_training"]["layer_reduction"], teacher_layer=list(range(cfg.n_layer)))}}
+    f_model = GPT2LMHeadModel(cfg, device="cuda")
+    drafters = {"student": (len(DRAFTER_LAYERS), (d_model, d_state)),
+                "full depth": (cfg.n_layer, (f_model, student_initialization(
+                    f_model.state_dict(), engine.module.state_dict(), full)))}
+    trace = [(p, 32) for p in serving_trace(np.random.default_rng(seed), cfg.vocab_size)]
+    spec = {}
+    # spec off with the cache off, then at the defaults (cache on): the
+    # default path's cost on traffic that shares no prefix
+    for on in ("cache off", False, "student", "full depth"):
+        scfg = ServingConfig(slots=slots, weight_dtype="int8", prefix_cache="off" if on == "cache off" else None,
+                             speculation={"enabled": on in drafters, "k": SPEC_K})
+        n_d, drafter = drafters.get(on, (0, None))
+        sched, reqs, spec[on] = _serve_run(
+            f"(b) speculation {f'on, the {n_d}-layer drafter' if n_d else 'off'}"
+            + (", prefix cache off" if on == "cache off" else ""), engine, scfg,
+            trace, card, drafter=drafter, count_syncs=on == "full depth")
+        if not all(r.state == FINISHED and len(r.output) == 32 for r in reqs):
+            raise AssertionError("(b): not every request finished with 32 tokens")
+        spec[on]["outputs"] = [list(r.output) for r in reqs]
+        add(spec[on]["launches"])
+        t = cfg.n_layer
+        pre, dec, rounds = spec[on]["ticks"]["prefill"], spec[on]["ticks"]["decode"], spec[on]["ticks"]["spec"]
+        if n_d:  # every prefill tick runs both models; a round k drafter decodes and one verify
+            refeeds = spec[on]["refeeds"]
+            want_k2 = K2_PER_LAYER * (pre * (t + n_d) + rounds * (t + SPEC_K * n_d) + refeeds * n_d)
+            want_k3 = pre * (t + n_d) + rounds * (t + SPEC_K * n_d) + refeeds * n_d
+            if rounds != spec[on]["rounds"]:
+                raise AssertionError(f"(b) {spec[on]['rounds']} rounds read, {rounds} spec ticks")
+        else:
+            want_k2, want_k3 = K2_PER_LAYER * t * (pre + dec), t * (pre + dec)
+        got = spec[on]["launches"]
+        if (got["quant_matmul"], got["flash_decode"]) != (want_k2, want_k3):
+            raise AssertionError(f"(b) launches {got} != K2 {want_k2}, K3 {want_k3} from the tick mix")
+        if on == "student":
+            served = sched.module
+    ref = spec[False]["outputs"]
+    out["b_spec"] = dict(runs={"off": spec[False], "off_cache_off": spec["cache off"], "on": spec["student"],
+                               "on_full_depth": spec["full depth"]},
+                         margins=margin_share(served, trace, ref, rounding),
+                         lossless={on: check_lossless(f"phase 14 (b) speculation on ({on} drafter) vs off",
+                                                      served, trace, ref, spec[on]["outputs"], rounding, card)
+                                   for on in ("student", "full depth")})
+    out["b_spec"]["lossless"]["cache off"] = check_lossless(
+        "phase 14 (b) spec off: prefix cache off vs on (no shared prefix)", served, trace, ref,
+        spec["cache off"]["outputs"], rounding, card)
+    m = out["b_spec"]["margins"]
+    log(f"phase 14 (b) reference run: {m['within_limit']} of {m['positions']} positions "
+        f"({m['share_within_limit']:.3f}) have a top-2 margin within 1.5x the rounding, "
+        f"{m['exact_ties']} exact ties  [{card}]")
+    if spec["full depth"]["accepted"] <= 0 or spec["full depth"]["refeeds"] <= 0:
+        raise AssertionError("(b) the full-depth drafter never had a draft accepted in full")
+    for run in spec.values():
+        del run["outputs"]
+    del served, sched, d_model, d_state, f_model, drafters
+    torch.cuda.empty_cache()
+    out["b_fp32"], counts = fp32_spec_check(engine, trace[:8], card)
+    add(counts)
+    torch.cuda.empty_cache()
+    out["b_verify_tick"] = verify_tick_check(seed, card)
+
+    # ---- (c) the drain on SIGTERM, (d) telemetry and the heartbeat ----
+    rng = np.random.default_rng(seed + 2)
+    trace = [(p, 32) for p in serving_trace(rng, cfg.vocab_size)]
+    trace += [(p, 32) for p in serving_trace(rng, cfg.vocab_size)[:8]]
+    tmp = tempfile.mkdtemp(prefix="phase14_")
+    beat = os.path.join(tmp, "heartbeat.json")
+    telem = RuntimeTelemetry(TelemetryConfig(enabled=True, output_path=tmp, job_name="serve"))
+    telem.write_run_header({"phase": 14})
+    guard = PreemptionGuard(signals=["SIGTERM"]).install()
+    at_signal = {}
+
+    def on_tick(sched):
+        if sum(sched.ticks.values()) == 6 and not at_signal:
+            at_signal["in_flight"] = [r.request_id for r in sched.in_flight]
+            at_signal["queued"] = [r.request_id for r in sched.queue.pending]
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    old_beat = os.environ.get(HEARTBEAT_ENV)
+    os.environ[HEARTBEAT_ENV] = beat
+    try:
+        scfg = ServingConfig(slots=slots, weight_dtype="int8")
+        sched, reqs, drain = _serve_run("(c) drain on SIGTERM after 6 ticks", engine, scfg, trace, card,
+                                        telemetry=telem, guard=guard, on_tick=on_tick)
+    finally:
+        guard.uninstall()
+        if old_beat is None:
+            os.environ.pop(HEARTBEAT_ENV, None)
+        else:
+            os.environ[HEARTBEAT_ENV] = old_beat
+        telem.close()
+    add(drain["launches"])
+    by_id = {r.request_id: r for r in reqs}
+    finished = [r for r in reqs if r.state == FINISHED]
+    refused = [r for r in reqs if r.state == REFUSED]
+    if drain["rc"] != 143:
+        raise AssertionError(f"(c) serve returned {drain['rc']}, not 143")
+    if sorted(r.request_id for r in finished) != sorted(at_signal["in_flight"]) or \
+            not all(len(r.output) == 32 for r in finished):
+        raise AssertionError("(c) not every request in flight at the signal finished in full")
+    if sorted(r.request_id for r in refused) != sorted(at_signal["queued"]) or not refused or \
+            not all("draining on SIGTERM" in by_id[i].refuse_reason for i in at_signal["queued"]):
+        raise AssertionError("(c) not every queued request was refused")
+    if drain["pool"]["used_blocks"] != 0 or drain["pool"]["total_allocs"] != drain["pool"]["total_frees"]:
+        raise AssertionError(f"(c) the pool leaked: {drain['pool']}")
+    ticks = sum(drain["ticks"].values())
+    path = os.path.join(telem.run_dir, TELEMETRY_FILE)
+    events = list(iter_serve_events(path))
+    for rec in events:
+        validate_event(rec)
+    kinds = [rec["event"] for rec in events]
+    payload = read_heartbeat(beat)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if kinds.count("serve_tick") != ticks or kinds.count("serve_drain") != 1 or \
+            kinds.count("serve_request") != len(finished):
+        raise AssertionError(f"(d) events: {kinds.count('serve_tick')} serve_tick for {ticks} ticks, "
+                             f"{kinds.count('serve_drain')} serve_drain, {kinds.count('serve_request')} "
+                             f"serve_request for {len(finished)} finished")
+    if not payload or payload.get("role") != "serving" or payload.get("pid") != os.getpid():
+        raise AssertionError(f"(d) heartbeat payload {payload}")
+    drain.update(in_flight_at_signal=len(at_signal["in_flight"]), refused=len(refused),
+                 finished=len(finished))
+    out["c_drain"] = drain
+    out["d_telemetry"] = dict(events={k: kinds.count(k) for k in sorted(set(kinds))}, ticks=ticks,
+                              heartbeat=payload)
+    log(f"phase 14 (c) drain: rc 143, {len(finished)} in flight finished in full, {len(refused)} queued "
+        f"refused, pool free; (d) {len(events)} serve events valid ({out['d_telemetry']['events']}), "
+        f"heartbeat role {payload['role']} tick {payload['tick']}  [{card}]")
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2815,11 +3488,14 @@ def main(argv=None) -> int:
                     help="'all' (the default: every phase and the kernels line), or a comma list of "
                          "'times' (K2's and K3's value-form timings alone) and 'serving' (phase 4), "
                          "which use only the API earlier commits share, so that copied into an "
-                         "earlier checkout this script measures that commit the same way")
+                         "earlier checkout this script measures that commit the same way, "
+                         "'kernels' (phase 3 at head dim 64) and 'defaults' (phase 14, after "
+                         "phase 4, whose measured rounding it reads)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= {"all", "times", "serving"} or ("all" in phases and len(phases) > 1):
-        ap.error(f"--phases takes 'all' or a comma list of 'times' and 'serving', got {args.phases!r}")
+    if not phases <= {"all", "times", "serving", "kernels", "defaults"} or ("all" in phases and len(phases) > 1):
+        ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels' and "
+                 f"'defaults', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2849,8 +3525,12 @@ def main(argv=None) -> int:
             for key, t in times["flash_decode"].items():
                 log(f"time flash_decode {key}: kernel_ms={t['ms']:.4f} kernel_device_ms={t['device_ms']:.4f} "
                     f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f}")
-        if "serving" in phases:
+        if "kernels" in phases:
+            kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
+        if phases & {"serving", "defaults"}:
             RESULTS["slice"] = slice_phase(args.seed, card)[0]
+        if "defaults" in phases:
+            RESULTS["defaults"] = defaults_phase(args.seed, card, measured_rounding(RESULTS["slice"]))[0]
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -2861,6 +3541,11 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["slice"], serve_counts = slice_phase(args.seed, card)
         phase_s["4 serving"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["defaults"], defaults_counts = defaults_phase(args.seed, card,
+                                                              measured_rounding(RESULTS["slice"]))
+        phase_s["14 serving at the JAX defaults"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         for tick in ("prefill_profile", "profile"):
             split = RESULTS["slice"][tick]["busy_ms_per_tick_by_kernel"]
@@ -2900,12 +3585,17 @@ def main(argv=None) -> int:
         json.dump(RESULTS, f, indent=1, default=str)
     if "all" in phases:
         # launches: the serving, training, MoE training, sparse attention,
-        # engine API, LLaMA training and LLaMA serving paths' counts, each
-        # zeroed just before its path and read just after. K1, K4 and K3
-        # also carry their head-dim-128 entry (the LLaMA shapes), with the
-        # launches of the LLaMA paths, which run at head dim 128 only.
+        # engine API, LLaMA training, LLaMA serving and default-serving
+        # paths' counts, each zeroed just before its path and read just
+        # after. K1, K4 and K3 also carry their head-dim-128 entry (the
+        # LLaMA shapes), with the launches of the LLaMA paths, which run at
+        # head dim 128 only; K2 and K3 their speculation verify block entry
+        # (phase 14 (b): M = 40, Lq = 5), with its launches per round as
+        # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
-                 llama_train_counts, llama_serve_counts)
+                 llama_train_counts, llama_serve_counts, defaults_counts)
+        b_runs = RESULTS["defaults"]["b_spec"]["runs"]
+        student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts)
         kernels = []
         for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
@@ -2916,6 +3606,15 @@ def main(argv=None) -> int:
                 entry["at_head_dim_128"] = dict(
                     {k: v for k, v in lines_d128[name].items() if k in KERNEL_LINE_KEYS + ("shape",)},
                     launches=sum(c.get(name, 0) for c in llama_paths))
+            if "verify_block" in lines[name]:
+                block = lines[name]["verify_block"]
+                blocks = block.values() if name == "quant_matmul" else [block]
+                entry["at_verify_block"] = dict(
+                    shapes=[{k: v for k, v in b.items() if k in KERNEL_LINE_KEYS + ("shape",)} for b in blocks],
+                    launches_per_round={
+                        "target verify": student["target verify"][name],
+                        f"drafter decode x{SPEC_K} (4-layer student)": student["drafter decode"][name],
+                        "drafter refeed (24-layer drafter run)": full["drafter refeed"][name]})
             kernels.append(entry)
         log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")

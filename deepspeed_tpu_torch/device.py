@@ -21,3 +21,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) on ``device``. To CUDA it is
+    staged in pinned memory and copied without a stream sync, so a loop
+    that feeds the card small index arrays between launches never waits
+    for the card's queue to drain."""
+    t = torch.as_tensor(array)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

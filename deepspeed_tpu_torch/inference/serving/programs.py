@@ -1,15 +1,19 @@
 """Fixed-shape serving steps over a per-slot (ragged) decode cache
 (counterpart of ``deepspeed_tpu/inference/serving/programs.py``).
 
-Two steps serve every request mix: a chunked prefill and a one-token
-decode, whose shapes never change while requests join and leave. Join and
-leave are positional: the cache's index leaves are [slots] write-position
-vectors the scheduler stamps from its host-side length mirror before every
-tick, and a parked slot carries the sentinel position ``capacity`` so its KV
-writes drop and its (finite, meaningless) logits are discarded on the host.
+Three steps serve every request mix: a chunked prefill, a one-token decode
+and, with speculation, a ``k + 1``-token verify, whose shapes never change
+while requests join and leave. Join and leave are positional: the cache's
+index leaves are [slots] write-position vectors the scheduler stamps from
+its host-side length mirror before every tick, and a parked slot carries the
+sentinel position ``capacity`` so its KV writes drop and its (finite,
+meaningless) logits are discarded on the host. Rollback after a rejected
+draft is free: the next stamp does not advance past the accepted prefix.
 
 The cache is a dict of tensors the model updates in place (the JAX steps
-returned a new cache); the index leaves live on the host.
+returned a new cache); the index leaves live on the host. KV rows are
+written by a scatter of the new rows whatever ``kv_write`` says: JAX's
+``"dense"`` write is a TPU layout choice with the scatter's bits.
 """
 
 from typing import Callable, Dict
@@ -129,3 +133,34 @@ def build_decode_step(apply_fn, do_sample: bool, temperature: float,
             return torch.argmax(apply_fn(cache, tokens[:, None])[:, -1], dim=-1)
 
     return decode
+
+
+def build_verify_step(apply_fn) -> Callable:
+    """Batched target verification for speculative decoding: feed the
+    ``k + 1``-token block ``[last_accepted, d_1..d_k]`` [S, k+1] and return
+    the target's greedy token at every position [S, k+1]. The host accepts
+    the longest draft prefix the target reproduces and emits the target's
+    own token at the first divergence."""
+
+    def verify(cache, tokens):
+        return torch.argmax(apply_fn(cache, tokens), dim=-1)
+
+    return verify
+
+
+def serve_programs(module, *, do_sample: bool, temperature: float, top_k: int, top_p: float,
+                   spec_k: int = 0) -> Dict[str, Callable]:
+    """The serving steps of one module: ``prefill`` and ``decode``, and
+    ``verify`` when speculating (``spec_k > 0``). Built per scheduler and
+    per role: each set closes over its own module, so a drafter and a
+    target never share a step, and a scheduler's weights (its int8 view,
+    its drafter) live only as long as the scheduler. The JAX package caches
+    these on the engine to keep its compiled programs; eager PyTorch has
+    nothing to keep."""
+    apply_fn = make_apply_fn(module)
+    sampling = dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p)
+    fns: Dict[str, Callable] = {"prefill": build_prefill_step(apply_fn, **sampling),
+                                "decode": build_decode_step(apply_fn, **sampling)}
+    if spec_k > 0:
+        fns["verify"] = build_verify_step(apply_fn)
+    return fns

@@ -4,8 +4,10 @@
 A request joins a slot only when the block pool can reserve its worst-case
 KV footprint (prompt + max_new tokens, block-rounded), so an admitted
 request never dies mid-flight and blocks never leak (reserve on admit, free
-on retire). Strict FIFO: nothing overtakes the head of the queue, so no
-request starves.
+on retire). The prompt rides along to the reservation, so a prefix-caching
+pool matches it there: a shared prefix attaches by reference and the head
+may fit where its worst-case block count would not. Strict FIFO: nothing
+overtakes the head of the queue, so no request starves.
 """
 
 from collections import deque
@@ -67,15 +69,15 @@ class RequestQueue:
         admitted: List[Request] = []
         while self._queue and len(admitted) < free_slots:
             head = self._queue[0]
-            if not self.pool.can_allocate(head.total_tokens):
+            if not self.pool.can_allocate(head.total_tokens, prompt=head.prompt):
                 break  # strict FIFO: nothing overtakes the head
             self._queue.popleft()
-            self.pool.reserve(head.request_id, head.total_tokens)
+            self.pool.reserve(head.request_id, head.total_tokens, prompt=head.prompt)
             admitted.append(head)
         return admitted
 
     def refuse_all(self, reason: str) -> List[Request]:
-        """Terminally refuse everything still queued."""
+        """The drain: terminally refuse everything still queued."""
         refused = []
         while self._queue:
             refused.append(self._refuse(self._queue.popleft(), reason))

@@ -14,7 +14,7 @@ QUEUED = "queued"        # submitted, waiting for a slot + KV blocks
 PREFILL = "prefill"      # admitted; prompt streaming in prefill chunks
 ACTIVE = "active"        # decoding (prompt fully prefilled)
 FINISHED = "finished"    # eos or max_new_tokens reached; blocks freed
-REFUSED = "refused"      # queue overflow or oversize prompt
+REFUSED = "refused"      # queue overflow, oversize prompt, or drain
 
 _ids = itertools.count()
 
@@ -33,10 +33,17 @@ class Request:
     refuse_reason: str = ""
     output: List[int] = dataclasses.field(default_factory=list)
     prefill_pos: int = 0                  # prompt tokens already prefilled
+    #: prompt tokens served from the prefix cache at admission (KV rows
+    #: restored instead of prefilled); ``prefill_pos`` starts here
+    cached_prefix_tokens: int = 0
 
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     token_times: List[float] = dataclasses.field(default_factory=list)
+
+    # speculation accounting
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -64,6 +71,12 @@ class Request:
             return None
         return self.first_token_time - self.arrival_time
 
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        if self.drafted_tokens == 0:
+            return None
+        return self.accepted_tokens / self.drafted_tokens
+
     def record_token(self, token: int, now: float) -> None:
         if not self.output:
             self.first_token_time = now
@@ -72,11 +85,16 @@ class Request:
 
     def stats(self) -> dict:
         out = {"request_id": self.request_id, "state": self.state,
-               "prompt_len": self.prompt_len, "new_tokens": len(self.output)}
+               "prompt_len": self.prompt_len, "new_tokens": len(self.output),
+               "cached_prefix_tokens": self.cached_prefix_tokens}
         if self.ttft is not None:
             out["ttft"] = self.ttft
         if self.finish_time is not None and self.arrival_time is not None:
             out["latency"] = self.finish_time - self.arrival_time
+        if self.drafted_tokens:
+            out["drafted"] = self.drafted_tokens
+            out["accepted"] = self.accepted_tokens
+            out["acceptance_rate"] = self.acceptance_rate
         if self.refuse_reason:
             out["refuse_reason"] = self.refuse_reason
         return out

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepspeed_tpu_torch.device import DeviceLike, resolve_device
+from deepspeed_tpu_torch.device import DeviceLike, host_to_device, resolve_device
 from deepspeed_tpu_torch.models.common import (config_from, cross_entropy_loss,  # noqa: F401
                                                dense_init, embed_lookup, fused_head_loss_output,
                                                maybe_remat)
@@ -354,9 +354,9 @@ def _slot_write(idx: torch.Tensor, l: int, capacity: int, device, plans: dict) -
         pos = start[:, None] + np.arange(l)[None, :]
         b, t = np.nonzero((pos >= 0) & (pos < capacity))
         plan = plans[key] = _SlotWrite(
-            dst=torch.as_tensor(b * capacity + pos[b, t], device=device),
-            src=torch.as_tensor(b * l + t, device=device),
-            lengths=torch.as_tensor((start + l).astype(np.int32), device=device))
+            dst=host_to_device(b * capacity + pos[b, t], device),
+            src=host_to_device(b * l + t, device),
+            lengths=host_to_device((start + l).astype(np.int32), device))
     return plan
 
 
@@ -568,7 +568,7 @@ class GPT2LMHeadModel(nn.Module):
                 # per-slot serving cache: [S] positions, clipped so parked
                 # slots' sentinel positions stay in the table (their rows are dead)
                 positions = (pidx[:, None] + torch.arange(seq_len)[None, :]).clamp(0, cfg.n_positions - 1)
-                x = x + self.wpe[positions.to(self.device)].to(cfg.dtype)
+                x = x + self.wpe[host_to_device(positions, self.device)].to(cfg.dtype)
             else:
                 start = int(pidx)
                 if start + seq_len > cfg.n_positions:

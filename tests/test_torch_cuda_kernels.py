@@ -29,6 +29,18 @@ from deepspeed_tpu_torch.ops.quantizer.weights import pack_rows
 from deepspeed_tpu_torch.testing import (decode_exact_probe, exact_probe, quant_matmul_probe,
                                         sparse_exact_probe)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -28,6 +28,18 @@ from deepspeed_tpu_torch.checkpoint.from_jax import opt_state_from_jax, params_f
 from deepspeed_tpu_torch.models.common import maybe_remat
 from deepspeed_tpu_torch.runtime.engine import default_causal_lm_loss
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PARITY_RTOL = 1e-5
 STEPS = 8
 RESUME_AT = 3

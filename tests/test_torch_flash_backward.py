@@ -26,6 +26,18 @@ from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import flash_attention as port_flash
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 jax_flash = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 
 ATOL = 1e-5

@@ -11,6 +11,18 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.testing import exact_probe
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: lq, lk, causal, kv_lengths, window (the same list as the card tests')
 PROBES = [(100, 100, True, None, None), (16, 130, True, None, None),
           (64, 64, False, [64, 9, 0], None), (200, 200, True, None, 33),

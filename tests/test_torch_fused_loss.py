@@ -26,6 +26,18 @@ from deepspeed_tpu.models.gpt2 import cross_entropy_loss as jax_cross_entropy
 from deepspeed_tpu_torch.models.common import fused_head_loss_output, fused_lm_head_loss
 from deepspeed_tpu_torch.models.gpt2 import cross_entropy_loss, get_gpt2_config
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 V, E = 96, 32
 
 

@@ -25,6 +25,18 @@ from deepspeed_tpu_torch.inference.serving import programs
 from deepspeed_tpu_torch.models.common import init_cache
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, get_gpt2_config, param_shapes
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-4
 CFG = dict(n_layer=2)
 

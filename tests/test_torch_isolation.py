@@ -14,6 +14,18 @@ from deepspeed_tpu_torch import (GPT2LMHeadModel, get_gpt2_config, init_inferenc
                                  resolve_device)
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deepspeed_tpu")
 

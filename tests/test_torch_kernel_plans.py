@@ -23,6 +23,18 @@ from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_CHUNK, DECOD
                                                               QMM_MAX_CLUSTER, decode_blocks,
                                                               decode_body, decode_row_limit)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ragged M and N, K not a multiple of the 64-row step, the serving shapes
 QMM_SHAPES = [(1, 1024, 1024), (8, 1024, 3072), (8, 4096, 1024), (16, 320, 272), (17, 1024, 4096),
               (128, 4096, 1024), (130, 1024, 1024), (5, 96, 40), (3, 33, 5), (64, 16384, 128)]

@@ -19,6 +19,17 @@ from deepspeed_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _random_injective_idx(rng, groups, n, r):
     """[G, r] int32: unique in-range entries per group, ~1/4 sentinel (the
     JAX test's helper)."""

@@ -14,6 +14,18 @@ from deepspeed_tpu_torch.moe import MOELayer
 from deepspeed_tpu_torch.moe import sharded_moe as sm
 from deepspeed_tpu_torch.testing import injected_routing
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M = 16
 
 

@@ -23,6 +23,18 @@ from deepspeed_tpu.runtime.lr_schedules import get_lr_schedule as jax_get_lr_sch
 from deepspeed_tpu_torch.ops.adam import FusedAdam
 from deepspeed_tpu_torch.runtime.lr_schedules import VALID_LR_SCHEDULES, get_lr_schedule
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = {"kernel": (8, 5), "bias": (5,), "scale": (3, 2, 4)}
 STEPS = 6
 

@@ -26,6 +26,18 @@ from deepspeed_tpu_torch.ops.cuda import quant_matmul as port_qmm
 from deepspeed_tpu_torch.ops.quantizer import core, weights
 from deepspeed_tpu_torch.testing import quant_matmul_probe
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 jax_qmm = importlib.import_module("deepspeed_tpu.ops.pallas.quant_matmul")
 
 ATOL = 1e-5

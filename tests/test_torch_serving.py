@@ -3,8 +3,8 @@
 Both engines hold the same seeded GPT-2 ``test`` weights (carried over with
 ``params_from_jax``), in fp32 on the CPU. Greedy ``generate`` must give the
 same tokens; a scripted arrival trace through both continuous-batching
-schedulers (the JAX one on its XLA attention backend and with prefix
-caching off, for speed and because the port has no prefix cache yet) must
+schedulers (the JAX one on its XLA attention backend, both with prefix
+caching off: ``tests/test_torch_serving_prefix.py`` holds the cache) must
 give the same tokens per request and the same tick mix, with fp and int8
 served weights, no block leak and strict FIFO admission.
 """
@@ -27,6 +27,17 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.serving import (FINISHED, QUEUED, REFUSED,
                                                    ContinuousBatchingScheduler, Request,
                                                    ServingConfig)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class SimClock:
@@ -96,9 +107,9 @@ def _drive(scheduler_cls, request_cls, engine, scfg):
 def test_scheduler_trace_matches_jax(engines, weight_dtype):
     jax_engine, port_engine, _ = engines
     common = dict(slots=4, prefill_chunk=8, page_size=16, kv_pool_tokens=128,
-                  weight_dtype=weight_dtype)
+                  weight_dtype=weight_dtype, prefix_cache="off")
     j_sched, j_reqs, _ = _drive(JaxScheduler, JaxRequest, jax_engine,
-                                JaxServingConfig(prefix_cache="off", **common))
+                                JaxServingConfig(**common))
     sched, reqs, admitted = _drive(ContinuousBatchingScheduler, Request, port_engine,
                                    ServingConfig(**common))
     assert [r.output for r in reqs] == [r.output for r in j_reqs]
@@ -153,10 +164,17 @@ def test_queue_refuses_what_can_never_fit(engines):
     assert full.state == REFUSED and "queue full" in full.refuse_reason
 
 
-@pytest.mark.parametrize("kwargs", [dict(prefix_cache="on"), dict(speculation={"enabled": True})])
-def test_later_slice_serving_features_raise(kwargs):
+@pytest.mark.parametrize("kwargs", [dict(call="export_inflight"),
+                                    dict(call="serve", migrate=lambda sched, signal: {}),
+                                    dict(call="release_inflight"),
+                                    dict(call="admit_migrated", payload={}),
+                                    dict(call="swap_served_params", params={})])
+def test_later_slice_serving_features_raise(engines, kwargs):
+    """The fleet and RLHF hooks stay a later slice (ROADMAP.md Queue A)."""
+    sched = ContinuousBatchingScheduler(engines[1], ServingConfig(slots=2))
+    kwargs = dict(kwargs)
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingConfig(**kwargs)
+        getattr(sched, kwargs.pop("call"))(**kwargs)
 
 
 @pytest.mark.parametrize("kwargs,exc", [(dict(dtype="int8"), NotImplementedError),

@@ -19,6 +19,18 @@ from deepspeed_tpu_torch.ops.cuda import sparse_attention as sa
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import index_lists_on
 from deepspeed_tpu_torch.testing import sparse_exact_probe
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: block, length (the card tests and chip_smoke.py probe the same blocks)
 SHAPES = [(16, 128), (64, 256)]
 

@@ -13,6 +13,18 @@ from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, Fix
                                                       SparseSelfAttention, VariableSparsityConfig)
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import launch_orders_on
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the suite's parallel
+    workers share the host's cores (a thread per core in each worker
+    oversubscribes them many times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CONFIGS = [
     (FixedSparsityConfig(num_heads=4, block=16, num_local_blocks=4, num_global_blocks=1,
                          attention="unidirectional"), 1024),
