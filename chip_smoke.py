@@ -204,27 +204,62 @@ Phases, each of which raises on failure (the script then exits non-zero):
               reference run's, or first diverge where the reference's top-2
               logit margin is within 1.5x phase 4 (c)'s measured rounding.
 
+15. resilience — GPT-2 350m as in phase 10 (train_batch_size 16, gas 2,
+              the ``"flash"`` backend) under the resilience config, a
+              heartbeat every step: an uninterrupted 6-step run with launch
+              counts zeroed just before and read just after (K1 96 and K4 48
+              a step: 2 micro-batches), saving ``sync`` after step 2; (a) a ``nebula.enabled``
+              engine saves ``async`` after step 2: the call returns before
+              the tag is published (``latest`` still ``sync``), 3 steps run
+              with the save pending, the flush publishes it, its leaf digests
+              equal ``sync``'s, and loaded with ``verify_checkpoint="full"``
+              it trains steps 3-6 to the uninterrupted bits; (b) a child
+              (``--child preempt``) with ``preempt_save_dir`` gets SIGTERM once
+              its heartbeat shows step 2, checkpoints at the next boundary and
+              exits 143; a second child's ``resume()`` (no dir) trains to step
+              6: losses and a sha256 of the parameters bit-equal to the
+              uninterrupted run; (c) ``DSElasticAgent`` (ladder [1],
+              ``max_restarts`` 2) supervises ``--child agent`` (an async save
+              after each odd step, flushed after the next), whose first
+              launch carries ``DS_FAULT_SPEC=step=sigkill@3``: rc -9 then 0,
+              step 3's heartbeat, a ``plain`` resume from ``global_step1``,
+              steps to 4 bit-equal, and the restart's seconds by part; (d)
+              ``--child torn`` dies by ``ckpt_pre_rename=sigkill`` inside its
+              second save: the tag is invisible and ``resume()`` restores the
+              first; (e) poisoned batches (``poison_batch``,
+              ``overflow_injected_loss``) under ``max_consecutive_overflows``
+              3 raise ``OverflowAbort`` at the third skipped step with the
+              parameters unchanged. Its checkpoints live in a temp dir,
+              deleted at the end; at most three 4.26 GB tags at a time.
+
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
 only K2's and K3's value-form timings and phase 4, through the API that
 earlier commits share: copied into an earlier checkout, the script measures
 that commit the same way (no ``kernels`` line then); ``--phases
-kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14. Details go to
+kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
+resilience`` phase 15 alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
 
+import time
+
+#: when this process began to run the script (phase 15 times a restart by part)
+MODULE_T0 = time.time()
+
 import argparse
 import dataclasses
+import hashlib
 import json
 import logging
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -2062,13 +2097,14 @@ def api_config() -> dict:
                 resilience={"verify_checkpoint": "full", "fallback_on_corruption": True})
 
 
-def _api_engine(seed: int, **model_kw):
+def _api_engine(seed: int, config=None, loss_fn=None, **model_kw):
+    """Phase 10's GPT-2 350m engine (``config``: default :func:`api_config`)."""
     from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
     kw = dict(API_MODEL, remat=True, dtype=torch.bfloat16)
     kw.update(model_kw)
     cfg = get_gpt2_config(kw.pop("name"), **kw)
     model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
-    return initialize(model=model, config=api_config(), device="cuda")[0]
+    return initialize(model=model, config=config or api_config(), loss_fn=loss_fn, device="cuda")[0]
 
 
 def _params(engine) -> list:
@@ -3481,6 +3517,430 @@ def defaults_phase(seed: int, card: str, rounding: float):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training engine's resilience
+# ---------------------------------------------------------------------------
+#: the model of phase 15: phase 10's, on the flash kernels (dropout 0)
+RES_MODEL = dict(attention_backend="flash")
+#: steps of the uninterrupted reference run (and of (b)), and of (c)
+RES_STEPS = 6
+RES_AGENT_STEPS = 4
+#: the fault of (c)'s first launch, and the guard of (e)
+RES_AGENT_FAULT = "step=sigkill@3"
+RES_GUARD = 3
+
+
+def res_config(**over) -> dict:
+    """Phase 10's engine config with a heartbeat every step (so that a
+    supervisor reads each step's count), ``over``'s blocks on top."""
+    cfg = api_config()
+    cfg["resilience"] = dict(cfg["resilience"], heartbeat_interval=0, **over.pop("resilience", {}))
+    cfg.update(over)
+    return cfg
+
+
+def res_batches(seed: int) -> list:
+    """The seeded global batches of phase 15, one a step (the children
+    make the same ones from the same seed)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, API_MODEL["vocab_size"], (16, API_MODEL["n_positions"])).astype(np.int32)
+            for _ in range(RES_STEPS + 2)]
+
+
+def _param_sha(engine) -> str:
+    """A sha256 over the sha256 of every parameter (hashed on threads)."""
+    from deepspeed_tpu_torch.runtime.resilience.manifest import state_leaf_entries
+    return hashlib.sha256(json.dumps(state_leaf_entries(dict(engine.module.named_parameters())),
+                                     sort_keys=True).encode()).hexdigest()
+
+
+def _spans(targets):
+    """Wrap each ``(label, module, name)`` of ``targets`` so that its calls,
+    from any thread, record ``(label, start, end)`` on the perf counter.
+    Returns the span list and a function that restores the originals."""
+    spans, saved = [], []
+    for label, mod, name in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                spans.append((_label, t0, time.perf_counter()))
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return spans, restore
+
+
+def _child_cmd(role: str, seed: int, where: str, out: str, steps: int) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--child", role, "--seed", str(seed),
+            "--dir", where, "--out", out, "--steps", str(steps)]
+
+
+def _records(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _child_log_tail(out: str) -> str:
+    try:
+        with open(out + ".log") as f:
+            return f.read()[-3000:]
+    except OSError:
+        return "(no log)"
+
+
+def child_main(args) -> int:
+    """A training process of phase 15 (``--child ROLE``): ``preempt``
+    trains with ``preempt_save_dir`` armed until a signal ends it;
+    ``resume`` calls ``resume()`` with no dir and trains on; ``agent`` runs
+    under ``DSElasticAgent`` (``resume(dir)``, an async save after each odd
+    step, flushed after the next; the first launch carries
+    ``RES_AGENT_FAULT``); ``torn`` saves twice, the second time with
+    ``ckpt_pre_rename=sigkill``. Records go to ``--out`` as JSON lines, the
+    output to ``--out``.log. It runs on CUDA and raises without it, and
+    never prints the contract line."""
+    fd = os.open(args.out + ".log", os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    marks = {"module": MODULE_T0}
+
+    def record(**row):
+        with open(args.out, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase 15 child runs on CUDA, and torch.cuda.is_available() is false")
+    import deepspeed_tpu_torch  # noqa: F401
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.runtime.resilience import faults
+    marks["imports"] = time.time()
+    restart = int(os.environ.get("DS_ELASTIC_RESTART_COUNT", "0"))
+    if args.child == "agent" and restart == 0:
+        os.environ[faults.FAULT_ENV] = RES_AGENT_FAULT
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda_context"] = time.time()
+    over = {}
+    if args.child in ("preempt", "resume"):
+        over["resilience"] = {"preempt_save_dir": args.dir}
+    if args.child == "agent":
+        over["nebula"] = {"enabled": True}
+    engine = _api_engine(args.seed, config=res_config(**over), **RES_MODEL)
+    torch.cuda.synchronize()
+    marks["model"] = time.time()
+    for name in TRAINING_KERNELS:
+        build.load(name)
+    marks["kernels"] = time.time()
+    tag = None
+    if args.child == "resume":
+        tag = engine.resume()  # the armed preempt_save_dir
+    elif args.child == "agent":
+        tag = engine.resume(args.dir)
+    torch.cuda.synchronize()
+    marks["load"] = time.time()
+    record(role=args.child, restart=restart, start_step=engine.global_steps, tag=tag, marks=marks)
+    batches = res_batches(args.seed)
+    while engine.global_steps < args.steps:
+        loss = float(engine.train_batch(batches[engine.global_steps]))
+        record(step=engine.global_steps, loss=loss, t=time.time())
+        if args.child == "agent":
+            if engine.global_steps % 2 == 1:
+                engine.save_checkpoint(args.dir)
+            else:
+                engine.flush_checkpoints()
+        elif args.child == "torn":
+            if engine.global_steps == 2:
+                os.environ[faults.FAULT_ENV] = "ckpt_pre_rename=sigkill"
+            engine.save_checkpoint(args.dir, tag=f"step{engine.global_steps}")
+    engine.flush_checkpoints()
+    record(done=True, steps=engine.global_steps, sha=_param_sha(engine))
+    return 0
+
+
+def _restart_parts(rec: dict, started: float, first_step_t: float) -> dict:
+    """A relaunch's seconds by part, from the supervisor's restart call to
+    the child's first step."""
+    m = rec["marks"]
+    return {"process start (to the script's first line)": m["module"] - started,
+            "imports (torch, the port)": m["imports"] - m["module"],
+            "CUDA context": m["cuda_context"] - m["imports"],
+            "model and engine build (350m, seeded init)": m["model"] - m["cuda_context"],
+            "kernel libraries loaded": m["kernels"] - m["model"],
+            "verified load (resume)": m["load"] - m["kernels"],
+            "first step": first_step_t - m["load"],
+            "total": first_step_t - started}
+
+
+def _check(name: str, ok: bool, detail) -> None:
+    if not ok:
+        raise AssertionError(f"resilience {name}: {detail}")
+    RESULTS["checks"].append({"name": f"resilience {name}", "ok": True})
+
+
+def resilience_phase(seed: int, card: str):
+    """Phase 15 (module docstring). Returns its results and the launch
+    counts of its main path: the uninterrupted reference run in this
+    process, zeroed just before it and read just after."""
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent, read_heartbeat
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    from deepspeed_tpu_torch.runtime.fp16.loss_scaler import OverflowAbort
+    from deepspeed_tpu_torch.runtime.resilience import faults, manifest
+
+    seed = seed + 15
+    batches = res_batches(seed)
+    work = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    out, part_s, procs = {}, {}, []
+    env = {k: v for k, v in os.environ.items() if k != faults.FAULT_ENV}
+
+    def latest(where):
+        try:
+            with open(os.path.join(where, "latest")) as f:
+                return f.read().strip()
+        except OSError:
+            return None
+
+    try:
+        # ---- the main path: the uninterrupted run, counts zeroed just before ----
+        t_part = time.perf_counter()
+        ref = _api_engine(seed, config=res_config(), **RES_MODEL)
+        a_dir = os.path.join(work, "a")
+        reset_launches()
+        ref_losses, shas, sync_save = [], {}, None
+        for i in range(RES_STEPS):
+            ref_losses.append(float(ref.train_batch(batches[i])))
+            if i + 1 == 2:
+                sync_save = _profiled(lambda: ref.save_checkpoint(a_dir, tag="sync"), SAVE_PARTS)
+            if i + 1 in (RES_AGENT_STEPS, RES_STEPS):
+                shas[i + 1] = _param_sha(ref)
+        counts = launches()
+        # ---- end of the main path ----
+        per_step = {k: c / RES_STEPS for k, c in counts.items()}
+        layers = ref.module.config.n_layer * API_GAS  # a layer of each micro-batch
+        _check("reference run launches K1 and K4 (forward and remat recompute; backward)",
+               per_step["flash_fwd"] == 2 * layers and per_step["flash_bwd"] == layers, per_step)
+        _check("reference losses finite", all(np.isfinite(ref_losses)), ref_losses)
+
+        # (a) async saves
+        neb = _api_engine(seed, config=res_config(nebula={"enabled": True}), **RES_MODEL)
+        losses, step_ms = [], {"no save pending": [], "save pending": []}
+
+        def step(i, kind):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(neb.train_batch(batches[i])))
+            if kind:
+                step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+
+        step(0, None)  # warm-up
+        step(1, "no save pending")
+        # the writer's parts, timed where it looks them up, beside the steps
+        spans, restore = _spans((("leaf digests", manifest, "state_leaf_entries"),
+                                 ("torch.save", torch, "save"),
+                                 ("file digests", manifest, "file_inventory"),
+                                 ("fsync", manifest, "fsync_tree")))
+        t_save = time.perf_counter()
+        neb.save_checkpoint(a_dir, tag="async")
+        block_s = time.perf_counter() - t_save
+        hidden = "async" not in manifest.list_checkpoint_tags(a_dir)
+        marker = latest(a_dir)
+        _check("(a) async save returns before its tag is published", hidden and marker == "sync",
+               f"listed {manifest.list_checkpoint_tags(a_dir)}, latest {marker}")
+        pending_steps = []
+        for i in (2, 3, 4):
+            t0 = time.perf_counter()
+            step(i, "save pending")
+            pending_steps.append(("step", t0 - t_save, time.perf_counter() - t_save))
+        t0 = time.perf_counter()
+        neb.flush_checkpoints()
+        flush_s = time.perf_counter() - t0
+        restore()
+        timeline = pending_steps + [("flush", t0 - t_save, t0 - t_save + flush_s)] + sorted(
+            (label, a - t_save, b - t_save) for label, a, b in spans)
+        for i in (5, 6, 7):
+            step(i, "no save pending")
+        _check("(a) flush publishes the tag and latest", latest(a_dir) == "async"
+               and "async" in manifest.list_checkpoint_tags(a_dir), manifest.list_checkpoint_tags(a_dir))
+        leaves = {t: manifest.read_manifest(os.path.join(a_dir, t))["leaves"] for t in ("sync", "async")}
+        _check("(a) async tag's leaf digests == the synchronous save's", leaves["sync"] == leaves["async"],
+               [k for k in leaves["sync"] if leaves["sync"][k] != leaves["async"].get(k)][:4])
+        _check("(a) the async engine's losses == the reference's", losses[:RES_STEPS] == ref_losses,
+               (losses, ref_losses))
+        del neb
+        torch.cuda.empty_cache()
+        # the async tag, loaded with verify "full" into the reference
+        # engine, trains steps 3-6 to the reference's bits
+        verified = _profiled(lambda: ref.load_checkpoint(a_dir, tag="async"), LOAD_PARTS)
+        again = [float(ref.train_batch(batches[i])) for i in range(2, RES_STEPS)]
+        _check("(a) the async tag loads verified and trains steps 3-6 bit-equal",
+               again == ref_losses[2:] and _param_sha(ref) == shas[RES_STEPS], (again, ref_losses[2:]))
+        out["a_async"] = {"sync_save": sync_save, "async_save_blocking_s": block_s,
+                          "flush_wait_s": flush_s, "step_ms": step_ms, "writer_timeline_s": timeline,
+                          "step_ms_summary": {k: _ms_summary(v) for k, v in step_ms.items()},
+                          "verified_load": verified, "gb": _dir_bytes(os.path.join(a_dir, "async")) / 1e9}
+        shutil.rmtree(a_dir)
+        part_s["a"] = time.perf_counter() - t_part
+
+        # (b) preemption: SIGTERM after the heartbeat shows step 2
+        t_part = time.perf_counter()
+        b_dir, hb = os.path.join(work, "b"), os.path.join(work, "b.heartbeat")
+        rec_p, rec_r = os.path.join(work, "b_preempt.jsonl"), os.path.join(work, "b_resume.jsonl")
+        proc = subprocess.Popen(_child_cmd("preempt", seed, b_dir, rec_p, RES_STEPS),
+                                env=dict(env, DS_ELASTIC_HEARTBEAT_FILE=hb))
+        procs.append(proc)
+        deadline = time.time() + 600
+        while proc.poll() is None and time.time() < deadline:
+            beat = read_heartbeat(hb)
+            if beat and beat.get("global_step", 0) >= 2:
+                break
+            time.sleep(0.05)
+        if proc.poll() is not None:
+            raise AssertionError(f"resilience (b): the preempted child exited {proc.returncode} before "
+                                 f"step 2: {_child_log_tail(rec_p)}")
+        signalled_at_step = read_heartbeat(hb)["global_step"]
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+        sig_to_exit_s = time.perf_counter() - t_sig
+        tags = manifest.list_checkpoint_tags(b_dir)
+        _check("(b) SIGTERM: checkpoint at the next boundary, exit 143",
+               rc == 143 and len(tags) == 1 and latest(b_dir) == tags[0],
+               f"rc {rc}, tags {tags}: {_child_log_tail(rec_p)}")
+        # (d)'s child runs beside the resumed one: neither is timed
+        d_dir, rec_d = os.path.join(work, "d"), os.path.join(work, "d.jsonl")
+        torn = subprocess.Popen(_child_cmd("torn", seed, d_dir, rec_d, 2), env=env)
+        procs.append(torn)
+        rc2 = subprocess.run(_child_cmd("resume", seed, b_dir, rec_r, RES_STEPS), env=env,
+                             timeout=900).returncode
+        pre, post = _records(rec_p), _records(rec_r)
+        _check("(b) the resumed child runs", rc2 == 0 and post and post[-1].get("done"),
+               f"rc {rc2}: {_child_log_tail(rec_r)}")
+        saved_at = post[0]["start_step"]
+        got = {r["step"]: r["loss"] for r in pre + post if "loss" in r}
+        _check("(b) resume() from the armed dir: losses and parameters bit-equal",
+               post[0]["tag"] == [tags[0], {}] and all(got[s] == ref_losses[s - 1] for s in got)
+               and set(got) == set(range(1, RES_STEPS + 1)) - {saved_at}
+               and post[-1]["sha"] == shas[RES_STEPS], (got, ref_losses, post[0]))
+        out["b_preempt"] = {"signalled_at_step": signalled_at_step, "saved_at_step": saved_at,
+                            "signal_to_exit_s": sig_to_exit_s, "rc": rc}
+        shutil.rmtree(b_dir)
+        part_s["b"] = time.perf_counter() - t_part
+
+        # (d) a torn save: SIGKILL between staging and publish
+        t_part = time.perf_counter()
+        rc = torn.wait(timeout=900)
+        tags = manifest.list_checkpoint_tags(d_dir)
+        _check("(d) the torn save is invisible",
+               rc == -9 and tags == ["step1"] and latest(d_dir) == "step1"
+               and os.path.isdir(os.path.join(d_dir, ".tmp.step2")),
+               f"rc {rc}, tags {tags}, dir {os.listdir(d_dir)}: {_child_log_tail(rec_d)}")
+        t0 = time.perf_counter()
+        resumed = ref.resume(d_dir)
+        resume_s = time.perf_counter() - t0
+        loss2 = float(ref.train_batch(batches[1]))
+        _check("(d) resume() restores the first tag and sweeps the torn one",
+               resumed == ("step1", {}) and not os.path.exists(os.path.join(d_dir, ".tmp.step2"))
+               and loss2 == ref_losses[1], (resumed, loss2, ref_losses[1]))
+        out["d_torn"] = {"rc": rc, "resume_s": resume_s}
+        shutil.rmtree(d_dir)
+        del ref
+        torch.cuda.empty_cache()
+        part_s["d"] = time.perf_counter() - t_part
+
+        # (c) the agent: SIGKILL at step 3 of the first launch
+        t_part = time.perf_counter()
+        c_dir, rec_c = os.path.join(work, "c"), os.path.join(work, "c.jsonl")
+        restarted = []
+        agent = DSElasticAgent(_child_cmd("agent", seed, c_dir, rec_c, RES_AGENT_STEPS), world_sizes=[1],
+                               heartbeat_timeout=300, startup_timeout=900, max_restarts=2,
+                               poll_interval=0.2, checkpoint_dir=c_dir,
+                               env={faults.FAULT_ENV: ""},
+                               on_restart=lambda n, w: restarted.append(time.time()))
+        rc = agent.run(workdir=work)
+        hist = agent.history
+        _check("(c) the agent returns 0 after one SIGKILL restart",
+               rc == 0 and [h["rc"] for h in hist] == [-9, 0] and len(restarted) == 1,
+               f"rc {rc}, history {hist}: {_child_log_tail(rec_c)}")
+        _check("(c) history rows: step 3's heartbeat, then a plain resume",
+               hist[0]["last_heartbeat"]["global_step"] == 3 and hist[0]["topology"]["resume"] == "fresh"
+               and hist[1]["topology"]["resume"] == "plain" and hist[1]["topology"]["tag"] == "global_step1",
+               hist)
+        rows = _records(rec_c)
+        starts = [i for i, r in enumerate(rows) if "marks" in r]
+        first, second = rows[starts[0]:starts[1]], rows[starts[1]:]
+        got = [(r["step"], r["loss"]) for r in first + second if "loss" in r]
+        want = [(s, ref_losses[s - 1]) for s in (1, 2)] + [(s, ref_losses[s - 1])
+                                                            for s in range(2, RES_AGENT_STEPS + 1)]
+        _check("(c) the restarted run is bit-equal to the uninterrupted one",
+               got == want and second[-1].get("sha") == shas[RES_AGENT_STEPS], (got, want))
+        out["c_agent"] = {"history": hist,
+                          "restart_parts_s": _restart_parts(second[0], restarted[0], second[1]["t"]),
+                          "first_launch_parts_s": {k: v for k, v in _restart_parts(
+                              first[0], first[0]["marks"]["module"], first[1]["t"]).items()
+                              if not k.startswith("process start")}}
+        shutil.rmtree(c_dir)
+        part_s["c"] = time.perf_counter() - t_part
+
+        # (e) the overflow guard on poisoned batches
+        t_part = time.perf_counter()
+        eng = _api_engine(seed, config=res_config(resilience={"max_consecutive_overflows": RES_GUARD}),
+                          loss_fn=faults.overflow_injected_loss(), **RES_MODEL)
+        healthy = float(eng.train_batch(batches[0]))
+        before = _params(eng)
+        poisoned = faults.poison_batch({"input_ids": batches[1]})
+        aborted_at = None
+        for n in range(1, RES_GUARD + 3):
+            try:
+                eng.train_batch(poisoned)
+            except OverflowAbort as e:
+                aborted_at, message = n, str(e)
+                break
+        _check("(e) OverflowAbort at the third skipped step, parameters unchanged",
+               aborted_at == RES_GUARD and eng.skipped_steps == RES_GUARD
+               and _same_bits(before, _params(eng)) and np.isfinite(healthy),
+               (aborted_at, eng.skipped_steps))
+        out["e_overflow"] = {"aborted_at_poisoned_step": aborted_at, "message": message[:200]}
+        del eng, before
+        torch.cuda.empty_cache()
+        part_s["e"] = time.perf_counter() - t_part
+    finally:
+        for proc in procs:  # a child still running when a check failed
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["part_s"] = part_s
+    a = out["a_async"]
+    sm = a["step_ms_summary"]
+    log(f"resilience (a): sync save {a['sync_save']['s']:.2f} s "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in a['sync_save']['by_part_s'].items())}); async save "
+        f"blocks {a['async_save_blocking_s']:.3f} s, the flush waits {a['flush_wait_s']:.2f} s; step ms "
+        f"with a save pending {a['step_ms']['save pending']} against "
+        f"{a['step_ms']['no save pending']} without; {a['gb']:.3f} GB; verified load "
+        f"{a['verified_load']['s']:.2f} s  [{card}]")
+    log("resilience (a): from the async save's call (s): " + ", ".join(
+        f"{label} {t0:.2f}-{t1:.2f}" for label, t0, t1 in a["writer_timeline_s"]))
+    log(f"resilience (b): SIGTERM at step {out['b_preempt']['signalled_at_step']}, saved at step "
+        f"{out['b_preempt']['saved_at_step']}, exit 143 {out['b_preempt']['signal_to_exit_s']:.2f} s "
+        f"after the signal; the resumed child bit-equal  [{card}]")
+    log(f"resilience (c): agent rc 0, history rc {[h['rc'] for h in out['c_agent']['history']]}; "
+        f"restart by part (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                             out['c_agent']['restart_parts_s'].items()) + f"  [{card}]")
+    log(f"resilience (d): torn save rc -9, invisible; resume {out['d_torn']['resume_s']:.2f} s  [{card}]")
+    log(f"resilience (e): OverflowAbort at poisoned step {out['e_overflow']['aborted_at_poisoned_step']}"
+        f"  [{card}]")
+    log("resilience seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3489,13 +3949,21 @@ def main(argv=None) -> int:
                          "'times' (K2's and K3's value-form timings alone) and 'serving' (phase 4), "
                          "which use only the API earlier commits share, so that copied into an "
                          "earlier checkout this script measures that commit the same way, "
-                         "'kernels' (phase 3 at head dim 64) and 'defaults' (phase 14, after "
-                         "phase 4, whose measured rounding it reads)")
+                         "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
+                         "phase 4, whose measured rounding it reads) and 'resilience' (phase 15)")
+    ap.add_argument("--child", choices=("preempt", "resume", "agent", "torn"),
+                    help="run as one of phase 15's training processes (the phase starts them)")
+    ap.add_argument("--dir", help="--child: the checkpoint dir")
+    ap.add_argument("--out", help="--child: the file of its JSON records")
+    ap.add_argument("--steps", type=int, help="--child: train until this step")
     args = ap.parse_args(argv)
+    if args.child:
+        return child_main(args)
     phases = set(args.phases.split(","))
-    if not phases <= {"all", "times", "serving", "kernels", "defaults"} or ("all" in phases and len(phases) > 1):
-        ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels' and "
-                 f"'defaults', got {args.phases!r}")
+    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience"}
+            or ("all" in phases and len(phases) > 1)):
+        ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
+                 f"'defaults' and 'resilience', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3531,6 +3999,10 @@ def main(argv=None) -> int:
             RESULTS["slice"] = slice_phase(args.seed, card)[0]
         if "defaults" in phases:
             RESULTS["defaults"] = defaults_phase(args.seed, card, measured_rounding(RESULTS["slice"]))[0]
+        if "resilience" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["resilience"] = resilience_phase(args.seed, card)[0]
+            RESULTS["phase_s"] = {"15 resilience": time.perf_counter() - t_phase}
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -3577,6 +4049,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["llama_serve"], llama_serve_counts = llama_serving_phase(args.seed, card)
         phase_s["13 LLaMA-7b serving"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["resilience"], resilience_counts = resilience_phase(args.seed, card)
+        phase_s["15 resilience"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -3585,15 +4061,15 @@ def main(argv=None) -> int:
         json.dump(RESULTS, f, indent=1, default=str)
     if "all" in phases:
         # launches: the serving, training, MoE training, sparse attention,
-        # engine API, LLaMA training, LLaMA serving and default-serving
-        # paths' counts, each zeroed just before its path and read just
-        # after. K1, K4 and K3 also carry their head-dim-128 entry (the
+        # engine API, LLaMA training, LLaMA serving, default-serving and
+        # resilience paths' counts, each zeroed just before its path and
+        # read just after. K1, K4 and K3 also carry their head-dim-128 entry (the
         # LLaMA shapes), with the launches of the LLaMA paths, which run at
         # head dim 128 only; K2 and K3 their speculation verify block entry
         # (phase 14 (b): M = 40, Lq = 5), with its launches per round as
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
-                 llama_train_counts, llama_serve_counts, defaults_counts)
+                 llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts)

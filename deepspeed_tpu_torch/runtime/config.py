@@ -1,25 +1,32 @@
 """Training config (the subset of ``deepspeed_tpu/runtime/config.py`` that
-the GPT-2 training step uses).
+the port's training engine uses).
 
 Read: the batch triangle (``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``) on one
 device, ``optimizer`` (Adam/AdamW), ``scheduler``, ``bf16``,
 ``gradient_clipping``, ``zero_optimization`` at stage 0, ``steps_per_print``,
 ``seed``, ``dataloader_drop_last``, the ``"moe"`` block (``route``,
-``kernel``: the MoE dispatch route and permutation, ``moe/routing.py``) and
-the ``"resilience"`` block's checkpoint keys (``verify_checkpoint``:
-"off", "files" or "full", default "full"; ``fallback_on_corruption``,
-default true; JAX ``config.py:221-238``). Everything else raises
+``kernel``: the MoE dispatch route and permutation, ``moe/routing.py``), and
+every key of JAX's ``"resilience"`` and ``"nebula"`` blocks with their
+defaults and bounds (``ResilienceConfig``, ``NebulaConfig``: JAX
+``config.py:200-243``; ``nebula.enabled`` routes saves through the async
+path, its other keys are taken as JAX takes them) and the ``"elasticity"``
+block, which at one data-parallel rank overrides the batch triangle as JAX's
+``_apply_elastic_config`` does. Everything else raises
 ``NotImplementedError`` naming the slice of the port it belongs to, so that
 a setting is never dropped quietly: fp16 (the kernels take fp32 and bf16
-only), ZeRO stages 1-3 and offload, other optimizers, the resilience
-block's other keys (preemption, overflow abort, heartbeats), an enabled
-``"nebula"`` block (async checkpoints), and any other block.
+only), ZeRO stages 1-3 and offload, other optimizers, and any other block.
 """
 
 import json
+import logging
 import os
 from typing import Optional
+
+from deepspeed_tpu_torch.elasticity.elasticity import ElasticityConfigError, compute_elastic_config
+from deepspeed_tpu_torch.version import __version__
+
+logger = logging.getLogger(__name__)
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -32,18 +39,128 @@ OPTIMIZER_PARAMS = ("lr", "betas", "eps", "weight_decay", "adam_w_mode", "bias_c
 _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
           "optimizer", "scheduler", "bf16", "bfloat16", "fp16", "gradient_clipping",
           "zero_optimization", "steps_per_print", "seed", "moe", "dataloader_drop_last",
-          "resilience", "nebula")
+          "resilience", "nebula", "elasticity")
 
 #: keys of the ``"moe"`` block (JAX ``MoEConfig``)
 MOE_KEYS = ("route", "kernel")
 
-#: keys of the ``"resilience"`` block the port reads (JAX ``ResilienceConfig``)
-RESILIENCE_KEYS = ("verify_checkpoint", "fallback_on_corruption")
 VERIFY_CHECKPOINT_MODES = ("off", "files", "full")
+
+_TRUE = ("1", "on", "t", "true", "y", "yes")
+_FALSE = ("0", "off", "f", "false", "n", "no")
 
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+def _coerce(where: str, kind: str, value):
+    """``value`` as a field of type ``kind``, converted as JAX's config
+    models (pydantic, lax mode) convert it; ``ValueError`` otherwise."""
+    bad = ValueError(f"{where}: {value!r} is not a valid {kind}")
+    optional = kind.endswith("?")
+    kind = kind.rstrip("?")
+    if value is None:
+        if optional:
+            return None
+        raise bad
+    if kind == "bool":
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, int) and value in (0, 1):
+            return bool(value)
+        if isinstance(value, str) and value.lower() in _TRUE + _FALSE:
+            return value.lower() in _TRUE
+        raise bad
+    if kind == "int":
+        if isinstance(value, int):
+            return int(value)
+        if isinstance(value, float) and value.is_integer():
+            return int(value)
+        if isinstance(value, str):
+            try:
+                return int(value.strip())
+            except ValueError:
+                raise bad from None
+        raise bad
+    if kind == "float":
+        if isinstance(value, (int, float)):
+            return float(value)
+        if isinstance(value, str):
+            try:
+                return float(value.strip())
+            except ValueError:
+                raise bad from None
+        raise bad
+    if kind == "str":
+        if isinstance(value, str):
+            return value
+        raise bad
+    if kind == "list":
+        if isinstance(value, (list, tuple)):
+            return list(value)
+        raise bad
+    raise AssertionError(kind)
+
+
+class _Block:
+    """A config block read field by field: ``FIELDS`` maps each key to its
+    kind, default and choices or lower bound. Unknown keys raise, as JAX's
+    models (``extra="forbid"``) do, and ``"auto"`` takes the default, as
+    JAX's non-strict models drop it."""
+
+    NAME = ""
+    FIELDS: dict = {}
+
+    def __init__(self, raw: Optional[dict] = None):
+        raw = dict(raw or {})
+        unknown = sorted(set(raw) - set(self.FIELDS))
+        if unknown:
+            raise ValueError(f"unknown keys {unknown} in the {self.NAME} block; it takes "
+                             f"{list(self.FIELDS)}")
+        for key, (kind, default, limit) in self.FIELDS.items():
+            value = raw.get(key, default)
+            if isinstance(value, str) and value == "auto":
+                value = default
+            where = f"{self.NAME}.{key}"
+            value = _coerce(where, kind, value)
+            if isinstance(limit, tuple) and value not in limit:
+                raise ValueError(f"{where} must be one of {list(limit)}, got {value!r}")
+            if isinstance(limit, (int, float)) and value is not None and value < limit:
+                raise ValueError(f"{where} must be >= {limit}, got {value!r}")
+            setattr(self, key, value)
+
+
+class ResilienceConfig(_Block):
+    """JAX ``ResilienceConfig`` (``config.py:216-243``): the load-time
+    integrity gate and its fallback, the overflow abort guard, the
+    heartbeat cadence, and the preemption checkpoint (armed at engine init
+    when ``preempt_save_dir`` is set)."""
+
+    NAME = "resilience"
+    FIELDS = {"verify_checkpoint": ("str", "full", VERIFY_CHECKPOINT_MODES),
+              "fallback_on_corruption": ("bool", True, None),
+              "max_consecutive_overflows": ("int", 0, 0),
+              "heartbeat_interval": ("float", 2.0, 0.0),
+              "preempt_save_dir": ("str?", None, None),
+              "preempt_signals": ("list", ["SIGTERM", "SIGINT"], None),
+              "exit_after_preempt_save": ("bool", True, None),
+              "preempt_exit_code": ("int", 143, None)}
+
+
+class NebulaConfig(_Block):
+    """JAX ``NebulaConfig`` (``config.py:200-213``): ``enabled`` routes
+    ``save_checkpoint`` through the async path (the tag and ``latest`` are
+    published at ``flush_checkpoints`` or the next save); the storage and
+    retention keys are taken as JAX takes them and change nothing."""
+
+    NAME = "nebula"
+    FIELDS = {"enabled": ("bool", False, None),
+              "persistent_storage_path": ("str?", None, None),
+              "persistent_time_interval": ("int?", None, None),
+              "num_of_version_in_retention": ("int", 2, None),
+              "enable_nebula_load": ("bool", True, None),
+              "load_path": ("str?", None, None)}
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -78,17 +195,9 @@ class DeepSpeedConfig:
         self.moe_kernel = moe.get("kernel")
         self.dataloader_drop_last = bool(config.get("dataloader_drop_last", False))
 
-        resilience = dict(config.get("resilience") or {})
-        unported = sorted(set(resilience) - set(RESILIENCE_KEYS))
-        if unported:
-            raise _later(f"resilience keys {unported}", "preemption and resilience")
-        self.verify_checkpoint = resilience.get("verify_checkpoint", "full")
-        if self.verify_checkpoint not in VERIFY_CHECKPOINT_MODES:
-            raise ValueError(f"resilience.verify_checkpoint must be one of "
-                             f"{list(VERIFY_CHECKPOINT_MODES)}, got {self.verify_checkpoint!r}")
-        self.fallback_on_corruption = bool(resilience.get("fallback_on_corruption", True))
-        if dict(config.get("nebula") or {}).get("enabled", False):
-            raise _later("nebula (async checkpoint saves)", "async-checkpoint")
+        self.resilience_config = ResilienceConfig(config.get("resilience"))
+        self.nebula_config = NebulaConfig(config.get("nebula"))
+        self.elasticity_config = dict(config.get("elasticity") or {})
 
         opt = config.get("optimizer")
         self.optimizer_name = opt["type"].lower() if opt and "type" in opt else None
@@ -119,10 +228,32 @@ class DeepSpeedConfig:
             if not key.startswith("offload"):
                 raise _later(f"zero_optimization.{key}", "ZeRO")
 
+        triangle = (config.get("train_batch_size"), config.get("train_micro_batch_size_per_gpu"),
+                    config.get("gradient_accumulation_steps"))
+        if self.elasticity_enabled():
+            triangle = self._elastic_triangle(triangle)
         self.train_batch_size, self.train_micro_batch_size_per_gpu, \
-            self.gradient_accumulation_steps = self._resolve_batch(
-                config.get("train_batch_size"), config.get("train_micro_batch_size_per_gpu"),
-                config.get("gradient_accumulation_steps"))
+            self.gradient_accumulation_steps = self._resolve_batch(*triangle)
+
+    def elasticity_enabled(self) -> bool:
+        return bool(self.elasticity_config.get("enabled", False))
+
+    def _elastic_triangle(self, user_triangle, dp_world_size: int = 1):
+        """The batch triangle of the elastic plan at ``dp_world_size`` (JAX
+        ``_apply_elastic_config``); explicit batch keys beside it raise
+        unless ``ignore_non_elastic_batch_info`` is set."""
+        explicit = [v for v in user_triangle if v is not None]
+        if explicit and not self.elasticity_config.get("ignore_non_elastic_batch_info", False):
+            raise ElasticityConfigError(
+                "elasticity is enabled but train_batch_size/micro_batch/gas are also set; "
+                "remove them or set elasticity.ignore_non_elastic_batch_info")
+        final_batch, valid, micro = compute_elastic_config(
+            {"elasticity": self.elasticity_config}, __version__, world_size=dp_world_size,
+            return_microbatch=True)
+        gas = final_batch // (micro * dp_world_size)
+        logger.info(f"elasticity: world={dp_world_size} -> train_batch={final_batch} "
+                    f"micro={micro} gas={gas} (valid card counts: {sorted(valid)[:8]}...)")
+        return final_batch, micro, gas
 
     def _resolve_batch(self, train_batch: Optional[int], micro_batch: Optional[int],
                        grad_acc: Optional[int]):

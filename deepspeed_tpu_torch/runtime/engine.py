@@ -28,8 +28,25 @@ moments and count, the counters, ``client_state`` and the state of
 counters, the port draws them from that one stateful generator, so a resume
 is bit-exact only with it. A load copies into the live parameters and
 moments in place: the optimizer holds the parameter objects, and each
-parameter's ``.grad`` is a view of the flat buffer. Saves are synchronous
-and verified loads fall back to older intact tags (``runtime/resilience``).
+parameter's ``.grad`` is a view of the flat buffer. Verified loads fall back
+to older intact tags (``runtime/resilience``). Under ``nebula.enabled`` a
+save is async (JAX ``:2814-2924``): the call snapshots the state into
+reused pinned host buffers on a side stream and returns; the next
+``step()`` waits for that copy before the optimizer writes in place; a
+background writer stages the tag, and ``flush_checkpoints`` (or the next
+save, a load, ``resume``, or an exit hook at interpreter exit) publishes it
+and its ``latest`` marker.
+
+Resilience (JAX ``:291-300, 2477-2534, 2685-2775``), at the end of each
+step's boundary: the overflow guard (``OverflowWatcher``:
+``OverflowAbort`` at the ``resilience.max_consecutive_overflows``-th
+skipped step in a row), the heartbeat of a supervised run
+(``DS_ELASTIC_HEARTBEAT_FILE``, every ``heartbeat_interval`` seconds, with
+``global_step``), the ``step`` fault point (``DS_FAULT_SPEC``), and the
+preemption checkpoint: with ``resilience.preempt_save_dir`` (or
+``enable_preemption_checkpoint``), a SIGTERM or SIGINT becomes a save at the
+next boundary and ``SystemExit(preempt_exit_code)``; ``resume()`` defaults
+to that directory.
 
 An MoE model (``moe_num_experts > 0``) trains with training-mode gating
 (``deterministic=False``, the train capacity factor and the gating noise)
@@ -50,6 +67,8 @@ of it, so the norm, the division and the clipping are one launch each.
 import json
 import logging
 import os
+import threading
+import weakref
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -57,20 +76,25 @@ import torch
 
 from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
+from deepspeed_tpu_torch.elasticity.elastic_agent import touch_heartbeat
 from deepspeed_tpu_torch.models.common import cross_entropy_loss
 from deepspeed_tpu_torch.moe import routing as moe_routing
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (MODULE_GROUP,
                                                                         OPTIMIZER_GROUP,
+                                                                        HostSnapshotPool,
                                                                         TorchCheckpointEngine)
 from deepspeed_tpu_torch.runtime.config import ADAMW_OPTIMIZER, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import OverflowWatcher
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.resilience.faults import fault_point
 from deepspeed_tpu_torch.runtime.resilience.manifest import (CheckpointCorruptError,
                                                              dtype_name, list_checkpoint_tags,
                                                              sweep_stale_staging,
                                                              write_atomic_text)
+from deepspeed_tpu_torch.runtime.resilience.signals import PreemptionGuard
 from deepspeed_tpu_torch.runtime.utils import global_norm_l2
 
 logger = logging.getLogger(__name__)
@@ -137,6 +161,21 @@ class DeepSpeedEngine:
                                     if training_data is not None else None)
         self._train_iter = None
         self.loaded_checkpoint_tag: Optional[str] = None
+        # async saves: the pending one, its snapshot's event, the reused
+        # host buffers and whether the exit hook is registered
+        self._pending_ckpt = None
+        self._snapshot_ready = None
+        self._snapshot_pool: Optional[HostSnapshotPool] = None
+        self._flush_at_exit = False
+        # resilience (JAX ``engine.py:291-300``)
+        rcfg = config.resilience_config
+        self._overflow_watcher = OverflowWatcher(abort_after=rcfg.max_consecutive_overflows)
+        self._preemption: Optional[PreemptionGuard] = None
+        self._preempt_save_dir: Optional[str] = None
+        self._preempt_exit = rcfg.exit_after_preempt_save
+        self._preempt_exit_code = rcfg.preempt_exit_code
+        if rcfg.preempt_save_dir:
+            self.enable_preemption_checkpoint(rcfg.preempt_save_dir)
 
     def _configure_optimizer(self) -> FusedAdam:
         params = dict(self.config.optimizer_params or {})
@@ -238,11 +277,32 @@ class DeepSpeedEngine:
         if overflow:
             self.skipped_steps += 1
         else:
+            self._await_snapshot()
             self.optimizer.step()
         self._last_grad_norm = gnorm
         self._window_open = False
         self.global_steps += 1
         self.global_samples += cfg.train_batch_size
+        self._after_boundary(overflow)
+
+    def _after_boundary(self, overflow: bool) -> None:
+        """The end of a step's boundary, in JAX's order (``engine.py:2477-2534``):
+        the heartbeat, the overflow guard, the ``step`` fault point, then
+        the preemption checkpoint."""
+        touch_heartbeat(min_interval=self.config.resilience_config.heartbeat_interval,
+                        payload={"global_step": self.global_steps,
+                                 # the training telemetry is not ported yet
+                                 "last_span": None, "world_size": 1, "mesh_axes": None})
+        self._overflow_watcher.record(self.global_steps, overflow)
+        fault_point("step", step=self.global_steps)
+        self._maybe_preempt_checkpoint()
+
+    def _await_snapshot(self) -> None:
+        """Make the current stream wait for a pending async snapshot's
+        copies before anything writes the parameters or moments in place."""
+        if self._snapshot_ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._snapshot_ready)
+            self._snapshot_ready = None
 
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:
         """One optimization step over a global batch (dict of [batch, ...]
@@ -290,6 +350,7 @@ class DeepSpeedEngine:
     def load_optimizer_state(self, state: dict) -> None:
         """Load an optimizer state keyed by parameter name (e.g.
         ``checkpoint.from_jax.opt_state_from_jax``)."""
+        self._await_snapshot()
         self.optimizer.load_named_state(dict(self.module.named_parameters()), state)
 
     # -- data ----------------------------------------------------------------
@@ -374,27 +435,107 @@ class DeepSpeedEngine:
                         save_latest: bool = True) -> bool:
         """Save the training state as ``save_dir/<tag>`` (default
         ``global_step<N>``), staged and published atomically, and point
-        ``save_dir/latest`` at it. ``client_state`` must be JSON. The save
-        is synchronous: the tag is durable when this returns. Raises
-        ``RuntimeError`` inside an open accumulation window, whose
+        ``save_dir/latest`` at it. ``client_state`` must be JSON. A pending
+        async save is committed first. Synchronous by default: the tag is
+        durable when this returns. Under ``nebula.enabled`` the call takes a
+        snapshot and returns; the tag and ``latest`` appear at
+        ``flush_checkpoints`` (or the next save, a load or ``resume``).
+        Raises ``RuntimeError`` inside an open accumulation window, whose
         half-summed gradients a checkpoint does not hold."""
         if self._window_open:
             raise RuntimeError(f"save_checkpoint inside an open accumulation window (micro_steps "
                                f"{self.micro_steps}, gas {self.config.gradient_accumulation_steps}): "
                                f"save after the window's step()")
+        self.flush_checkpoints()  # one pending async save at a time
         tag = str(tag or f"global_step{self.global_steps}")
         meta = {"global_steps": self.global_steps, "global_samples": self.global_samples,
                 "micro_steps": self.micro_steps, "skipped_steps": self.skipped_steps,
                 "world_size": 1, "client_state": client_state or {}}
-        TorchCheckpointEngine(save_dir).save(self.checkpoint_state(), tag, metadata=meta)
+        engine = TorchCheckpointEngine(save_dir)
+        if self.config.nebula_config.enabled:
+            if self._snapshot_pool is None:
+                self._snapshot_pool = HostSnapshotPool()
+            self._snapshot_ready = engine.save(self.checkpoint_state(), tag, metadata=meta,
+                                               use_async=True, pool=self._snapshot_pool)
+            self._pending_ckpt = (engine, save_dir, tag, save_latest)
+            self._register_exit_flush()
+            logger.info(f"snapshot checkpoint {tag} at step {self.global_steps} -> {save_dir}; "
+                        f"published at the next flush")
+            return True
+        engine.save(self.checkpoint_state(), tag, metadata=meta)
         if save_latest:
             write_atomic_text(os.path.join(save_dir, LATEST_NAME), tag)
         logger.info(f"saved checkpoint {tag} at step {self.global_steps} -> {save_dir}")
         return True
 
     def flush_checkpoints(self) -> None:
-        """Commit pending async saves: a no-op, since saves are synchronous
-        (async ``nebula`` saves are refused by the config)."""
+        """Commit the pending async save, if any (the persist boundary of
+        JAX's Nebula-style saves): wait for its writer, raise any error it
+        hit, publish the tag atomically, then write its ``latest``
+        marker. A no-op after a synchronous save."""
+        pending, self._pending_ckpt = self._pending_ckpt, None
+        if pending is None:
+            return
+        engine, save_dir, tag, save_latest = pending
+        self._snapshot_ready = None  # the writer waited on the snapshot before it finished
+        engine.commit(tag)
+        if save_latest:
+            write_atomic_text(os.path.join(save_dir, LATEST_NAME), tag)
+        logger.info(f"published checkpoint {tag} at {save_dir}")
+
+    def _register_exit_flush(self) -> None:
+        """Commit a save still pending at a normal interpreter exit (a
+        ``SystemExit`` included), from threading's exit hooks, which run
+        before the interpreter joins its threads (JAX ``engine.py:2875-2890``)."""
+        if self._flush_at_exit:
+            return
+        ref = weakref.ref(self)
+
+        def _flush_on_exit():
+            engine = ref()
+            if engine is not None:
+                try:
+                    engine.flush_checkpoints()
+                except Exception as e:  # noqa: BLE001 (the exit path can only report)
+                    logger.error(f"exit-time checkpoint flush failed: {type(e).__name__}: {e}")
+
+        threading._register_atexit(_flush_on_exit)
+        self._flush_at_exit = True
+
+    # -- preemption (JAX ``engine.py:2685-2742``) --------------------------------
+    def enable_preemption_checkpoint(self, save_dir: str, signals=None, exit_after_save=None,
+                                     exit_code=None) -> PreemptionGuard:
+        """Arm preemption-safe checkpointing: SIGTERM/SIGINT (or
+        ``signals``) set a flag, and the next step boundary saves a verified
+        checkpoint to ``save_dir``, then raises ``SystemExit(exit_code)``
+        (143 by default, so that a supervisor relaunches instead of reading
+        the exit as the job's end) unless ``exit_after_save`` is false. The
+        ``resilience.preempt_save_dir`` key arms this at init."""
+        self._preempt_save_dir = save_dir
+        if exit_after_save is not None:
+            self._preempt_exit = bool(exit_after_save)
+        if exit_code is not None:
+            self._preempt_exit_code = int(exit_code)
+        if self._preemption is not None:
+            self._preemption.uninstall()
+        self._preemption = PreemptionGuard(signals or self.config.resilience_config.preempt_signals
+                                           ).install()
+        logger.info(f"preemption checkpointing armed: {self._preemption.signal_names} -> checkpoint "
+                    f"at the next step boundary -> {save_dir}")
+        return self._preemption
+
+    def _maybe_preempt_checkpoint(self) -> None:
+        guard = self._preemption
+        if guard is None or not guard.requested:
+            return
+        sig = guard.consume()
+        logger.warning(f"preemption signal {sig}: checkpointing at step boundary "
+                       f"{self.global_steps} -> {self._preempt_save_dir}")
+        self.save_checkpoint(self._preempt_save_dir)
+        self.flush_checkpoints()  # durable before the exit below
+        if self._preempt_exit:
+            logger.warning(f"preemption checkpoint durable; exiting {self._preempt_exit_code}")
+            raise SystemExit(self._preempt_exit_code)
 
     def load_checkpoint(self, load_dir: str, tag=None, load_optimizer_states: bool = True,
                         load_lr_scheduler_states: bool = True, load_module_only: bool = False):
@@ -408,7 +549,9 @@ class DeepSpeedEngine:
         parameters alone; ``load_optimizer_states=False`` all but the
         optimizer state. The counters are restored in every case, as in
         JAX; the LR schedules are functions of the step and have no state
-        of their own (``load_lr_scheduler_states`` has nothing to load)."""
+        of their own (``load_lr_scheduler_states`` has nothing to load). A
+        pending async save is committed first."""
+        self.flush_checkpoints()  # an async save must be durable before any load
         explicit_tag = tag is not None
         if tag is None:
             latest = os.path.join(load_dir, LATEST_NAME)
@@ -418,7 +561,7 @@ class DeepSpeedEngine:
             with open(latest) as f:
                 tag = f.read().strip()
         tag = str(tag)
-        cfg = self.config
+        cfg = self.config.resilience_config
         candidates = [tag]
         if cfg.fallback_on_corruption:
             tags = list_checkpoint_tags(load_dir)
@@ -465,12 +608,17 @@ class DeepSpeedEngine:
         self.loaded_checkpoint_tag = loaded_tag
         return load_dir, meta.get("client_state", {})
 
-    def resume(self, load_dir: str, tag=None):
-        """Restore the newest intact checkpoint under ``load_dir``: sweep
-        the staging dirs of crashed saves, then load ``tag``, or the tag
+    def resume(self, load_dir: Optional[str] = None, tag=None):
+        """Restore the newest intact checkpoint under ``load_dir`` (default:
+        the armed preemption dir): commit a pending async save, sweep the
+        staging dirs of crashed saves, then load ``tag``, or the tag
         ``latest`` names, or the newest tag when the marker is missing (a
         crash between publish and marker). Returns ``(tag, client_state)``,
         ``(None, {})`` when there is no checkpoint."""
+        load_dir = load_dir or self._preempt_save_dir
+        if not load_dir:
+            raise ValueError("resume() needs a load_dir (or an armed resilience.preempt_save_dir)")
+        self.flush_checkpoints()  # the sweep below would remove its live staging dir
         sweep_stale_staging(load_dir)
         tags = list_checkpoint_tags(load_dir)
         if not tags:

@@ -14,7 +14,9 @@ of ``deepspeed_tpu/runtime/resilience/manifest.py``).
 
 The JAX version hashes the leaves of a pytree; here a state is a flat
 ``{name: tensor}`` dict, each leaf hashed as contiguous CPU bytes. The
-manifest keeps JAX's fields (``version``, ``files``, ``leaves``).
+manifest keeps JAX's fields (``version``, ``files``, ``leaves``). Leaves and
+files are hashed on a few threads (``hashlib`` releases the GIL on large
+buffers): a 4 GB tag's digests take seconds on one core.
 """
 
 import hashlib
@@ -23,7 +25,8 @@ import logging
 import os
 import re
 import shutil
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -34,6 +37,19 @@ MANIFEST_VERSION = 1
 _STAGING_PREFIX = ".tmp."
 # a tag displaced by an overwrite: `.tmp.<tag>.old.<pid>`
 _DISPLACED_RE = re.compile(re.escape(_STAGING_PREFIX) + r"(.+)\.old\.\d+$")
+
+
+#: threads that hash leaves and files
+HASH_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _map(fn: Callable, items: Iterable) -> List:
+    """``[fn(x) for x in items]``, on ``HASH_THREADS`` threads."""
+    items = list(items)
+    if len(items) < 2 or HASH_THREADS < 2:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(min(HASH_THREADS, len(items))) as pool:
+        return list(pool.map(fn, items))
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -70,21 +86,20 @@ def leaf_entry(t: torch.Tensor) -> dict:
 def state_leaf_entries(state: Dict[str, torch.Tensor]) -> dict:
     """``{name: {shape, dtype, sha256}}`` over a flat ``{name: tensor}``
     state."""
-    return {name: leaf_entry(t) for name, t in state.items()}
+    return dict(zip(state, _map(leaf_entry, state.values())))
+
+
+def _file_entry(path: str) -> dict:
+    return {"bytes": os.path.getsize(path), "sha256": _sha256_file(path)}
 
 
 def file_inventory(root: str) -> dict:
     """``{relpath: {bytes, sha256}}`` for every file under ``root`` (the
     manifest itself excluded: it cannot contain its own hash)."""
-    inv = {}
-    for dirpath, _, filenames in os.walk(root):
-        for name in filenames:
-            full = os.path.join(dirpath, name)
-            rel = os.path.relpath(full, root)
-            if rel == MANIFEST_NAME:
-                continue
-            inv[rel] = {"bytes": os.path.getsize(full), "sha256": _sha256_file(full)}
-    return inv
+    rels = [os.path.relpath(os.path.join(dirpath, name), root)
+            for dirpath, _, filenames in os.walk(root) for name in filenames]
+    rels = [rel for rel in rels if rel != MANIFEST_NAME]
+    return dict(zip(rels, _map(_file_entry, [os.path.join(root, rel) for rel in rels])))
 
 
 def build_manifest(ckpt_dir: str, leaf_entries: Optional[dict] = None) -> dict:
@@ -212,23 +227,23 @@ def verify_checkpoint_dir(ckpt_dir: str, manifest: Optional[dict] = None) -> dic
     if manifest is None:
         logger.warning(f"checkpoint {ckpt_dir} has no integrity manifest; loading unverified")
         return {}
-    problems = []
-    for rel, want in (manifest.get("files") or {}).items():
+
+    def check(item) -> Optional[str]:
+        rel, want = item
         full = os.path.join(ckpt_dir, rel)
         try:
             if not os.path.exists(full):
-                problems.append(f"missing file {rel}")
-                continue
+                return f"missing file {rel}"
             size = os.path.getsize(full)
             if size != want["bytes"]:
-                problems.append(f"{rel}: size {size} != manifest {want['bytes']} (truncated?)")
-                continue
-            digest = _sha256_file(full)
+                return f"{rel}: size {size} != manifest {want['bytes']} (truncated?)"
+            if _sha256_file(full) != want["sha256"]:
+                return f"{rel}: sha256 mismatch (bit corruption)"
         except OSError as e:
-            problems.append(f"{rel}: unreadable ({e})")
-            continue
-        if digest != want["sha256"]:
-            problems.append(f"{rel}: sha256 mismatch (bit corruption)")
+            return f"{rel}: unreadable ({e})"
+        return None
+
+    problems = [p for p in _map(check, (manifest.get("files") or {}).items()) if p]
     if problems:
         raise CheckpointCorruptError(f"checkpoint {ckpt_dir} failed integrity verification: "
                                      + "; ".join(problems))
@@ -256,11 +271,17 @@ def verify_state_leaves(state: Dict[str, torch.Tensor], manifest: dict, ckpt_dir
             + (f" (+{len(problems) - 8} more)" if len(problems) > 8 else ""))
 
 
-def list_checkpoint_tags(base_dir: str) -> list:
+def list_checkpoint_tags(base_dir: str, with_meta: bool = False) -> list:
     """Published tags under ``base_dir``, newest first: by the
     ``global_steps`` in each tag's ``metadata.json``, then by the dir's
     mtime. Staging dirs and dirs holding neither ``state/`` nor a manifest
-    are not tags."""
+    are not tags.
+
+    ``with_meta=True`` returns one dict per tag, ``{"tag", "global_steps",
+    "world_size", "mesh_axes"}``, from the stamp each save records in
+    ``metadata.json``, so that a supervisor decides how a restart resumes
+    without opening any state. The port's tags stamp ``world_size`` 1 and
+    no ``mesh_axes`` (None); a field the metadata lacks or garbles is None."""
     if not os.path.isdir(base_dir):
         return []
     tags = []
@@ -274,9 +295,25 @@ def list_checkpoint_tags(base_dir: str) -> list:
         try:
             with open(os.path.join(full, "metadata.json")) as f:
                 meta = json.load(f)
-            steps = int(meta.get("global_steps", -1)) if isinstance(meta, dict) else -1
-        except (OSError, ValueError, TypeError):
-            steps = -1  # a tag with unreadable metadata sorts behind every readable one
-        tags.append((steps, os.path.getmtime(full), name))
-    tags.sort(reverse=True)
-    return [name for _, _, name in tags]
+        except (OSError, ValueError):
+            meta = {}
+        if not isinstance(meta, dict):
+            meta = {}
+        try:
+            steps = int(meta.get("global_steps", -1))
+        except (ValueError, TypeError):
+            steps = -1  # a tag with unreadable steps sorts behind every readable one
+        entry = {"tag": name, "global_steps": steps if steps >= 0 else None,
+                 "world_size": None, "mesh_axes": None}
+        try:
+            if meta.get("world_size") is not None:
+                entry["world_size"] = int(meta["world_size"])
+            if isinstance(meta.get("mesh_axes"), dict):
+                entry["mesh_axes"] = {str(a): int(s) for a, s in meta["mesh_axes"].items()}
+        except (ValueError, TypeError):
+            entry["world_size"] = entry["mesh_axes"] = None
+        tags.append((steps, os.path.getmtime(full), name, entry))
+    tags.sort(reverse=True, key=lambda t: t[:3])
+    if with_meta:
+        return [entry for _, _, _, entry in tags]
+    return [name for _, _, name, _ in tags]

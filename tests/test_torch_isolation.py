@@ -43,7 +43,11 @@ def _port_sources():
                    "ops/sparse_attention/sparse_self_attention.py",
                    "ops/sparse_attention/sparsity_config.py", "runtime/dataloader.py",
                    "runtime/resilience/manifest.py", "runtime/checkpoint_engine/checkpoint_engine.py",
-                   "runtime/checkpoint_engine/torch_engine.py", "utils/tensor_fragment.py"):
+                   "runtime/checkpoint_engine/torch_engine.py", "utils/tensor_fragment.py",
+                   "runtime/resilience/faults.py", "runtime/resilience/retry.py",
+                   "runtime/resilience/signals.py", "runtime/fp16/loss_scaler.py",
+                   "runtime/elastic/agent.py", "elasticity/elasticity.py",
+                   "elasticity/elastic_agent.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
