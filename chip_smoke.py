@@ -116,10 +116,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               the module's forward, K6's backward wrapper and autograd's
               rest), a dense layout against K1 and K4 (causal and not),
               and K1 + K4 at shape (a).
-10. engine API and checkpoints — GPT-2 350m as in phase 5 at
-              ``train_batch_size`` 16, micro-batch 8, ``gas`` 2: (a) 4 steps
-              of ``train_batch`` twice from one seeded init (the card's own
-              bit-determinism) and the same 8 micro-batches through
+10. engine API and checkpoints — GPT-2 350m's width as in phase 5 at 8 of
+              its 24 layers (1.84 GB tags), ``train_batch_size`` 16,
+              micro-batch 8, ``gas`` 2: (a) 4 steps of ``train_batch``
+              twice from one seeded init (the card's own bit-determinism)
+              and the same 8 micro-batches through
               ``forward``/``backward``/``step`` (``step()`` between
               boundaries must leave ``global_steps``): losses and final
               parameters bit-equal, on the ``"flash"`` backend at dropout 0
@@ -204,11 +205,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               reference run's, or first diverge where the reference's top-2
               logit margin is within 1.5x phase 4 (c)'s measured rounding.
 
-15. resilience — GPT-2 350m as in phase 10 (train_batch_size 16, gas 2,
-              the ``"flash"`` backend) under the resilience config, a
-              heartbeat every step: an uninterrupted 6-step run with launch
-              counts zeroed just before and read just after (K1 96 and K4 48
-              a step: 2 micro-batches), saving ``sync`` after step 2; (a) a ``nebula.enabled``
+15. resilience — phase 10's model (350m's width at 8 layers,
+              train_batch_size 16, gas 2, the ``"flash"`` backend) under the
+              resilience config, a heartbeat every step: an uninterrupted
+              6-step run with launch counts zeroed just before and read just
+              after (K1 32 and K4 16 a step: 2 micro-batches), saving ``sync`` after step 2; (a) a ``nebula.enabled``
               engine saves ``async`` after step 2: the call returns before
               the tag is published (``latest`` still ``sync``), 3 steps run
               with the save pending, the flush publishes it, its leaf digests
@@ -230,7 +231,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
               ``overflow_injected_loss``) under ``max_consecutive_overflows``
               3 raise ``OverflowAbort`` at the third skipped step with the
               parameters unchanged. Its checkpoints live in a temp dir,
-              deleted at the end; at most three 4.26 GB tags at a time.
+              deleted at the end; at most three 1.84 GB tags at a time.
+
+16. MoE serving and Mixtral — K5 on the gate's own maps at the new shapes
+              (the GPT-2 350m MoE decode tick: 8 tokens into 8 experts of
+              capacity 4; Mixtral training: [1, 8192, 4096] -> [1, 10240,
+              4096]), exact forward and VJP, timed beside its plain version
+              and ``index_select``, with the bound; (a) GPT-2 350m with 8
+              experts in every other block (top-1, eval factor 2.0) through
+              ``init_inference(kernel_inject=True, use_flash_prefill=True)``
+              and ``ContinuousBatchingScheduler`` at the JAX defaults (int8
+              weights with the experts and gate bf16, int8 KV, the prefix
+              cache on) serving phase 4 (b)'s 16 requests: K2 72, K3 24 and
+              K5 24 launches asserted for every decode and prefill tick, the
+              rows dropped by capacity a tick, ten profiled decode ticks; the
+              first prefill and decode ticks at 2 layers, card against CPU
+              as phase 4 (c) holds them (the bf16 sides under the plain bf16
+              run's routing, injected at the gate; the fp32 sides must route
+              alike); at 2 layers in fp32, lockstep ``generate`` against the
+              scheduler, one request at a time, token for token; (b)
+              Mixtral-8x7B at 8 of its 32 layers, bf16: ``forward`` on [4,
+              2048] and ``generate`` of 1 and 64 greedy tokens after 4
+              prompts of 512, K1, K3 and K5 counts asserted, tokens/s, ms per
+              token step, TTFT, peak memory, the first prefill chunk's and
+              decode step's logits at 2 layers card against CPU (as (a));
+              (c) Mixtral training at 1 layer (at 2, Adam's temporaries
+              ran the card out of memory), seq 4096, micro-batch 1, bf16
+              over fp32 masters, remat, the fused [E, V] head, AdamW,
+              clipping 1.0: 2 + 10 steps, K1 2, K4 1 and K5 6 a step
+              asserted, step ms, tokens/s, model TFLOP/s over the active
+              parameters, peak memory, a profiled step; (d) one 2-layer
+              Mixtral forward and backward at seq 256, card against CPU, every
+              side under the plain bf16 step's top-2 routing: fp32 within
+              1e-4, bf16 within 1.5x the measured rounding.
 
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
@@ -238,7 +271,7 @@ only K2's and K3's value-form timings and phase 4, through the API that
 earlier commits share: copied into an earlier checkout, the script measures
 that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
-resilience`` phase 15 alone. Details go to
+resilience`` phase 15 alone, ``--phases moe`` phase 16 alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -249,6 +282,7 @@ import time
 MODULE_T0 = time.time()
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -867,8 +901,6 @@ def k5_cases(gen) -> dict:
     finds its input in the 50 MB L2 cache: K5 and ``index_select`` over the
     same rows device-side (``torch.profiler``), the event-timed figures
     beside them."""
-    import itertools
-
     from deepspeed_tpu_torch.moe.sharded_moe import _gate_capacity
     from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
 
@@ -909,34 +941,49 @@ def k5_cases(gen) -> dict:
 
     timed = {}
     for what, n_rows, fwd in (("dispatch", S, src), ("combine", E * C, flat)):
-        copies = [randn(1, n_rows, M, dtype=torch.bfloat16) for _ in range(3)]
-        nxt = itertools.cycle(copies).__next__
-        clamped = fwd[0].clamp(max=n_rows - 1).long()
-        kernel = lambda: md.moe_permute(nxt(), fwd)  # noqa: E731
-        library = lambda: torch.index_select(nxt()[0], 0, clamped)  # noqa: E731
-        ms = time_ms(kernel, iters=60)
-        dev_ms = device_ms(kernel, iters=30)
-        plain_ms = time_ms(lambda: md.moe_permute_plain(nxt(), fwd), iters=30)
-        lib_event_ms = time_ms(library, iters=60)
-        lib_ms = device_ms(library, iters=30)
-        live = int((fwd < n_rows).sum())
-        r = fwd.shape[1]
-        # live source rows read once, every output row written, the index read
-        bnd, by = bound_ms(live * M * 2 + r * M * 2 + r * 4, 0.0)
-        shape = (f"x [1,{n_rows},{M}] bf16 -> [1,{r},{M}], {live} live rows "
+        t = k5_times(lambda: randn(1, n_rows, M, dtype=torch.bfloat16), fwd, n_rows, M)
+        shape = (f"x [1,{n_rows},{M}] bf16 -> [1,{fwd.shape[1]},{M}], {t.pop('live')} live rows "
                  f"({what}, S={S} E={E} C={C})")
         timed[what] = dict(name="moe_permute", route="cuda",
                            source="deepspeed_tpu_torch/csrc/moe_permute.cu",
                            replaces="deepspeed_tpu/ops/pallas/moe_dispatch.py:76", shape=shape,
-                           max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                           library_event_ms=lib_event_ms)
-        log(f"time moe_permute {shape}: kernel_ms={ms:.4f} kernel_device_ms={dev_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (index_select of the clamped "
-            f"index, no zeroing; device-side; event-timed {lib_event_ms:.4f}) "
-            f"bound_ms={bnd:.4f} ({by})")
+                           max_abs_err=max(errs), **t)
+        log_k5_time(shape, t)
     RESULTS["timings"]["moe_permute"] = timed
     return timed["dispatch"]
+
+
+def k5_times(make, fwd: torch.Tensor, n_rows: int, m: int) -> dict:
+    """K5 by the map ``fwd`` [1, R] over bf16 rows [1, ``n_rows``, ``m``],
+    each launch reading one of three inputs from ``make()`` so that no
+    launch finds its input in the 50 MB L2 cache: K5 (event-timed and
+    device-side), its plain version, ``index_select`` of the clamped index
+    over the same rows (no zeroing; device-side, and event-timed), and the
+    bound: the live source rows read once, every output row written, the
+    index read."""
+    import itertools
+
+    from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
+
+    copies = [make() for _ in range(3)]
+    nxt = itertools.cycle(copies).__next__
+    clamped = fwd[0].clamp(max=n_rows - 1).long()
+    kernel = lambda: md.moe_permute(nxt(), fwd)  # noqa: E731
+    library = lambda: torch.index_select(nxt()[0], 0, clamped)  # noqa: E731
+    out = dict(ms=time_ms(kernel, iters=60), device_ms=device_ms(kernel, iters=30),
+               plain_ms=time_ms(lambda: md.moe_permute_plain(nxt(), fwd), iters=30),
+               library_event_ms=time_ms(library, iters=60), library_ms=device_ms(library, iters=30))
+    live, r = int((fwd < n_rows).sum()), fwd.shape[1]
+    out["bound_ms"], out["bound_by"] = bound_ms(live * m * 2 + r * m * 2 + r * 4, 0.0)
+    out["live"] = live
+    return out
+
+
+def log_k5_time(shape: str, t: dict) -> None:
+    log(f"time moe_permute {shape}: kernel_ms={t['ms']:.4f} kernel_device_ms={t['device_ms']:.4f} "
+        f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} (index_select of the clamped "
+        f"index, no zeroing; device-side; event-timed {t['library_event_ms']:.4f}) "
+        f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
 
 
 def sparse_configs(seed: int) -> dict:
@@ -1240,12 +1287,30 @@ def k6_cases(gen, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice at full width
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def skipped_init():
+    """Models built inside skip their random init, for a model whose every
+    parameter and buffer a ``load_state_dict(..., strict=True)`` fills next:
+    the init draws a normal for each weight on one CPU thread, about 6 s a
+    billion on the host, for values the state overwrites."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, LlamaForCausalLM
+    saved = {cls: cls.reset_parameters for cls in (GPT2LMHeadModel, LlamaForCausalLM)}
+    for cls in saved:
+        cls.reset_parameters = lambda self, generator=None: None
+    try:
+        yield
+    finally:
+        for cls, fn in saved.items():
+            cls.reset_parameters = fn
+
+
 def _copy_module(module, device, dtype):
     """The served model rebuilt on ``device`` with activations in ``dtype``:
     the same int8 codes and scales, float weights cast. On the CPU every
     kernel wrapper computes its plain version."""
     cfg = dataclasses.replace(module.config, dtype=dtype, param_dtype=dtype)
-    copy = type(module)(cfg, device=device)
+    with skipped_init():
+        copy = type(module)(cfg, device=device)
     copy.load_state_dict({k: v.to(device=device, dtype=dtype if v.is_floating_point()
                                   and not k.endswith("_scale") else v.dtype)
                           for k, v in module.state_dict().items()}, strict=True)
@@ -1300,7 +1365,8 @@ MOE_OPS = ("aten::bmm", "aten::sort", "aten::cumsum", "aten::scatter_", "aten::i
 SERVE_KERNEL_FAMILIES = (("K2 quant_matmul", ("qmm_gemv_kernel", "qmm_mma_kernel", "qmm_fma_kernel",
                                               "quant_matmul_kernel", "reduce_splits_kernel")),
                          ("K3 flash_decode", ("decode_rows_kernel", "decode_tile_kernel",
-                                              "flash_decode_kernel")))
+                                              "flash_decode_kernel")),
+                         ("K5 moe_permute", ("permute_kernel<",)))
 
 
 def tick_split(prof, events, n_ticks: int, pool_shape) -> dict:
@@ -1664,7 +1730,8 @@ def gradcheck(label: str, build, state: dict, ids: np.ndarray) -> dict:
     from deepspeed_tpu_torch import initialize
 
     def one_step(device: str, dtype) -> dict:
-        model = build(device, dtype)
+        with skipped_init():
+            model = build(device, dtype)
         model.load_state_dict(state, strict=True)
         engine, _, _, _ = initialize(model=model, config=train_config(ids.shape[0], 0.0, dtype == torch.bfloat16),
                                      device=device)
@@ -1815,7 +1882,8 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
     ids = np.random.default_rng(seed + 3).integers(0, 50304, (2, 512)).astype(np.int32)
 
     def one_step(device: str, dtype, routing=None):
-        model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
+        with skipped_init():
+            model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
         model.load_state_dict(state, strict=True)
         engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
                                      device=device)
@@ -2085,8 +2153,12 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
 # ---------------------------------------------------------------------------
 # phase 10: the engine's own API and its checkpoints
 # ---------------------------------------------------------------------------
-#: phase 10's model
-API_MODEL = dict(name="350m", vocab_size=50304, n_positions=1024, fused_head_loss_chunk=1024)
+#: phase 10's model (and phase 15's): GPT-2 350m's width at 8 of its 24
+#: layers, so that the whole script stays inside its time limit on a slow
+#: host (the checkpoint phases are bound by the host: its hashing, writes
+#: and reads of each tag, and each child process's start)
+API_MODEL = dict(name="350m", n_layer=8, vocab_size=50304, n_positions=1024,
+                 fused_head_loss_chunk=1024)
 API_GAS = 2
 
 
@@ -2098,7 +2170,8 @@ def api_config() -> dict:
 
 
 def _api_engine(seed: int, config=None, loss_fn=None, **model_kw):
-    """Phase 10's GPT-2 350m engine (``config``: default :func:`api_config`)."""
+    """Phase 10's GPT-2 engine (350m's width at ``API_MODEL``'s depth;
+    ``config``: default :func:`api_config`)."""
     from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
     kw = dict(API_MODEL, remat=True, dtype=torch.bfloat16)
     kw.update(model_kw)
@@ -2887,7 +2960,8 @@ def llama_serving_phase(seed: int, card: str):
     runs = {}
     for name, device, dtype in (("served_bf16", "cuda", torch.bfloat16), ("plain_bf16", "cpu", torch.bfloat16),
                                 ("served_fp32", "cuda", torch.float32), ("plain_fp32", "cpu", torch.float32)):
-        m = LlamaForCausalLM(dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device=device)
+        with skipped_init():
+            m = LlamaForCausalLM(dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device=device)
         m.load_state_dict({k: v.to(dtype) for k, v in state.items()}, strict=True)
         with torch.inference_mode():
             cache = init_cache(m, 4)
@@ -3137,10 +3211,12 @@ def _count_syncs(sched) -> list:
 
 
 def _serve_run(what: str, engine, scfg, trace, card: str, drafter=None, telemetry=None,
-               guard=None, on_tick=None, count_syncs=False):
+               guard=None, on_tick=None, count_syncs=False, prepare=None):
     """Serve ``trace`` through a fresh scheduler at ``scfg``, warmed up
-    first, launch counts zeroed just before ``serve`` and read just after.
-    Returns (the scheduler, its requests, the run's numbers)."""
+    first (then handed to ``prepare``, when given), launch counts zeroed
+    just before ``serve`` and read just after. ``what`` names the run in the
+    log, its phase first. Returns (the scheduler, its requests, the run's
+    numbers)."""
     from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler, Request
     from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
 
@@ -3157,6 +3233,8 @@ def _serve_run(what: str, engine, scfg, trace, card: str, drafter=None, telemetr
 
         sched.step = step
     rounds = _round_launches(sched) if sched.spec_k else []
+    if prepare is not None:
+        prepare(sched)
     publish, kv_rows = _timed_calls(sched, "_publish_prefix"), _timed_calls(sched, "_kv_rows")
     restore = _timed_calls(sched, "_restore_prefix")
     syncs = _count_syncs(sched) if count_syncs else None
@@ -3200,7 +3278,7 @@ def _serve_run(what: str, engine, scfg, trace, card: str, drafter=None, telemetr
     for key in ("spec_k", "drafted", "accepted", "acceptance_rate"):
         if key in st:
             out[key] = st[key]
-    log(f"phase 14 {what}: rc {rc}, {out['generated_tokens']} tokens in {wall:.3f} s, "
+    log(f"phase {what}: rc {rc}, {out['generated_tokens']} tokens in {wall:.3f} s, "
         f"{out['tokens_per_s']:.1f} tokens/s, ticks {st['ticks']}, ms/tick "
         f"{ {k: round(v, 2) for k, v in out['ms_per_tick'].items()} }, TTFT p50/p99 "
         f"{out['ttft_p50_ms']:.1f}/{out['ttft_p99_ms']:.1f} ms, "
@@ -3288,7 +3366,7 @@ def fp32_spec_check(engine, trace, card: str):
     for on in (False, True):
         scfg = ServingConfig(slots=8, weight_dtype="int8", kv_quant=False,
                              prefix_cache=None if on else "off", speculation={"enabled": on, "k": SPEC_K})
-        sched, reqs, runs[on] = _serve_run(f"(b) fp32, speculation {'on, the 24-layer drafter' if on else 'off'}",
+        sched, reqs, runs[on] = _serve_run(f"14 (b) fp32, speculation {'on, the 24-layer drafter' if on else 'off'}",
                                            engine32, scfg, trace, card, drafter=drafter if on else None)
         if not all(r.state == FINISHED and len(r.output) == n for r, (_, n) in zip(reqs, trace)):
             raise AssertionError("(b) fp32: not every request finished in full")
@@ -3355,7 +3433,7 @@ def defaults_phase(seed: int, card: str, rounding: float):
     runs = {}
     for mode in ("off", "on"):
         scfg = ServingConfig(slots=slots, weight_dtype="int8", kv_pool_bytes=budget, prefix_cache=mode)
-        sched, reqs, runs[mode] = _serve_run(f"(a) prefix cache {mode}", engine, scfg, trace, card)
+        sched, reqs, runs[mode] = _serve_run(f"14 (a) prefix cache {mode}", engine, scfg, trace, card)
         if sched._kv_bytes_per_token() != per_token:
             raise AssertionError(f"KV bytes per token {sched._kv_bytes_per_token()} != {per_token}")
         pool = runs[mode]["pool"]
@@ -3400,7 +3478,7 @@ def defaults_phase(seed: int, card: str, rounding: float):
                              speculation={"enabled": on in drafters, "k": SPEC_K})
         n_d, drafter = drafters.get(on, (0, None))
         sched, reqs, spec[on] = _serve_run(
-            f"(b) speculation {f'on, the {n_d}-layer drafter' if n_d else 'off'}"
+            f"14 (b) speculation {f'on, the {n_d}-layer drafter' if n_d else 'off'}"
             + (", prefix cache off" if on == "cache off" else ""), engine, scfg,
             trace, card, drafter=drafter, count_syncs=on == "full depth")
         if not all(r.state == FINISHED and len(r.output) == 32 for r in reqs):
@@ -3468,7 +3546,7 @@ def defaults_phase(seed: int, card: str, rounding: float):
     os.environ[HEARTBEAT_ENV] = beat
     try:
         scfg = ServingConfig(slots=slots, weight_dtype="int8")
-        sched, reqs, drain = _serve_run("(c) drain on SIGTERM after 6 ticks", engine, scfg, trace, card,
+        sched, reqs, drain = _serve_run("14 (c) drain on SIGTERM after 6 ticks", engine, scfg, trace, card,
                                         telemetry=telem, guard=guard, on_tick=on_tick)
     finally:
         guard.uninstall()
@@ -3941,6 +4019,609 @@ def resilience_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: MoE serving and Mixtral
+# ---------------------------------------------------------------------------
+#: phase 16 (a)'s model: phase 7's MoE layout on phase 4's serving model
+MOE_SERVE_MODEL = dict(moe_num_experts=8, moe_layer_freq=2, moe_k=1)
+#: Mixtral-8x7B's depth in phase 16 (b) (serving) and (c) (training). At 2
+#: layers (3.16 B parameters, 50.6 GB of fp32 masters, gradients and Adam
+#: moments) the step ran out of the card's 79 GiB in ``FusedAdam.step``,
+#: whose ``torch._foreach_*`` temporaries take about three times the fp32
+#: parameter bytes; 1 layer (1.71 B parameters) fits
+MIXTRAL_SERVE_LAYERS = 8
+MIXTRAL_TRAIN_LAYERS = 1
+
+
+def _gate_maps(gen, tokens: int, experts: int, k: int, capacity_factor: float):
+    """The sorted route's maps from the gate's own decisions on random
+    logits (eval gating: no noise): ``flat_slot`` [1, tokens * k] with
+    dropped copies on the E*C sentinel, its inverse ``src`` [1, E*C], and
+    the capacity C."""
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.ops.cuda.moe_dispatch import inverse_index
+    logits = torch.randn(tokens, experts, generator=gen, device="cuda")
+    capacity = sm._gate_capacity(tokens, experts, capacity_factor, 4, True, k)
+    if k == 1:
+        _, routing, _ = sm.top1routing(logits, capacity_factor, 4, use_rts=False)
+    else:
+        _, routing, _ = sm.top2routing(logits, capacity_factor, 4)
+    flat = torch.where(routing.keep > 0, routing.expert * capacity + routing.slot,
+                       experts * capacity).to(torch.int32).reshape(1, tokens * k)
+    return flat, inverse_index(flat, experts * capacity), capacity
+
+
+def k5_routed_times(gen) -> dict:
+    """K5 where phase 16 runs it, on the gate's own maps: the GPT-2 350m MoE
+    decode tick's dispatch and combine (8 tokens, 8 experts, top-1, eval
+    factor 2.0: C = 4, M = 1024) and Mixtral training's (4096 tokens, top-2,
+    factor 1.25: [1, 8192, 4096] -> [1, 10240, 4096] and back), bf16: each
+    against its plain version (exact, forward and VJP), then K5, the plain
+    gather and ``index_select`` timed as phase 3 times them (three rotating
+    input copies; K5 and ``index_select`` device-side), and the bound."""
+    from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
+
+    out = {}
+    for label, tokens, experts, k, cf, m in (("gpt2_350m_moe_decode_tick", 8, 8, 1, 2.0, 1024),
+                                             ("mixtral_train_step", 4096, 8, 2, 1.25, 4096)):
+        flat, src, cap = _gate_maps(gen, tokens, experts, k, cf)
+        for what, n_rows, fwd, bwd in (("dispatch", tokens * k, src, flat),
+                                       ("combine", experts * cap, flat, src)):
+            x = torch.randn(1, n_rows, m, generator=gen, device="cuda").to(torch.bfloat16)
+            cot = torch.randn(1, fwd.shape[1], m, generator=gen, device="cuda").to(torch.bfloat16)
+            xk = x.detach().requires_grad_()
+            got = md.permute_rows(xk, fwd, bwd, impl="pallas")
+            (gk,) = torch.autograd.grad(got, xk, cot)
+            xp = x.detach().requires_grad_()
+            ref = md.permute_rows(xp, fwd, bwd, impl="xla")
+            (gp,) = torch.autograd.grad(ref, xp, cot)
+            name = f"moe_permute {label} {what} [1,{n_rows},{m}]->[1,{fwd.shape[1]},{m}] bf16"
+            err = max(compare_exact(name, got.detach(), ref.detach()),
+                      compare_exact(f"{name} VJP", gk, gp))
+            del x, cot, xk, xp
+            t = k5_times(lambda: torch.randn(1, n_rows, m, generator=gen, device="cuda").to(torch.bfloat16),
+                         fwd, n_rows, m)
+            shape = (f"x [1,{n_rows},{m}] bf16 -> [1,{fwd.shape[1]},{m}], {t.pop('live')} live rows "
+                     f"({what}, {tokens} tokens, E={experts} k={k} C={cap})")
+            out[f"{label} {what}"] = dict(shape=shape, max_abs_err=err, **t)
+            log_k5_time(f"{label} {shape}", t)
+    RESULTS["timings"]["moe_permute_phase16"] = out
+    return out
+
+
+def _moe_layers(module) -> list:
+    from deepspeed_tpu_torch.moe import MOELayer
+    return [m for m in module.modules() if isinstance(m, MOELayer)]
+
+
+def _moe_tick_probe(sched):
+    """Wrap the scheduler's prefill and decode steps: each call's launch
+    counts (read around it, as :func:`_read_launches`), and its MoE layers'
+    keep flags [layers, rows] beside the rows of occupied slots (a slot
+    whose write position is not the parked sentinel; in a prefill tick its
+    chunk's real rows), so the tokens dropped by capacity are counted per
+    tick after the run without a host sync inside it. Returns the record
+    and a function that takes the wrappers off again."""
+    from deepspeed_tpu_torch.ops.cuda import LAUNCHES, launches, reset_launches
+    layers = _moe_layers(sched.module)
+    probe = {"prefill": [], "decode": []}
+
+    def wrap(kind, fn):
+        def run(cache, ids, *rest):
+            pos = next(v for k, v in cache.items() if k.endswith("position_index")).clone()
+            before = launches()
+            reset_launches()
+            try:
+                return fn(cache, ids, *rest)
+            finally:
+                got = launches()
+                for name, n in before.items():
+                    LAUNCHES[name] = n + got[name]
+                last = rest[0] if kind == "prefill" else None
+                keep = torch.stack([layer.last_routing.keep.reshape(-1) for layer in layers])
+                probe[kind].append(dict(launches=got, pos=pos, last=last, keep=keep,
+                                        width=ids.shape[1] if ids.dim() > 1 else 1))
+
+        return run
+
+    fns = sched.fns
+    sched.fns = dict(fns, prefill=wrap("prefill", fns["prefill"]), decode=wrap("decode", fns["decode"]))
+
+    def restore():
+        sched.fns = fns
+
+    return probe, restore
+
+
+def _moe_tick_summary(probe: dict, capacity: int, want: dict) -> dict:
+    """Per tick kind: the distinct launch counts of its calls (each must be
+    ``want``), and the rows dropped by capacity: all rows, and the rows of
+    occupied slots (mean and max a tick over the MoE layers summed)."""
+    out = {}
+    for kind, calls in probe.items():
+        if not calls:
+            continue
+        seen = {name: sorted({c["launches"][name] for c in calls}) for name in want}
+        if any(v != [want[name]] for name, v in seen.items()):
+            raise AssertionError(f"phase 16 (a) {kind} tick launches {seen}, expected {want} a tick")
+        dropped, dropped_live = [], []
+        for c in calls:
+            keep = c["keep"].cpu()  # [layers, slots * width]
+            rows = keep.reshape(keep.shape[0], -1, c["width"])
+            live = (c["pos"] < capacity)[:, None].expand(-1, c["width"]).clone()
+            if c["last"] is not None:
+                live &= torch.arange(c["width"])[None, :] <= c["last"].cpu()[:, None]
+            dropped.append(int((rows == 0).sum()))
+            dropped_live.append(int(((rows == 0) & live[None]).sum()))
+        out[kind] = dict(ticks=len(calls), launches_per_tick={n: v[0] for n, v in seen.items()},
+                         dropped_rows_per_tick_mean=float(np.mean(dropped)),
+                         dropped_rows_per_tick_max=max(dropped),
+                         dropped_occupied_rows_per_tick_mean=float(np.mean(dropped_live)),
+                         dropped_occupied_rows_per_tick_max=max(dropped_live),
+                         dropped_occupied_rows_total=sum(dropped_live))
+    return out
+
+
+def _used_routing(module) -> dict:
+    """The routing each MoE layer of ``module`` last ran under (injected or
+    its own), keyed by its gate's name as ``injected_routing`` keys it."""
+    from deepspeed_tpu_torch.moe import MOELayer
+    return {f"{name}.gate": type(m.last_routing)(*(t[0].cpu() for t in m.last_routing))
+            for name, m in module.named_modules() if isinstance(m, MOELayer)}
+
+
+def _same_routing(a: dict, b: dict) -> int:
+    """Token copies whose expert, slot or keep differ between two routings
+    of the same gates."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"routing of other gates: {sorted(a)} vs {sorted(b)}")
+    return sum(int(((a[n].expert != b[n].expert) | (a[n].slot != b[n].slot)
+                    | (a[n].keep != b[n].keep)).sum()) for n in a)
+
+
+def _held_logits(label: str, runs: dict, out: dict) -> None:
+    """Phase 4 (c)'s rule on ``runs`` {name: {tick: logits}}: fp32 card
+    against plain within 1e-4; bf16 card against plain bf16 within 1.5x the
+    rounding of plain bf16 against plain fp32, that yardstick run under the
+    plain bf16 run's routing (``plain_fp32_bf16_routing``)."""
+    for tick in ("prefill", "decode"):
+        compare(f"{label} {tick} logits fp32 (card vs plain)", runs["served_fp32"][tick],
+                runs["plain_fp32"][tick], torch.float32)
+        rounding = rel_err(runs["plain_bf16"][tick], runs["plain_fp32_bf16_routing"][tick])[1]
+        out[f"{tick}_bf16_rounding_rel"] = rounding
+        compare(f"{label} {tick} logits bf16 (card vs plain, plain bf16 routing, 1.5x rounding)",
+                runs["served_bf16"][tick], runs["plain_bf16"][tick], torch.bfloat16,
+                tol=1.5 * rounding)
+
+
+def _routed_runs(label: str, order, run_one) -> dict:
+    """The sides of a card-against-CPU check of an MoE model, each
+    ``run_one(name, device, dtype, routing) -> ({tick: logits}, {tick:
+    {gate: the routing it ran under}})``: plain bf16 first, the card's bf16
+    under its routing, both fp32 sides free (their routings must agree),
+    and plain fp32 once more under the bf16 routing (the yardstick)."""
+    runs, used = {}, {}
+    for name, device, dtype in order:
+        inject = used.get("plain_bf16") if name in ("served_bf16", "plain_fp32_bf16_routing") else None
+        runs[name], used[name] = run_one(name, device, dtype, inject)
+    flips = sum(_same_routing(used["served_fp32"][t], used["plain_fp32"][t]) for t in used["plain_fp32"])
+    if flips:
+        raise AssertionError(f"{label} fp32: the card and the plain run route {flips} token copies apart")
+    RESULTS["checks"].append({"name": f"{label} fp32 routing identical", "ok": True})
+    for name in ("served_bf16", "plain_fp32_bf16_routing"):
+        for t in used[name]:
+            if _same_routing(used[name][t], used["plain_bf16"][t]):
+                raise AssertionError(f"{label}: {name} did not follow the injected routing ({t})")
+    return runs
+
+
+SIDES = (("plain_bf16", "cpu", torch.bfloat16), ("served_bf16", "cuda", torch.bfloat16),
+         ("served_fp32", "cuda", torch.float32), ("plain_fp32", "cpu", torch.float32),
+         ("plain_fp32_bf16_routing", "cpu", torch.float32))
+
+
+def moe_scheduler_phase(seed: int, card: str):
+    """Phase 16 (a): GPT-2 350m with 8 experts in every other block (top-1,
+    eval factor 2.0), bf16, through ``init_inference(kernel_inject=True,
+    use_flash_prefill=True)`` and ``ContinuousBatchingScheduler`` at the JAX
+    defaults with int8 weights (experts and gate bf16), int8 KV and the
+    prefix cache on, serving phase 4 (b)'s 16 requests; launches per tick
+    asserted, tokens dropped by capacity a tick, ten profiled decode ticks;
+    the first prefill and decode ticks at 2 layers, card against CPU; and
+    at 2 layers in fp32, lockstep ``generate`` against the scheduler."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.inference.serving import (FINISHED, ContinuousBatchingScheduler, Request,
+                                                       ServingConfig)
+    from deepspeed_tpu_torch.inference.serving.programs import (make_apply_fn, make_slot_cache,
+                                                                stamp_lengths)
+    from deepspeed_tpu_torch.testing import injected_routing
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, param_dtype=torch.bfloat16, **MOE_SERVE_MODEL)
+    engine = init_inference(GPT2LMHeadModel(cfg, device="cuda", generator=gen), dtype="bf16",
+                            kernel_inject=True, use_flash_prefill=True)
+    moe_layers = [i for i in range(cfg.n_layer) if cfg.is_moe_layer(i)]
+    dense = cfg.n_layer - len(moe_layers)
+    want = {"quant_matmul": 2 * cfg.n_layer + 2 * dense, "flash_decode": cfg.n_layer,
+            "moe_permute": 2 * len(moe_layers)}
+    if want != {"quant_matmul": 72, "flash_decode": 24, "moe_permute": 24}:
+        raise AssertionError(f"phase 16 (a): the 350m MoE model's launches a tick reckon to {want}")
+    scfg = ServingConfig(slots=8, weight_dtype="int8")
+    rng = np.random.default_rng(seed)
+    prompts = serving_trace(rng, cfg.vocab_size)
+    trace = [(p, 32) for p in prompts]
+    holder = {}
+
+    def install(sched):
+        holder["probe"], holder["restore"] = _moe_tick_probe(sched)
+
+    t_part = time.perf_counter()
+    seconds = {}
+    sched, reqs, run = _serve_run("16 (a) MoE GPT-2 350m", engine, scfg, trace, card, prepare=install)
+    holder["restore"]()
+    if not all(r.state == FINISHED and len(r.output) == 32 for r in reqs):
+        raise AssertionError("phase 16 (a): not every request finished with 32 tokens")
+    missing = [k for k in ("quant_matmul", "flash_decode", "moe_permute") if run["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 16 (a): kernels never launched: {missing} ({run['launches']})")
+    ticks = _moe_tick_summary(holder["probe"], sched.capacity, want)
+    out.update(run=run, ticks=ticks, capacity_decode=sched.module.blocks[1].moe.deepspeed_moe.gate.capacity(8))
+    log(f"phase 16 (a) launches a tick {ticks['decode']['launches_per_tick']} (decode), "
+        f"{ticks['prefill']['launches_per_tick']} (prefill); rows dropped by capacity a tick: decode "
+        f"mean {ticks['decode']['dropped_rows_per_tick_mean']:.2f} max {ticks['decode']['dropped_rows_per_tick_max']}"
+        f" (occupied slots' rows: mean {ticks['decode']['dropped_occupied_rows_per_tick_mean']:.2f}, total "
+        f"{ticks['decode']['dropped_occupied_rows_total']}), prefill mean "
+        f"{ticks['prefill']['dropped_rows_per_tick_mean']:.2f} (occupied "
+        f"{ticks['prefill']['dropped_occupied_rows_total']} in all)  [{card}]")
+    pool_shape = (sched.slots, sched.capacity, cfg.n_head, cfg.head_dim)
+    out["profile"] = _profile_decode_ticks(sched, prompts[:8], card, pool_shape)
+    del sched, engine
+    torch.cuda.empty_cache()
+    seconds["build, serve, profile"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- the first prefill and decode ticks at 2 layers, card against CPU ----
+    small = get_gpt2_config("350m", n_layer=2, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                            **MOE_SERVE_MODEL)
+    base = init_inference(GPT2LMHeadModel(small, device="cuda",
+                                          generator=torch.Generator(device="cuda").manual_seed(seed + 6)),
+                          dtype="bf16", kernel_inject=True, use_flash_prefill=True)
+    served = ContinuousBatchingScheduler(base, ServingConfig(slots=8, weight_dtype="int8")).module
+    ids = torch.as_tensor(np.stack([p[:16] for p in prompts[:8]]).astype(np.int64))
+    nxt = {}
+
+    def run_one(name, device, dtype, inject):
+        module = served if name == "served_bf16" else _copy_module(served, torch.device(device), dtype)
+        apply_fn = make_apply_fn(module)
+        cache = make_slot_cache(module, 8, kv_quant=dtype == torch.bfloat16)
+        zeros = np.zeros(8, np.int64)
+        logits, used = {}, {}
+        for tick, feed, at in (("prefill", lambda: ids, zeros), ("decode", lambda: nxt["tok"][:, None], zeros + 16)):
+            with injected_routing(None if inject is None else inject[tick], model=module):
+                logits[tick] = apply_fn(stamp_lengths(cache, at), feed().to(device))[:, -1].float().cpu()
+            used[tick] = _used_routing(module)
+            if name == "plain_bf16" and tick == "prefill":
+                nxt["tok"] = logits[tick].argmax(-1)
+        del module, cache
+        return logits, used
+
+    runs = _routed_runs("phase 16 (a) 2-layer ticks", SIDES, run_one)
+    _held_logits("phase 16 (a) 2-layer", runs, out)
+    del served, base
+    torch.cuda.empty_cache()
+    seconds["2-layer ticks card vs CPU"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- lockstep generate against the scheduler, fp32, 2 layers ----
+    fp32 = init_inference(GPT2LMHeadModel(dataclasses.replace(small, dtype=torch.float32,
+                                                              param_dtype=torch.float32), device="cuda",
+                                          generator=torch.Generator(device="cuda").manual_seed(seed + 7)),
+                          dtype="fp32", kernel_inject=True, use_flash_prefill=True)
+    short = [p[:12] for p in prompts[:4]]  # under one chunk: no prefill call of either path drops a token
+    lockstep = [fp32.generate(p[None], max_new_tokens=8)[0, 12:].tolist() for p in short]
+    sched = ContinuousBatchingScheduler(fp32, ServingConfig(slots=8, weight_dtype="fp", kv_quant=False))
+    served_tokens = []
+    for p in short:
+        r = sched.submit(Request(p, max_new_tokens=8))
+        sched.run_until_drained()
+        served_tokens.append(list(r.output))
+    same = served_tokens == lockstep
+    RESULTS["checks"].append({"name": "phase 16 (a) fp32 lockstep generate vs scheduler tokens",
+                              "ok": same})
+    log(f"check phase 16 (a) fp32 2-layer lockstep generate vs the scheduler (one request at a time, "
+        f"fp KV): {'token-identical' if same else 'FAIL'} ({lockstep} vs {served_tokens})  [{card}]")
+    if not same:
+        raise AssertionError(f"phase 16 (a): lockstep {lockstep} vs scheduler {served_tokens}")
+    out["lockstep_vs_scheduler_fp32"] = dict(lockstep=lockstep, scheduler=served_tokens)
+    del sched, fp32
+    torch.cuda.empty_cache()
+    seconds["lockstep vs scheduler"] = time.perf_counter() - t_part
+    out["seconds"] = seconds
+    log("phase 16 (a) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, run["launches"]
+
+
+def mixtral_config(layers: int, **over):
+    from deepspeed_tpu_torch import get_llama_config
+    return get_llama_config("mixtral-8x7b", num_hidden_layers=layers, **over)
+
+
+def mixtral_serving_phase(seed: int, card: str):
+    """Phase 16 (b): Mixtral-8x7B at 8 of its 32 layers, bf16, random seeded
+    weights, through ``init_inference(kernel_inject=True,
+    use_flash_prefill=True)``: ``forward`` on [4, 2048], then ``generate`` of
+    1 and of 64 greedy tokens after 4 prompts of 512, launch counts zeroed
+    just before and read just after (K1 8 on the forward; K3 and K5 on
+    every cached call); then the first prefill chunk's and decode step's
+    logits at 2 layers, card against CPU."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, init_inference
+    from deepspeed_tpu_torch.models.common import init_cache
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    from deepspeed_tpu_torch.testing import injected_routing
+
+    out, seconds = {}, {}
+    t_part = time.perf_counter()
+    cfg = mixtral_config(MIXTRAL_SERVE_LAYERS, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 8))
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    engine = init_inference(model, dtype="bf16", kernel_inject=True, use_flash_prefill=True)
+    del model
+    torch.cuda.empty_cache()
+    out["build_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rng = np.random.default_rng(seed + 8)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, 2048)), device="cuda")
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, 512))
+    engine.generate(prompts[:, :32], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(tokens)
+    torch.cuda.synchronize()
+    out["forward_s"] = time.perf_counter() - t0
+    if logits.shape != (4, 2048, cfg.vocab_size) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"Mixtral forward: bad logits {tuple(logits.shape)}")
+    del logits
+    forward_counts = launches()
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, max_new_tokens=1)
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generated = engine.generate(prompts, max_new_tokens=64)
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    if tuple(generated.shape) != (4, 512 + 64) or not (generated[:, :512].numpy() == prompts).all():
+        raise AssertionError(f"Mixtral generate: bad output {tuple(generated.shape)}")
+    if not torch.equal(generated[:, :513], first):
+        raise AssertionError("Mixtral generate: the first token differs between the 1- and 64-token runs")
+    layers = cfg.num_hidden_layers
+    cached_calls = 512 // 16 + (512 // 16 + 63)  # prefill chunks of both generates, 63 token steps
+    want = {"flash_fwd": layers, "flash_decode": cached_calls * layers,
+            "moe_permute": 2 * layers * (1 + cached_calls)}
+    if forward_counts["flash_fwd"] != layers or forward_counts["moe_permute"] != 2 * layers or \
+            any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"Mixtral serving: launches {counts} (forward {forward_counts}), expected {want}")
+    out.update(launches=counts, forward_launches=forward_counts, generate_s=gen_s, ttft_s=ttft,
+               ms_per_token=(gen_s - ttft) / 63 * 1e3, tokens_per_s=4 * 64 / gen_s,
+               forward_tokens_per_s=4 * 2048 / out["forward_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"mixtral serve: {layers} of 32 layers ({out['n_params']} params) bf16 forward [4,2048] "
+        f"{out['forward_s']:.3f} s ({out['forward_tokens_per_s']:.1f} tokens/s); generate 4x64 after "
+        f"512-token prompts {gen_s:.3f} s: {out['tokens_per_s']:.1f} tokens/s, {out['ms_per_token']:.2f} "
+        f"ms per token step, TTFT {ttft * 1e3:.1f} ms; peak memory {out['peak_memory_gb']:.2f} GB "
+        f"(build {out['build_peak_memory_gb']:.2f})  [{card}]")
+    log(f"mixtral serve launches on the main path: {counts}")
+    out["profile"] = _profile_generate(engine, prompts[:, :16], card)
+    del engine
+    torch.cuda.empty_cache()
+    seconds["build, forward, generate, profile"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the first prefill chunk and decode step at 2 layers of full width
+    small = mixtral_config(2, dtype=torch.bfloat16, param_dtype=torch.bfloat16, attention_backend="flash")
+    base = LlamaForCausalLM(small, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 9))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    torch.cuda.empty_cache()
+    ids = torch.as_tensor(prompts[:, :16])
+    nxt, models = {}, {}
+
+    def run_one(name, device, dtype, inject):
+        m = models.get((device, dtype))
+        if m is None:  # the plain fp32 model serves twice, each with a fresh cache
+            with skipped_init():
+                m = models[(device, dtype)] = LlamaForCausalLM(
+                    dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device=device)
+            m.load_state_dict({k: v if k.endswith(".wg") else v.to(dtype) for k, v in state.items()},
+                              strict=True)
+        logits, used = {}, {}
+        with torch.inference_mode():
+            cache = init_cache(m, 4)
+            for tick in ("prefill", "decode"):
+                feed = ids if tick == "prefill" else nxt["tok"][:, None]
+                with injected_routing(None if inject is None else inject[tick], model=m):
+                    logits[tick] = m(feed.to(device), cache)[0][:, -1].float().cpu()
+                used[tick] = _used_routing(m)
+                if name == "plain_bf16" and tick == "prefill":
+                    nxt["tok"] = logits[tick].argmax(-1)
+        del cache
+        return logits, used
+
+    runs = _routed_runs("phase 16 (b) Mixtral 2-layer", SIDES, run_one)
+    models.clear()
+    _held_logits("phase 16 (b) Mixtral 2-layer", runs, out)
+    seconds["2-layer card vs CPU"] = time.perf_counter() - t_part
+    out["seconds"] = seconds
+    log("phase 16 (b) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, counts
+
+
+def llama_active_params(n_params: int, cfg) -> int:
+    """Parameters that compute per token: each MoE layer's E - k unused
+    SwiGLU experts (3 H I parameters each) left out."""
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_hidden_layers))
+    return n_params - moe_layers * (cfg.moe_num_experts - cfg.moe_k) * 3 * cfg.hidden_size * cfg.intermediate_size
+
+
+def mixtral_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
+    """Phase 16 (c): Mixtral-8x7B's width at ``MIXTRAL_TRAIN_LAYERS``
+    layers through ``initialize`` and ``train_batch``: seq 4096,
+    micro-batch 1, bf16 over fp32 masters, remat, the fused head on the [E,
+    V] kernel (chunk 1024), the flash backend, AdamW lr 1e-4 wd 0.01,
+    clipping 1.0, one seeded batch: 2 + 10 steps, K1 2, K4 1 and K5 6
+    launches a step and layer asserted (dispatch and combine x forward,
+    recompute and backward)."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, initialize
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    micro, seq = 1, 4096
+    cfg = mixtral_config(MIXTRAL_TRAIN_LAYERS, remat=True, attention_backend="flash", dtype=torch.bfloat16,
+                         fused_head_loss_chunk=1024)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 10))
+    engine, _, _, _ = initialize(model=model, config=train_config(micro, 1.0, True))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = llama_active_params(n_params, cfg)
+    rng = np.random.default_rng(seed + 10)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro, seq)).astype(np.int32)}
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral training: losses not finite and falling: {losses}")
+    per_step = {k: c / (warmup + steps) for k, c in counts.items()}
+    layers = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * layers, "flash_bwd": layers, "moe_permute": 6 * layers}
+    if any(per_step[k] != v for k, v in want.items()):
+        raise AssertionError(f"Mixtral training: expected per step {want}, got {per_step}")
+    step_ms = dt / steps * 1e3
+    tokens_s = micro * seq * steps / dt
+    fpt = flops_per_token(n_active, layers, cfg.hidden_size, seq)
+    kept = [int(m.kept_counts.sum()) for m in _moe_layers(model)]
+    out = dict(layers=layers, n_params=n_params, n_active_params=n_active, losses=losses, launches=counts,
+               launches_per_step=per_step, kept_copies_last_step=kept, step_ms=step_ms,
+               tokens_per_s=tokens_s, model_tflops=fpt * tokens_s / 1e12, flops_per_token=fpt,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               grad_norm=engine.get_global_grad_norm())
+    log(f"mixtral train: {layers} layers of Mixtral-8x7B ({n_params} params, {n_active} active), seq {seq}, "
+        f"micro-batch {micro}, bf16, remat, fused [E, V] head, flash, top-2 of 8; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {warmup}+{steps} steps; token copies kept per MoE layer {kept} of "
+        f"{2 * micro * seq}  [{card}]")
+    log(f"mixtral train: {step_ms:.2f} ms/step, {tokens_s:.1f} tokens/s, {out['model_tflops']:.2f} model "
+        f"TFLOP/s by active parameters ({fpt:.4g} FLOP/token), peak memory {out['peak_memory_gb']:.2f} GB  [{card}]")
+    log(f"mixtral train launches on the main path: {counts}; per step {per_step}  [{card}]")
+    out["profile"] = _profile_train_step(engine, batch, card, step_ms)
+    del engine, model
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
+    """Phase 16 (d): one training forward and backward of Mixtral-8x7B's
+    width at 2 layers (seq 256, batch 1, remat, flash, the fused head), on
+    the card and on the CPU (plain versions), every side under the plain
+    bf16 step's top-2 routing (its Gumbel second choices included),
+    injected at the gate: fp32 card against fp32 plain, the loss and every
+    gradient within 1e-4; bf16 card against bf16 plain within 1.5x the
+    rounding of plain bf16 against plain fp32. The CPU's gradients wait on
+    the card, so the host holds one model at a time."""
+    from deepspeed_tpu_torch import LlamaForCausalLM
+    from deepspeed_tpu_torch.testing import injected_routing
+
+    kw = dict(remat=True, attention_backend="flash", fused_head_loss_chunk=1024, max_position_embeddings=256)
+    base = LlamaForCausalLM(mixtral_config(2, **kw), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 11))
+    state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    torch.cuda.empty_cache()
+    vocab = mixtral_config(2).vocab_size
+    ids = torch.as_tensor(np.random.default_rng(seed + 11).integers(0, vocab, (1, 256)).astype(np.int64))
+
+    def one_step(device: str, dtype, routing=None):
+        with skipped_init():
+            model = LlamaForCausalLM(mixtral_config(2, dtype=dtype, **kw), device=device)
+        model.load_state_dict(state, strict=True)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        with injected_routing(routing, model=model):
+            loss = model(ids.to(device), labels=ids.to(device), deterministic=False, generator=gen)
+            loss.backward()
+        grads = {"loss": loss.detach().float().reshape(1).cuda()}
+        grads.update({n: p.grad.detach().float().cuda() for n, p in model.named_parameters()})
+        used = _used_routing(model)
+        del model
+        return grads, used
+
+    plain_bf16, fixed = one_step("cpu", torch.bfloat16)
+    plain_fp32, _ = one_step("cpu", torch.float32, fixed)
+    card_fp32, used = one_step("cuda", torch.float32, fixed)
+    if _same_routing(used, fixed):
+        raise AssertionError("Mixtral gradcheck fp32: the injected routing was not followed")
+    for name, ref in plain_fp32.items():
+        compare(f"mixtral gradcheck fp32 {name} (card vs plain, one routing)", card_fp32[name], ref,
+                torch.float32)
+    del card_fp32
+    card_bf16, _ = one_step("cuda", torch.bfloat16, fixed)
+    served = {n: rel_err(g, plain_bf16[n])[1] for n, g in card_bf16.items()}
+    rounding = max(rel_err(g, plain_fp32[n])[1] for n, g in plain_bf16.items())
+    worst = max(served, key=served.get)
+    out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
+           "bf16_rounding_max_rel": rounding, "bf16_share_of_limit": served[worst] / (1.5 * rounding),
+           "tokens": int(ids.numel()), "gates": sorted(fixed),
+           "loss": {"plain_bf16": float(plain_bf16["loss"]), "plain_fp32": float(plain_fp32["loss"]),
+                    "card_bf16": float(card_bf16["loss"])}}
+    log(f"mixtral gradcheck: fp32 card vs plain within 1e-4 under one routing; bf16 card vs plain max rel "
+        f"{served[worst]:.3e} ({worst}), {out['bf16_share_of_limit']:.3f} of the 1.5x-rounding limit (plain "
+        f"bf16 vs plain fp32 max rel {rounding:.3e}); losses {out['loss']}  [{card}]")
+    if not served[worst] <= 1.5 * rounding:
+        raise AssertionError(f"mixtral gradcheck bf16: {served[worst]:.3e} > 1.5 x rounding {rounding:.3e}")
+    RESULTS["checks"].append({"name": "mixtral gradcheck bf16 under one routing (1.5x rounding)",
+                              "rel_err": served[worst], "tol": 1.5 * rounding, "ok": True})
+    return out
+
+
+def moe_phase(seed: int, card: str, k5: dict = None):
+    """Phase 16: K5 at its new shapes (``k5``: timed already, beside phase
+    3, where the whole script runs them while the profiler is fresh), then
+    (a)-(d), each engine freed before the next. Returns (its numbers, the
+    launch counts of the main paths (a)-(c) summed)."""
+    out, total = {}, {}
+    t0 = time.perf_counter()
+    out["k5"] = k5 if k5 is not None else k5_routed_times(torch.Generator(device="cuda").manual_seed(seed + 12))
+    parts = {}
+    for key, fn in (("a_moe_scheduler", moe_scheduler_phase), ("b_mixtral_serving", mixtral_serving_phase),
+                    ("c_mixtral_training", mixtral_train_phase)):
+        t1 = time.perf_counter()
+        out[key], counts = fn(seed, card)
+        parts[key] = time.perf_counter() - t1
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["d_mixtral_gradcheck"] = mixtral_gradcheck_phase(seed, card)
+    parts["d_mixtral_gradcheck"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    out["seconds_by_part"] = dict(parts, all=time.perf_counter() - t0)
+    log("phase 16 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds_by_part"].items()))
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3950,7 +4631,8 @@ def main(argv=None) -> int:
                          "which use only the API earlier commits share, so that copied into an "
                          "earlier checkout this script measures that commit the same way, "
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
-                         "phase 4, whose measured rounding it reads) and 'resilience' (phase 15)")
+                         "phase 4, whose measured rounding it reads), 'resilience' (phase 15) and "
+                         "'moe' (phase 16)")
     ap.add_argument("--child", choices=("preempt", "resume", "agent", "torn"),
                     help="run as one of phase 15's training processes (the phase starts them)")
     ap.add_argument("--dir", help="--child: the checkpoint dir")
@@ -3960,10 +4642,10 @@ def main(argv=None) -> int:
     if args.child:
         return child_main(args)
     phases = set(args.phases.split(","))
-    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience"}
+    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults' and 'resilience', got {args.phases!r}")
+                 f"'defaults', 'resilience' and 'moe', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -4002,12 +4684,19 @@ def main(argv=None) -> int:
         if "resilience" in phases:
             t_phase = time.perf_counter()
             RESULTS["resilience"] = resilience_phase(args.seed, card)[0]
-            RESULTS["phase_s"] = {"15 resilience": time.perf_counter() - t_phase}
+            RESULTS.setdefault("phase_s", {})["15 resilience"] = time.perf_counter() - t_phase
+        if "moe" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["moe"] = moe_phase(args.seed, card)[0]
+            RESULTS.setdefault("phase_s", {})["16 MoE serving and Mixtral"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
         lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
         lines_d128 = kernel_phase_d128(torch.Generator(device="cuda").manual_seed(args.seed + 100), args.seed)
+        # phase 16's K5 shapes, timed here: late in a long process the
+        # profiler has come back empty three times running
+        k5_16 = k5_routed_times(torch.Generator(device="cuda").manual_seed(args.seed + 12))
         phase_s["3 kernels"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
         t_phase = time.perf_counter()
@@ -4053,6 +4742,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["resilience"], resilience_counts = resilience_phase(args.seed, card)
         phase_s["15 resilience"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["moe"], moe_serve_counts = moe_phase(args.seed, card, k5_16)
+        phase_s["16 MoE serving and Mixtral"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -4069,7 +4762,8 @@ def main(argv=None) -> int:
         # (phase 14 (b): M = 40, Lq = 5), with its launches per round as
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
-                 llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts)
+                 llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
+                 moe_serve_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts)
@@ -4091,6 +4785,16 @@ def main(argv=None) -> int:
                         "target verify": student["target verify"][name],
                         f"drafter decode x{SPEC_K} (4-layer student)": student["drafter decode"][name],
                         "drafter refeed (24-layer drafter run)": full["drafter refeed"][name]})
+            if name == "moe_permute":
+                # phase 16: the MoE serving tick and the Mixtral step, their
+                # launches as the tick probe and the training phase read them
+                moe = RESULTS["moe"]
+                entry["at_phase16"] = dict(
+                    shapes=[dict({k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)},
+                                 name="moe_permute") for t in moe["k5"].values()],
+                    launches=moe_serve_counts.get(name, 0),
+                    launches_per_decode_tick=moe["a_moe_scheduler"]["ticks"]["decode"]["launches_per_tick"][name],
+                    launches_per_mixtral_step=moe["c_mixtral_training"]["launches_per_step"][name])
             kernels.append(entry)
         log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")

@@ -12,8 +12,11 @@ paths and numpy arrays of a port state dict, as the engine's
 ``save_16bit_model`` writes them). An MoE model's keys carry over the same way
 (``h_1/moe/deepspeed_moe/gate/wg`` -> ``h_1.moe.deepspeed_moe.gate.wg``, the
 experts' stacked ``[E, ...]`` leaves as they are), and the config inferred
-from such a tree has its ``moe_num_experts``, ``moe_layer_freq`` and
-``moe_use_residual``.
+from such a tree has its ``moe_num_experts``, ``moe_layer_freq`` and (GPT-2)
+``moe_use_residual``. A Mixtral tree (``layers_0/moe/deepspeed_moe/experts/
+deepspeed_experts/gate_proj/kernel [E, H, I]``, the gate ``.../gate/wg [H,
+E]``) carries over the same way; its ``moe_k`` is not in the tree and keeps
+``LlamaConfig``'s default, Mixtral's 2.
 """
 
 from typing import Dict, Optional, Union
@@ -68,23 +71,48 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return (llama if isinstance(cfg, LlamaConfig) else gpt2).param_shapes(cfg)
 
 
+_MOE_GATE = ".moe.deepspeed_moe.gate.wg"
+_MOE_EXPERTS = ".moe.deepspeed_moe.experts.deepspeed_experts."
+
+
+def _infer_moe(sd: Dict[str, torch.Tensor], prefix: str, n_layer: int) -> dict:
+    """``moe_num_experts`` and ``moe_layer_freq`` from the gates' shapes and
+    layers (MoE layers sit at freq - 1, 2 freq - 1, ...); {} for a dense
+    tree."""
+    gates = {int(k.split(".")[0][len(prefix):]): v for k, v in sd.items()
+             if k.startswith(prefix) and k.endswith(_MOE_GATE)}
+    if not gates:
+        return {}
+    freq = min(gates) + 1
+    expected = [i for i in range(n_layer) if i % freq == freq - 1]
+    if sorted(gates) != expected:
+        raise ValueError(f"params_from_jax: MoE blocks at layers {sorted(gates)} follow no "
+                         f"moe_layer_freq; pass config=")
+    return dict(moe_num_experts=gates[freq - 1].shape[1], moe_layer_freq=freq)
+
+
 def _infer_llama_config(sd: Dict[str, torch.Tensor]) -> LlamaConfig:
     """A LLaMA tree's config as far as its shapes tell it. The context
-    length, RoPE base, norm epsilon and sliding window leave no trace in the
-    parameters and keep ``LlamaConfig``'s defaults: pass ``config=`` for a
-    model that sets them."""
+    length, RoPE base, norm epsilon, sliding window and top-k leave no trace
+    in the parameters and keep ``LlamaConfig``'s defaults: pass ``config=``
+    for a model that sets them."""
     q = sd.get("layers_0.self_attn.q_proj.kernel")
     if q is None or q.dim() != 3:
         raise KeyError("params_from_jax: no [E, H, D] layers_0/self_attn/q_proj/kernel to infer "
                        "the config from; pass config=")
     vocab, hidden = sd["embed_tokens"].shape
-    return LlamaConfig(vocab_size=vocab, hidden_size=hidden,
-                       intermediate_size=sd["layers_0.mlp.gate_proj.kernel"].shape[1],
-                       num_hidden_layers=len({k.split(".")[0] for k in sd if k.startswith("layers_")}),
-                       num_attention_heads=q.shape[1],
+    n_layer = len({k.split(".")[0] for k in sd if k.startswith("layers_")})
+    moe = _infer_moe(sd, "layers_", n_layer)
+    if moe:
+        first = moe["moe_layer_freq"] - 1
+        intermediate = sd[f"layers_{first}{_MOE_EXPERTS}gate_proj.kernel"].shape[2]
+    else:
+        intermediate = sd["layers_0.mlp.gate_proj.kernel"].shape[1]
+    return LlamaConfig(vocab_size=vocab, hidden_size=hidden, intermediate_size=intermediate,
+                       num_hidden_layers=n_layer, num_attention_heads=q.shape[1],
                        num_key_value_heads=sd["layers_0.self_attn.k_proj.kernel"].shape[1],
                        attention_bias="layers_0.self_attn.q_proj.bias" in sd,
-                       param_dtype=sd["embed_tokens"].dtype)
+                       param_dtype=sd["embed_tokens"].dtype, **moe)
 
 
 def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
@@ -96,18 +124,9 @@ def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
     if qkv is None or qkv.dim() != 4:
         raise KeyError("params_from_jax: no [E, 3, H, D] h_0/attn/c_attn/kernel to infer the "
                        "config from; pass config=")
-    moe = {}
-    gates = {int(k.split(".")[0][2:]): v for k, v in sd.items()
-             if k.startswith("h_") and k.endswith(".moe.deepspeed_moe.gate.wg")}
-    if gates:
-        # MoE blocks sit at layers freq - 1, 2 freq - 1, ...
-        freq = min(gates) + 1
-        expected = [i for i in range(n_layer) if i % freq == freq - 1]
-        if sorted(gates) != expected:
-            raise ValueError(f"params_from_jax: MoE blocks at layers {sorted(gates)} follow no "
-                             f"moe_layer_freq; pass config=")
-        moe = dict(moe_num_experts=gates[freq - 1].shape[1], moe_layer_freq=freq,
-                   moe_use_residual=any(".moe.coefficient." in k for k in sd))
+    moe = _infer_moe(sd, "h_", n_layer)
+    if moe:
+        moe["moe_use_residual"] = any(".moe.coefficient." in k for k in sd)
     return GPT2Config(vocab_size=vocab, n_positions=sd["wpe"].shape[0], n_embd=n_embd,
                       n_layer=n_layer, n_head=qkv.shape[2], param_dtype=sd["wte"].dtype, **moe)
 

@@ -1,8 +1,10 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``):
 the same field names, as a dataclass.
 
-Fields that belong to tensor parallelism, checkpoint loading, MoE or engine
-weight quantization are later slices of the port and raise when set."""
+The ``moe`` block is JAX's ``DeepSpeedMoEConfig`` (a bool, a dict or None);
+expert parallelism over several cards (``ep_size > 1``) raises. Fields that
+belong to tensor parallelism, checkpoint loading or engine weight
+quantization are later slices of the port and raise when set."""
 
 import dataclasses
 from typing import Any, Optional
@@ -36,6 +38,47 @@ def resolve_dtype(value) -> Optional[torch.dtype]:
 
 
 @dataclasses.dataclass
+class DeepSpeedMoEConfig:
+    """The inference ``moe`` block (JAX ``DeepSpeedMoEConfig``, its
+    defaults): ``num_experts`` is the alias of ``moe_experts``. Serving an
+    MoE model needs no block: the model's config carries its experts."""
+    enabled: bool = True
+    ep_size: int = 1
+    moe_experts: Any = 1
+    type: str = "standard"
+
+    def __post_init__(self):
+        if int(self.ep_size) > 1:
+            raise NotImplementedError(
+                f"moe.ep_size={self.ep_size}: expert parallelism over several cards belongs to "
+                f"a later slice of the PyTorch port (ROADMAP.md Queue A item 8)")
+
+    @classmethod
+    def from_value(cls, value) -> "DeepSpeedMoEConfig":
+        """A bool, a dict (``num_experts`` or ``moe_experts``), None or a
+        config, as JAX's ``moe`` field takes them."""
+        if isinstance(value, cls):
+            return value
+        if value is None:
+            return cls()
+        if isinstance(value, bool):
+            return cls(enabled=value)
+        if not isinstance(value, dict):
+            raise ValueError(f"moe must be a bool, a dict or a DeepSpeedMoEConfig, got {value!r}")
+        values = dict(value)
+        if "num_experts" in values:
+            if "moe_experts" in values:
+                raise ValueError("moe: give num_experts or its alias moe_experts, not both")
+            values["moe_experts"] = values.pop("num_experts")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(values) - known)
+        if unknown:
+            raise ValueError(f"moe: unknown keys {unknown}; accepted: enabled, ep_size, "
+                             f"num_experts (moe_experts), type")
+        return cls(**values)
+
+
+@dataclasses.dataclass
 class DeepSpeedInferenceConfig:
     replace_with_kernel_inject: bool = False
     dtype: Any = None
@@ -44,9 +87,9 @@ class DeepSpeedInferenceConfig:
     max_tokens: int = 1024
     min_out_tokens: int = 1
     max_new_tokens: int = 64
+    moe: Any = None
     # later slices of the port: must stay unset
     tensor_parallel: Optional[dict] = None
-    moe: Any = None
     quant: Optional[dict] = None
     checkpoint: Any = None
     injection_policy: Optional[dict] = None
@@ -56,9 +99,7 @@ class DeepSpeedInferenceConfig:
         tp = self.tensor_parallel or {}
         if int(tp.get("tp_size", 1)) > 1:
             raise NotImplementedError("tensor parallelism is a later slice of the PyTorch port")
-        moe_on = self.moe.get("enabled", True) if isinstance(self.moe, dict) else bool(self.moe)
-        if moe_on:
-            raise NotImplementedError("MoE inference is a later slice of the PyTorch port")
+        self.moe = DeepSpeedMoEConfig.from_value(self.moe)
         if self.quant and self.quant.get("enabled", False):
             raise NotImplementedError("engine weight quantization is a later slice of the port; "
                                       "use ServingConfig(weight_dtype=...)")

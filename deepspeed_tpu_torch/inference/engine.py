@@ -7,8 +7,11 @@ Kernel injection rebuilds the model with the serving dtype and, with
 chunked prefill (``PREFILL_CHUNK`` tokens per call plus single-token
 remainders) and then a Python token loop, where the JAX engine ran one
 ``lax.while_loop`` on the device; capturing the loop in a CUDA graph is
-later work. Beam search, tensor parallelism and encoder-decoder models are
-later slices.
+later work. An MoE model (GPT-2 with ``moe_num_experts``, Mixtral) serves
+with eval-mode gating (the eval capacity factor, no noise, no RTS); its
+``(logits, aux_loss)`` output is unwrapped to the logits on ``forward`` and
+on every cached step, as the JAX engine's ``_unwrap_logits`` does. Beam
+search, tensor parallelism and encoder-decoder models are later slices.
 """
 
 import dataclasses
@@ -20,6 +23,14 @@ import torch
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.models.common import init_cache
+
+
+def unwrap_logits(out):
+    """An MoE model returns ``(logits, aux_loss)``; serving wants the logits
+    (JAX ``inference/engine.py`` ``_unwrap_logits``)."""
+    if isinstance(out, (tuple, list)):
+        return out[0]
+    return out
 
 
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator], do_sample: bool,
@@ -75,9 +86,6 @@ class InferenceEngine:
                  params: Optional[dict] = None, device: DeviceLike = None, seed: int = 0):
         self.config = config if config is not None else DeepSpeedInferenceConfig()
         self.device = resolve_device(device)
-        if getattr(model.config, "moe_num_experts", 0) > 0:
-            raise NotImplementedError("serving an MoE model belongs to the MoE-serving slice of "
-                                      "the PyTorch port")
         self.module = replace_transformer_layer(model, self.config, self.device, params)
         self.mcfg = self.module.config
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -93,7 +101,7 @@ class InferenceEngine:
             ids = input_ids.to(device=self.device, dtype=torch.int64)
         else:
             ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64, device=self.device)
-        return self.module(ids)
+        return unwrap_logits(self.module(ids))
 
     __call__ = forward
 
@@ -134,10 +142,10 @@ class InferenceEngine:
         pos = 0
         last_logits = None
         while pos + chunk <= prompt_len:
-            last_logits = self.module(ids[:, pos:pos + chunk], cache)[:, -1]
+            last_logits = unwrap_logits(self.module(ids[:, pos:pos + chunk], cache))[:, -1]
             pos += chunk
         while pos < prompt_len:
-            last_logits = self.module(ids[:, pos:pos + 1], cache)[:, -1]
+            last_logits = unwrap_logits(self.module(ids[:, pos:pos + 1], cache))[:, -1]
             pos += 1
         if max_new <= 0:
             return torch.as_tensor(ids_np[:real_batch])
@@ -148,7 +156,7 @@ class InferenceEngine:
         for _ in range(1, max_new):
             if eos >= 0 and bool(done.all()):
                 break
-            logits = self.module(tok[:, None], cache)[:, 0]
+            logits = unwrap_logits(self.module(tok[:, None], cache))[:, 0]
             nxt = sample_logits(logits, gen, do_sample, temperature, top_k, top_p)
             tok = torch.where(done, torch.full_like(nxt, max(eos, 0)), nxt)
             out.append(tok)

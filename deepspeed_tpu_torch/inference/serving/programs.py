@@ -21,7 +21,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.inference.engine import sample_logits
+from deepspeed_tpu_torch.inference.engine import sample_logits, unwrap_logits
 from deepspeed_tpu_torch.models.common import init_cache
 
 #: cache leaves that hold write positions (scalar in ``generate``'s lockstep
@@ -89,11 +89,12 @@ def stamp_lengths(cache: Dict[str, torch.Tensor], write_pos: np.ndarray) -> Dict
 def make_apply_fn(module) -> Callable:
     """The one decode apply shared by the serving steps:
     ``apply_fn(cache, ids) -> logits [S, L, V]``, cache updated in place,
-    with no autograd graph recorded."""
+    with no autograd graph recorded. An MoE model's ``(logits, aux_loss)``
+    is unwrapped to its logits, as JAX's apply does."""
 
     @torch.inference_mode()
     def apply_fn(cache, ids):
-        return module(ids, cache)
+        return unwrap_logits(module(ids, cache))
 
     return apply_fn
 

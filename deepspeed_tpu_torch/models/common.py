@@ -169,6 +169,26 @@ def fused_head_loss_output(x: torch.Tensor, weight: torch.Tensor, labels: torch.
     return loss
 
 
+class StackedDense(torch.nn.Module):
+    """``num_experts`` dense projections stacked: ``kernel`` [E, in, out]
+    and, with ``bias``, ``bias`` [E, out] (the JAX ``nn.vmap`` layout of the
+    MoE experts), run as one batched product ``[E, T, in] -> [E, T, out]``
+    in ``cfg.dtype``."""
+
+    def __init__(self, cfg, num_experts, in_features, features, device, bias: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.kernel = torch.nn.Parameter(torch.zeros((num_experts, in_features, features),
+                                                     dtype=cfg.param_dtype, device=device))
+        self.bias = (torch.nn.Parameter(torch.zeros((num_experts, features), dtype=cfg.param_dtype,
+                                                    device=device)) if bias else None)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        out = torch.bmm(x.to(dt), self.kernel.to(dt))
+        return out if self.bias is None else out + self.bias.to(dt)[:, None, :]
+
+
 def config_from(table: dict, cls, name: str, **overrides):
     """Look up a named config dict and build ``cls`` with overrides."""
     base = dict(table[name])

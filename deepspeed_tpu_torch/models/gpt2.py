@@ -30,9 +30,13 @@ blocks' load-balancing losses: the fused head adds ``aux_total *
 moe_aux_loss_coef`` to its loss in training, and the logits forward returns
 ``(logits, aux_total * moe_aux_loss_coef)``. Training-mode gating draws its
 noise from a generator per block, seeded from the caller's generator, so a
-checkpointed block routes the same way when it is recomputed. Serving an
-MoE model, progressive layer drop and the pipeline adapters belong to later
-slices and raise if configured.
+checkpointed block routes the same way when it is recomputed. An MoE model
+decodes against both caches with eval-mode gating; its weight-quantized
+serving view builds the attention projections and the dense blocks' MLP on
+K2 and keeps every MoE leaf (experts, gate, PR-MoE residual and
+coefficient) in the serving dtype, as the JAX quantizer's skip list leaves
+every leaf under ``moe`` in fp. Progressive layer drop and the pipeline
+adapters belong to later slices and raise if configured.
 """
 
 import dataclasses
@@ -44,9 +48,9 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, host_to_device, resolve_device
-from deepspeed_tpu_torch.models.common import (config_from, cross_entropy_loss,  # noqa: F401
-                                               dense_init, embed_lookup, fused_head_loss_output,
-                                               maybe_remat)
+from deepspeed_tpu_torch.models.common import (StackedDense, config_from,  # noqa: F401
+                                               cross_entropy_loss, dense_init, embed_lookup,
+                                               fused_head_loss_output, maybe_remat)
 from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
 from deepspeed_tpu_torch.ops.quantizer.weights import quant_bits
@@ -113,9 +117,6 @@ class GPT2Config:
                                           f"{where} slice of the PyTorch port")
         if self.serve_weight_dtype not in (None, "fp", "int8", "int4"):
             raise ValueError(f"unknown serve_weight_dtype {self.serve_weight_dtype!r}")
-        if self.moe_num_experts > 0 and self.serve_weight_dtype is not None:
-            raise NotImplementedError("serving an MoE model belongs to the MoE-serving slice of "
-                                      "the PyTorch port")
 
     @property
     def head_dim(self):
@@ -259,24 +260,6 @@ class QuantDense(_Projection):
 
     def __init__(self, cfg, in_features, features, device):
         super().__init__(cfg, (in_features, features), (features,), 1, device)
-
-
-class StackedDense(nn.Module):
-    """``num_experts`` dense projections stacked: ``kernel`` [E, in, out],
-    ``bias`` [E, out] (the JAX ``nn.vmap`` layout of the MoE experts), run
-    as one batched product ``[E, T, in] -> [E, T, out]``."""
-
-    def __init__(self, cfg, num_experts, in_features, features, device):
-        super().__init__()
-        self.cfg = cfg
-        self.kernel = nn.Parameter(torch.zeros((num_experts, in_features, features),
-                                               dtype=cfg.param_dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros((num_experts, features), dtype=cfg.param_dtype,
-                                             device=device))
-
-    def forward(self, x):
-        dt = self.cfg.dtype
-        return torch.bmm(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)[:, None, :]
 
 
 class MLP(nn.Module):
@@ -447,7 +430,10 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg, device)
         if use_moe:
             from deepspeed_tpu_torch.moe.layer import MoE
-            self.moe = MoE(cfg.n_embd, MLP(cfg, device), num_experts=cfg.moe_num_experts,
+
+            # every MoE leaf stays fp in a quantized serving view
+            fp_cfg = dataclasses.replace(cfg, serve_weight_dtype=None)
+            self.moe = MoE(cfg.n_embd, MLP(fp_cfg, device), num_experts=cfg.moe_num_experts,
                            k=cfg.moe_k, capacity_factor=cfg.moe_capacity_factor,
                            eval_capacity_factor=cfg.moe_eval_capacity_factor,
                            min_capacity=cfg.moe_min_capacity, use_residual=cfg.moe_use_residual,
@@ -543,9 +529,6 @@ class GPT2LMHeadModel(nn.Module):
         includes that term in training. ``deterministic=False`` is training:
         dropout, and training-mode gating, draw from ``generator``."""
         cfg = self.config
-        if cache is not None and cfg.moe_num_experts > 0:
-            raise NotImplementedError("decoding an MoE model belongs to the MoE-serving slice of "
-                                      "the PyTorch port")
         ids = input_ids.to(self.device)
         seq_len = ids.shape[1]
         seeds = [None] * (cfg.n_layer + 1)

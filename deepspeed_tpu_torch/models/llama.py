@@ -19,10 +19,22 @@ where it is used, so fp32 master weights train with bf16 compute. With
 ``labels`` and ``fused_head_loss_chunk > 0`` the forward returns the chunked
 fused LM-head loss on the ``[E, V]`` head instead of logits.
 
-Mixtral's MoE layers, ``remat_policy`` and the TPU ``attention_blocks``
-belong to later slices and raise ``NotImplementedError``; the per-slot
-serving cache of ``ContinuousBatchingScheduler`` does not take this family,
-as the JAX scheduler does not. The JAX model's ``attention_mask`` and
+Mixtral (``moe_num_experts > 0``): every ``moe_layer_freq``-th layer swaps
+its SwiGLU MLP for ``moe.MoE`` over ``moe_num_experts`` stacked SwiGLU
+experts (``LlamaMLP.stacked``: ``layers_i.moe.deepspeed_moe.experts.
+deepspeed_experts.{gate,up}_proj.kernel [E, H, I]``, ``down_proj.kernel
+[E, I, H]``, the gate ``layers_i.moe.deepspeed_moe.gate.wg [H, E]``), top
+``moe_k``, as JAX ``llama.py:246-270`` does. The model then sums the
+layers' load-balancing losses and returns ``(logits, aux_total *
+moe_aux_loss_coef)``, or adds that term to the fused head's loss in
+training. Training-mode gating draws its noise (top-2's Gumbel second
+choice) from a generator per layer, seeded from the caller's generator, so
+a checkpointed layer routes the same way when it is recomputed.
+
+``remat_policy`` and the TPU ``attention_blocks`` belong to later slices
+and raise ``NotImplementedError``; the per-slot serving cache of
+``ContinuousBatchingScheduler`` does not take this family, as the JAX
+scheduler does not. The JAX model's ``attention_mask`` and
 explicit ``positions`` arguments are not taken: neither JAX engine passes
 them on the paths ported here.
 """
@@ -36,14 +48,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.common import (config_from, dense_init, embed_lookup,
-                                               fused_head_loss_output, maybe_remat, rms_norm)
+from deepspeed_tpu_torch.models.common import (StackedDense, config_from, dense_init,
+                                               embed_lookup, fused_head_loss_output, maybe_remat,
+                                               rms_norm)
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 
 #: config fields of the JAX model that belong to later slices of the port,
 #: with the value that means "off" and where the slice stands
-_LATER_SLICES = {"moe_num_experts": (0, "Mixtral's MoE layers (ROADMAP.md Queue A item 4)"),
-                 "remat_policy": (None, "the activation-checkpointing slice (Queue A item 3)"),
+_LATER_SLICES = {"remat_policy": (None, "the activation-checkpointing slice (Queue A item 3)"),
                  "attention_blocks": (None, "the attention-tuning slice")}
 
 
@@ -74,10 +86,18 @@ class LlamaConfig:
     # >0: called with ``labels=``, return the chunked fused LM-head loss
     # (tokens per chunk) instead of [B, L, V] logits
     fused_head_loss_chunk: int = 0
-    # Mixtral's MoE FFN: the fields its presets set (only the dense model is
-    # ported, and moe_num_experts > 0 raises)
-    moe_num_experts: int = 0
+    # Mixtral's MoE FFN (the JAX fields): every ``moe_layer_freq``-th layer
+    # replaces its SwiGLU MLP with ``moe_num_experts`` experts, top ``moe_k``
+    moe_num_experts: int = 0  # 0 = dense
+    moe_layer_freq: int = 1
     moe_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_eval_capacity_factor: float = 2.0
+    moe_min_capacity: int = 4
+    moe_aux_loss_coef: float = 0.01
+    # dispatch/combine route pin ("dense"|"sorted"); None resolves through
+    # DS_MOE_ROUTE > the engine's "moe" block > "sorted" (moe/routing.py)
+    moe_route: Optional[str] = None
 
     def __post_init__(self):
         for name, (off, where) in _LATER_SLICES.items():
@@ -91,6 +111,17 @@ class LlamaConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
+
+    def is_moe_layer(self, i: int) -> bool:
+        freq = max(self.moe_layer_freq, 1)
+        return self.moe_num_experts > 0 and i % freq == freq - 1
+
+    @property
+    def moe_gate_draws(self) -> bool:
+        """Whether training-mode gating draws noise: always for an MoE model
+        (JAX's LLaMA MoE keeps the gate's RTS default, and top-2 samples its
+        second choice)."""
+        return self.moe_num_experts > 0
 
 
 LLAMA_CONFIGS = {
@@ -109,8 +140,7 @@ LLAMA_CONFIGS = {
                        sliding_window=4096),
     "13b": dict(hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
                 num_attention_heads=40, num_key_value_heads=40),
-    # Mixtral-8x7B: llama blocks, top-2 of 8 SwiGLU experts per layer (its
-    # config raises until the MoE part is ported)
+    # Mixtral-8x7B: llama blocks, top-2 of 8 SwiGLU experts per layer
     "mixtral-8x7b": dict(hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
                          num_attention_heads=32, num_key_value_heads=8,
                          max_position_embeddings=4096, rope_theta=1e6,
@@ -144,6 +174,13 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
                 out[f"{p}.self_attn.{name}.bias"] = ((heads, d), pd)
         out[f"{p}.self_attn.o_proj.kernel"] = ((h, d, e), pd)
         out[f"{p}.post_attention_layernorm.weight"] = ((e,), pd)
+        if cfg.is_moe_layer(n):
+            x, moe = cfg.moe_num_experts, f"{p}.moe.deepspeed_moe"
+            out[f"{moe}.gate.wg"] = ((e, x), torch.float32)
+            out[f"{moe}.experts.deepspeed_experts.gate_proj.kernel"] = ((x, e, i), pd)
+            out[f"{moe}.experts.deepspeed_experts.up_proj.kernel"] = ((x, e, i), pd)
+            out[f"{moe}.experts.deepspeed_experts.down_proj.kernel"] = ((x, i, e), pd)
+            continue
         out[f"{p}.mlp.gate_proj.kernel"] = ((e, i), pd)
         out[f"{p}.mlp.up_proj.kernel"] = ((e, i), pd)
         out[f"{p}.mlp.down_proj.kernel"] = ((i, e), pd)
@@ -256,22 +293,66 @@ class LlamaMLP(nn.Module):
         self.up_proj = Dense(cfg, (e, i), 1, device)
         self.down_proj = Dense(cfg, (i, e), 1, device)
 
+    def stacked(self, num_experts: int) -> "StackedLlamaMLP":
+        """``num_experts`` SwiGLU experts over ``[E, T, H]`` (the MoE
+        experts, ``moe/sharded_moe.Experts``)."""
+        return StackedLlamaMLP(self.gate_proj.cfg, num_experts, self.gate_proj.kernel.device)
+
     def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class StackedLlamaMLP(nn.Module):
+    """``num_experts`` SwiGLU MLPs, ``[E, T, H] -> [E, T, H]``: one batched
+    product per projection (gate, up, down). The experts take no dropout;
+    ``generator`` is the ``Experts`` contract's and is ignored."""
+
+    def __init__(self, cfg: LlamaConfig, num_experts: int, device):
+        super().__init__()
+        e, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = StackedDense(cfg, num_experts, e, i, device, bias=False)
+        self.up_proj = StackedDense(cfg, num_experts, e, i, device, bias=False)
+        self.down_proj = StackedDense(cfg, num_experts, i, e, device, bias=False)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        del generator
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, use_moe: bool = False):
         super().__init__()
+        self.use_moe = use_moe
         self.input_layernorm = RMSNorm(cfg, device)
         self.self_attn = LlamaAttention(cfg, device)
         self.post_attention_layernorm = RMSNorm(cfg, device)
-        self.mlp = LlamaMLP(cfg, device)
+        if use_moe:
+            from deepspeed_tpu_torch.moe.layer import MoE
+            self.moe = MoE(cfg.hidden_size, LlamaMLP(cfg, device), num_experts=cfg.moe_num_experts,
+                           k=cfg.moe_k, capacity_factor=cfg.moe_capacity_factor,
+                           eval_capacity_factor=cfg.moe_eval_capacity_factor,
+                           min_capacity=cfg.moe_min_capacity, route=cfg.moe_route,
+                           dtype=cfg.dtype, device=device)
+        else:
+            self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, cache=None, prefix=""):
+    def forward(self, x, cache=None, prefix="", gating_seed: Optional[int] = None,
+                deterministic: bool = True):
+        """``(x, l_aux)``: the layer's output and, for an MoE layer, its
+        load-balancing loss (None for a dense layer). ``gating_seed`` seeds
+        the gate's generator (an int, so that a checkpointed layer routes
+        the same way when it is recomputed); ``deterministic=False`` is
+        training-mode gating (train capacity factor, noise)."""
         x = x + self.self_attn(self.input_layernorm(x), cache, prefix)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        if not self.use_moe:
+            return x + self.mlp(h), None
+        gen = None
+        if gating_seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(gating_seed)
+        out, l_aux, _ = self.moe(h, deterministic=deterministic, gate_generator=gen)
+        return x + out, l_aux
 
 
 class LlamaForCausalLM(nn.Module):
@@ -287,7 +368,7 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = nn.Parameter(torch.empty((cfg.vocab_size, cfg.hidden_size),
                                                      dtype=cfg.param_dtype, device=dev))
         for i in range(cfg.num_hidden_layers):
-            setattr(self, f"layers_{i}", LlamaDecoderLayer(cfg, dev))
+            setattr(self, f"layers_{i}", LlamaDecoderLayer(cfg, dev, cfg.is_moe_layer(i)))
         self.norm = RMSNorm(cfg, dev)
         self.lm_head = Dense(cfg, (cfg.hidden_size, cfg.vocab_size), 1, dev)
         self.reset_parameters(generator)
@@ -299,13 +380,14 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Random init with the JAX model's distributions (normal 0.02 for
-        ``embed_tokens`` and every kernel, zero biases, unit norm weights),
-        from ``generator`` (a fresh one seeded 0 when None)."""
+        ``embed_tokens``, every kernel and the MoE gates, zero biases, unit
+        norm weights), from ``generator`` (a fresh one seeded 0 when
+        None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         dense_init()(self.embed_tokens, generator)
         for name, t in self.named_parameters():
-            if name.endswith(".kernel"):
+            if name.endswith(".kernel") or name.endswith(".gate.wg"):
                 dense_init()(t, generator)
 
     def cache_shapes(self, batch_size: int):
@@ -326,17 +408,32 @@ class LlamaForCausalLM(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Logits [B, L, V] in the compute dtype, or with ``labels`` and
         ``fused_head_loss_chunk > 0`` the mean next-token loss (fp32
-        scalar). The dense model draws nothing, so ``deterministic`` and
-        ``generator`` (the engine's training arguments) change nothing."""
-        del deterministic, generator
+        scalar). A Mixtral model returns ``(logits, aux_total *
+        moe_aux_loss_coef)`` instead of logits, and its fused-head loss
+        includes that term in training. ``deterministic=False`` is
+        training: an MoE model's gating draws from ``generator``; the dense
+        model draws nothing."""
         cfg = self.config
         ids = input_ids.to(self.device)
+        gate_seeds = [None] * cfg.num_hidden_layers
+        if not deterministic and cfg.moe_gate_draws:
+            if generator is None:
+                raise ValueError("training an MoE model draws gating noise: pass a generator")
+            gate_seeds = torch.randint(0, 2**62, (cfg.num_hidden_layers,), generator=generator,
+                                       device=generator.device).tolist()
         x = embed_lookup(self.embed_tokens.to(cfg.dtype), ids)
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, block in enumerate(self.blocks):
             run = maybe_remat(block, cfg, i, enabled=cfg.remat and cache is None)
-            x = run(x, cache, f"layers_{i}/self_attn/")
+            x, l_aux = run(x, cache, f"layers_{i}/self_attn/", gate_seeds[i], deterministic)
+            if l_aux is not None:
+                aux_total = aux_total + l_aux
         x = self.norm(x)
         if labels is not None and cfg.fused_head_loss_chunk > 0:
             return fused_head_loss_output(x, self.lm_head.kernel.to(cfg.dtype),
-                                          labels.to(self.device), cfg, vocab_major=False)
-        return self.lm_head(x)  # logits stay in the compute dtype
+                                          labels.to(self.device), cfg, aux_total, deterministic,
+                                          vocab_major=False)
+        logits = self.lm_head(x)  # logits stay in the compute dtype
+        if cfg.moe_num_experts > 0:
+            return logits, aux_total * cfg.moe_aux_loss_coef
+        return logits

@@ -192,48 +192,108 @@ def sparse_exact_probe(b: int, l: int, h: int, block: int, *, causal: bool, seed
     return out
 
 
+def _injected_top1(logits, routing, used_token):
+    """Top-1 decisions ``routing`` ([S, 1] fields) on this call's logits:
+    the gate probability of the injected expert as the combine weight (0
+    where dropped), and the load-balancing loss and expert counts of the
+    injected first choices."""
+    dev = logits.device
+    expert, slot, keep = (t.reshape(-1, 1).to(dev) for t in
+                          (routing.expert, routing.slot, routing.keep))
+    num_experts = logits.shape[1]
+    gates = torch.softmax(logits.float(), dim=1)
+    mask1 = F.one_hot(expert[:, 0].long(), num_experts)
+    if used_token is not None:
+        mask1 = mask1 * used_token[:, None].to(mask1.dtype)
+    l_aux = (gates.mean(dim=0) * mask1.float().mean(dim=0)).sum() * num_experts
+    weight = gates.gather(1, expert.long()) * keep.float()
+    return (l_aux, sharded_moe.SortedRouting(expert.int(), slot.int(), weight, keep.int()),
+            mask1.sum(dim=0).int())
+
+
+def _injected_top2(logits, routing):
+    """Top-2 decisions ``routing`` ([S, 2] fields) on this call's logits:
+    each kept copy's gate probability normalised over the token's kept
+    copies (``_top2_decisions``' order of operations), the load-balancing
+    loss and the expert counts of the injected first choices."""
+    dev = logits.device
+    expert, slot, keep = (t.reshape(-1, 2).to(dev) for t in
+                          (routing.expert, routing.slot, routing.keep))
+    num_experts = logits.shape[1]
+    gates = torch.softmax(logits.float(), dim=1)
+    mask1 = F.one_hot(expert[:, 0].long(), num_experts)
+    l_aux = (gates.mean(dim=0) * mask1.float().mean(dim=0)).mean() * num_experts * num_experts
+    kept = gates.gather(1, expert.long()) * keep.float()  # [S, 2], 0 where dropped
+    denom = torch.clamp(kept[:, 0] + kept[:, 1], min=torch.finfo(torch.float32).eps)
+    weight = kept / denom[:, None] * keep.float()
+    return (l_aux, sharded_moe.SortedRouting(expert.int(), slot.int(), weight, keep.int()),
+            mask1.sum(dim=0).int())
+
+
 @contextlib.contextmanager
-def injected_routing(routing: Optional[sharded_moe.SortedRouting] = None,
-                     record: Optional[List[sharded_moe.SortedRouting]] = None):
-    """Inside the block, every top-1 gate call of the sorted route
-    (``sharded_moe.top1routing``) appends its own decisions to ``record``
-    (when given) and, when ``routing`` is given, returns that routing's
-    expert, slot and keep instead, with what follows from them on this
-    call's logits: the combine weight is the gate probability of the
-    injected expert (0 where dropped), and the load-balancing loss and the
-    expert counts are those of the injected choices. So a bf16 step and its
-    plain version can be compared under one routing: a token that the two
-    would route apart on a bf16 ulp no longer moves an expert's gradient by
-    its whole share. Injecting a call's own decisions returns them
-    unchanged. Groups of one, as the port's single-device route has."""
-    free = sharded_moe.top1routing
+def injected_routing(routing=None, record=None, model: Optional[torch.nn.Module] = None):
+    """Inside the block, every gate call of the sorted route (the decision
+    cores ``sharded_moe.top1routing`` and ``top2routing``) records its own
+    decisions into ``record`` (when given) and, when ``routing`` is given,
+    returns that routing's expert, slot and keep instead, with what follows
+    from them on this call's logits: the combine weight (top-1: the gate
+    probability of the injected expert; top-2: the kept copies' gate
+    probabilities normalised over the token's kept copies; 0 where
+    dropped), and the load-balancing loss and the expert counts of the
+    injected first choices. So a bf16 step and its plain version can be
+    compared under one routing: a token that the two would route apart on
+    a bf16 ulp no longer moves an expert's gradient by its whole share; and
+    a test can inject the JAX package's decisions. Injecting a call's own
+    decisions returns them unchanged.
 
-    def gate(logits, capacity_factor, min_capacity, used_token=None, noisy_gate_policy=None,
-             drop_tokens=True, use_rts=True, gumbel=None, rts=None):
-        out = free(logits, capacity_factor, min_capacity, used_token, noisy_gate_policy,
-                   drop_tokens, use_rts, gumbel, rts)
+    Without ``model``, ``routing`` is one :class:`SortedRouting` for every
+    call and ``record`` a list each call appends to. With ``model``, each
+    gate is named by its module name in ``model`` (``"layers_0.moe.
+    deepspeed_moe.gate"``): ``routing`` is then a dict from gate name to
+    routing, and ``record`` a dict from gate name to the list of that
+    gate's calls (a checkpointed layer's recompute calls it again). Groups
+    of one, as the port's single-device route has."""
+    free1, free2 = sharded_moe.top1routing, sharded_moe.top2routing
+    free_forward = sharded_moe.TopKGate.forward
+    names = ({id(m): n for n, m in model.named_modules() if isinstance(m, sharded_moe.TopKGate)}
+             if model is not None else {})
+    calling: List[Optional[str]] = []
+
+    def forward(self, *args, **kwargs):
+        calling.append(names.get(id(self)))
+        try:
+            return free_forward(self, *args, **kwargs)
+        finally:
+            calling.pop()
+
+    def keep_and_pick(out):
+        name = calling[-1] if calling else None
         if record is not None:
-            record.append(sharded_moe.SortedRouting(*(t.detach().cpu() for t in out[1])))
-        if routing is None:
-            return out
-        dev = logits.device
-        expert, slot, keep = (t.reshape(-1, 1).to(dev) for t in
-                              (routing.expert, routing.slot, routing.keep))
-        num_experts = logits.shape[1]
-        gates = torch.softmax(logits.float(), dim=1)
-        mask1 = F.one_hot(expert[:, 0].long(), num_experts)
-        if used_token is not None:
-            mask1 = mask1 * used_token[:, None].to(mask1.dtype)
-        l_aux = (gates.mean(dim=0) * mask1.float().mean(dim=0)).sum() * num_experts
-        weight = gates.gather(1, expert.long()) * keep.float()
-        return (l_aux, sharded_moe.SortedRouting(expert.int(), slot.int(), weight, keep.int()),
-                mask1.sum(dim=0).int())
+            own = sharded_moe.SortedRouting(*(t.detach().cpu() for t in out[1]))
+            (record.setdefault(name, []) if isinstance(record, dict) else record).append(own)
+        if isinstance(routing, dict):
+            return routing[name]
+        return routing
 
-    sharded_moe.top1routing = gate
+    def gate1(logits, capacity_factor, min_capacity, used_token=None, noisy_gate_policy=None,
+              drop_tokens=True, use_rts=True, gumbel=None, rts=None):
+        out = free1(logits, capacity_factor, min_capacity, used_token, noisy_gate_policy,
+                    drop_tokens, use_rts, gumbel, rts)
+        chosen = keep_and_pick(out)
+        return out if chosen is None else _injected_top1(logits, chosen, used_token)
+
+    def gate2(logits, capacity_factor, min_capacity, drop_tokens=True, gumbel=None):
+        out = free2(logits, capacity_factor, min_capacity, drop_tokens, gumbel)
+        chosen = keep_and_pick(out)
+        return out if chosen is None else _injected_top2(logits, chosen)
+
+    sharded_moe.top1routing, sharded_moe.top2routing = gate1, gate2
+    sharded_moe.TopKGate.forward = forward
     try:
         yield
     finally:
-        sharded_moe.top1routing = free
+        sharded_moe.top1routing, sharded_moe.top2routing = free1, free2
+        sharded_moe.TopKGate.forward = free_forward
 
 
 def decode_exact_probe(lengths: List[int], lq: int, p_len: int, h: int, *, seed: int = 0,

@@ -451,6 +451,54 @@ def test_permute_rows_autograd_runs_k5_both_ways(gen, dtype):
     assert torch.equal(gx, want)
 
 
+def _gate_maps(gen, tokens, experts, k, capacity_factor):
+    """The sorted route's maps from the gate's own decisions on random
+    logits: ``flat_slot`` [1, tokens * k] (each token copy's slot, dropped
+    copies on the E*C sentinel) and its inverse ``src`` [1, E*C]."""
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    logits = torch.randn(tokens, experts, generator=gen, device="cuda")
+    capacity = sm._gate_capacity(tokens, experts, capacity_factor, 4, True, k)
+    if k == 1:
+        _, routing, _ = sm.top1routing(logits, capacity_factor, 4, use_rts=False)
+    else:
+        _, routing, _ = sm.top2routing(logits, capacity_factor, 4)
+    flat = torch.where(routing.keep > 0, routing.expert * capacity + routing.slot,
+                       experts * capacity).to(torch.int32).reshape(1, tokens * k)
+    return flat, md.inverse_index(flat, experts * capacity), capacity
+
+
+#: K5 where this slice's paths run it: (tokens, experts, k, capacity factor,
+#: width). The serving ticks of GPT-2 350m MoE (8 slots: a decode tick of 8
+#: tokens, a prefill tick of 8 x 16; eval factor 2.0), Mixtral's decode step
+#: (4 sequences, top-2) and training step (seq 4096, top-2, factor 1.25), and
+#: row counts that are not a multiple of K5's 4-row block (7 tokens top-2:
+#: 14 copies into 32 slots; 13 tokens top-1: 13 into 16)
+ROUTED_SHAPES = [(8, 8, 1, 2.0, 1024), (128, 8, 1, 2.0, 1024), (4, 8, 2, 2.0, 4096),
+                 (4096, 8, 2, 1.25, 4096), (7, 8, 2, 2.0, 4096), (13, 4, 1, 1.0, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,experts,k,cf,m", ROUTED_SHAPES)
+def test_moe_permute_at_the_routed_shapes(gen, dtype, tokens, experts, k, cf, m):
+    """Dispatch and combine through ``permute_rows`` on K5 against the plain
+    gather, forward and VJP, bit for bit, at the gate's own maps."""
+    flat, src, capacity = _gate_maps(gen, tokens, experts, k, cf)
+    x = _randn(gen, 1, tokens * k, m, dtype=dtype)
+    y = _randn(gen, 1, experts * capacity, m, dtype=dtype)
+    for inp, fwd, bwd in ((x, src, flat), (y, flat, src)):
+        cot = _randn(gen, 1, fwd.shape[1], m, dtype=dtype)
+        xk = inp.detach().requires_grad_()
+        before = LAUNCHES["moe_permute"]
+        out = md.permute_rows(xk, fwd, bwd, impl="pallas")
+        (gk,) = torch.autograd.grad(out, xk, cot)
+        assert LAUNCHES["moe_permute"] == before + 2
+        xp = inp.detach().requires_grad_()
+        ref = md.permute_rows(xp, fwd, bwd, impl="xla")
+        (gp,) = torch.autograd.grad(ref, xp, cot)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref) and torch.equal(gk, gp)
+
+
 def test_moe_permute_refuses_what_the_kernel_does_not_take(gen):
     x = _randn(gen, 1, 8, 16, dtype=torch.float32)
     with pytest.raises(ValueError, match="int32"):

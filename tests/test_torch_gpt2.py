@@ -176,11 +176,9 @@ def test_slot_decode_int8_kv_matches_jax(jax_side, backend, weight_dtype):
     assert written[:8].all() and not written[8:].any()
 
 
-@pytest.mark.parametrize("field,value", [("moe_num_experts", 2), ("remat_policy", "dots_saveable"),
+@pytest.mark.parametrize("field,value", [("remat_policy", "dots_saveable"),
                                          ("progressive_layer_drop", True),
                                          ("attention_blocks", "block_q=64")])
 def test_later_slice_features_raise(field, value):
-    # MoE training is ported; serving an MoE model is the later slice
-    extra = {"serve_weight_dtype": "int8"} if field == "moe_num_experts" else {}
     with pytest.raises(NotImplementedError):
-        get_gpt2_config("test", **{field: value}, **extra)
+        get_gpt2_config("test", **{field: value})

@@ -235,7 +235,7 @@ def test_scheduler_refuses_llama():
         ContinuousBatchingScheduler(engine)
 
 
-@pytest.mark.parametrize("field,value", [("moe_num_experts", 4), ("remat_policy", "dots"),
+@pytest.mark.parametrize("field,value", [("remat_policy", "dots"),
                                          ("attention_blocks", "block_q=64")])
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

@@ -188,15 +188,3 @@ def test_engine_installs_and_clears_the_moe_route(jax_run):
         _port_engine(jax_run["init"], dict(CONFIG, moe={"route": "blocksparse"}))
     with pytest.raises(ValueError, match="moe block"):
         _port_engine(jax_run["init"], dict(CONFIG, moe={"capacity": 2}))
-
-
-def test_serving_an_moe_model_raises(jax_run):
-    model = deepspeed_tpu_torch.GPT2LMHeadModel(
-        deepspeed_tpu_torch.get_gpt2_config("test", **MODEL), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE-serving"):
-        deepspeed_tpu_torch.init_inference(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE-serving"):
-        deepspeed_tpu_torch.get_gpt2_config("test", serve_weight_dtype="int8", **MODEL)
-    from deepspeed_tpu_torch.models.common import init_cache
-    with pytest.raises(NotImplementedError, match="MoE-serving"):
-        model(torch.zeros((1, 4), dtype=torch.long), init_cache(model, 1))

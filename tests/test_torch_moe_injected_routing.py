@@ -85,3 +85,22 @@ def test_other_decisions_are_followed():
     torch.testing.assert_close(layer.last_routing.weight[0], gates.gather(1, e[:, None]))
     assert torch.equal(got[2], torch.bincount(e, minlength=4).int())
     assert not torch.allclose(got[0], free[0])
+
+
+@pytest.mark.parametrize("cf", [0.5, 4.0])
+def test_top2_own_decisions_change_nothing(cf):
+    """Top-2 (the normalised pair of weights), by gate name: a model's gate
+    recorded under its module name and given its own decisions back."""
+    layer = _layer(cf)
+    layer.gate.k = layer.k = 2
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 8, M)).astype(np.float32))
+    record = {}
+    with injected_routing(record=record, model=layer):
+        free = _step(layer, x)
+    assert list(record) == ["gate"] and record["gate"][0].expert.shape == (16, 2)
+    with injected_routing({"gate": record["gate"][0]}, model=layer):
+        injected = _step(layer, x)
+    for a, b in zip(free, injected):
+        assert torch.equal(a, b)
+    assert sm.top2routing.__name__ == "top2routing"
+    assert sm.TopKGate.forward.__qualname__ == "TopKGate.forward"
