@@ -265,13 +265,64 @@ Phases, each of which raises on failure (the script then exits non-zero):
               side under the plain bf16 step's top-2 routing: fp32 within
               1e-4, bf16 within 1.5x the measured rounding.
 
+17. RLHF and the inference engine — GPT-2 350m (full width and depth,
+              random seeded weights, bf16 over fp32 masters, the ``"flash"``
+              backend) under ``initialize`` with ``hybrid_engine.enabled``
+              and the JAX RLHF test's policy-gradient loss. K2 at the
+              rollout's prefill tick (M 512, int8, every projection) and K3
+              at the beam step (q [16,1,16,64] over a bf16 cache with 95 live
+              rows) against their plain versions and timed as phase 3 times
+              them (beside phase 3 when the whole script runs). (a) A
+              ``RolloutLoop`` (8 slots, 64-token prefill chunks,
+              64-token prompts and 64 new tokens, 2 learner steps of 8
+              rollouts, a sync after each; 16 rollouts, cut from 32 for the
+              script's limit) at ``weight_dtype`` int8 (K2) and fp (cohort by
+              cohort, ``align_cohorts``), launch counts zeroed just before
+              each run and read just after: finite losses, sync generation
+              2, every fp sync
+              digest-verified; rollout tokens/s, learner ms a step,
+              ``execute_s`` and ``digest_s`` a sync, five profiled rollout
+              ticks (idle share), peak memory; a mid-decode swap of the same
+              weights token-identical; train -> generate -> train with the
+              loss bits of train -> train over 3 steps (from one snapshot);
+              the fp run again with a flag after learner step 1 drains with
+              nothing dropped, checkpoints once and exits 143, and a fresh
+              engine's ``resume`` and ``restore`` finish with the
+              uninterrupted fp run's loss bits. (b) ``generate(num_beams=
+              4)`` at batch 4, prompt 64, 32 new, after a ``forward``: the
+              flash engine in fp32 token-identical to the ``"xla"`` engine
+              on the same weights; in bf16 equal, or within the margin rule
+              applied to the beams' fp32 scores (4x 1.5x the measured
+              rounding times max |logit|), with the share of the
+              reference's positions inside the rule printed; tokens/s, K1
+              and K3 launches. (c) ``init_inference(dtype="int8")`` and
+              ``quant={"enabled": True}``: int8 leaves on the card, logits
+              correlation with the bf16 engine > 0.99 and top-1 agreement
+              >= 0.5, weight bytes against bf16's, a ``generate``. (d) the
+              preempted engine of (a) has saved its tag; it saves its 16-bit
+              npz, and ``init_inference(checkpoint=)`` by directory and by
+              ``{"checkpoint_dir", "tag"}`` serves its live parameters'
+              fp32 logits within 1e-5, the npz the live parameters rounded
+              to bf16 within 1e-5; save and load seconds.
+              (e) ``PagedKVCache`` (int8 pages of 16, 16 heads of 64): 3
+              sequences appended across page edges, gathered, K3 on the
+              view against its plain version. Its tags live in a temp dir,
+              deleted at the end.
+
+A device time that ``torch.profiler`` fails to record (its profiles have
+come back empty on the card, early and late in a run) is timed with CUDA
+events instead and logged; in the run's JSON and the ``kernels`` line such
+a value has ``<key>_source: "events"`` beside it, and its path is listed
+under ``profiler_fallbacks``.
+
 It prints the ``kernels`` JSON line and the card line before the last line,
 which is ``{"ok": true, "device": {...}}``. ``--phases times,serving`` runs
 only K2's and K3's value-form timings and phase 4, through the API that
 earlier commits share: copied into an earlier checkout, the script measures
 that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
-resilience`` phase 15 alone, ``--phases moe`` phase 16 alone. Details go to
+resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
+alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -322,7 +373,8 @@ HEAD_DIMS = {"flash_fwd": [64, 128], "flash_bwd": [64, 128], "flash_decode": [64
 #: ``library_ms`` is device-side too (K1, K4, K5, K6), so the two compare on
 #: one clock
 KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms", "device_ms",
-                    "plain_ms", "bound_ms", "bound_by", "library_ms")
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms_source", "library_ms_source")
 
 
 def log(msg: str) -> None:
@@ -349,15 +401,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, iters: int = 5, warmup: int = 2, attempts: int = 3) -> dict:
+class ProfilerEmpty(AssertionError):
+    """``torch.profiler`` recorded no device time in any attempt."""
+
+
+def device_times(fn, iters: int = 5, warmup: int = 2, attempts: int = 5) -> dict:
     """Device time per call of ``fn`` by kernel name: each kernel's time
     over ``iters`` calls under ``torch.profiler``, divided by ``iters``.
     Unlike events around host-issued calls (``time_ms``), launch gaps and
     host work between the kernels do not count. Profiling the CUDA
     activity alone sometimes came back with no device event at all on an
     H100, for a call whose kernels had just run; with the CPU activity
-    beside it that was not seen. A profile with no device event is taken
-    again all the same, up to ``attempts`` times in all."""
+    beside it that was not seen, but later calls saw empty profiles with it
+    too, three in a row, both early and late in a run. A profile with no
+    device event is taken again, up to ``attempts`` times in all, then
+    :class:`ProfilerEmpty` is raised."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -371,8 +429,8 @@ def device_times(fn, iters: int = 5, warmup: int = 2, attempts: int = 3) -> dict
         if events:
             return {e.key: e.self_device_time_total / 1e3 / iters for e in events}
         log(f"torch.profiler recorded no device time for {iters} calls; profiling again")
-    raise AssertionError(f"torch.profiler recorded no device time in {attempts} profiles: the "
-                         "device-side timing cannot be measured")
+    raise ProfilerEmpty(f"torch.profiler recorded no device time in {attempts} profiles: the "
+                        "device-side timing cannot be measured")
 
 
 def short_name(key: str) -> str:
@@ -381,9 +439,42 @@ def short_name(key: str) -> str:
     return m.group(0) if m else key
 
 
+class EventMs(float):
+    """A time that stands where a device time was asked for but
+    ``torch.profiler`` recorded none: CUDA events around the calls, launch
+    gaps and host work between the kernels included."""
+
+
 def device_ms(fn, **kw) -> float:
-    """Device time per call of ``fn``, all its kernels summed."""
-    return sum(device_times(fn, **kw).values())
+    """Device time per call of ``fn``, all its kernels summed. When the
+    profiler records nothing (:class:`ProfilerEmpty`), the call is timed with
+    CUDA events instead and returned as an :class:`EventMs`, which
+    :func:`tag_event_times` marks wherever it is written down."""
+    try:
+        return sum(device_times(fn, **kw).values())
+    except ProfilerEmpty:
+        ms = EventMs(time_ms(fn, iters=max(kw.get("iters", 5), 10), warmup=kw.get("warmup", 2)))
+        log(f"device time not measured (the profiler stayed empty): event-timed {ms:.4f} ms instead")
+        return ms
+
+
+def tag_event_times(obj, path: str = "") -> None:
+    """Beside every :class:`EventMs` value ``obj[key]`` of the dicts in
+    ``obj`` (nested dicts and lists walked), set ``obj[key + "_source"]``
+    to ``"events"`` and list the value's path under
+    ``RESULTS["profiler_fallbacks"]``. A value already tagged is skipped."""
+    if isinstance(obj, dict):
+        for key, value in list(obj.items()):
+            where = f"{path}.{key}" if path else str(key)
+            if isinstance(value, EventMs):
+                if f"{key}_source" not in obj:
+                    obj[f"{key}_source"] = "events"
+                    RESULTS.setdefault("profiler_fallbacks", []).append(where)
+            else:
+                tag_event_times(value, where)
+    elif isinstance(obj, (list, tuple)):
+        for i, value in enumerate(obj):
+            tag_event_times(value, f"{path}[{i}]")
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = PEAK_BF16_FLOP_S):
@@ -4622,6 +4713,671 @@ def moe_phase(seed: int, card: str, k5: dict = None):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the RLHF hybrid engine and the rest of the inference engine
+# ---------------------------------------------------------------------------
+#: (a)'s rollouts: prompt and new tokens, slots, prefill chunk, learner batch
+#: and rollouts; (b)'s beam search: batch, beams, prompt and new tokens
+RLHF_PROMPT, RLHF_NEW, RLHF_SLOTS, RLHF_CHUNK = 64, 64, 8, 64
+#: 16 rollouts (2 learner steps), cut from 32 to keep the script inside its
+#: limit on a slow host (1149.4 s at 32)
+RLHF_BATCH, RLHF_ROLLOUTS = 8, 16
+BEAM_BATCH, BEAM_WIDTH, BEAM_PROMPT, BEAM_NEW = 4, 4, 64, 32
+#: the kernels phase 17's paths must launch, and its beam search alone
+RLHF_KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul")
+BEAM_KERNELS = ("flash_fwd", "flash_decode")
+
+
+def rlhf_config(**hybrid) -> dict:
+    """The hybrid engine's config: the bench's optimizer and clipping, bf16
+    over fp32 masters, the ``hybrid_engine`` block."""
+    return dict(train_config(RLHF_BATCH, 1.0, True),
+                hybrid_engine=dict({"enabled": True, "max_out_tokens": RLHF_PROMPT + RLHF_NEW},
+                                   **hybrid))
+
+
+def pg_loss(logits, batch):
+    """The JAX RLHF test's policy-gradient loss: advantage-weighted
+    log-likelihood of the rollout tokens, over the generated positions."""
+    adv, mask = batch["advantage"], batch["mask"].float()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = torch.gather(logp, -1, batch["rollouts"][:, 1:, None].long())[..., 0]
+    return -(adv[:, None] * tgt * mask[:, 1:]).sum() / mask[:, 1:].sum().clamp_min(1.0)
+
+
+def rlhf_engine(seed: int):
+    """GPT-2 350m (full width and depth, random weights from ``seed``) under
+    the hybrid engine, on the ``"flash"`` backend."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, attention_backend="flash")
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    return initialize(model=model, config=rlhf_config(), loss_fn=pg_loss, device="cuda")[0]
+
+
+def rlhf_batch(exps) -> dict:
+    """The learner batch of experiences: prompt + output padded to 128
+    tokens, the generated positions masked in, reward = the share of output
+    tokens of the prompt's last token's parity, centred: it varies from
+    prompt to prompt even when a trained policy's outputs all look alike
+    (the JAX test's even-token share went to one value for every rollout
+    after one step on the card, and every later loss to 0)."""
+    width = RLHF_PROMPT + RLHF_NEW
+    toks = np.zeros((len(exps), width), np.int64)
+    mask = np.zeros((len(exps), width), np.float32)
+    for j, e in enumerate(exps):
+        seq = np.asarray(e.tokens, np.int64)[:width]
+        toks[j, :len(seq)] = seq
+        mask[j, len(e.prompt):len(seq)] = 1.0
+    reward = np.asarray([(np.asarray(e.output) % 2 == e.prompt[-1] % 2).mean() for e in exps],
+                        np.float32)
+    return {"input_ids": toks, "rollouts": toks, "advantage": reward - reward.mean(), "mask": mask}
+
+
+def rlhf_prompts(seed: int, vocab: int):
+    """The indexed prompt stream: prompt ``i`` is a pure function of (seed, i)."""
+    from deepspeed_tpu_torch.inference.serving import Request
+
+    def fn(i):
+        r = np.random.RandomState(seed * 100003 + i)
+        return Request(prompt=r.randint(0, vocab, size=(RLHF_PROMPT,)).astype(np.int32),
+                       max_new_tokens=RLHF_NEW)
+    return fn
+
+
+def rlhf_serving(weight_dtype=None):
+    from deepspeed_tpu_torch.inference.serving import ServingConfig
+    return ServingConfig(slots=RLHF_SLOTS, prefill_chunk=RLHF_CHUNK, weight_dtype=weight_dtype)
+
+
+def _timed_method(obj, name: str, into: list, after=None):
+    """Wrap ``obj.name``: each call's seconds (the card synchronized) go
+    into ``into``; ``after(result)`` runs on each result."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def rlhf_rollouts(seed: int, card: str, weight_dtype):
+    """(a) one rollout run: a learner step and a synced generation for each
+    8 rollouts, every sync digest-verified on fp weights. The fp run feeds
+    cohort by cohort (``align_cohorts``): it is also the uninterrupted run
+    the preemption check is held to. Returns (the engine, its numbers, the
+    launch counts of the run)."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    from deepspeed_tpu_torch.runtime.rlhf import RolloutConfig, RolloutLoop
+    label = weight_dtype or "fp"
+    torch.cuda.reset_peak_memory_stats()
+    engine = rlhf_engine(seed)
+    learner_s, sync_s, verified = [], [], []
+    _timed_method(engine, "train_batch", learner_s)
+    loop = RolloutLoop(engine, rlhf_prompts(seed, engine.module.config.vocab_size), rlhf_batch,
+                       RolloutConfig(train_batch_size=RLHF_BATCH, total_rollouts=RLHF_ROLLOUTS,
+                                     sync_every=1, align_cohorts=weight_dtype is None),
+                       serving_config=rlhf_serving(weight_dtype))
+    _timed_method(engine, "sync_rollout_weights", sync_s,
+                  after=lambda ev: verified.append(loop.scheduler.last_weight_sync["digest_verified"]))
+    loop.scheduler.warmup()
+    torch.cuda.synchronize()
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    t0 = time.perf_counter()
+    res = loop.run(max_ticks=10**5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    # ---- end of the main path ----
+    losses = [r["loss"] for r in res["losses"]]
+    steps = RLHF_ROLLOUTS // RLHF_BATCH
+    if res["exit_code"] != 0 or res["learner_steps"] != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"rollouts ({label}): {res['exit_code']}, {res['learner_steps']} steps, "
+                             f"losses {losses}")
+    if res["weight_sync_generation"] != steps or engine.weight_sync_generation != steps:
+        raise AssertionError(f"rollouts ({label}): weight_sync_generation "
+                             f"{res['weight_sync_generation']}, want {steps}")
+    if weight_dtype is None and not (len(verified) == steps and all(verified)):
+        raise AssertionError(f"rollouts (fp): not every sync was digest-verified: {verified}")
+    stats = res["scheduler_stats"]
+    tokens = stats["generated_tokens"]
+    rollout_s = wall - sum(learner_s) - sum(sync_s)
+    ev = res["sync_evidence"]
+    out = dict(losses=losses, wall_s=wall, learner_ms_per_step=[t * 1e3 for t in learner_s],
+               sync_s=sync_s, execute_s=[e["execute_s"] for e in ev],
+               digest_s=[e.get("digest_s") for e in ev], total_bytes=ev[0]["total_bytes"],
+               digest_verified=verified, rollout_s=rollout_s, generated_tokens=tokens,
+               rollout_tokens_per_s=tokens / rollout_s, ticks=stats["ticks"], launches=counts,
+               rollout=stats["rollout"])
+    log(f"rlhf (a) {label}: {steps} learner steps, losses {[f'{x:.4f}' for x in losses]}, "
+        f"{tokens} tokens in {rollout_s:.2f} s of ticks ({out['rollout_tokens_per_s']:.1f} tokens/s), "
+        f"learner {np.mean(learner_s) * 1e3:.1f} ms/step, syncs {[round(t, 3) for t in sync_s]} s "
+        f"(execute_s {[round(x, 4) for x in out['execute_s']]}, digest_s "
+        f"{[None if x is None else round(x, 3) for x in out['digest_s']]}), wall {wall:.2f} s, "
+        f"ticks {stats['ticks']}  [{card}]")
+    log(f"rlhf (a) {label} launches: {counts}")
+    cfg = engine.module.config
+    pool_shape = (RLHF_SLOTS, loop.scheduler.capacity, cfg.n_head, cfg.n_embd // cfg.n_head)
+    prompts = [rlhf_prompts(seed + 1, cfg.vocab_size)(i).prompt for i in range(RLHF_SLOTS)]
+    out["tick_profile"] = _profile_decode_ticks(loop.scheduler, prompts, card, pool_shape, n_ticks=5)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"rlhf (a) {label}: peak memory {out['peak_memory_gb']:.2f} GiB (training state, the bf16 "
+        f"view, the slot cache{', the int8 view' if weight_dtype else ''})  [{card}]")
+    del engine.train_batch, engine.sync_rollout_weights  # the class's methods again
+    del loop
+    return engine, out, counts
+
+
+def rlhf_swap_check(engine, seed: int, card: str) -> dict:
+    """A mid-decode swap of the same weights changes no token. On fp
+    weights the rollout scheduler serves the view's own tensors, so that
+    swap places nothing; a scheduler over an inference engine of its own
+    (its weights zeroed) takes the view's weights by a copy, refuses a wrong
+    digest, re-digests what it placed against the learner's digest, and
+    then serves the view's tokens."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    fn = rlhf_prompts(seed + 2, engine.module.config.vocab_size)
+
+    def outputs(sched, mid_swap=None):
+        for i in range(RLHF_SLOTS):
+            sched.submit(fn(i))
+        for _ in range(4):   # the prefill tick and three decode ticks
+            sched.step()
+        if mid_swap is not None:
+            mid_swap(sched)
+            if not sched.last_weight_sync["digest_verified"]:
+                raise AssertionError("the mid-decode swap was not digest-verified")
+        sched.run_until_drained()
+        return [list(map(int, r.output)) for r in sched.finished]
+
+    want = outputs(engine.rollout_scheduler(rlhf_serving()))
+    aliased = engine.rollout_scheduler(rlhf_serving())
+    same = outputs(aliased, engine.sync_rollout_weights) == want
+    RESULTS["checks"].append({"name": "rlhf mid-decode swap of the same weights", "ok": same})
+    log(f"check rlhf mid-decode swap of the same weights: token-identical {same} (placed "
+        f"{aliased.last_weight_sync['placed']})  [{card}]")
+    if not same:
+        raise AssertionError("a mid-decode swap of the same weights changed the rollouts")
+
+    view = engine._infer_engine.params
+    apart = init_inference(engine.module, dtype=torch.bfloat16, replace_with_kernel_inject=False,
+                           max_tokens=RLHF_PROMPT + RLHF_NEW, device="cuda")
+    with torch.no_grad():
+        for t in apart.module.state_dict().values():
+            t.zero_()
+    sched = ContinuousBatchingScheduler(apart, rlhf_serving())
+    try:
+        sched.swap_served_params(view, expected_digest="0" * 64)
+        refused = False
+    except ValueError:
+        refused = True
+    learner = engine.last_weight_sync
+    t0 = time.perf_counter()
+    sched.swap_served_params(view, expected_digest=learner["digest"], evidence=learner)
+    swap_s = time.perf_counter() - t0
+    placed = sched.last_weight_sync
+    served = outputs(sched)
+    del sched, apart
+    torch.cuda.empty_cache()
+    ok = refused and placed["placed"] and placed["digest_verified"] and served == want
+    RESULTS["checks"].append({"name": "rlhf swap into a scheduler's own tensors", "ok": ok,
+                              "wrong_digest_refused": refused, "swap_s": swap_s})
+    log(f"check rlhf swap into a scheduler's own tensors (zeroed): wrong digest refused {refused}, "
+        f"placed {placed['placed']}, digest-verified {placed['digest_verified']} in {swap_s:.3f} s, "
+        f"token-identical to the view's {served == want}  [{card}]")
+    if not ok:
+        raise AssertionError("a swap into a scheduler's own tensors was not placed and verified")
+    return {"token_identical": same, "apart_swap_s": swap_s}
+
+
+def rlhf_isolation_check(seed: int, card: str) -> dict:
+    """train -> generate -> train gives the loss bits of train -> train,
+    both from one snapshot of a fresh engine (parameters, Adam state,
+    counters and generator restored between them)."""
+    from deepspeed_tpu_torch.runtime.rlhf import Experience
+    # rewards 1 and 0 in turn: a nonzero advantage on every row
+    batch = rlhf_batch([Experience(index=i, prompt=list(range(RLHF_PROMPT)),
+                                   output=[i + 1] * RLHF_NEW, weight_generation=0)
+                        for i in range(RLHF_BATCH)])
+    engine = rlhf_engine(seed + 3)
+    prompts = np.random.default_rng(seed).integers(0, engine.module.config.vocab_size,
+                                                   (2, RLHF_PROMPT))
+    snap = _snapshot(engine)
+
+    def run(with_generate):
+        _restore(engine, snap)
+        losses = []
+        for step in range(3):
+            losses.append(float(engine.train_batch(batch)))
+            if with_generate and step == 0:
+                engine.generate(prompts, max_new_tokens=RLHF_NEW // 2)
+                engine.infer_forward(prompts)
+        return losses, engine.generator.get_state()
+
+    control, mixed = run(False), run(True)
+    del engine, snap
+    torch.cuda.empty_cache()
+    same = control[0] == mixed[0] and torch.equal(control[1], mixed[1])
+    RESULTS["checks"].append({"name": "rlhf train-generate-train bits", "ok": same,
+                              "train_train": control[0], "train_generate_train": mixed[0]})
+    log(f"check rlhf train -> generate -> train vs train -> train over 3 steps: loss bits equal "
+        f"{same} ({control[0]} vs {mixed[0]})  [{card}]")
+    if not same:
+        raise AssertionError("generation perturbed training")
+    return {"losses": control[0], "bit_equal": same}
+
+
+def rlhf_preempt_check(seed: int, card: str, work: str, want: list) -> dict:
+    """(a)'s fp run again, with a flag after learner step 1: it drains
+    (nothing dropped) and checkpoints once; (d) serves that tag from the
+    preempted engine; a fresh engine's resume and restore finish with
+    ``want``, the uninterrupted fp run's loss bits (``align_cohorts``).
+    Returns (the preemption's numbers, (d)'s)."""
+    from deepspeed_tpu_torch.runtime.resilience.signals import PreemptionGuard
+    from deepspeed_tpu_torch.runtime.rlhf import RolloutConfig, RolloutLoop
+
+    def loop_for(engine, **kw):
+        return RolloutLoop(engine, fn, rlhf_batch,
+                           RolloutConfig(train_batch_size=RLHF_BATCH, total_rollouts=RLHF_ROLLOUTS,
+                                         sync_every=1, align_cohorts=True, **kw),
+                           serving_config=rlhf_serving())
+
+    engine = rlhf_engine(seed)
+    fn = rlhf_prompts(seed, engine.module.config.vocab_size)
+    guard = PreemptionGuard(signals=[])   # flag-only trigger
+    ckpt = os.path.join(work, "rlhf")
+    loop = loop_for(engine, checkpoint_dir=ckpt)
+    orig = engine.train_batch
+
+    def train_then_flag(b):
+        loss = orig(b)
+        guard.request("flag")
+        return loss
+
+    engine.train_batch = train_then_flag
+    save_s = []
+    _timed_method(engine, "save_checkpoint", save_s)
+    t0 = time.perf_counter()
+    first = loop.run(guard=guard)
+    preempt_s = time.perf_counter() - t0
+    del loop
+    if not (first["exit_code"] == 143 and first["dropped"] == 0 and first["learner_steps"] == 1
+            and len(save_s) == 1):
+        raise AssertionError(f"rlhf preemption: exit {first['exit_code']}, dropped "
+                             f"{first['dropped']}, {first['learner_steps']} steps, "
+                             f"{len(save_s)} saves")
+    served = rlhf_checkpoint_phase(engine, card, work, ckpt, first["checkpoint_tag"], save_s[0])
+    del engine
+    torch.cuda.empty_cache()
+    fresh = rlhf_engine(seed + 5)   # another init: every bit must come from the tag
+    t0 = time.perf_counter()
+    tag, client = fresh.resume(ckpt)
+    resume_s = time.perf_counter() - t0
+    loop = loop_for(fresh)
+    if not loop.restore(client):
+        raise AssertionError("rlhf preemption: the tag carries no loop state")
+    second = loop.run()
+    del loop, fresh
+    torch.cuda.empty_cache()
+    stitched = [r["loss"] for r in first["losses"] + second["losses"]]
+    disjoint = {r["step"] for r in first["losses"]}.isdisjoint(r["step"] for r in second["losses"])
+    ok = stitched == want and disjoint and second["exit_code"] == 0
+    RESULTS["checks"].append({"name": "rlhf preempt, resume, stitched loss bits", "ok": ok,
+                              "stitched": stitched, "uninterrupted": want})
+    log(f"check rlhf preemption: exit 143, dropped 0, tag {tag} ({preempt_s:.1f} s with the drain "
+        f"and the {save_s[0]:.1f} s save, resume {resume_s:.1f} s); stitched losses {stitched} vs "
+        f"uninterrupted {want}: {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise AssertionError("the resumed rollout run does not finish with the uninterrupted bits")
+    return {"tag": tag, "stitched": stitched, "preempt_s": preempt_s, "save_s": save_s[0],
+            "resume_s": resume_s}, served
+
+
+def _beam_score(module, ids: np.ndarray, prompt_len: int) -> np.ndarray:
+    """Each row's mean log-probability of its generated tokens under
+    ``module`` (one forward over prompt + generated; length penalty 1)."""
+    with torch.inference_mode():
+        logits = module(torch.as_tensor(ids.astype(np.int64), device="cuda")).float()
+    lp = torch.log_softmax(logits[:, prompt_len - 1:-1], dim=-1)
+    tok = torch.as_tensor(ids[:, prompt_len:].astype(np.int64), device="cuda")
+    return torch.gather(lp, -1, tok[..., None])[..., 0].mean(-1).cpu().numpy()
+
+
+def rlhf_beam_phase(seed: int, card: str):
+    """(b) beam search on 350m: the flash engine (K1 ``forward``, K3 every
+    step) against the ``"xla"`` backend, token for token in fp32; in bf16
+    by the margin rule on sequence scores. Returns (numbers, launches)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    cfg = get_gpt2_config("350m")
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 6))
+    prompts = np.random.default_rng(seed + 6).integers(0, cfg.vocab_size, (BEAM_BATCH, BEAM_PROMPT))
+    kw = dict(max_new_tokens=BEAM_NEW, num_beams=BEAM_WIDTH)
+    out, runs = {}, {}
+    for dtype in ("fp32", "bf16"):
+        for backend in ("flash", "xla"):
+            inject = dict(kernel_inject=True, use_flash_prefill=True) if backend == "flash" else {}
+            engine = init_inference(model, dtype=dtype, **inject)
+            engine.generate(prompts[:, :16], max_new_tokens=2, num_beams=BEAM_WIDTH)  # warm
+            torch.cuda.synchronize()
+            counts = None
+            if backend == "flash" and dtype == "bf16":
+                # ---- the main path: counts zeroed just before, read just after ----
+                reset_launches()
+                logits = engine.forward(prompts)
+                t0 = time.perf_counter()
+                got = engine.generate(prompts, **kw).numpy()
+                torch.cuda.synchronize()
+                gen_s = time.perf_counter() - t0
+                counts = launches()
+                # ---- end of the main path ----
+                out.update(generate_s=gen_s, tokens_per_s=BEAM_BATCH * BEAM_NEW / gen_s,
+                           beam_tokens_per_s=BEAM_BATCH * BEAM_WIDTH * BEAM_NEW / gen_s, launches=counts)
+                if not torch.isfinite(logits.float()).all():
+                    raise AssertionError("beam (b): non-finite forward logits")
+                del logits
+            else:
+                got = engine.generate(prompts, **kw).numpy()
+            if got.shape != (BEAM_BATCH, BEAM_PROMPT + BEAM_NEW) or not (got[:, :BEAM_PROMPT] == prompts).all():
+                raise AssertionError(f"beam (b) {backend} {dtype}: bad output {got.shape}")
+            runs[(backend, dtype)] = (got, counts, engine if backend == "xla" else None)
+            if backend == "flash":
+                del engine
+            torch.cuda.empty_cache()
+    counts = runs[("flash", "bf16")][1]
+    missing = [k for k in BEAM_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"beam (b): kernels never launched: {missing} ({counts})")
+    same32 = bool((runs[("flash", "fp32")][0] == runs[("xla", "fp32")][0]).all())
+    RESULTS["checks"].append({"name": "beam fp32 flash vs xla token-identical", "ok": same32})
+    log(f"check beam (b) fp32: flash engine vs xla engine token-identical {same32}  [{card}]")
+    if not same32:
+        raise AssertionError("beam search in fp32 differs between the kernels and the xla backend")
+    # bf16: the rounding this run measures (xla bf16 vs xla fp32 logits)
+    x16, x32 = runs[("xla", "bf16")][2], runs[("xla", "fp32")][2]
+    with torch.inference_mode():
+        l16 = x16.forward(prompts).float()
+        l32 = x32.forward(prompts).float()
+    rounding = rel_err(l16, l32)[1]
+    maxabs = l32.abs().max().item()
+    del l16, l32
+    ref, got = runs[("xla", "bf16")][0], runs[("flash", "bf16")][0]
+    rows = []
+    for i in range(BEAM_BATCH):
+        if (ref[i] == got[i]).all():
+            continue
+        s = _beam_score(x32.module, np.stack([ref[i], got[i]]), BEAM_PROMPT)
+        # two bf16 searches, each step's log-probability off by at most
+        # twice the logit rounding: their fp32 scores may differ by 4x
+        limit = 4 * 1.5 * rounding * maxabs
+        rows.append(dict(row=i, position=first_divergence(list(ref[i]), list(got[i])),
+                         score_gap=float(s[0] - s[1]), limit=limit, ok=float(s[0] - s[1]) <= limit))
+    ok = all(r["ok"] for r in rows)
+    share = margin_share(x16.module, [(p, None) for p in prompts],
+                         [list(r[BEAM_PROMPT:]) for r in ref], rounding)
+    RESULTS["checks"].append({"name": "beam bf16 flash vs xla (margin rule on scores)", "ok": ok,
+                              "divergent": rows})
+    log(f"check beam (b) bf16: {BEAM_BATCH - len(rows)}/{BEAM_BATCH} rows token-identical; divergent "
+        f"{[(r['row'], r['position'], round(r['score_gap'], 5), round(r['limit'], 5)) for r in rows]} "
+        f"(row, position, fp32 score gap of the reference over the kernels' beam, limit) "
+        f"{'ok' if ok else 'FAIL'}; rounding {rounding:.3e}; share of the reference's positions "
+        f"within the margin rule's limit {share['share_within_limit']:.3f}  [{card}]")
+    if not ok:
+        raise AssertionError(f"beam (b) bf16: a divergence beyond the margin rule: {rows}")
+    out.update(fp32_identical=same32, bf16_divergent=rows, rounding=rounding, margin_share=share)
+    log(f"rlhf (b) beam search batch {BEAM_BATCH} x {BEAM_WIDTH} beams, prompt {BEAM_PROMPT}, "
+        f"{BEAM_NEW} new: {out['generate_s']:.3f} s, {out['tokens_per_s']:.1f} tokens/s of the best "
+        f"beams ({out['beam_tokens_per_s']:.1f} of all hypotheses); launches K1 "
+        f"{counts['flash_fwd']}, K3 {counts['flash_decode']}  [{card}]")
+    del runs, x16, x32
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _weight_bytes(params: dict, scales=None) -> int:
+    n = sum(t.numel() * t.element_size() for t in params.values())
+    return n + sum(t.numel() * t.element_size() for t in (scales or {}).values())
+
+
+def rlhf_int8_phase(seed: int, card: str):
+    """(c) engine-wide int8 (``dtype="int8"`` and ``quant.enabled``) on
+    350m against the bf16 engine. Returns (numbers, launches)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    cfg = get_gpt2_config("350m")
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 7))
+    ids = np.random.default_rng(seed + 7).integers(0, cfg.vocab_size, (4, 256))
+    inject = dict(kernel_inject=True, use_flash_prefill=True)
+    ref = init_inference(model, dtype="bf16", **inject)
+    with torch.inference_mode():
+        lr = ref.forward(ids).float()
+    bf16_bytes = _weight_bytes(ref.params)
+    del ref
+    out, total = {"bf16_weight_bytes": bf16_bytes}, {}
+    for how, kw in (("dtype_int8", dict(dtype="int8")),
+                    ("quant_block", dict(dtype="bf16", quant={"enabled": True}))):
+        engine = init_inference(model, **inject, **kw)
+        int8 = [k for k, v in engine.params.items() if v.dtype == torch.int8]
+        if not int8 or not all(engine.params[k].is_cuda for k in int8):
+            raise AssertionError(f"int8 (c) {how}: no int8 leaf on the card")
+        # ---- the main path: counts zeroed just before, read just after ----
+        reset_launches()
+        lq = engine.forward(ids).float()
+        gen = engine.generate(ids[:2, :64], max_new_tokens=16)
+        torch.cuda.synchronize()
+        counts = launches()
+        # ---- end of the main path ----
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        corr = float(np.corrcoef(lr.cpu().numpy().ravel(), lq.cpu().numpy().ravel())[0, 1])
+        agree_last = float((lr[:, -1].argmax(-1) == lq[:, -1].argmax(-1)).float().mean())
+        agree_all = float((lr.argmax(-1) == lq.argmax(-1)).float().mean())
+        nbytes = _weight_bytes(engine.params, engine._wq_scales)
+        ok = corr > 0.99 and agree_all >= 0.5 and tuple(gen.shape) == (2, 80)
+        RESULTS["checks"].append({"name": f"int8 engine ({how}) vs bf16", "ok": ok, "corr": corr,
+                                  "top1_agreement": agree_all})
+        log(f"check int8 (c) {how}: {len(int8)} int8 leaves on the card, logits correlation with "
+            f"the bf16 engine {corr:.5f} (> 0.99), top-1 agreement {agree_all:.3f} over all "
+            f"positions (>= 0.5; last positions {agree_last:.2f}); weights {nbytes / 2**20:.1f} MiB "
+            f"vs bf16 {bf16_bytes / 2**20:.1f} MiB; generate {tuple(gen.shape)}; launches {counts} "
+            f"{'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            raise AssertionError(f"int8 (c) {how}: corr {corr}, agreement {agree_all}")
+        out[how] = dict(int8_leaves=len(int8), corr=corr, top1_agreement=agree_all,
+                        top1_agreement_last=agree_last, weight_bytes=nbytes, launches=counts)
+        del engine, lq
+        torch.cuda.empty_cache()
+    return out, total
+
+
+def rlhf_checkpoint_phase(engine, card: str, work: str, ckpt: str, tag: str, save_s: float) -> dict:
+    """(d) serving from a hybrid engine's checkpoints: the tag it has just
+    saved under ``ckpt`` (directory and dict spec) in fp32 against its live
+    parameters, and its 16-bit npz against the live parameters rounded to
+    bf16, within 1e-5."""
+    from deepspeed_tpu_torch import init_inference
+    ids = np.random.default_rng(8).integers(0, engine.module.config.vocab_size, (2, 256))
+    deploy = os.path.join(work, "deploy")
+    npz = engine.save_16bit_model(deploy)
+    live = {k: v.detach().clone() for k, v in engine.module.state_dict().items()}
+
+    def logits(**source):
+        t0 = time.perf_counter()
+        served = init_inference(engine.module, dtype="fp32", kernel_inject=True, use_flash_prefill=True,
+                                **source)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            out = served.forward(ids).float()
+        del served
+        return out, load_s
+
+    want, _ = logits(params=live)
+    out = {"save_s": save_s, "tag": tag}
+    for name, source, ref in (("tag dir", dict(checkpoint=ckpt), want),
+                              ("dict spec", dict(checkpoint={"checkpoint_dir": ckpt, "tag": tag}), want),
+                              ("16-bit npz", dict(checkpoint=deploy), None)):
+        if ref is None:
+            ref, _ = logits(params={k: v.to(torch.bfloat16).float() for k, v in live.items()})
+        got, load_s = logits(**source)
+        err = (got - ref).abs().max().item()
+        ok = err <= 1e-5 and torch.isfinite(got).all().item()
+        rel32 = rel_err(got, want)[1]
+        RESULTS["checks"].append({"name": f"checkpoint serving ({name})", "max_abs_err": err, "ok": ok})
+        log(f"check checkpoint (d) {name}: fp32 logits max |err| {err:.3e} (<= 1e-5) against the "
+            f"{'live parameters' if ref is want else 'live parameters rounded to bf16'} "
+            f"(rel {rel32:.3e} against the fp32 live ones); load {load_s:.2f} s "
+            f"{'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            raise AssertionError(f"checkpoint (d) {name}: max |err| {err}")
+        out[name] = dict(max_abs_err=err, rel_vs_fp32_live=rel32, load_s=load_s)
+    out["npz_bytes"] = os.path.getsize(npz)
+    log(f"checkpoint (d): the tag's save {save_s:.2f} s ({tag}), npz {out['npz_bytes'] / 2**20:.1f} "
+        f"MiB  [{card}]")
+    shutil.rmtree(deploy, ignore_errors=True)
+    return out
+
+
+def rlhf_paged_kv_phase(seed: int, card: str) -> dict:
+    """(e) ``PagedKVCache`` at 350m's per-layer shape: int8 pages of 16, 3
+    sequences appended across page edges, gathered; K3 on the gathered
+    view against its plain version."""
+    from deepspeed_tpu_torch.inference import PagedKVCache
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    cache = PagedKVCache(num_pages=64, page_size=16, num_heads=16, head_dim=64, dtype=torch.bfloat16,
+                         quantize=True, device="cuda")
+    lengths = (40, 17, 100)
+    for s, n in enumerate(lengths):
+        cache.allocate(s)
+        for lo in range(0, n, 7):   # runs of 7 tokens: most cross a page edge
+            t = min(7, n - lo)
+            cache.append(s, torch.randn(t, 16, 64, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.randn(t, 16, 64, generator=gen, device="cuda").to(torch.bfloat16))
+    k, v, lens = cache.gather([0, 1, 2], pad_to=128)
+    if lens.tolist() != list(lengths) or tuple(k.shape) != (3, 128, 16, 64):
+        raise AssertionError(f"paged KV (e): lengths {lens.tolist()}, view {tuple(k.shape)}")
+    k, v = k.contiguous(), v.contiguous()
+    q = torch.randn(3, 1, 16, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    err = compare("paged KV (e) K3 on the gathered view", fa.flash_decode(q, k, v, lens),
+                  fa.flash_decode_plain(q, k, v, lens, scale=0.125), torch.bfloat16)
+    counters = cache.counters()
+    log(f"paged KV (e): {sum(lengths)} tokens in {64 - cache.free_pages} pages of 16, counters "
+        f"{counters}  [{card}]")
+    return {"max_abs_err": err, "counters": counters, "pages_used": 64 - cache.free_pages}
+
+
+def rlhf_kernel_times(gen) -> dict:
+    """K2 at the rollout's prefill tick (M = 8 slots x 64 = 512, int8, every
+    350m projection) and K3 at the beam step (q [16,1,16,64]: batch 4 x 4
+    beams, over a bf16 [16,1024,16,64] cache with 95 live rows, the last
+    step's), timed as phase 3 times them: kernel, plain version, library
+    call (device-side) and bound."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+    dev = torch.device("cuda")
+    out = {"quant_matmul": {}, "flash_decode": {}}
+    m = RLHF_SLOTS * RLHF_CHUNK
+    for kk, n in K2_SHAPES:
+        x, qw, scale, codes, g = k2_operands(gen, m, kk, n, 8)
+        w = (codes.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(torch.bfloat16)
+        copies, nxt = rotating(lambda: (qw.clone(), scale.clone(), w.clone()), qw.numel() + scale.numel() * 4)
+        kernel = lambda: qm.quant_matmul(x, *nxt()[:2], bits=8)  # noqa: E731
+        library = lambda: torch.matmul(x, nxt()[2])  # noqa: E731
+        got, ref = qm.quant_matmul(x, qw, scale, bits=8), qm.quant_matmul_plain(x, qw, scale, 8)
+        err = compare(f"K2 rollout prefill M={m} K={kk} N={n}", got, ref, torch.bfloat16)
+        nbytes = m * kk * 2 + qw.numel() + scale.numel() * 4 + m * n * 2
+        bnd, by = bound_ms(nbytes, 2 * m * kk * n)
+        entry = dict(shape=f"x [{m},{kk}] bf16 @ int8 [{kk},{n}], scales [{g},{n}]", max_abs_err=err,
+                     ms=time_ms(kernel, iters=len(copies)), device_ms=device_ms(kernel, iters=len(copies)),
+                     plain_ms=time_ms(lambda: qm.quant_matmul_plain(x, qw, scale, 8), iters=10),
+                     library_ms=device_ms(library, iters=len(copies)), bound_ms=bnd, bound_by=by)
+        out["quant_matmul"][f"int8 M={m} K={kk} N={n}"] = entry
+        log(f"time quant_matmul rollout prefill int8 M={m} K={kk} N={n}: kernel_ms={entry['ms']:.4f} "
+            f"kernel_device_ms={entry['device_ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+            f"library_ms={entry['library_ms']:.4f} bound_ms={bnd:.4f} ({by})")
+        del copies
+    s, live = BEAM_BATCH * BEAM_WIDTH, BEAM_PROMPT + BEAM_NEW - 1
+    q = torch.randn(s, 1, 16, 64, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(s, P, 16, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    lens = torch.full((s,), live, dtype=torch.int32, device=dev)
+    kernel = lambda: fa.flash_decode(q, k, v, lens)  # noqa: E731
+    err = compare(f"K3 beam step q [{s},1,16,64]", kernel(), fa.flash_decode_plain(q, k, v, lens, scale=0.125),
+                  torch.bfloat16)
+    mask = (torch.arange(P, device=dev)[None, None, None, :] < live)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    nbytes = s * live * 16 * 64 * 2 * 2 + 2 * q.numel() * 2 + s * 4
+    bnd, by = bound_ms(nbytes, 4 * 64 * 16 * s * live)
+    entry = dict(shape=f"q [{s},1,16,64], k/v [{s},1024,16,64] bf16, {live} live rows each",
+                 max_abs_err=err, ms=time_ms(kernel, iters=50), device_ms=device_ms(kernel),
+                 plain_ms=time_ms(lambda: fa.flash_decode_plain(q, k, v, lens, scale=0.125), iters=5, warmup=1),
+                 library_ms=device_ms(sdpa), bound_ms=bnd, bound_by=by)
+    out["flash_decode"][f"beam step Lq=1 S={s}"] = entry
+    log(f"time flash_decode beam step q [{s},1,16,64] ({live} live rows): kernel_ms={entry['ms']:.4f} "
+        f"kernel_device_ms={entry['device_ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+        f"library_ms={entry['library_ms']:.4f} (masked SDPA, device-side) bound_ms={bnd:.4f} ({by})")
+    return out
+
+
+def rlhf_phase(seed: int, card: str, times: dict = None):
+    """Phase 17: K2 and K3 at the phase's new shapes (``times``: timed
+    already, beside phase 3, where the whole script runs them while the
+    profiler is fresh), then (a)-(e). Returns (its numbers, the launch
+    counts of its main paths summed: (a) both runs, (b) and (c))."""
+    out, total, parts = {}, {}, {}
+    t0 = time.perf_counter()
+    out["kernel_times"] = times if times is not None else rlhf_kernel_times(
+        torch.Generator(device="cuda").manual_seed(seed + 10))
+    parts["kernel times"] = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="chip_smoke_rlhf_")
+    try:
+        t1 = time.perf_counter()
+        runs = {}
+        for weight_dtype in ("int8", None):
+            engine, runs[weight_dtype or "fp"], counts = rlhf_rollouts(seed, card, weight_dtype)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if weight_dtype is not None:
+                del engine
+                torch.cuda.empty_cache()
+        out["a_rollouts"] = runs
+        out["a_swap"] = rlhf_swap_check(engine, seed, card)
+        del engine
+        torch.cuda.empty_cache()
+        parts["a rollouts"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["a_isolation"] = rlhf_isolation_check(seed, card)
+        out["a_preempt"], out["d_checkpoints"] = rlhf_preempt_check(
+            seed, card, work, runs["fp"]["losses"])
+        parts["a isolation, preemption and (d) checkpoints"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for key, fn in (("b_beam", rlhf_beam_phase), ("c_int8", rlhf_int8_phase)):
+        t1 = time.perf_counter()
+        out[key], counts = fn(seed, card)
+        parts[key] = time.perf_counter() - t1
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    t1 = time.perf_counter()
+    out["e_paged_kv"] = rlhf_paged_kv_phase(seed, card)
+    parts["e paged kv"] = time.perf_counter() - t1
+    missing = [k for k in RLHF_KERNELS if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 17: kernels never launched on its paths: {missing} ({total})")
+    out["launches"] = total
+    out["seconds_by_part"] = dict(parts, all=time.perf_counter() - t0)
+    log("phase 17 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds_by_part"].items()))
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4631,8 +5387,8 @@ def main(argv=None) -> int:
                          "which use only the API earlier commits share, so that copied into an "
                          "earlier checkout this script measures that commit the same way, "
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
-                         "phase 4, whose measured rounding it reads), 'resilience' (phase 15) and "
-                         "'moe' (phase 16)")
+                         "phase 4, whose measured rounding it reads), 'resilience' (phase 15), "
+                         "'moe' (phase 16) and 'rlhf' (phase 17)")
     ap.add_argument("--child", choices=("preempt", "resume", "agent", "torn"),
                     help="run as one of phase 15's training processes (the phase starts them)")
     ap.add_argument("--dir", help="--child: the checkpoint dir")
@@ -4642,10 +5398,10 @@ def main(argv=None) -> int:
     if args.child:
         return child_main(args)
     phases = set(args.phases.split(","))
-    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe"}
+    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience' and 'moe', got {args.phases!r}")
+                 f"'defaults', 'resilience', 'moe' and 'rlhf', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -4689,14 +5445,20 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["moe"] = moe_phase(args.seed, card)[0]
             RESULTS.setdefault("phase_s", {})["16 MoE serving and Mixtral"] = time.perf_counter() - t_phase
+        if "rlhf" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["rlhf"] = rlhf_phase(args.seed, card)[0]
+            RESULTS.setdefault("phase_s", {})["17 RLHF and the inference engine"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
         lines = kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
         lines_d128 = kernel_phase_d128(torch.Generator(device="cuda").manual_seed(args.seed + 100), args.seed)
-        # phase 16's K5 shapes, timed here: late in a long process the
-        # profiler has come back empty three times running
+        # phase 16's K5 shapes and phase 17's K2 and K3 shapes, timed here:
+        # late in a long process the profiler has come back empty three
+        # times running
         k5_16 = k5_routed_times(torch.Generator(device="cuda").manual_seed(args.seed + 12))
+        times_17 = rlhf_kernel_times(torch.Generator(device="cuda").manual_seed(args.seed + 10))
         phase_s["3 kernels"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
         t_phase = time.perf_counter()
@@ -4746,9 +5508,16 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["moe"], moe_serve_counts = moe_phase(args.seed, card, k5_16)
         phase_s["16 MoE serving and Mixtral"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["rlhf"], rlhf_counts = rlhf_phase(args.seed, card, times_17)
+        phase_s["17 RLHF and the inference engine"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
+    tag_event_times(RESULTS)
+    if "all" in phases:
+        tag_event_times({"lines": lines, "lines_d128": lines_d128})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"chip_smoke_seed{args.seed}.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
@@ -4763,7 +5532,7 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts)
+                 moe_serve_counts, rlhf_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts)
@@ -4795,6 +5564,14 @@ def main(argv=None) -> int:
                     launches=moe_serve_counts.get(name, 0),
                     launches_per_decode_tick=moe["a_moe_scheduler"]["ticks"]["decode"]["launches_per_tick"][name],
                     launches_per_mixtral_step=moe["c_mixtral_training"]["launches_per_step"][name])
+            if name in ("quant_matmul", "flash_decode"):
+                # phase 17: K2 at the rollout's prefill tick, K3 at the beam
+                # step; launches as phase 17's paths read them
+                times = RESULTS["rlhf"]["kernel_times"][name]
+                entry["at_phase17"] = dict(
+                    shapes=[dict({k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)},
+                                 key=key) for key, t in times.items()],
+                    launches=rlhf_counts.get(name, 0))
             kernels.append(entry)
         log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")

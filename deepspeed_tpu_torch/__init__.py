@@ -12,8 +12,10 @@ from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, get_
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.runtime.entry import initialize
+from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
 
-__all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "DeepSpeedInferenceConfig", "GPT2Config",
+__all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "DeepSpeedHybridEngine",
+           "DeepSpeedInferenceConfig", "GPT2Config",
            "GPT2LMHeadModel", "InferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "get_gpt2_config", "get_llama_config", "init_inference", "initialize",
            "resolve_device"]

@@ -36,6 +36,8 @@ _FLAX_NORM_SCOPE = "LayerNorm_0"
 
 
 def _to_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):  # e.g. zero_to_fp32.load_state_dict_from_npz's leaves
+        return leaf
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)

@@ -2,9 +2,13 @@
 the same field names, as a dataclass.
 
 The ``moe`` block is JAX's ``DeepSpeedMoEConfig`` (a bool, a dict or None);
-expert parallelism over several cards (``ep_size > 1``) raises. Fields that
-belong to tensor parallelism, checkpoint loading or engine weight
-quantization are later slices of the port and raise when set."""
+expert parallelism over several cards (``ep_size > 1``) raises. The
+``quant`` block is JAX's ``QuantizationConfig``; ``dtype="int8"`` means
+int8-quantized weights served at bf16 (JAX ``engine.py:151-158``), not a
+cast. ``checkpoint`` (joined to ``base_dir``) names the serving weights:
+an ``.npz``, an engine checkpoint directory, or ``{"checkpoint_dir": ...,
+"tag": ...}``. Tensor parallelism (``tp_size > 1``) and ``injection_policy``
+are later slices of the port and raise when set."""
 
 import dataclasses
 from typing import Any, Optional
@@ -13,7 +17,8 @@ import torch
 
 _DTYPES = {"fp32": torch.float32, "float32": torch.float32, "float": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "fp16": torch.float16, "float16": torch.float16, "half": torch.float16}
+           "fp16": torch.float16, "float16": torch.float16, "half": torch.float16,
+           "int8": torch.int8}
 
 #: legacy / reference names accepted by :meth:`DeepSpeedInferenceConfig.from_dict`
 _ALIASES = {"kernel_inject": "replace_with_kernel_inject", "max_out_tokens": "max_tokens",
@@ -28,10 +33,6 @@ def resolve_dtype(value) -> Optional[torch.dtype]:
         key = str(value).replace("torch.", "")
     else:
         key = str(value).lower().replace("torch.", "")
-    if key == "int8":
-        raise NotImplementedError("dtype=int8 (engine-wide weight quantization) is a later slice "
-                                  "of the port; serve int8 weights through "
-                                  "ServingConfig(weight_dtype='int8')")
     if key not in _DTYPES:
         raise ValueError(f"unknown dtype {value!r}; accepted: {sorted(_DTYPES)}")
     return _DTYPES[key]
@@ -79,6 +80,30 @@ class DeepSpeedMoEConfig:
 
 
 @dataclasses.dataclass
+class QuantizationConfig:
+    """The inference ``quant`` block (JAX ``QuantizationConfig``):
+    engine-wide weight quantization (``runtime/weight_quantizer.py``),
+    ``group_size`` elements a group."""
+    enabled: bool = False
+    bits: int = 8
+    group_size: int = 64
+
+    @classmethod
+    def from_value(cls, value) -> "QuantizationConfig":
+        if isinstance(value, cls):
+            return value
+        if value is None:
+            return cls()
+        if not isinstance(value, dict):
+            raise ValueError(f"quant must be a dict or a QuantizationConfig, got {value!r}")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(value) - known)
+        if unknown:
+            raise ValueError(f"quant: unknown keys {unknown}; accepted: {sorted(known)}")
+        return cls(**value)
+
+
+@dataclasses.dataclass
 class DeepSpeedInferenceConfig:
     replace_with_kernel_inject: bool = False
     dtype: Any = None
@@ -88,26 +113,29 @@ class DeepSpeedInferenceConfig:
     min_out_tokens: int = 1
     max_new_tokens: int = 64
     moe: Any = None
+    quant: Any = None
+    checkpoint: Any = None
+    base_dir: str = ""
     # later slices of the port: must stay unset
     tensor_parallel: Optional[dict] = None
-    quant: Optional[dict] = None
-    checkpoint: Any = None
     injection_policy: Optional[dict] = None
 
     def __post_init__(self):
         self.dtype = resolve_dtype(self.dtype)
         tp = self.tensor_parallel or {}
         if int(tp.get("tp_size", 1)) > 1:
-            raise NotImplementedError("tensor parallelism is a later slice of the PyTorch port")
+            raise NotImplementedError("tensor parallelism is a later slice of the PyTorch port "
+                                      "(ROADMAP.md Queue A item 8)")
         self.moe = DeepSpeedMoEConfig.from_value(self.moe)
-        if self.quant and self.quant.get("enabled", False):
-            raise NotImplementedError("engine weight quantization is a later slice of the port; "
-                                      "use ServingConfig(weight_dtype=...)")
-        if self.checkpoint is not None:
-            raise NotImplementedError("checkpoint loading is a later slice of the port; pass a "
-                                      "state dict (checkpoint.from_jax.params_from_jax) as params=")
+        self.quant = QuantizationConfig.from_value(self.quant)
         if self.injection_policy is not None:
-            raise NotImplementedError("injection_policy (tensor slicing) is a later slice of the port")
+            raise NotImplementedError("injection_policy (tensor slicing) is a later slice of the "
+                                      "PyTorch port (ROADMAP.md Queue A item 8)")
+
+    @property
+    def quantize_weights(self) -> bool:
+        """Engine-wide int8 weights: ``dtype="int8"`` or an enabled ``quant``."""
+        return bool(self.quant.enabled) or self.dtype == torch.int8
 
     @classmethod
     def from_dict(cls, values: dict) -> "DeepSpeedInferenceConfig":

@@ -105,6 +105,7 @@ class BlockPool:
         self._parent_of: Dict[str, str] = {}      # chain hash -> parent hash
         self._children: Dict[str, set] = {}       # parent hash -> child hashes
         self._payload: Dict[str, object] = {}     # chain hash -> opaque payload
+        self._envelope_of: Dict[str, str] = {}    # chain hash -> envelope it was made under
         self._cached: "OrderedDict[str, int]" = OrderedDict()  # LRU: hash -> block
         self._matches: Dict[int, PrefixMatch] = {}  # seq id -> pending match
         self.total_allocs = 0
@@ -179,6 +180,8 @@ class BlockPool:
         for h in self._children.get(parent, ()):
             if h not in self._block_of or self._payload.get(h) is None:
                 continue
+            if self._envelope_of.get(h) != self.envelope:
+                continue  # the root's children span every envelope the pool served under
             t = self._tokens_of.get(h, ())
             cap = min(len(t), limit - pos)
             k = 0
@@ -228,6 +231,7 @@ class BlockPool:
             self._hash_of[b] = h
             self._block_of[h] = b
             self._tokens_of[h] = tuple(blk)
+            self._envelope_of[h] = self.envelope
             self._parent_of[h] = parent
             self._children.setdefault(parent, set()).add(h)
             self._payload[h] = (fetch(i * self.block_size, (i + 1) * self.block_size)
@@ -256,6 +260,7 @@ class BlockPool:
         if b is not None:
             self._hash_of.pop(b, None)
         self._tokens_of.pop(h, None)
+        self._envelope_of.pop(h, None)
         self._payload.pop(h, None)
         parent = self._parent_of.pop(h, None)
         kids = self._children.get(parent)

@@ -45,6 +45,10 @@ class Request:
     drafted_tokens: int = 0
     accepted_tokens: int = 0
 
+    #: caller-owned tags the scheduler carries and never reads (the RLHF
+    #: loop's rollout index, ``rlhf_idx``)
+    meta: dict = dataclasses.field(default_factory=dict)
+
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:

@@ -26,8 +26,12 @@ per-group codes (the drafter's too, in int8); every tick's attention runs
 kernel K3 when the engine was built with the flash backend. ``serve``
 drains on SIGTERM/SIGINT and returns 143. A ``RuntimeTelemetry`` bus, when
 given, receives the tick spans and the ``serve_tick``, ``serve_request``
-and ``serve_drain`` events (``events.py``). Live migration and the RLHF
-weight swap are a later slice of the port.
+and ``serve_drain`` events (``events.py``). ``swap_served_params``
+hot-swaps the served weights between ticks (the RLHF weight sync,
+``runtime/rlhf``): a copy into the served module's tensors in place,
+re-encoded under ``weight_dtype`` int8/int4, and digest-verified when
+asked; it emits ``rlhf_weight_sync``. Live migration is a later slice of
+the port.
 """
 
 import dataclasses
@@ -58,15 +62,24 @@ from deepspeed_tpu_torch.runtime.telemetry.spans import NULL_SPAN
 
 logger = logging.getLogger(__name__)
 
-_FLEET_LATER = ("live KV migration and the RLHF weight swap are a later slice of the PyTorch port "
-                "(ROADMAP.md Queue A item 5)")
+_FLEET_LATER = ("live KV migration between replicas (inference/fleet) is a later slice of the "
+                "PyTorch port (ROADMAP.md Queue A item 5)")
+
+
+def _quant_state(state: Dict[str, torch.Tensor], weight_dtype: str,
+                 group_size: int) -> Dict[str, torch.Tensor]:
+    """The quantized serving state dict of fp ``state``: per-group codes
+    and their ``kernel_scale`` leaves (``ops/quantizer/weights.quantize_params``)."""
+    qparams, qscales = quantize_params(nest_tree(state, "."), weight_dtype, group_size)
+    out = flatten_tree(qparams, ".")
+    out.update(flatten_tree(qscales, "."))
+    return out
 
 
 def _quant_view(module, weight_dtype: str, group_size: int):
     """The weight-quantized serving module: the same architecture rebuilt
-    with ``serve_weight_dtype`` set, holding per-group codes and scales
-    (``ops/quantizer/weights.quantize_params``) of ``module``'s weights.
-    ``module`` keeps its fp weights."""
+    with ``serve_weight_dtype`` set, holding per-group codes and scales of
+    ``module``'s weights. ``module`` keeps its fp weights."""
     cfg = getattr(module, "config", None)
     if cfg is None or not any(f.name == "serve_weight_dtype" for f in dataclasses.fields(cfg)):
         raise NotImplementedError(f"{type(module).__name__} does not declare the "
@@ -74,11 +87,8 @@ def _quant_view(module, weight_dtype: str, group_size: int):
     q_cfg = dataclasses.replace(cfg, serve_weight_dtype=weight_dtype,
                                 serve_weight_group_size=group_size)
     q_module = type(module)(q_cfg, device=module.device)
-    qparams, qscales = quantize_params(nest_tree(module.state_dict(), "."), weight_dtype,
-                                       group_size)
-    state = flatten_tree(qparams, ".")
-    state.update(flatten_tree(qscales, "."))
-    q_module.load_state_dict(state, strict=True)
+    q_module.load_state_dict(_quant_state(module.state_dict(), weight_dtype, group_size),
+                             strict=True)
     return q_module
 
 
@@ -117,6 +127,14 @@ class ContinuousBatchingScheduler:
                 f"{type(engine.module).__name__} does not support the per-slot (ragged) decode "
                 f"cache and the serve_weight_dtype seam the scheduler serves with; serve it with "
                 f"init_inference(...).generate")
+        if getattr(engine, "_wq_scales", None) is not None:
+            # JAX serves such an engine through its in-graph dequantize; the
+            # port's scheduler serves its own int8 view (weight_dtype)
+            raise NotImplementedError(
+                "the scheduler serves an engine with fp weights; an engine built with "
+                "dtype='int8' or quant.enabled holds the weight_quantizer format, which the "
+                "serving steps do not take: build the engine without it and serve "
+                "ServingConfig(weight_dtype='int8') (kernel K2)")
         self.config = config
         self.engine = engine
         self.device = engine.device
@@ -145,6 +163,9 @@ class ContinuousBatchingScheduler:
         self.prefix_cache = config.resolved_prefix_cache
         self.spec_k = int(config.speculation.k) if config.speculation.enabled else 0
         envelope = f"kvq:{int(self.kv_quant)}/wq:{self.weight_dtype}/spec:{self.spec_k}"
+        self._envelope = envelope
+        # requests whose KV rows span a weight swap: never published again
+        self._no_publish: set = set()
         self.pool = BlockPool(num_blocks=max(1, pool_tokens // config.page_size),
                               block_size=config.page_size,
                               prefix_cache=self.prefix_cache == "on", envelope=envelope)
@@ -188,11 +209,12 @@ class ContinuousBatchingScheduler:
         self.drafted_total = 0
         self.accepted_total = 0
         self.finished: List[Request] = []
-        # rollout counters of the serve_tick schema (an RLHF loop is a later
-        # slice of the port, so they stay 0)
+        # rollout counters of the serve_tick schema (an RLHF loop,
+        # runtime/rlhf, moves them)
         self.rollout_experience = 0
         self.learner_steps_overlapped = 0
         self.weight_sync_generation = 0
+        self.last_weight_sync: Optional[dict] = None
 
     def _kv_bytes_per_token(self) -> float:
         """KV bytes per cached token, off the slot cache's pool and scale
@@ -345,7 +367,7 @@ class ContinuousBatchingScheduler:
         block's payload is ``{role: {group: rows [leaves, block, ...]}}``:
         a few views a block, not one a leaf, so the index adds few objects
         for Python's garbage collector to walk."""
-        if self.prefix_cache != "on":
+        if self.prefix_cache != "on" or req.request_id in self._no_publish:
             return
         committed = int(self._lengths[slot])
         if committed < self.pool.block_size:
@@ -594,6 +616,7 @@ class ContinuousBatchingScheduler:
         # index prompt + output before the free, so the freed blocks park on
         # the cached LRU instead of returning to the free list
         self._publish_prefix(slot, req)
+        self._no_publish.discard(req.request_id)
         self.pool.free(req.request_id)
         self._slot_req[slot] = None
         self._lengths[slot] = self.capacity  # park
@@ -648,7 +671,7 @@ class ContinuousBatchingScheduler:
                 guard.uninstall()
         return DEFAULT_PREEMPT_EXIT_CODE if preempted else 0
 
-    # -- the fleet and RLHF hooks (a later slice) ----------------------
+    # -- the fleet hooks (a later slice) ---------------------------------
     def export_inflight(self, release: bool = True):
         raise NotImplementedError(f"export_inflight: {_FLEET_LATER}")
 
@@ -658,8 +681,79 @@ class ContinuousBatchingScheduler:
     def admit_migrated(self, payload: dict):
         raise NotImplementedError(f"admit_migrated: {_FLEET_LATER}")
 
-    def swap_served_params(self, params, expected_digest=None, generation=None, evidence=None):
-        raise NotImplementedError(f"swap_served_params: {_FLEET_LATER}")
+    # -- the RLHF weight hot-swap (JAX ``scheduler.py:608-688``) ---------
+    @torch.no_grad()
+    def swap_served_params(self, params: Dict[str, torch.Tensor],
+                           expected_digest: Optional[str] = None,
+                           generation: Optional[int] = None,
+                           evidence: Optional[dict] = None) -> None:
+        """Hot-swap the served weights between ticks: copy ``params`` (a
+        state dict of the engine module's names, shapes and dtypes) into
+        the served module's tensors in place, so the next tick serves them.
+        KV already written stays (in-flight requests finish on the new
+        weights, the in-flight RLHF staleness contract).
+
+        A drifted state dict (names, shapes or dtypes) raises
+        ``ValueError`` before anything is written. Under ``weight_dtype``
+        int8/int4 the weights are re-encoded into the served codes and
+        scales, and ``expected_digest`` raises (the re-encode is lossy by
+        design). Otherwise, with ``expected_digest``, the served weights
+        are re-digested after the copy and a mismatch raises; when every
+        served tensor already is the tensor given (a scheduler over the
+        hybrid engine's own view) nothing is placed, and a digest that
+        ``evidence["digest"]`` computed over those tensors stands without
+        hashing them again (``last_weight_sync["placed"]`` is False). Bumps
+        ``weight_sync_generation`` (or sets ``generation``), records
+        ``last_weight_sync`` and emits ``rlhf_weight_sync``. The prefix
+        cache serves no KV row computed under the old weights after the
+        swap (the JAX scheduler keeps matching them)."""
+        from deepspeed_tpu_torch.runtime.rlhf.sync import params_digest
+
+        if self.weight_dtype != "fp" and expected_digest is not None:
+            raise ValueError(f"digest verification is meaningless under a quantized weight view "
+                             f"(wq={self.weight_dtype}): the served params are a lossy re-encode "
+                             f"of what the learner published; pass expected_digest=None")
+        ref = self.engine.module.state_dict()
+        if set(params) != set(ref):
+            raise ValueError("swap_served_params: leaf drift: the new state dict's names differ "
+                             f"from the served ones (missing {sorted(set(ref) - set(params))[:5]}, "
+                             f"extra {sorted(set(params) - set(ref))[:5]})")
+        problems = [f"{k}: served {tuple(v.shape)}/{v.dtype} vs new "
+                    f"{tuple(params[k].shape)}/{params[k].dtype}"
+                    for k, v in ref.items()
+                    if params[k].shape != v.shape or params[k].dtype != v.dtype]
+        if problems:
+            raise ValueError("swap_served_params: leaf drift — " + "; ".join(problems[:5]))
+        if self.weight_dtype != "fp":
+            params = _quant_state(params, self.weight_dtype, self.config.weight_group_size)
+        served = self.module.state_dict()
+        placed = False
+        for name, dst in served.items():
+            src = params[name]
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+                placed = True
+        digest_verified = expected_digest is not None
+        if digest_verified and (placed or (evidence or {}).get("digest") != expected_digest):
+            got = params_digest(served)
+            if got != expected_digest:
+                raise ValueError(f"swap_served_params: digest mismatch after placement — learner "
+                                 f"published {expected_digest[:16]}… but the served params digest "
+                                 f"to {got[:16]}…")
+        self.weight_sync_generation = (generation if generation is not None
+                                       else self.weight_sync_generation + 1)
+        # KV rows computed under the old weights are never restored for the
+        # new ones: later prefixes hash under a new envelope, and a request
+        # in flight now (its rows span both) publishes nothing more
+        self.pool.envelope = f"{self._envelope}/wsync:{self.weight_sync_generation}"
+        self._no_publish.update(r.request_id for r in self.in_flight)
+        self.last_weight_sync = dict(evidence or {}, digest_verified=digest_verified, placed=placed)
+        if self.telemetry is not None:
+            ev = evidence or {}
+            self.telemetry.emit("rlhf_weight_sync", generation=self.weight_sync_generation,
+                                gather_bytes=ev.get("gather_bytes"),
+                                total_bytes=ev.get("total_bytes"),
+                                digest_verified=digest_verified, in_flight=len(self.in_flight))
 
     # ------------------------------------------------------------------
     def stats(self) -> dict:
@@ -690,4 +784,10 @@ class ContinuousBatchingScheduler:
             out["accepted"] = self.accepted_total
             out["acceptance_rate"] = (self.accepted_total / self.drafted_total
                                       if self.drafted_total else None)
+        if self.rollout_experience or self.weight_sync_generation or self.learner_steps_overlapped:
+            # RLHF rollout evidence, present once an RLHF loop served here
+            out["rollout"] = {"experience": self.rollout_experience,
+                              "learner_steps_overlapped": self.learner_steps_overlapped,
+                              "weight_sync_generation": self.weight_sync_generation,
+                              "last_weight_sync": self.last_weight_sync}
         return out

@@ -12,7 +12,10 @@ defaults and bounds (``ResilienceConfig``, ``NebulaConfig``: JAX
 ``config.py:200-243``; ``nebula.enabled`` routes saves through the async
 path, its other keys are taken as JAX takes them) and the ``"elasticity"``
 block, which at one data-parallel rank overrides the batch triangle as JAX's
-``_apply_elastic_config`` does. Everything else raises
+``_apply_elastic_config`` does, and the ``"hybrid_engine"`` block
+(``HybridEngineConfig``: JAX ``config.py:46-55``; ``enabled`` makes
+``initialize`` return the RLHF hybrid engine, one card only: an
+``inference_tp_size`` above 1 raises). Everything else raises
 ``NotImplementedError`` naming the slice of the port it belongs to, so that
 a setting is never dropped quietly: fp16 (the kernels take fp32 and bf16
 only), ZeRO stages 1-3 and offload, other optimizers, and any other block.
@@ -39,7 +42,7 @@ OPTIMIZER_PARAMS = ("lr", "betas", "eps", "weight_decay", "adam_w_mode", "bias_c
 _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
           "optimizer", "scheduler", "bf16", "bfloat16", "fp16", "gradient_clipping",
           "zero_optimization", "steps_per_print", "seed", "moe", "dataloader_drop_last",
-          "resilience", "nebula", "elasticity")
+          "resilience", "nebula", "elasticity", "hybrid_engine")
 
 #: keys of the ``"moe"`` block (JAX ``MoEConfig``)
 MOE_KEYS = ("route", "kernel")
@@ -163,6 +166,30 @@ class NebulaConfig(_Block):
               "load_path": ("str?", None, None)}
 
 
+class HybridEngineConfig(_Block):
+    """JAX ``HybridEngineConfig`` (``config.py:46-55``): the RLHF train and
+    serve engine's knobs. ``release_inference_cache``, ``pin_parameters``
+    and ``tp_gather_partition_size`` are taken as JAX takes them and change
+    nothing. Inference tensor parallelism
+    (``inference_tp_size > 1``) needs several cards and raises."""
+
+    NAME = "hybrid_engine"
+    FIELDS = {"enabled": ("bool", False, None),
+              "max_out_tokens": ("int", 512, None),
+              "inference_tp_size": ("int", 1, None),
+              "release_inference_cache": ("bool", False, None),
+              "pin_parameters": ("bool", True, None),
+              "tp_gather_partition_size": ("int", 8, None)}
+
+    def __init__(self, raw: Optional[dict] = None):
+        super().__init__(raw)
+        if self.inference_tp_size > 1:
+            raise NotImplementedError(
+                f"hybrid_engine.inference_tp_size={self.inference_tp_size}: tensor-parallel "
+                f"inference over several cards belongs to a later slice of the PyTorch port "
+                f"(ROADMAP.md Queue A item 8); the hybrid engine serves on its one card")
+
+
 def _later(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} belongs to the {where} slice of the PyTorch port")
 
@@ -198,6 +225,7 @@ class DeepSpeedConfig:
         self.resilience_config = ResilienceConfig(config.get("resilience"))
         self.nebula_config = NebulaConfig(config.get("nebula"))
         self.elasticity_config = dict(config.get("elasticity") or {})
+        self.hybrid_engine_config = HybridEngineConfig(config.get("hybrid_engine"))
 
         opt = config.get("optimizer")
         self.optimizer_name = opt["type"].lower() if opt and "type" in opt else None

@@ -64,7 +64,6 @@ gradients live in one flat fp32 buffer, each parameter's ``.grad`` a view
 of it, so the norm, the division and the clipping are one launch each.
 """
 
-import json
 import logging
 import os
 import threading
@@ -74,7 +73,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
+from deepspeed_tpu_torch.checkpoint.zero_to_fp32 import WEIGHTS_NAME, save_npz
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.elasticity.elastic_agent import touch_heartbeat
 from deepspeed_tpu_torch.models.common import cross_entropy_loss
@@ -91,7 +90,7 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import OverflowWatcher
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.resilience.faults import fault_point
 from deepspeed_tpu_torch.runtime.resilience.manifest import (CheckpointCorruptError,
-                                                             dtype_name, list_checkpoint_tags,
+                                                             list_checkpoint_tags,
                                                              sweep_stale_staging,
                                                              write_atomic_text)
 from deepspeed_tpu_torch.runtime.resilience.signals import PreemptionGuard
@@ -99,8 +98,6 @@ from deepspeed_tpu_torch.runtime.utils import global_norm_l2
 
 logger = logging.getLogger(__name__)
 
-#: the JAX package's deployment weights file (``checkpoint/zero_to_fp32.py``)
-WEIGHTS_NAME = "model_weights.npz"
 LATEST_NAME = "latest"
 #: the checkpoint leaf of ``self.generator``'s state
 RNG_KEY = "rng/generator"
@@ -641,19 +638,16 @@ class DeepSpeedEngine:
 
     def save_16bit_model(self, save_dir: str, output_file: Optional[str] = None) -> str:
         """The live parameters rounded to bf16, written as the JAX
-        package's deployment npz (``checkpoint/zero_to_fp32.py``
-        ``save_npz``): under the JAX paths, bf16 stored as its ``uint16``
-        bits with a ``__dtypes__`` map, so its ``load_state_dict_from_npz``
-        reads the file. Returns the file's path."""
+        package's deployment npz (``checkpoint/zero_to_fp32.save_npz``:
+        JAX paths, bf16 stored as its ``uint16`` bits with a ``__dtypes__``
+        map), so either package's ``load_state_dict_from_npz`` reads the
+        file. Returns the file's path."""
         with torch.no_grad():
             sd = {k: (p.to(torch.bfloat16) if p.is_floating_point() else p)
                   for k, p in self.module.named_parameters()}
-        flat = params_to_jax(sd)  # keys in sd's order
-        dtypes = {path: dtype_name(t.dtype) for path, t in zip(flat, sd.values())}
         os.makedirs(save_dir, exist_ok=True)
         out = os.path.join(save_dir, output_file or WEIGHTS_NAME)
-        with open(out, "wb") as f:  # a file object: np.savez appends no ".npz"
-            np.savez(f, __dtypes__=np.frombuffer(json.dumps(dtypes).encode(), np.uint8), **flat)
+        save_npz(out, sd)
         logger.info(f"saved 16-bit model weights -> {out}")
         return out
 

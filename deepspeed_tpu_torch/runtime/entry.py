@@ -5,6 +5,7 @@ from typing import Callable, Optional
 from deepspeed_tpu_torch.device import DeviceLike
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,
@@ -17,9 +18,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     dataloader ``engine.deepspeed_io(training_data, collate_fn=...)`` or
     None without ``training_data``. ``config`` is a dict or a JSON path
     (``args.deepspeed_config`` is honoured); ``model_parameters`` is a
-    state dict loaded into the model first. A client optimizer and the
-    config blocks of the pipeline, hybrid (RLHF) and autotuning engines
-    belong to later slices and raise."""
+    state dict loaded into the model first. With ``hybrid_engine.enabled``
+    the engine is a :class:`DeepSpeedHybridEngine` (JAX ``entry.py:72-75``),
+    which also serves ``generate()`` and RLHF rollouts. A client optimizer
+    and the config blocks of the pipeline and autotuning engines belong to
+    later slices and raise."""
     if model is None:
         raise ValueError("initialize requires a model")
     if config is None:
@@ -33,7 +36,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
                                   "of the PyTorch port")
     if model_parameters is not None:
         model.load_state_dict(model_parameters, strict=True)
-    engine = DeepSpeedEngine(model, DeepSpeedConfig(config), loss_fn=loss_fn,
-                             lr_scheduler=lr_scheduler, device=device, training_data=training_data,
-                             collate_fn=collate_fn)
+    ds_config = DeepSpeedConfig(config)
+    cls = DeepSpeedHybridEngine if ds_config.hybrid_engine_config.enabled else DeepSpeedEngine
+    engine = cls(model, ds_config, loss_fn=loss_fn, lr_scheduler=lr_scheduler, device=device,
+                 training_data=training_data, collate_fn=collate_fn)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

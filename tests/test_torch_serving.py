@@ -24,6 +24,7 @@ from deepspeed_tpu.parallel.topology import MeshTopology, set_topology
 from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
 from deepspeed_tpu_torch.checkpoint.from_jax import params_from_jax
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.inference.serving import (FINISHED, QUEUED, REFUSED,
                                                    ContinuousBatchingScheduler, Request,
                                                    ServingConfig)
@@ -167,23 +168,42 @@ def test_queue_refuses_what_can_never_fit(engines):
 @pytest.mark.parametrize("kwargs", [dict(call="export_inflight"),
                                     dict(call="serve", migrate=lambda sched, signal: {}),
                                     dict(call="release_inflight"),
-                                    dict(call="admit_migrated", payload={}),
-                                    dict(call="swap_served_params", params={})])
+                                    dict(call="admit_migrated", payload={})])
 def test_later_slice_serving_features_raise(engines, kwargs):
-    """The fleet and RLHF hooks stay a later slice (ROADMAP.md Queue A)."""
+    """The fleet hooks stay a later slice (ROADMAP.md Queue A)."""
     sched = ContinuousBatchingScheduler(engines[1], ServingConfig(slots=2))
     kwargs = dict(kwargs)
     with pytest.raises(NotImplementedError, match="later slice"):
         getattr(sched, kwargs.pop("call"))(**kwargs)
 
 
-@pytest.mark.parametrize("kwargs,exc", [(dict(dtype="int8"), NotImplementedError),
+@pytest.mark.parametrize("kwargs,exc", [(dict(injection_dict={"h_0": ("c_proj",)}),
+                                         NotImplementedError),
                                         (dict(mp_size=2), NotImplementedError),
-                                        (dict(checkpoint="weights.npz"), NotImplementedError),
+                                        (dict(tp={"tp_size": 2}), NotImplementedError),
                                         (dict(dtype="fp8"), ValueError)])
 def test_inference_config_refuses_later_slices(kwargs, exc):
     with pytest.raises(exc):
         DeepSpeedInferenceConfig.from_dict(kwargs)
+
+
+@pytest.mark.parametrize("case", ["inference_tp_size", "seq2seq_beam", "int8_engine"])
+def test_later_slice_refusals_name_their_item(engines, case):
+    """Multi-card inference (Queue A item 8) and encoder-decoder beam search
+    (item 6, with T5) raise naming their item; the scheduler refuses an
+    engine holding engine-wide int8 weights, a format its steps do not take."""
+    if case == "inference_tp_size":
+        with pytest.raises(NotImplementedError, match="item 8"):
+            DeepSpeedConfig({"train_batch_size": 1,
+                             "hybrid_engine": {"enabled": True, "inference_tp_size": 2}})
+    elif case == "seq2seq_beam":
+        with pytest.raises(NotImplementedError, match="item 6"):
+            engines[1].generate(np.zeros((1, 4), np.int32), max_new_tokens=2, num_beams=2,
+                                decoder_start_token_id=0)
+    else:
+        model = GPT2LMHeadModel(get_gpt2_config("test", n_layer=1), device="cpu")
+        with pytest.raises(NotImplementedError, match="weight_dtype='int8'"):
+            ContinuousBatchingScheduler(init_inference(model, device="cpu", dtype="int8"))
 
 
 def test_init_inference_aliases_and_conflicts():
