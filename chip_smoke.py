@@ -308,6 +308,48 @@ Phases, each of which raises on failure (the script then exits non-zero):
               sequences appended across page edges, gathered, K3 on the
               view against its plain version. Its tags live in a temp dir,
               deleted at the end.
+18. the serving fleet — GPT-2 350m (full width and depth, random seeded
+              weights) behind ``inference.fleet.FleetRouter``, 16 greedy
+              requests submitted at once (prompts of 64-512 tokens from 4
+              shared 256-token prefixes, 64 new tokens each; cut from 32
+              for the script's time limit). (a) Two
+              ``LocalReplica``s over schedulers of 8 slots (int8 weights,
+              int8 KV, the prefix cache on: the rest ``ServingConfig``'s
+              defaults), in bf16: one replica gets a SIGTERM once it holds 4
+              requests in flight beside a peer with 2 free slots and an
+              empty queue (its in-flight KV migrates through a
+              digest-verified bundle), and in a second run a SIGKILL (its
+              work is re-admitted); in fp32 the SIGTERM again. Every
+              request completed, none failed, no duplicate completion, at
+              least one request migrated (SIGTERM) or re-admitted
+              (SIGKILL); every restored row, codes and scales, read back
+              from the peer's pool equals the exported bytes bit for bit;
+              the tokens against one uninterrupted
+              scheduler's: fp32 identical, bf16 by phase 14's margin rule
+              (the count of differing positions printed); K2 and K3 launches
+              read around the peer's ticks after the signal; the migration's
+              seconds by part (export, ``save_bundle``, ``load_bundle``,
+              restore) and bytes per request; TTFT p50/p99 from submission,
+              migrated requests and the rest; 10 router steps after the
+              SIGKILL profiled (the device's idle share). Every K2 and K3
+              call shape the SIGTERM runs gave after the signal (bf16 and
+              fp32) is held
+              against its plain version and timed beside its plain version,
+              a library call and its bound. (b) Three worker processes
+              (``python -m deepspeed_tpu_torch.inference.fleet.worker``,
+              fp32 weights from the worker's fixed seed, int8 KV, the flash
+              backend, 8 slots, n_positions 1024) started at once on the
+              card, each one's seconds to ``ready`` logged: one serves the
+              trace alone, two serve it together (the fleet's tokens/s, 1
+              worker against 2), then those two again with a real SIGTERM
+              to one mid-flight (the first 8 requests go out alone, 4 a
+              worker; the rest once the peer has admitted the bundle; exit
+              143, its 4 requests verified and admitted by the peer); each run's tokens identical to an in-process
+              scheduler built by the worker's own ``build_scheduler``. (c)
+              The autoscaler's decisions during (b), made from the pipe
+              signals, equal their replay from the workers' ``serve_tick``
+              telemetry, and each surviving worker's last ``serve_tick``
+              equals its last pipe signals (``signals_from_telemetry``).
 
 A device time that ``torch.profiler`` fails to record (its profiles have
 come back empty on the card, early and late in a run) is timed with CUDA
@@ -322,7 +364,7 @@ earlier commits share: copied into an earlier checkout, the script measures
 that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
 resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
-alone. Details go to
+alone, ``--phases fleet`` phase 4 and phase 18. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -353,6 +395,8 @@ import torch.nn.functional as F
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+#: and fp32 FLOP/s outside the tensor cores
+PEAK_FP32_FLOP_S = 67e12
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -5378,6 +5422,629 @@ def rlhf_phase(seed: int, card: str, times: dict = None):
     return out, total
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the serving fleet
+# ---------------------------------------------------------------------------
+#: phase 18's trace: 16 greedy requests of 64 new tokens (cut from 32 for
+#: the script's time limit), served by replicas of 8 slots
+FLEET_REQUESTS, FLEET_NEW, FLEET_SLOTS = 16, 64, 8
+#: the kernels phase 18 (a)'s path runs (int8 weights: K2; the flash backend: K3)
+FLEET_KERNELS = ("quant_matmul", "flash_decode")
+#: the subprocess workers' knobs (GPT-2 350m at its full context, 8 slots;
+#: the rest the worker's defaults, the JAX package's)
+FLEET_WORKER_ENV = {"FLEET_MODEL": "350m", "FLEET_POSITIONS": "1024", "FLEET_SLOTS": "8"}
+#: the fields of a replica's tick signals that tell one scheduler state from
+#: another (the autoscaler reads a subset)
+STATE_KEYS = ("queue_depth", "in_flight", "slots", "free_slots", "finished", "ttft_p50", "ttft_p99",
+              "pool_free_blocks", "pool_fragmentation_tokens", "cached_blocks")
+
+
+def fleet_trace(rng, vocab: int, n: int = FLEET_REQUESTS, templates: int = 4, prefix: int = 256) -> list:
+    """``n`` greedy requests of ``FLEET_NEW`` new tokens, prompts of 64-512
+    tokens from ``templates`` shared ``prefix``-token prefixes (a prompt
+    shorter than the prefix is its head)."""
+    shared = [rng.integers(0, vocab, size=prefix).astype(np.int32) for _ in range(templates)]
+    trace = []
+    for _ in range(n):
+        length = int(rng.integers(64, 513))
+        base = shared[int(rng.integers(0, templates))]
+        tail = rng.integers(0, vocab, size=max(0, length - prefix)).astype(np.int32)
+        trace.append((np.concatenate([base[:length], tail]), FLEET_NEW))
+    return trace
+
+
+def _percentiles_ms(xs: list) -> dict:
+    return dict(n=len(xs), p50_ms=float(np.percentile(xs, 50)) * 1e3 if xs else None,
+                p99_ms=float(np.percentile(xs, 99)) * 1e3 if xs else None)
+
+
+def _differing_positions(ref: list, got: list) -> int:
+    """Positions where two runs' tokens differ, over every request."""
+    return sum(sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)) for a, b in zip(ref, got))
+
+
+@contextlib.contextmanager
+def kernel_operands(into: dict):
+    """Record into ``into`` the operands of K2's and K3's first call at each
+    (shape, dtype, operand form) while the block runs: the calls the main
+    path makes, to hold against the plain versions afterwards."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+    qmm, decode = qm.quant_matmul, fa.flash_decode
+
+    def quant_matmul(x, qw, scale, *, bits=8):
+        key = ("quant_matmul", tuple(x.shape), tuple(qw.shape), str(x.dtype).removeprefix("torch."))
+        if key not in into:
+            into[key] = dict(args=(x.clone(), qw, scale), kw=dict(bits=bits))
+        return qmm(x, qw, scale, bits=bits)
+
+    def flash_decode(q, k, v, lengths, *, scale=None, k_scale=None, v_scale=None):
+        key = ("flash_decode", tuple(q.shape), tuple(k.shape), str(q.dtype).removeprefix("torch."),
+               "int8" if k_scale is not None else "values")
+        if key not in into:
+            clone = lambda t: None if t is None else t.clone()  # noqa: E731
+            into[key] = dict(args=(q.clone(), k.clone(), v.clone(), lengths.clone()),
+                             kw=dict(scale=scale, k_scale=clone(k_scale), v_scale=clone(v_scale)))
+        return decode(q, k, v, lengths, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+    qm.quant_matmul, fa.flash_decode = quant_matmul, flash_decode
+    try:
+        yield into
+    finally:
+        qm.quant_matmul, fa.flash_decode = qmm, decode
+
+
+def check_kernel_operands(calls: dict, card: str) -> dict:
+    """Each recorded K2 and K3 call against its plain version on the same
+    operands (2e-2 bf16, 1e-4 fp32 of max |ref|), and its time beside the
+    plain version's, one library call's (K2: a matmul over the dequantised
+    weight in x's dtype; K3: masked SDPA over the dequantised pool, the
+    dequantise not timed) and the bound (bytes over 3.35 TB/s or operations
+    over the dtype's peak: 989 TFLOP/s bf16, 67 TFLOP/s fp32)."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import quant_matmul as qm
+    out = {}
+    for key, call in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        name, dtype_name = key[0], key[3]
+        dtype = getattr(torch, dtype_name)
+        rate = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_S
+        args, kw = call["args"], call["kw"]
+        if name == "quant_matmul":
+            x, qw, scale = args
+            m, kk = x.shape
+            n = qw.shape[1]
+            g = scale.shape[0]
+            kernel = lambda: qm.quant_matmul(x, qw, scale, **kw)  # noqa: E731
+            plain = lambda: qm.quant_matmul_plain(x, qw, scale, kw["bits"])  # noqa: E731
+            w = (qw.float().reshape(g, kk // g, n) * scale[:, None, :]).reshape(kk, n).to(dtype)
+            library = lambda: torch.matmul(x, w)  # noqa: E731
+            nbytes = x.numel() * x.element_size() + qw.numel() + scale.numel() * 4 + m * n * x.element_size()
+            bnd, by = bound_ms(nbytes, 2 * m * kk * n, rate)
+            shape = f"x [{m},{kk}] {dtype_name} @ int8 [{kk},{n}], scales [{g},{n}]"
+        else:
+            q, k, v, lens = args
+            s, lq, h, d = q.shape
+            kernel = lambda: fa.flash_decode(q, k, v, lens, **kw)  # noqa: E731
+            plain = lambda: fa.flash_decode_plain(q, k, v, lens, **dict(kw, scale=kw["scale"] or d ** -0.5))  # noqa: E731
+            if kw["k_scale"] is not None:
+                kd, vd = fa.dequantize_kv(k, kw["k_scale"], dtype), fa.dequantize_kv(v, kw["v_scale"], dtype)
+            else:
+                kd, vd = k, v
+            p_len = k.shape[1]
+            kpos = torch.arange(p_len, device=q.device)
+            qpos = lens.long()[:, None] - lq + torch.arange(lq, device=q.device)[None, :]
+            mask = ((kpos[None, None, :] <= qpos[:, :, None])
+                    & (kpos[None, None, :] < lens.long().clamp(0, p_len)[:, None, None]))[:, None]
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kd, vd))
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+            lengths = lens.tolist()
+            live = sum(min(max(x, 0), p_len) for x in lengths)
+            per_row = h * d * k.element_size() + (h * kw["k_scale"].element_size() if kw["k_scale"] is not None else 0)
+            nbytes = 2 * live * per_row + 2 * q.numel() * q.element_size() + lens.numel() * lens.element_size()
+            pairs = sum(max(0, min(min(max(x, 0), p_len), x - lq + r + 1)) for x in lengths for r in range(lq))
+            bnd, by = bound_ms(nbytes, 4 * d * h * pairs, rate)
+            shape = (f"q [{s},{lq},{h},{d}] {dtype_name}, k/v [{s},{p_len},{h},{d}] {key[4]}, "
+                     f"live rows {live}")
+        label = f"phase 18 {name} {shape}"
+        err = compare(label, kernel(), plain(), dtype)
+        row = dict(name=name, shape=shape, max_abs_err=err, ms=time_ms(kernel, iters=50),
+                   plain_ms=time_ms(plain, iters=5, warmup=1), library_ms=time_ms(library, iters=50),
+                   bound_ms=bnd, bound_by=by)
+        out[f"{name} {shape}"] = row
+        log(f"time {label}: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={bnd:.4f} ({by})  [{card}]")
+    return out
+
+
+def _fleet_run(what: str, make_sched, trace, card: str, signal: str = None, bundle: str = None,
+               profile_steps: int = 0, calls: dict = None) -> dict:
+    """Serve ``trace`` through a ``FleetRouter`` over two ``LocalReplica``s
+    (schedulers from ``make_sched``, warmed up), every request submitted at
+    once. ``signal`` ("sigterm" or "sigkill") hits one replica midway: the
+    first router step after which one replica holds at least 4 requests in
+    flight and the other has at least 2 free slots and nothing queued (a
+    slot freed in a tick is refilled from the replica's own queue at the
+    next). A SIGTERM migrates
+    through ``bundle``; its parts are timed (the export's device-to-host
+    copy, ``save_bundle`` with its digests, ``load_bundle`` with its
+    verification, ``admit_migrated``'s host-to-device restore), and every
+    restored row, codes and scales, is read back from the peer's pool and
+    held to the exported bytes bit for bit. The launches of each replica's
+    ticks are read around each tick; ``profile_steps`` router steps after
+    the signal run under ``torch.profiler`` (the device's idle share). From
+    the signal on, K2's and K3's operands go to ``calls``
+    (:func:`kernel_operands`)."""
+    from deepspeed_tpu_torch.inference.fleet import FleetRouter, LocalReplica
+    from deepspeed_tpu_torch.inference.fleet import migrate as migrate_mod
+    from deepspeed_tpu_torch.inference.fleet import replica as replica_mod
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    router = FleetRouter()
+    reps, ticks = [], {}
+    parts = {"export": [], "restore": []}
+    exported, restored = {}, {"rows": 0, "bytes": 0, "unequal": []}
+
+    def export(sched):
+        orig = sched.export_inflight
+
+        def f(release=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payloads = orig(release=release)
+            parts["export"].append(time.perf_counter() - t0)
+            exported.update((p["request_id"], p) for p in payloads)
+            return payloads
+        return f
+
+    def admit(sched):
+        orig = sched.admit_migrated
+
+        def f(payload):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            req = orig(payload)
+            torch.cuda.synchronize()
+            parts["restore"].append(time.perf_counter() - t0)
+            if req is not None:
+                slot = next(i for i, r in enumerate(sched._slot_req) if r is req)
+                caches, n = dict(sched._roles()), payload["length"]
+                for role, leaves in exported[payload["request_id"]]["kv"].items():
+                    for name, rows in leaves.items():
+                        got = caches[role][name][slot, :n].cpu()
+                        restored["rows"] += n
+                        restored["bytes"] += got.numel() * got.element_size()
+                        if not torch.equal(got.view(torch.uint8), rows.contiguous().view(torch.uint8)):
+                            restored["unequal"].append((payload["request_id"], role, name))
+            return req
+        return f
+
+    for i in range(2):
+        sched = make_sched()
+        sched.warmup()
+        sched.export_inflight, sched.admit_migrated = export(sched), admit(sched)
+        ticks[f"r{i}"] = []
+        sched.step = _read_launches(sched.step, ticks[f"r{i}"])
+        reps.append(LocalReplica(f"r{i}", sched))
+        router.add_replica(f"r{i}", reps[-1])
+    save, load = replica_mod.save_bundle, migrate_mod.load_bundle
+    parts["save_bundle"] = _timed_calls(replica_mod, "save_bundle")
+    parts["load_bundle"] = _timed_calls(migrate_mod, "load_bundle")
+    hit, idle = None, None
+    capture = contextlib.ExitStack()
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0, m0 = time.perf_counter(), time.monotonic()
+        rids = [router.submit(p, n) for p, n in trace]
+        rounds = 0
+        while router.pending and rounds < 100000:
+            router.step()
+            rounds += 1
+            if signal is None or hit is not None:
+                continue
+            for victim, peer in ((reps[0], reps[1]), (reps[1], reps[0])):
+                if (len(victim.scheduler.in_flight) >= 4 and len(peer.scheduler._free_slots()) >= 2
+                        and not len(peer.scheduler.queue)):
+                    hit = dict(victim=victim.name, peer=peer.name, round=rounds,
+                               s=time.perf_counter() - t0, in_flight=len(victim.scheduler.in_flight),
+                               peer_free_slots=len(peer.scheduler._free_slots()),
+                               marks={r.name: len(ticks[r.name]) for r in reps})
+                    if calls is not None:
+                        capture.enter_context(kernel_operands(calls))
+                    if signal == "sigterm":
+                        victim.sigterm(bundle)
+                    else:
+                        victim.sigkill()
+                    if profile_steps:
+                        idle = _profile_router(router, profile_steps)
+                    break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        capture.close()
+        replica_mod.save_bundle, migrate_mod.load_bundle = save, load
+    counts = launches()
+    if signal is not None and hit is None:
+        raise AssertionError(f"{what}: no step had a replica with 4 in flight beside a peer with 2 free slots")
+    st = router.stats()
+    outputs = [router.completed[rid]["output"] if rid in router.completed else None for rid in rids]
+    reqs = {}
+    for r in reps:
+        for req in r.scheduler.finished:
+            reqs.setdefault(req.meta.get("fleet_rid"), req)
+    migrated = [rid for rid, req in reqs.items() if "migrated_from" in req.meta]
+    ttft = {"migrated": [reqs[rid].first_token_time - m0 for rid in migrated],
+            "rest": [req.first_token_time - m0 for rid, req in reqs.items() if rid not in migrated]}
+    out = dict(wall_s=wall, rounds=rounds, stats=st, launches=counts, signal=signal, hit=hit,
+               migrated=len(migrated), generated_tokens=sum(len(o or ()) for o in outputs),
+               ttft_from_submit={k: _percentiles_ms(v) for k, v in ttft.items()})
+    out["tokens_per_s"] = out["generated_tokens"] / wall
+    if hit is not None:
+        peer_ticks = ticks[hit["peer"]][hit["marks"][hit["peer"]]:]
+        out["peer_ticks_after_signal"] = len(peer_ticks)
+        out["peer_launches_after_signal"] = {k: sum(c[k] for c in peer_ticks) for k in FLEET_KERNELS}
+    if signal == "sigterm":
+        files = [os.path.join(bundle, f) for f in os.listdir(bundle)]
+        n_req = sum(f.endswith(".npz") for f in files)
+        out["migration"] = dict(
+            requests=n_req, bundle_bytes=sum(os.path.getsize(f) for f in files),
+            bundle_bytes_per_request=sum(os.path.getsize(f) for f in files) / max(n_req, 1),
+            seconds={k: sum(v) for k, v in parts.items()}, calls={k: len(v) for k, v in parts.items()},
+            restored_rows=restored["rows"], restored_bytes=restored["bytes"],
+            restored_unequal=restored["unequal"])
+    if idle is not None:
+        out["profile_after_signal"] = idle
+        log(f"phase {what}: {idle['steps']} router steps after the signal under the profiler: "
+            f"{idle['wall_ms']:.1f} ms wall, device busy {idle['busy_ms']:.1f} ms, idle share "
+            f"{idle['idle_share']}  [{card}]")
+    log(f"phase {what}: {st['completed']} completed, {st['failed']} failed, "
+        f"{st['duplicate_completions']} duplicate, {st['readmitted']} re-admitted, {len(migrated)} migrated, "
+        f"{out['generated_tokens']} tokens in {wall:.3f} s ({out['tokens_per_s']:.1f} tokens/s), signal "
+        f"{hit}, TTFT from submit {out['ttft_from_submit']}, launches {counts}"
+        + (f", migration {out['migration']}" if signal == "sigterm" else "") + f"  [{card}]")
+    out["outputs"] = outputs
+    return out
+
+
+def _profile_router(router, steps: int) -> dict:
+    """``steps`` router steps under ``torch.profiler``: their wall, the
+    device's busy time in them and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            router.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    return dict(steps=steps, wall_ms=wall * 1e3, busy_ms=busy,
+                idle_share=(1 - busy / (wall * 1e3)) if busy else None)
+
+
+def _fleet_checks(what: str, run: dict, n: int, signal: str) -> None:
+    st = run["stats"]
+    ok = (st["completed"] == n and st["failed"] == 0 and st["duplicate_completions"] == 0
+          and st["pending"] == 0)
+    if signal == "sigterm":
+        mig = run["migration"]
+        ok = ok and run["migrated"] >= 1 and mig["restored_rows"] > 0 and not mig["restored_unequal"]
+    elif signal == "sigkill":
+        ok = ok and st["readmitted"] >= 1
+    if signal is not None and "peer_launches_after_signal" in run:
+        ok = ok and all(v > 0 for v in run["peer_launches_after_signal"].values())
+    RESULTS["checks"].append({"name": f"{what}: accounting", "stats": st, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{what}: {st}, migrated {run['migrated']}, "
+                             f"{run.get('migration')}, peer launches {run.get('peer_launches_after_signal')}")
+
+
+def fleet_inprocess(seed: int, card: str, rounding: float, work: str):
+    """Phase 18 (a): two ``LocalReplica``s of GPT-2 350m (bf16, int8
+    weights, int8 KV, the prefix cache on: every ``ServingConfig`` field but
+    ``slots`` and ``weight_dtype`` at its default) under one ``FleetRouter``,
+    on the phase's trace: against one uninterrupted scheduler, a SIGTERM
+    that migrates and a SIGKILL that re-admits (bf16: the margin rule), and
+    a SIGTERM in fp32 (token for token).
+    Returns (its numbers, its launch counts, the K2 and K3 operands its
+    SIGTERM runs gave from the signal on)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, init_inference
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler, ServingConfig
+
+    out, total, calls = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    engine = init_inference(GPT2LMHeadModel(cfg, device="cuda", generator=gen), dtype="bf16",
+                            kernel_inject=True, use_flash_prefill=True)
+    trace = fleet_trace(np.random.default_rng(seed + 18), cfg.vocab_size)
+    scfg = ServingConfig(slots=FLEET_SLOTS, weight_dtype="int8")
+    sched, reqs, ref_run = _serve_run("18 (a) bf16, one scheduler, uninterrupted", engine, scfg, trace, card)
+    add(ref_run["launches"])
+    ref = [list(r.output) for r in reqs]
+    served = sched.module
+    del sched
+    runs = {"reference": ref_run}
+    for signal in ("sigterm", "sigkill"):
+        run = _fleet_run(f"18 (a) bf16 fleet, {signal}", lambda: ContinuousBatchingScheduler(engine, scfg),
+                         trace, card, signal=signal, bundle=os.path.join(work, f"bf16_{signal}"),
+                         profile_steps=10 if signal == "sigkill" else 0,
+                         calls=calls if signal == "sigterm" else None)
+        _fleet_checks(f"phase 18 (a) bf16 {signal}", run, len(trace), signal)
+        add(run["launches"])
+        outputs = run.pop("outputs")
+        run["lossless"] = check_lossless(f"phase 18 (a) bf16 fleet {signal} vs one scheduler", served, trace,
+                                         ref, outputs, rounding, card)
+        run["differing_positions"] = _differing_positions(ref, outputs)
+        log(f"phase 18 (a) bf16 {signal}: {run['differing_positions']} of "
+            f"{sum(len(r) for r in ref)} positions differ from the uninterrupted run  [{card}]")
+        runs[f"bf16_{signal}"] = run
+    out["margins"] = margin_share(served, trace, ref, rounding)
+    del served
+    torch.cuda.empty_cache()
+
+    # fp32: the kernels' fp32 bodies, where no near-tie can flip a token
+    engine32 = init_inference(_copy_module(engine.module, torch.device("cuda"), torch.float32),
+                              dtype=torch.float32, kernel_inject=True, use_flash_prefill=True)
+    del engine
+    sched, reqs, ref32 = _serve_run("18 (a) fp32, one scheduler, uninterrupted", engine32, scfg, trace, card)
+    add(ref32["launches"])
+    ref = [list(r.output) for r in reqs]
+    del sched
+    run = _fleet_run("18 (a) fp32 fleet, sigterm", lambda: ContinuousBatchingScheduler(engine32, scfg),
+                     trace, card, signal="sigterm", bundle=os.path.join(work, "fp32_sigterm"), calls=calls)
+    _fleet_checks("phase 18 (a) fp32 sigterm", run, len(trace), "sigterm")
+    add(run["launches"])
+    outputs = run.pop("outputs")
+    same = sum(a == b for a, b in zip(ref, outputs))
+    ok = same == len(trace)
+    RESULTS["checks"].append({"name": "phase 18 (a) fp32 fleet sigterm vs one scheduler: token-identical",
+                              "identical": same, "requests": len(trace), "ok": ok})
+    log(f"check phase 18 (a) fp32 fleet with a SIGTERM vs one scheduler: {same}/{len(trace)} requests "
+        f"token-identical {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise AssertionError(f"phase 18 (a) fp32: the migration changed the tokens of {len(trace) - same} requests")
+    runs["reference_fp32"], runs["fp32_sigterm"] = ref32, run
+    out["runs"] = runs
+    del engine32
+    torch.cuda.empty_cache()
+    return out, total, calls
+
+
+def _wait_all_ready(workers, timeout: float = 600.0) -> dict:
+    """Seconds from the spawn to each worker's ``ready`` (engine built,
+    kernels loaded, steps warmed up), all waited on together."""
+    t0, ready = time.perf_counter(), {}
+    while len(ready) < len(workers):
+        for w in workers:
+            if w.name in ready:
+                continue
+            try:
+                msg = w.wait_ready(timeout=0.05)
+            except TimeoutError:
+                continue
+            ready[w.name] = dict(s=time.perf_counter() - t0, pid=msg["pid"])
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"workers not ready in {timeout} s: ready {ready}")
+    return ready
+
+
+def _serve_over_pipes(router, trace, autoscaler, decisions: list, sigterm: bool = False) -> dict:
+    """Submit ``trace`` to ``router``'s subprocess replicas and poll until it
+    is done. After each poll that brought tick messages the autoscaler
+    decides from the replicas' pipe signals (its ``now``: the host's
+    monotonic clock); each decision's inputs go to ``decisions``.
+    ``sigterm``: the trace's first 8 requests go out alone, 4 a worker; once
+    a worker's signals show its 4 in flight after 5 tick messages of this
+    run, it gets one real SIGTERM, and the rest of the trace goes out once
+    the peer has admitted the bundle (so the peer has the slots the 4 need)
+    and the victim has exited."""
+    t0 = time.perf_counter()
+    head = trace[:8] if sigterm else trace
+    rids = [router.submit(p, n) for p, n in head]
+    ticks0 = {n: r.ticks_seen for n, r in router.replicas.items()}
+    hit, migrated, rest, admitted = None, [], sigterm, False
+    while (router.pending or rest) and time.perf_counter() - t0 < 600:
+        msgs = router.poll()
+        migrated += [rid for m in msgs if m["type"] == "migrated_in" for rid in m.get("rids") or ()]
+        sigs = {n: r.signals() for n, r in router.alive_replicas().items()}
+        if any(m["type"] == "tick" for m in msgs) and all(
+                s and (s["finished"] or s["in_flight"] or s["queue_depth"]) for s in sigs.values()):
+            now = time.monotonic()
+            delta = autoscaler.decide(sigs, now=now)
+            decisions.append(dict(now=now, signals=sigs, delta=delta, reason=autoscaler.last_reason))
+        if sigterm and hit is None:
+            for name, rep in router.replicas.items():
+                mine = rep.signals() or {}
+                if mine.get("in_flight", 0) >= 4 and rep.ticks_seen - ticks0[name] >= 5:
+                    hit = dict(victim=name, s=time.perf_counter() - t0, in_flight=mine["in_flight"])
+                    rep.sigterm()
+                    break
+            if hit is None and not router.pending:
+                raise AssertionError("phase 18 (b): no worker held 4 in flight after 5 ticks of the run")
+        admitted = admitted or any(m["type"] == "migrated_in" for m in msgs)
+        victim = router.replicas.get(hit["victim"]) if hit else None  # None: removed, dead
+        if rest and admitted and (victim is None or not victim.alive):
+            rids += [router.submit(p, n) for p, n in trace[len(head):]]
+            rest = False
+        time.sleep(0.002)
+    wall = time.perf_counter() - t0
+    if router.pending or rest:
+        raise AssertionError(f"requests still pending after 600 s: {sorted(router.pending)[:8]}")
+    return dict(rids=rids, wall_s=wall, hit=hit, migrated=migrated)
+
+
+def fleet_subprocess(seed: int, card: str, work: str) -> dict:
+    """Phase 18 (b) and (c): worker processes (``python -m
+    deepspeed_tpu_torch.inference.fleet.worker``) on the one card at
+    ``FLEET_WORKER_ENV``, all started at once (their kernels load from the
+    build the parent made). One worker serves the trace alone and two
+    others serve it together, no signal sent (the fleet's tokens/s, 1
+    against 2); then those two serve it again and one gets a real SIGTERM
+    mid-flight (:func:`_serve_over_pipes`): it exits 143, and the peer
+    verifies and admits its bundle.
+    Every run's tokens against an in-process scheduler built from the same
+    knobs (the worker's fp32 weights: token for token). (c): the
+    autoscaler's decisions, made online from the pipe signals, against
+    their replay from the workers' telemetry files."""
+    from deepspeed_tpu_torch.inference.fleet import (AutoscalePolicy, Autoscaler, FleetRouter,
+                                                     SubprocessReplica)
+    from deepspeed_tpu_torch.inference.fleet.worker import build_scheduler
+    from deepspeed_tpu_torch.inference.serving import FINISHED, Request, iter_serve_events
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    from deepspeed_tpu_torch.runtime.telemetry import TELEMETRY_FILE
+
+    from deepspeed_tpu_torch import get_gpt2_config
+
+    env = dict(FLEET_WORKER_ENV)
+    vocab = get_gpt2_config(env["FLEET_MODEL"]).vocab_size
+    trace = fleet_trace(np.random.default_rng(seed + 18), vocab)  # (a)'s trace
+    out = {}
+    # the in-process reference from the worker's own construction
+    sched, _ = build_scheduler(env)
+    reqs = [Request(p, max_new_tokens=n) for p, n in trace]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = sched.serve(reqs)
+    torch.cuda.synchronize()
+    counts = launches()
+    ref = [list(r.output) for r in reqs]
+    if rc != 0 or not all(r.state == FINISHED for r in reqs):
+        raise AssertionError("phase 18 (b): the in-process reference did not finish every request")
+    out["reference"] = dict(wall_s=time.perf_counter() - t0, launches=counts,
+                            tokens_per_s=sum(map(len, ref)) / (time.perf_counter() - t0))
+    del sched
+    torch.cuda.empty_cache()
+    tdir = os.path.join(work, "telemetry")
+    workers = [SubprocessReplica(f"w{i}", os.path.join(work, f"w{i}"),
+                                 env=dict(env, FLEET_TELEMETRY_DIR=tdir, FLEET_NAME=f"w{i}"))
+               for i in range(3)]
+    online = Autoscaler(AutoscalePolicy())
+    decisions: list = []
+    try:
+        out["ready"] = _wait_all_ready(workers)
+        log(f"phase 18 (b) workers from process start to ready: {out['ready']}  [{card}]")
+        runs = {}
+        for label, members, term in (("1 worker", workers[:1], False), ("2 workers", workers[1:], False),
+                                     ("2 workers, SIGTERM", workers[1:], True)):
+            router = FleetRouter(heartbeat_timeout=120.0)
+            for w in members:
+                router.add_replica(w.name, w)
+            got = _serve_over_pipes(router, trace, online, decisions, sigterm=term)
+            st = router.stats()
+            outputs = [router.completed[rid]["output"] for rid in got["rids"]]
+            same = sum(a == b for a, b in zip(ref, outputs))
+            stats = [router.completed[rid]["stats"] for rid in got["rids"]]
+            run = dict(wall_s=got["wall_s"], stats=st, identical=same, hit=got["hit"],
+                       tokens_per_s=sum(map(len, outputs)) / got["wall_s"])
+            if term:
+                victim = next(w for w in members if w.name == got["hit"]["victim"])
+                run["exit_code"] = victim.wait(60.0)
+                bundle = victim.bundle_dir
+                files = [os.path.join(bundle, f) for f in os.listdir(bundle)] if os.path.isdir(bundle) else []
+                n_req = sum(f.endswith(".npz") for f in files)
+                run["bundle_requests"] = n_req
+                run["bundle_bytes_per_request"] = sum(os.path.getsize(f) for f in files) / max(n_req, 1)
+                run["migrated"] = len(got["migrated"])
+            moved = set(got["migrated"])
+            run["ttft_from_worker_arrival"] = {
+                group: _percentiles_ms([s["ttft"] for rid, s in zip(got["rids"], stats)
+                                        if s.get("ttft") is not None and (rid in moved) == (group == "migrated")])
+                for group in ("migrated", "rest")}
+            ok = (st["completed"] == len(trace) and st["failed"] == 0 and st["duplicate_completions"] == 0
+                  and same == len(trace))
+            if term:
+                ok = ok and run["exit_code"] == 143 and got["hit"] is not None and n_req >= 1 \
+                    and run["migrated"] >= 1
+            RESULTS["checks"].append({"name": f"phase 18 (b) {label}", "stats": st, "identical": same,
+                                      "ok": ok})
+            log(f"phase 18 (b) {label}: {st['completed']} completed, {st['failed']} failed, "
+                f"{st['duplicate_completions']} duplicate, {st['readmitted']} re-admitted, {same}/{len(trace)} "
+                f"token-identical to the in-process run, {sum(map(len, outputs))} tokens in "
+                f"{got['wall_s']:.3f} s ({run['tokens_per_s']:.1f} tokens/s), TTFT from the worker's "
+                f"arrival {run['ttft_from_worker_arrival']}"
+                + (f", SIGTERM at {got['hit']}, exit {run['exit_code']}, bundle of {n_req} requests "
+                   f"({run['bundle_bytes_per_request']:.0f} bytes a request), {run['migrated']} admitted by "
+                   f"the peer" if term else "")
+                + f" {'ok' if ok else 'FAIL'}  [{card}]")
+            if not ok:
+                raise AssertionError(f"phase 18 (b) {label}: {run}")
+            runs[label] = run
+        out["runs"] = runs
+        out["tokens_per_s_2_over_1"] = runs["2 workers"]["tokens_per_s"] / runs["1 worker"]["tokens_per_s"]
+        survivors = [w for w in workers if w.alive]
+        t_idle = time.perf_counter()
+        while time.perf_counter() - t_idle < 1.0:  # idle ticks carry each survivor's last state
+            for w in survivors:
+                w.poll()
+            time.sleep(0.05)
+        final_pipe = {w.name: w.signals() for w in survivors}
+    finally:
+        for w in workers:
+            w.close()
+    # (c) the online decisions against their replay from the telemetry files
+    files = {w.name: os.path.join(tdir, w.name, TELEMETRY_FILE) for w in workers}
+    events = {n: [e for e in iter_serve_events(p, kinds=("serve_tick",))] for n, p in files.items()}
+    replay = Autoscaler(AutoscalePolicy())
+    unmatched, replayed = 0, []
+    for d in decisions:
+        sigs = {}
+        for n, s in d["signals"].items():
+            key = tuple(s.get(k) for k in STATE_KEYS)
+            match = next((e for e in events[n] if tuple(e.get(k) for k in STATE_KEYS) == key), None)
+            unmatched += match is None
+            sigs[n] = match
+        replayed.append((replay.decide(sigs, now=d["now"]), replay.last_reason))
+    online_list = [(d["delta"], d["reason"]) for d in decisions]
+    final = Autoscaler.signals_from_telemetry({n: files[n] for n in final_pipe})
+    final_states = {n: {"pipe": {k: (final_pipe[n] or {}).get(k) for k in STATE_KEYS},
+                        "telemetry": {k: (final[n] or {}).get(k) for k in STATE_KEYS}} for n in final}
+    final_same = all(v["pipe"] == v["telemetry"] for v in final_states.values())
+    ok = unmatched == 0 and replayed == online_list and bool(decisions) and final_same
+    out["autoscaler"] = dict(decisions=len(decisions), unmatched=unmatched,
+                             deltas={str(k): sum(1 for d in decisions if d["delta"] == k) for k in (-1, 0, 1)},
+                             reasons=sorted({d["reason"] for d in decisions}), final_signals_equal=final_same,
+                             final_states=final_states, ok=ok)
+    RESULTS["checks"].append({"name": "phase 18 (c) autoscaler: online decisions = replay from telemetry",
+                              "decisions": len(decisions), "unmatched": unmatched, "ok": ok})
+    log(f"check phase 18 (c) autoscaler: {len(decisions)} online decisions from the pipe signals "
+        f"(+1 {out['autoscaler']['deltas']['1']}, 0 {out['autoscaler']['deltas']['0']}, -1 "
+        f"{out['autoscaler']['deltas']['-1']}), replayed from the workers' telemetry files: "
+        f"{'equal' if replayed == online_list else 'DIFFERENT'}, {unmatched} states unmatched; the last "
+        f"serve_tick of each surviving worker equal to its last pipe signals: {final_same} "
+        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise AssertionError(f"phase 18 (c): the replay differs: {out['autoscaler']}")
+    return out
+
+
+def fleet_phase(seed: int, card: str, rounding: float):
+    """Phase 18 (module docstring): (a) in process, (b) worker processes,
+    (c) the autoscaler, then K2 and K3 held against their plain versions on
+    the operands (a)'s SIGTERM runs gave them after the signal. Returns (its numbers, the launch
+    counts of its runs summed)."""
+    work = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        t0 = time.perf_counter()
+        out, total, calls = fleet_inprocess(seed, card, rounding, work)
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b_subprocess"] = fleet_subprocess(seed, card, work)
+        out["b_s"] = time.perf_counter() - t0
+        for k, v in out["b_subprocess"]["reference"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        out["kernel_times"] = check_kernel_operands(calls, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5398,10 +6065,11 @@ def main(argv=None) -> int:
     if args.child:
         return child_main(args)
     phases = set(args.phases.split(","))
-    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf"}
+    if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf",
+                       "fleet"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience', 'moe' and 'rlhf', got {args.phases!r}")
+                 f"'defaults', 'resilience', 'moe', 'rlhf' and 'fleet', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -5433,7 +6101,7 @@ def main(argv=None) -> int:
                     f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f}")
         if "kernels" in phases:
             kernel_phase(torch.Generator(device="cuda").manual_seed(args.seed), args.seed)
-        if phases & {"serving", "defaults"}:
+        if phases & {"serving", "defaults", "fleet"}:
             RESULTS["slice"] = slice_phase(args.seed, card)[0]
         if "defaults" in phases:
             RESULTS["defaults"] = defaults_phase(args.seed, card, measured_rounding(RESULTS["slice"]))[0]
@@ -5449,6 +6117,10 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["rlhf"] = rlhf_phase(args.seed, card)[0]
             RESULTS.setdefault("phase_s", {})["17 RLHF and the inference engine"] = time.perf_counter() - t_phase
+        if "fleet" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["fleet"] = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))[0]
+            RESULTS.setdefault("phase_s", {})["18 the serving fleet"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -5512,6 +6184,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["rlhf"], rlhf_counts = rlhf_phase(args.seed, card, times_17)
         phase_s["17 RLHF and the inference engine"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["fleet"], fleet_counts = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))
+        phase_s["18 the serving fleet"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -5532,7 +6208,7 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts, rlhf_counts)
+                 moe_serve_counts, rlhf_counts, fleet_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts)
@@ -5572,6 +6248,12 @@ def main(argv=None) -> int:
                     shapes=[dict({k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)},
                                  key=key) for key, t in times.items()],
                     launches=rlhf_counts.get(name, 0))
+                # phase 18: the shapes the fleet's runs gave K2 and K3 (bf16
+                # and fp32), and the launches of its runs
+                entry["at_phase18"] = dict(
+                    shapes=[{k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)}
+                            for t in RESULTS["fleet"]["kernel_times"].values() if t["name"] == name],
+                    launches=fleet_counts.get(name, 0))
             kernels.append(entry)
         log(json.dumps({"kernels": kernels}))
     log(f"total {RESULTS['total_s']:.1f} s")

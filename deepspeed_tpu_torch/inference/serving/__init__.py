@@ -12,11 +12,13 @@ from deepspeed_tpu_torch.inference.serving.programs import (make_slot_cache, ser
 from deepspeed_tpu_torch.inference.serving.queue import RequestQueue
 from deepspeed_tpu_torch.inference.serving.request import (ACTIVE, FINISHED, PREFILL, QUEUED,
                                                            REFUSED, Request)
-from deepspeed_tpu_torch.inference.serving.scheduler import ContinuousBatchingScheduler
+from deepspeed_tpu_torch.inference.serving.scheduler import (MIGRATABLE_STATES,
+                                                             ContinuousBatchingScheduler,
+                                                             MigrationError)
 
 __all__ = [
-    "ACTIVE", "FINISHED", "PREFILL", "QUEUED", "REFUSED",
-    "BlockPool", "ContinuousBatchingScheduler", "PrefixMatch", "Request", "RequestQueue",
+    "ACTIVE", "FINISHED", "MIGRATABLE_STATES", "PREFILL", "QUEUED", "REFUSED",
+    "BlockPool", "ContinuousBatchingScheduler", "MigrationError", "PrefixMatch", "Request", "RequestQueue",
     "SERVE_EVENT_SCHEMAS", "ServingConfig", "SpeculationConfig", "chain_hash",
     "iter_serve_events", "last_tick_signals", "make_slot_cache", "prefix_key",
     "serve_programs", "slot_capacity", "stamp_lengths", "validate_event",

@@ -30,8 +30,12 @@ and ``serve_drain`` events (``events.py``). ``swap_served_params``
 hot-swaps the served weights between ticks (the RLHF weight sync,
 ``runtime/rlhf``): a copy into the served module's tensors in place,
 re-encoded under ``weight_dtype`` int8/int4, and digest-verified when
-asked; it emits ``rlhf_weight_sync``. Live migration is a later slice of
-the port.
+asked; it emits ``rlhf_weight_sync``. Live migration (the fleet,
+``inference/fleet``): ``export_inflight`` copies every in-flight request's
+bookkeeping and committed KV rows to the host, ``release_inflight`` frees
+their slots, and a peer's ``admit_migrated`` restores them into a free slot,
+so a greedy continuation is bit-exact; ``serve(migrate=)`` tries that hook on
+a signal before the drain.
 """
 
 import dataclasses
@@ -62,8 +66,18 @@ from deepspeed_tpu_torch.runtime.telemetry.spans import NULL_SPAN
 
 logger = logging.getLogger(__name__)
 
-_FLEET_LATER = ("live KV migration between replicas (inference/fleet) is a later slice of the "
-                "PyTorch port (ROADMAP.md Queue A item 5)")
+
+class MigrationError(RuntimeError):
+    """Live KV migration refused or failed verification. Raised instead of
+    degrading: a half-migrated request is worse than a drained one, so the
+    callers (``serve``'s migrate hook, the fleet router) fall back to the
+    drain when they see it."""
+
+
+#: request states a migration payload describes: a PREFILL request by its
+#: prompt, ``prefill_pos`` and committed KV; an ACTIVE one adds its output
+#: and next token. A queued request has no KV: the router re-dispatches it.
+MIGRATABLE_STATES = (PREFILL, ACTIVE)
 
 
 def _quant_state(state: Dict[str, torch.Tensor], weight_dtype: str,
@@ -353,6 +367,12 @@ class ContinuousBatchingScheduler:
                     raise RuntimeError(f"prefix-cache rows ({role}) are {rows.dtype}"
                                        f"{tuple(rows.shape)}, the slot takes {key[0]}{want}")
                 writes.append((caches[role], names, rows))
+        self._write_rows(slot, n, writes)
+
+    def _write_rows(self, slot: int, n: int, writes: List[tuple]) -> None:
+        """Copy checked host rows into rows ``[:n)`` of ``slot``: each
+        ``(cache, names, rows [len(names), n, ...])`` goes to the card in one
+        copy."""
         for cache, names, rows in writes:
             rows = host_to_device(rows, self.device)
             for i, name in enumerate(names):
@@ -646,9 +666,14 @@ class ContinuousBatchingScheduler:
         On a signal the drain contract holds: stop admitting, refuse
         everything still queued, finish every request in flight, and return
         ``DEFAULT_PREEMPT_EXIT_CODE`` (143) so a supervisor reads
-        preemption, not success. Returns 0 on a complete drain."""
-        if migrate is not None:
-            raise NotImplementedError(f"serve(migrate=...): {_FLEET_LATER}")
+        preemption, not success. Returns 0 on a complete drain.
+
+        ``migrate``: an optional ``migrate(scheduler, signal) -> {"migrated":
+        int, "bundle": str}`` hook (``fleet.make_bundle_migrate``), tried on
+        the signal after the queue is refused. When it returns (it exported
+        and released every request in flight) a ``serve_migrate_out`` event
+        is emitted and the loop ends without generating more tokens here; on
+        :class:`MigrationError` the drain goes on as without it."""
         own_guard = guard is None
         if own_guard:
             guard = PreemptionGuard().install()
@@ -665,21 +690,182 @@ class ContinuousBatchingScheduler:
                     if self.telemetry is not None:
                         self.telemetry.emit("serve_drain", signal=preempted,
                                             in_flight=len(self.in_flight), refused=len(refused))
+                    if migrate is not None and self.in_flight:
+                        try:
+                            out = migrate(self, preempted)
+                        except MigrationError as e:
+                            logger.info(f"serve: migration refused ({e}); draining instead")
+                        else:
+                            if self.telemetry is not None:
+                                self.telemetry.emit("serve_migrate_out", signal=preempted,
+                                                    migrated=int(out.get("migrated", 0)),
+                                                    bundle=str(out.get("bundle", "")))
+                            continue  # the slots are released: the loop re-checks
                 self.step(admit=preempted is None)
         finally:
             if own_guard:
                 guard.uninstall()
         return DEFAULT_PREEMPT_EXIT_CODE if preempted else 0
 
-    # -- the fleet hooks (a later slice) ---------------------------------
-    def export_inflight(self, release: bool = True):
-        raise NotImplementedError(f"export_inflight: {_FLEET_LATER}")
+    # ------------------------------------------------------------------
+    # live KV migration (the fleet)
+    # ------------------------------------------------------------------
+    def _kv_slot_leaves(self, slot: int, length: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Host copies of one slot's committed KV rows ``[:length)``, every
+        role's KV leaves and their int8 scales: ``{role: {name: rows}}``.
+        The rows are read as the prefix cache's publish reads them
+        (:meth:`_kv_rows`: one copy a dtype group), so the rows of a leaf
+        are a view of that group's fresh host tensor."""
+        rows = self._kv_rows(slot, 0, length)
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, roles in self._role_spans().items():
+            for role, (lo, _, names) in roles.items():
+                for i, name in enumerate(names):
+                    out.setdefault(role, {})[name] = rows[key][lo + i]
+        return out
 
-    def release_inflight(self):
-        raise NotImplementedError(f"release_inflight: {_FLEET_LATER}")
+    def _validate_slot_kv(self, role: str, leaves: dict, length: int) -> List[tuple]:
+        """Check a payload's rows of ``role`` against its cache's KV geometry
+        without touching the cache: every KV leaf (and int8 scale) present,
+        ``[length, ...]`` of the leaf's row shape and dtype. Raises
+        :class:`MigrationError`; returns the writes :meth:`_write_rows`
+        applies, one stacked host tensor a dtype group."""
+        cache = dict(self._roles())[role]
+        writes = []
+        for key, roles in self._role_spans().items():
+            names = roles.get(role, (0, 0, ()))[2]
+            rows = []
+            for name in names:
+                src = leaves.get(name)
+                if src is None:
+                    raise MigrationError(f"migration payload missing {role} KV leaf {name}")
+                src = torch.as_tensor(src)
+                want = (length,) + key[1]
+                if tuple(src.shape) != want or src.dtype != key[0]:
+                    raise MigrationError(
+                        f"{role} KV leaf {name} mismatch: payload {src.dtype}{tuple(src.shape)} vs "
+                        f"cache row {key[0]}{want}: replicas must share kv_quant and geometry "
+                        f"to migrate")
+                rows.append(src)
+            if rows:
+                writes.append((cache, names, torch.stack(rows)))
+        return writes
 
-    def admit_migrated(self, payload: dict):
-        raise NotImplementedError(f"admit_migrated: {_FLEET_LATER}")
+    def export_inflight(self, release: bool = True) -> List[dict]:
+        """Every in-flight request as a migration payload: its host
+        bookkeeping and its committed KV rows (both roles when speculating),
+        which a peer's :meth:`admit_migrated` restores bit for bit.
+
+        Raises :class:`MigrationError`, before any slot is released, under
+        sampled decoding (the sampling generator is the scheduler's, not the
+        request's) or for a request outside ``MIGRATABLE_STATES``. Each
+        payload carries the compat envelope the importer checks: ``kv_quant``,
+        ``weight_dtype``, ``capacity``, ``spec_k``, ``prefix_cache``.
+        ``release=True`` frees the exported requests' blocks and parks their
+        slots (:meth:`release_inflight`)."""
+        if self.config.do_sample:
+            raise MigrationError("sampled decoding cannot migrate: the sampling generator is the "
+                                 "scheduler's, not the request's; drain instead")
+        for req in self.in_flight:
+            if req.state not in MIGRATABLE_STATES:
+                raise MigrationError(f"request {req.request_id} in state {req.state!r} is not "
+                                     f"migratable")
+        payloads: List[dict] = []
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            length = int(self._lengths[slot])
+            payloads.append({
+                "request_id": req.request_id, "state": req.state,
+                "prompt": np.asarray(req.prompt, np.int32),
+                "max_new_tokens": req.max_new_tokens, "eos_token_id": req.eos_token_id,
+                "arrival_time": req.arrival_time, "output": list(req.output),
+                "prefill_pos": req.prefill_pos, "first_token_time": req.first_token_time,
+                "token_times": list(req.token_times), "drafted_tokens": req.drafted_tokens,
+                "accepted_tokens": req.accepted_tokens, "meta": dict(req.meta),
+                "length": length, "next_token": int(self._next_token[slot]),
+                "cached_prefix_tokens": req.cached_prefix_tokens,
+                # the compat envelope: the rows below are the slot's own
+                # (shared prefix blocks travel as bytes, not references), but
+                # the receiving pool must hash them under the same envelope
+                "kv_quant": self.kv_quant, "weight_dtype": self.weight_dtype,
+                "capacity": self.capacity, "spec_k": self.spec_k,
+                "prefix_cache": self.prefix_cache,
+                "kv": self._kv_slot_leaves(slot, length),
+            })
+        if release:
+            self.release_inflight()
+        return payloads
+
+    def release_inflight(self) -> int:
+        """Free every in-flight request's blocks and park its slot: the half
+        of a migration out that follows a published bundle, so that a failed
+        save leaves the requests here to drain. Returns how many."""
+        n = 0
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            self._no_publish.discard(req.request_id)
+            self.pool.free(req.request_id)
+            self._slot_req[slot] = None
+            self._lengths[slot] = self.capacity  # park
+            n += 1
+        return n
+
+    def admit_migrated(self, payload: dict) -> Optional[Request]:
+        """Admit one migrated request into a free slot and restore its KV.
+
+        Returns the local :class:`Request`, or ``None`` when this replica has
+        no free slot or no blocks for the request's worst case: a capacity
+        refusal the router retries elsewhere. A compat mismatch (kv_quant,
+        weight dtype, speculation, capacity, prefix cache) or rows of the
+        wrong geometry raise :class:`MigrationError`, which no retry fixes;
+        every role's rows are checked before any is written, so a refusal
+        leaves the scheduler untouched. The request gets a fresh local id
+        (every replica counts from 0), its origin id in
+        ``meta["migrated_from"]``. The slot's write position and next token
+        are host state stamped onto the card every tick, so setting the host
+        mirror is the whole of the slot's reset."""
+        for knob in ("kv_quant", "weight_dtype", "spec_k", "capacity", "prefix_cache"):
+            if payload.get(knob) != getattr(self, knob):
+                raise MigrationError(f"migration compat mismatch on {knob}: bundle "
+                                     f"{payload.get(knob)!r} vs replica {getattr(self, knob)!r}")
+        if payload["state"] not in MIGRATABLE_STATES:
+            raise MigrationError(f"bundle request state {payload['state']!r} is not migratable")
+        free = self._free_slots()
+        if not free:
+            return None
+        req = Request(prompt=payload["prompt"], max_new_tokens=payload["max_new_tokens"],
+                      eos_token_id=payload["eos_token_id"], arrival_time=payload["arrival_time"])
+        if not self.pool.can_allocate(req.total_tokens):
+            return None
+        length = int(payload["length"])
+        kv = payload["kv"]
+        writes = []
+        for role, _ in self._roles():
+            writes += self._validate_slot_kv(role, kv.get(role, {}), length)
+        req.meta.update(payload.get("meta", {}))
+        req.meta["migrated_from"] = payload["request_id"]
+        req.state = payload["state"]
+        req.output = [int(t) for t in payload["output"]]
+        req.prefill_pos = int(payload["prefill_pos"])
+        req.first_token_time = payload["first_token_time"]
+        req.token_times = list(payload["token_times"])
+        req.drafted_tokens = int(payload["drafted_tokens"])
+        req.accepted_tokens = int(payload["accepted_tokens"])
+        req.cached_prefix_tokens = int(payload.get("cached_prefix_tokens", 0))
+        slot = free[0]
+        self._write_rows(slot, length, writes)
+        self.pool.reserve(req.request_id, req.total_tokens)
+        self.pool.advance(req.request_id, length)
+        self._slot_req[slot] = req
+        self._lengths[slot] = length
+        self._next_token[slot] = int(payload["next_token"])
+        if self.telemetry is not None:
+            self.telemetry.emit("serve_admit_migrated", request_id=req.request_id,
+                                migrated_from=payload["request_id"], state=req.state,
+                                length=length)
+        return req
 
     # -- the RLHF weight hot-swap (JAX ``scheduler.py:608-688``) ---------
     @torch.no_grad()

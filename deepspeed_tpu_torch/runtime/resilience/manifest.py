@@ -102,9 +102,12 @@ def file_inventory(root: str) -> dict:
     return dict(zip(rels, _map(_file_entry, [os.path.join(root, rel) for rel in rels])))
 
 
-def build_manifest(ckpt_dir: str, leaf_entries: Optional[dict] = None) -> dict:
+def build_manifest(ckpt_dir: str, leaf_entries: Optional[dict] = None,
+                   extra: Optional[dict] = None) -> dict:
+    """The manifest of ``ckpt_dir``'s files and ``leaf_entries``; ``extra``
+    adds top-level fields (a migration bundle's ``kind``)."""
     return {"version": MANIFEST_VERSION, "files": file_inventory(ckpt_dir),
-            "leaves": leaf_entries}
+            "leaves": leaf_entries, **(extra or {})}
 
 
 def write_manifest(ckpt_dir: str, manifest: dict) -> str:

@@ -372,7 +372,7 @@ def test_16bit_model_reads_back_through_the_jax_loader(tmp_path):
 def test_params_to_jax_inverts_params_from_jax(model):
     module = JaxGPT2(jax_config("test", **model))
     tree = jax.device_get(flax.linen.unbox(
-        module.init(jax.random.PRNGKey(0), np.zeros((1, 8), np.int32))["params"]))
+        jax.jit(module.init)(jax.random.PRNGKey(0), np.zeros((1, 8), np.int32))["params"]))
     flat = params_to_jax(params_from_jax(tree))
     want = _flatten(tree)
     assert set(flat) == set(want)

@@ -93,7 +93,7 @@ def _port_grads(q, k, v, w, **kw):
 def _jax_grads(fn, q, k, v, w):
     def loss(q_, k_, v_):
         return jnp.sum(fn(q_, k_, v_) * jnp.asarray(w))
-    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    return [np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))]
 
 
 def _jax_kwargs(case):

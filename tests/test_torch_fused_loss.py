@@ -61,7 +61,7 @@ def _port(x, w, labels, dtype=torch.float32, **kw):
 def _jax(x, w, labels, dtype=jnp.float32, **kw):
     def f(x_, w_):
         return jax_fused_loss(x_.astype(dtype), w_.astype(dtype), jnp.asarray(labels), **kw)
-    val, (gx, gw) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    val, (gx, gw) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(w))
     return float(val), np.asarray(gx), np.asarray(gw)
 
 

@@ -8,6 +8,8 @@ slots; a parked slot's logits are discarded by the scheduler). Logits are
 held to ``atol=1e-4``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -52,7 +54,7 @@ def no_graph():
 def jax_side():
     cfg = jax_config("test", **CFG)
     module = JaxGPT2(cfg)
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     return module, jax.device_get(nn.meta.unbox(params))
 
 
@@ -97,7 +99,7 @@ def test_params_from_jax_refuses_missing_extra_and_misshapen(jax_side):
 def test_full_sequence_logits_match_jax(jax_side, backend):
     module, tree = jax_side
     ids = _ids(0, 2, 24)
-    ref = np.asarray(module.apply({"params": tree}, jnp.asarray(ids)))
+    ref = np.asarray(jax.jit(module.apply)({"params": tree}, jnp.asarray(ids)))
     out = _port_model(tree, backend)(torch.from_numpy(ids).long()).numpy()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
@@ -108,7 +110,7 @@ def test_quantized_logits_match_jax(jax_side, weight_dtype):
     q_module, bundle = jax_quant_view(module, tree, weight_dtype, 64)
     bundle = jax.device_get(bundle)
     ids = _ids(1, 2, 16)
-    ref = np.asarray(q_module.apply(bundle, jnp.asarray(ids)))
+    ref = np.asarray(jax.jit(q_module.apply)(bundle, jnp.asarray(ids)))
     model = _port_model(bundle["params"], "flash", weight_dtype, scales=bundle["quant"])
     out = model(torch.from_numpy(ids).long()).numpy()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
@@ -122,9 +124,9 @@ def test_lockstep_decode_matches_jax(jax_side, backend):
     jcache = jax_init_cache(module, 2)
     model = _port_model(tree, backend)
     cache = init_cache(model, 2)
+    step = jax.jit(functools.partial(module.apply, decode=True, mutable=["cache"]))
     for lo, hi in [(0, 8), (8, 9), (9, 10), (10, 11)]:
-        ref, upd = module.apply({"params": tree, "cache": jcache}, jnp.asarray(ids[:, lo:hi]),
-                                decode=True, mutable=["cache"])
+        ref, upd = step({"params": tree, "cache": jcache}, jnp.asarray(ids[:, lo:hi]))
         jcache = upd["cache"]
         out = model(torch.from_numpy(ids[:, lo:hi]).long(), cache)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)

@@ -47,7 +47,10 @@ def _port_sources():
                    "runtime/resilience/faults.py", "runtime/resilience/retry.py",
                    "runtime/resilience/signals.py", "runtime/fp16/loss_scaler.py",
                    "runtime/elastic/agent.py", "elasticity/elasticity.py",
-                   "elasticity/elastic_agent.py"):
+                   "elasticity/elastic_agent.py", "inference/fleet/protocol.py",
+                   "inference/fleet/migrate.py", "inference/fleet/replica.py",
+                   "inference/fleet/router.py", "inference/fleet/autoscaler.py",
+                   "inference/fleet/worker.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 

@@ -18,6 +18,8 @@ JAX ``InferenceEngine``. And the head dims the CUDA kernels take: 64 and
 128, any other refused with ``ValueError`` before a build or a launch.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -77,7 +79,7 @@ def _jax_params(overrides, seed=0):
     the zero-initialized q/k/v biases are replaced by seeded random ones, so
     that the comparison sees them."""
     module = JaxLlama(jax_config("test", **overrides))
-    params = module.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(module.init)(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
     params = jax.device_get(nn.meta.unbox(params))
     if overrides.get("attention_bias"):
         rng = np.random.default_rng(seed)
@@ -133,7 +135,8 @@ def test_fused_head_loss_untied_kernel_matches_jax():
     def jloss(x_, w_):
         return jax_fused_loss(x_, w_, jnp.asarray(labels), chunk=16, vocab_major=False)
 
-    want, (wdx, wdw) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    want, (wdx, wdw) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(jnp.asarray(x),
+                                                                          jnp.asarray(w))
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
     got = fused_lm_head_loss(xt, wt, torch.from_numpy(labels), chunk=16, vocab_major=False)
@@ -175,7 +178,7 @@ def test_logits_match_jax(variant):
     overrides = VARIANTS[variant]
     module, tree = _jax_params(overrides)
     ids = _ids(3, 2, 64)
-    want = np.asarray(module.apply({"params": tree}, jnp.asarray(ids)))
+    want = np.asarray(jax.jit(module.apply)({"params": tree}, jnp.asarray(ids)))
     with torch.no_grad():
         got = _port_model(tree, overrides)(torch.from_numpy(ids).long()).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
@@ -198,12 +201,12 @@ def test_decode_cache_matches_full_forward(variant):
                   for t in range(8, 12)]
     assert int(cache["layers_0/self_attn/cache_index"]) == 12
     np.testing.assert_allclose(np.concatenate(steps, axis=1), full, rtol=2e-4, atol=2e-4)
-    jcache = {"cache": module.init(jax.random.PRNGKey(0), jnp.zeros((2, 1), jnp.int32),
-                                   decode=True)["cache"]}
+    jcache = {"cache": jax.jit(functools.partial(module.init, decode=True))(
+        jax.random.PRNGKey(0), jnp.zeros((2, 1), jnp.int32))["cache"]}
     jcache = jax.tree.map(jnp.zeros_like, jcache)
+    step = jax.jit(functools.partial(module.apply, decode=True, mutable=["cache"]))
     for t0, t1, got in zip([0, 8, 9, 10, 11], [8, 9, 10, 11, 12], steps):
-        out, jcache = module.apply({"params": tree, **jcache}, jnp.asarray(ids[:, t0:t1]),
-                                   decode=True, mutable=["cache"])
+        out, jcache = step({"params": tree, **jcache}, jnp.asarray(ids[:, t0:t1]))
         np.testing.assert_allclose(got, np.asarray(out), atol=ATOL, rtol=0)
 
 

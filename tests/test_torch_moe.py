@@ -283,14 +283,16 @@ def _x(seed=2):
 
 
 def _jax_layer(module, x, deterministic):
-    variables = module.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    """The JAX layer's params, output, aux loss and gradients, each a jitted
+    call (one compile, not one per primitive)."""
+    variables = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.asarray(x))
     params = nn.unbox(variables["params"])
 
     def loss(p, xx):
         out, l_aux, _ = module.apply({"params": p}, xx, deterministic=deterministic)
         return (out**2).sum() + l_aux, (out, l_aux)
 
-    (lv, (out, l_aux)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+    (lv, (out, l_aux)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     return jax.device_get(params), out, l_aux, jax.device_get(gp), gx
 
@@ -389,9 +391,9 @@ def test_gpt2_moe_forward_matches_jax():
     kw = dict(n_layer=4, moe_num_experts=4, moe_k=2, moe_use_residual=True)
     jmodel = JaxGPT2(jax_config("test", **kw))
     ids = np.random.default_rng(5).integers(0, 256, (2, 24)).astype(np.int32)
-    variables = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(ids))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(1), jnp.asarray(ids))
     params = jax.device_get(nn.unbox(variables["params"]))
-    logits, aux = jmodel.apply({"params": params}, jnp.asarray(ids))
+    logits, aux = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(ids))
     model = deepspeed_tpu_torch.GPT2LMHeadModel(get_gpt2_config("test", **kw), device="cpu")
     model.load_state_dict(params_from_jax(params), strict=True)
     with torch.no_grad():

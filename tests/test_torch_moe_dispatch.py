@@ -67,7 +67,7 @@ def test_permute_rows_and_gradient_match_jax(impl, groups, n, m, r):
 
     want = {i: np.asarray(jax_md.permute_rows(jnp.asarray(x), jnp.asarray(fwd), jnp.asarray(bwd),
                                               impl=i, interpret=True)) for i in ("xla", "pallas")}
-    want_grad = {i: np.asarray(jax.grad(jax_loss(i))(jnp.asarray(x))) for i in ("xla", "pallas")}
+    want_grad = {i: np.asarray(jax.jit(jax.grad(jax_loss(i)))(jnp.asarray(x))) for i in ("xla", "pallas")}
 
     reset_launches()
     xt = torch.from_numpy(x).requires_grad_()

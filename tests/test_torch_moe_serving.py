@@ -98,7 +98,7 @@ def _engines(variant):
     set_topology(None)
     cfg = jax_config("test", **MOE, **VARIANTS[variant])
     module = JaxGPT2(cfg)
-    init = module.init(jax.random.PRNGKey(0), np.zeros((1, 8), np.int32))["params"]
+    init = jax.jit(module.init)(jax.random.PRNGKey(0), np.zeros((1, 8), np.int32))["params"]
     tree = _spread(jax.device_get(nn.meta.unbox(init)), seed=1)
     topo = MeshTopology(tensor=1, data=1, fsdp=1, devices=jax.devices()[:1])
     jax_engine = JaxEngine(module, JaxInferenceConfig(replace_with_kernel_inject=False),

@@ -77,7 +77,7 @@ def test_divisor_groups_matches_jax(size, target):
 @pytest.fixture(scope="module")
 def gpt2_tree():
     cfg = jax_config("test")
-    params = JaxGPT2(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(JaxGPT2(cfg).init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     import flax.linen as nn
     return jax.device_get(nn.meta.unbox(params))
 

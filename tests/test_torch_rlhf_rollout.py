@@ -64,7 +64,7 @@ def _config(batch_size=8):
 def tree():
     """Seeded JAX GPT-2 weights re-drawn N(0, 0.15) (norm scales ~1)."""
     module = JaxGPT2(jax_config("test", **MODEL))
-    init = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    init = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     init = jax.device_get(flax.linen.meta.unbox(init))
     rng = np.random.default_rng(5)
     flat = flatten_tree(init, "/")

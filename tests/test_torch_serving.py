@@ -165,18 +165,6 @@ def test_queue_refuses_what_can_never_fit(engines):
     assert full.state == REFUSED and "queue full" in full.refuse_reason
 
 
-@pytest.mark.parametrize("kwargs", [dict(call="export_inflight"),
-                                    dict(call="serve", migrate=lambda sched, signal: {}),
-                                    dict(call="release_inflight"),
-                                    dict(call="admit_migrated", payload={})])
-def test_later_slice_serving_features_raise(engines, kwargs):
-    """The fleet hooks stay a later slice (ROADMAP.md Queue A)."""
-    sched = ContinuousBatchingScheduler(engines[1], ServingConfig(slots=2))
-    kwargs = dict(kwargs)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(sched, kwargs.pop("call"))(**kwargs)
-
-
 @pytest.mark.parametrize("kwargs,exc", [(dict(injection_dict={"h_0": ("c_proj",)}),
                                          NotImplementedError),
                                         (dict(mp_size=2), NotImplementedError),

@@ -69,8 +69,8 @@ def setup():
                            topology=topo)
     teacher = jax.device_get(nn.meta.unbox(jax_engine.params))
     d_jax = JaxGPT2(jax_config("test", n_layer=1))
-    d_init = jax.device_get(nn.meta.unbox(d_jax.init(jax.random.PRNGKey(1),
-                                                     np.zeros((1, 8), np.int32))["params"]))
+    d_init = jax.device_get(nn.meta.unbox(jax.jit(d_jax.init)(jax.random.PRNGKey(1),
+                                                              np.zeros((1, 8), np.int32))["params"]))
     d_params = jax_student_initialization(d_init, teacher, LAYER_REDUCTION)
     port_engine = init_inference(GPT2LMHeadModel(get_gpt2_config("test", n_layer=2), device="cpu"),
                                  params=params_from_jax(teacher), device="cpu")

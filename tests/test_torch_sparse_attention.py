@@ -191,8 +191,8 @@ def _jax(q, k, v, w, layout, block, causal):
         return jax_sparse.sparse_attention(q_, k_, v_, layout, block, causal=causal)
 
     args = [jnp.asarray(x) for x in (q, k, v)]
-    grads = jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(w)), argnums=(0, 1, 2))(*args)
-    return np.asarray(fn(*args)), [np.asarray(g) for g in grads]
+    grads = jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(w)), argnums=(0, 1, 2)))(*args)
+    return np.asarray(jax.jit(fn)(*args)), [np.asarray(g) for g in grads]
 
 
 # (config class, constructor arguments, causal, d)

@@ -77,8 +77,8 @@ def trees():
 @pytest.mark.parametrize("group_size,extra", [(64, True), (32, False)])
 def test_model_quantize_matches_jax(trees, family, group_size, extra):
     tree, _ = trees[family]
-    jq, jscales = JaxWeightQuantization(mlp_extra_grouping=extra).model_quantize(
-        jax.tree.map(jnp.asarray, tree), group_size=group_size)
+    jq, jscales = jax.jit(lambda t: JaxWeightQuantization(mlp_extra_grouping=extra).model_quantize(
+        t, group_size=group_size))(jax.tree.map(jnp.asarray, tree))
     state = params_from_jax(tree)
     q, scales = WeightQuantization(mlp_extra_grouping=extra).model_quantize(
         state, group_size=group_size)
