@@ -116,8 +116,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               the module's forward, K6's backward wrapper and autograd's
               rest), a dense layout against K1 and K4 (causal and not),
               and K1 + K4 at shape (a).
-10. engine API and checkpoints — GPT-2 350m's width as in phase 5 at 8 of
-              its 24 layers (1.84 GB tags), ``train_batch_size`` 16,
+10. engine API and checkpoints — GPT-2 350m's width as in phase 5 at 4 of
+              its 24 layers, ``train_batch_size`` 16,
               micro-batch 8, ``gas`` 2: (a) 4 steps of ``train_batch``
               twice from one seeded init (the card's own bit-determinism)
               and the same 8 micro-batches through
@@ -156,11 +156,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
               profiled step by kernel family.
 12. LLaMA gradcheck — one step on the card and on the CPU (plain
               versions), fp32 within 1e-4 and bf16 within 1.5x the measured
-              rounding, as phase 6: (a) LLaMA-1b's width at 2 layers, batch
-              2 x seq 512; (b) Mistral-7b's width at 2 layers (GQA 32/8, FFN
-              14336) with ``sliding_window`` overridden from 4096 to 256 at
+              rounding, as phase 6: (a) LLaMA-1b's width at 1 layer, batch 2 x
+              seq 512; (b) Mistral-7b's width at 1 layer
+              (GQA 32/8, FFN 14336) with ``sliding_window`` overridden from 4096 to 256 at
               seq 1024, so that the window mask bites in K1 and K4.
-13. LLaMA-7b serving — 32 layers, 32 heads of 128, cache 2048, bf16
+13. LLaMA-7b serving — 16 of its 32 layers, 32 heads
+              of 128, cache 2048, bf16
               (random seeded weights), ``init_inference(kernel_inject=True,
               use_flash_prefill=True)``: ``forward`` on [4, 2048] (K1 once a
               layer) and ``generate`` of 1 and of 64 greedy tokens for 4
@@ -205,7 +206,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               reference run's, or first diverge where the reference's top-2
               logit margin is within 1.5x phase 4 (c)'s measured rounding.
 
-15. resilience — phase 10's model (350m's width at 8 layers,
+15. resilience — phase 10's model (350m's width at 4 layers,
               train_batch_size 16, gas 2, the ``"flash"`` backend) under the
               resilience config, a heartbeat every step: an uninterrupted
               6-step run with launch counts zeroed just before and read just
@@ -254,19 +255,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               2048] and ``generate`` of 1 and 64 greedy tokens after 4
               prompts of 512, K1, K3 and K5 counts asserted, tokens/s, ms per
               token step, TTFT, peak memory, the first prefill chunk's and
-              decode step's logits at 2 layers card against CPU (as (a));
+              decode step's logits at 1 layer card against
+              CPU (as (a));
               (c) Mixtral training at 1 layer (at 2, Adam's temporaries
               ran the card out of memory), seq 4096, micro-batch 1, bf16
               over fp32 masters, remat, the fused [E, V] head, AdamW,
               clipping 1.0: 2 + 10 steps, K1 2, K4 1 and K5 6 a step
               asserted, step ms, tokens/s, model TFLOP/s over the active
-              parameters, peak memory, a profiled step; (d) one 2-layer
-              Mixtral forward and backward at seq 256, card against CPU, every
+              parameters, peak memory, a profiled step; (d) one 1-layer
+              Mixtral forward and backward at seq 256, card
+              against CPU, every
               side under the plain bf16 step's top-2 routing: fp32 within
               1e-4, bf16 within 1.5x the measured rounding.
 
-17. RLHF and the inference engine — GPT-2 350m (full width and depth,
-              random seeded weights, bf16 over fp32 masters, the ``"flash"``
+17. RLHF and the inference engine — GPT-2 350m (full width, 12 of its
+              24 layers in (a) and (d); random seeded weights, bf16 over fp32 masters, the ``"flash"``
               backend) under ``initialize`` with ``hybrid_engine.enabled``
               and the JAX RLHF test's policy-gradient loss. K2 at the
               rollout's prefill tick (M 512, int8, every projection) and K3
@@ -350,6 +353,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
               signals, equal their replay from the workers' ``serve_tick``
               telemetry, and each surviving worker's last ``serve_tick``
               equals its last pipe signals (``signals_from_telemetry``).
+19. ZeRO-Offload and ZeRO-Infinity — the host libraries (``csrc/host/``:
+              the CPU Adam and the aio engine) built with ``g++``; (a)
+              LLaMA-7b's width (hidden 4096, FFN 11008, 32 heads of 128, vocab
+              32000) at 16 of its 32 layers (``--offload-layers``; the host
+              needs 12 bytes a parameter, checked against ``MemAvailable``),
+              seq 2048, micro-batch 1, bf16 over fp32 masters, remat, flash,
+              the fused head, through ``initialize`` with ``stage 3,
+              offload_param cpu, offload_optimizer cpu``: 1 + 2 steps by
+              ``forward``/``backward``/``step``, each split into device
+              gradients (with the parameter streaming's device ms and GB),
+              the host Adam, and the waits on the gradients' copies to the
+              host; K1 and K4 launches counted (2 L and L a step), the card's
+              peak (the gradient buffer and one block's working set: less
+              than half a bf16 copy of the parameters beside the gradients),
+              the host's RSS; K1 and K4 at its [1,2048,32,128] against their
+              plain versions and timed. (b) At 2 layers of that width, 3
+              seeded batches: the host Adam (stage 2, cpu) against
+              ``FusedAdam`` (losses within JAX's 2e-3, the largest parameter
+              difference, the card holding the parameters and gradients
+              alone), stage 3 against stage 0 and parameter offload against
+              dense stage 3 (the same bits). (c) The nvme tiers, one step
+              each: the optimizer's moment files, the parameters journaled
+              with a 1 GB host window (released between steps, a fetch
+              bit-equal to the live values), read and write GB/s and
+              ``aio_direct_fallbacks``. (d) (b)'s host-Adam run saved after
+              step 1 and resumed by a fresh engine: steps 2-3 bit-equal.
+              Its files live in a temp dir, removed at the end.
 
 A device time that ``torch.profiler`` fails to record (its profiles have
 come back empty on the card, early and late in a run) is timed with CUDA
@@ -364,7 +394,8 @@ earlier commits share: copied into an earlier checkout, the script measures
 that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
 resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
-alone, ``--phases fleet`` phase 4 and phase 18. Details go to
+alone, ``--phases fleet`` phase 4 and phase 18, ``--phases offload`` phase 19
+alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -2288,11 +2319,12 @@ def sparse_phase(seed: int, card: str, warmup: int = 2, iters: int = 10):
 # ---------------------------------------------------------------------------
 # phase 10: the engine's own API and its checkpoints
 # ---------------------------------------------------------------------------
-#: phase 10's model (and phase 15's): GPT-2 350m's width at 8 of its 24
-#: layers, so that the whole script stays inside its time limit on a slow
-#: host (the checkpoint phases are bound by the host: its hashing, writes
-#: and reads of each tag, and each child process's start)
-API_MODEL = dict(name="350m", n_layer=8, vocab_size=50304, n_positions=1024,
+#: phase 10's model (and phase 15's): GPT-2 350m's width at 4 of its 24
+#: layers, so that the whole script (phase 19 included) stays
+#: inside its time limit on a slow host (the checkpoint phases are bound by
+#: the host: its hashing, writes and reads of each tag, and each child
+#: process's start)
+API_MODEL = dict(name="350m", n_layer=4, vocab_size=50304, n_positions=1024,
                  fused_head_loss_chunk=1024)
 API_GAS = 2
 
@@ -2963,9 +2995,15 @@ def _llama_gradcheck(name: str, cfg_kw: dict, batch: int, seq: int, seed: int) -
         get_llama_config("test", dtype=dtype, **kw), device=device), state, ids)
 
 
+#: the depth of the card-against-CPU checks of phases 12 and 16 (b), (d):
+#: 1, to keep the script inside its limit beside phase 19 (every kind of
+#: leaf of the model is still checked)
+GRADCHECK_LAYERS = 1
+
+
 def llama_gradcheck_phase(seed: int, card: str) -> dict:
-    """(a) LLaMA-1b's width at 2 layers, batch 2 x seq 512; (b) Mistral-7b's
-    width at 2 layers (GQA 32/8, FFN 14336) with ``sliding_window``
+    """(a) LLaMA-1b's width at ``GRADCHECK_LAYERS``, batch 2 x seq 512; (b)
+    Mistral-7b's width at ``GRADCHECK_LAYERS`` (GQA 32/8, FFN 14336) with ``sliding_window``
     overridden from 4096 to 256 at seq 1024, batch 1, so that the window
     mask bites in K1 and K4."""
     from deepspeed_tpu_torch.models.llama import LLAMA_CONFIGS
@@ -2974,7 +3012,7 @@ def llama_gradcheck_phase(seed: int, card: str) -> dict:
         keep = ("vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
                 "num_key_value_heads", "rope_theta", "sliding_window")
         return dict({k: v for k, v in LLAMA_CONFIGS[preset].items() if k in keep}, vocab_size=32000,
-                    num_hidden_layers=2, **over)
+                    num_hidden_layers=GRADCHECK_LAYERS, **over)
 
     out = {"llama_1b_width": _llama_gradcheck("(a) LLaMA-1b width", dict(width("1b"), max_position_embeddings=512),
                                               2, 512, seed)}
@@ -3013,8 +3051,13 @@ def _profile_generate(engine, prompts: np.ndarray, card: str, new_tokens: int = 
     return out
 
 
+#: phase 13's depth: LLaMA-7b at 16 of its 32 layers, to keep the script
+#: inside its limit beside phase 19
+LLAMA_SERVE_LAYERS = 16
+
+
 def llama_serving_phase(seed: int, card: str):
-    """LLaMA-7b (32 layers, 32 heads of 128, cache 2048, bf16, random seeded
+    """LLaMA-7b (``LLAMA_SERVE_LAYERS`` of 32 layers, 32 heads of 128, cache 2048, bf16, random seeded
     weights) through ``init_inference(kernel_inject=True,
     use_flash_prefill=True)``: ``forward`` on [4, 2048] and ``generate`` of
     64 greedy tokens for 4 prompts of 512, launch counts zeroed just before
@@ -3027,7 +3070,8 @@ def llama_serving_phase(seed: int, card: str):
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    cfg = get_llama_config("7b", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = get_llama_config("7b", num_hidden_layers=LLAMA_SERVE_LAYERS, dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16)
     model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
     engine = init_inference(model, dtype="bf16", kernel_inject=True, use_flash_prefill=True)
     del model
@@ -4489,7 +4533,7 @@ def mixtral_serving_phase(seed: int, card: str):
     1 and of 64 greedy tokens after 4 prompts of 512, launch counts zeroed
     just before and read just after (K1 8 on the forward; K3 and K5 on
     every cached call); then the first prefill chunk's and decode step's
-    logits at 2 layers, card against CPU."""
+    logits at ``GRADCHECK_LAYERS``, card against CPU."""
     from deepspeed_tpu_torch import LlamaForCausalLM, init_inference
     from deepspeed_tpu_torch.models.common import init_cache
     from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
@@ -4558,8 +4602,9 @@ def mixtral_serving_phase(seed: int, card: str):
     seconds["build, forward, generate, profile"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
 
-    # the first prefill chunk and decode step at 2 layers of full width
-    small = mixtral_config(2, dtype=torch.bfloat16, param_dtype=torch.bfloat16, attention_backend="flash")
+    # the first prefill chunk and decode step at GRADCHECK_LAYERS of full width
+    small = mixtral_config(GRADCHECK_LAYERS, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                           attention_backend="flash")
     base = LlamaForCausalLM(small, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 9))
     state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
     del base
@@ -4588,10 +4633,10 @@ def mixtral_serving_phase(seed: int, card: str):
         del cache
         return logits, used
 
-    runs = _routed_runs("phase 16 (b) Mixtral 2-layer", SIDES, run_one)
+    runs = _routed_runs(f"phase 16 (b) Mixtral {GRADCHECK_LAYERS}-layer", SIDES, run_one)
     models.clear()
-    _held_logits("phase 16 (b) Mixtral 2-layer", runs, out)
-    seconds["2-layer card vs CPU"] = time.perf_counter() - t_part
+    _held_logits(f"phase 16 (b) Mixtral {GRADCHECK_LAYERS}-layer", runs, out)
+    seconds[f"{GRADCHECK_LAYERS}-layer card vs CPU"] = time.perf_counter() - t_part
     out["seconds"] = seconds
     log("phase 16 (b) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return out, counts
@@ -4670,7 +4715,7 @@ def mixtral_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
 
 def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
     """Phase 16 (d): one training forward and backward of Mixtral-8x7B's
-    width at 2 layers (seq 256, batch 1, remat, flash, the fused head), on
+    width at ``GRADCHECK_LAYERS`` (seq 256, batch 1, remat, flash, the fused head), on
     the card and on the CPU (plain versions), every side under the plain
     bf16 step's top-2 routing (its Gumbel second choices included),
     injected at the gate: fp32 card against fp32 plain, the loss and every
@@ -4681,7 +4726,7 @@ def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
     from deepspeed_tpu_torch.testing import injected_routing
 
     kw = dict(remat=True, attention_backend="flash", fused_head_loss_chunk=1024, max_position_embeddings=256)
-    base = LlamaForCausalLM(mixtral_config(2, **kw), device="cuda",
+    base = LlamaForCausalLM(mixtral_config(GRADCHECK_LAYERS, **kw), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(seed + 11))
     state = {k: v.detach().cpu() for k, v in base.state_dict().items()}
     del base
@@ -4691,7 +4736,7 @@ def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
 
     def one_step(device: str, dtype, routing=None):
         with skipped_init():
-            model = LlamaForCausalLM(mixtral_config(2, dtype=dtype, **kw), device=device)
+            model = LlamaForCausalLM(mixtral_config(GRADCHECK_LAYERS, dtype=dtype, **kw), device=device)
         model.load_state_dict(state, strict=True)
         gen = torch.Generator(device=device).manual_seed(seed)
         with injected_routing(routing, model=model):
@@ -4789,11 +4834,17 @@ def pg_loss(logits, batch):
     return -(adv[:, None] * tgt * mask[:, 1:]).sum() / mask[:, 1:].sum().clamp_min(1.0)
 
 
+#: the hybrid engine's depth: 12 of 350m's 24 layers, to keep the script
+#: inside its limit beside phase 19
+RLHF_LAYERS = 12
+
+
 def rlhf_engine(seed: int):
-    """GPT-2 350m (full width and depth, random weights from ``seed``) under
-    the hybrid engine, on the ``"flash"`` backend."""
+    """GPT-2 350m (full width, ``RLHF_LAYERS`` of its 24 layers, random
+    weights from ``seed``) under the hybrid engine, on the ``"flash"``
+    backend."""
     from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
-    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, attention_backend="flash")
+    cfg = get_gpt2_config("350m", n_layer=RLHF_LAYERS, dtype=torch.bfloat16, attention_backend="flash")
     model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
     return initialize(model=model, config=rlhf_config(), loss_fn=pg_loss, device="cuda")[0]
 
@@ -6045,6 +6096,442 @@ def fleet_phase(seed: int, card: str, rounding: float):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ZeRO-Offload and ZeRO-Infinity at LLaMA-7b's width
+# ---------------------------------------------------------------------------
+#: (a)'s depth: the script's time limit (the host Adam is one core, ~0.3 s
+#: a layer a step); ``--offload-layers`` takes more where the host's RAM allows
+OFFLOAD_LAYERS = 16
+OFFLOAD_MIN_LAYERS = 16
+OFFLOAD_SEQ = 2048
+#: the host bytes a parameter takes under both offloads: the fp32 resting
+#: parameter (the master) and the two fp32 moments
+OFFLOAD_HOST_BYTES = 12
+
+
+def host_memory_gb() -> dict:
+    """``MemTotal`` and ``MemAvailable`` of ``/proc/meminfo``, GB."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
+def rss_gb() -> dict:
+    """This process's resident set now and its peak so far, GB."""
+    import resource
+    cur = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) * 1024 / 1e9
+    return {"rss_gb": cur, "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+
+
+def offload_llama(layers: int, seed: int):
+    """LLaMA-7b's width (hidden 4096, FFN 11008, 32 heads of 128, vocab
+    32000) at ``layers``, fp32 masters computing in bf16, remat, the flash
+    backend and the fused [E, V] head, seeded on the card."""
+    from deepspeed_tpu_torch import LlamaForCausalLM, get_llama_config
+
+    cfg = get_llama_config("7b", num_hidden_layers=layers, max_position_embeddings=OFFLOAD_SEQ,
+                           remat=True, attention_backend="flash", dtype=torch.bfloat16,
+                           fused_head_loss_chunk=1024)
+    return LlamaForCausalLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def offload_config(zero: dict) -> dict:
+    """Micro-batch 1, AdamW lr 1e-4 wd 0.01, clipping 1.0, bf16."""
+    return {"train_batch_size": 1, "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            "bf16": {"enabled": True}, "gradient_clipping": 1.0, "zero_optimization": zero,
+            "steps_per_print": 10**9}
+
+
+BOTH_OFFLOADS = {"stage": 3, "offload_param": {"device": "cpu"}, "offload_optimizer": {"device": "cpu"}}
+
+
+def offload_batches(seed: int, n: int, vocab: int = 32000) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, (1, OFFLOAD_SEQ)).astype(np.int32)} for _ in range(n)]
+
+
+def _free() -> None:
+    """Collect what the caller has just dropped, host and card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int = 2):
+    """(a) LLaMA-7b's width at ``layers`` through ``initialize`` under both
+    cpu offloads; each step by ``forward``, ``backward`` and ``step``, timed
+    by part, launches counted around the steps."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    mem = host_memory_gb()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = offload_llama(layers, seed + 19)
+    n_params = sum(p.numel() for p in model.parameters())
+    need_gb = n_params * OFFLOAD_HOST_BYTES / 1e9
+    if need_gb > 0.85 * mem["MemAvailable"]:
+        raise AssertionError(f"offload (a): {layers} layers need {need_gb:.1f} GB on the host, "
+                             f"{mem['MemAvailable']:.1f} GB available")
+    engine, optimizer, _, _ = initialize(model=model, config=offload_config(BOTH_OFFLOADS))
+    del model
+    if not isinstance(optimizer, DeepSpeedCPUAdam):
+        raise AssertionError(f"offload (a): the optimizer is {type(optimizer).__name__}, not the host Adam")
+    if any(p.device.type != "cpu" for p in engine.module.parameters()):
+        raise AssertionError("offload (a): a parameter does not rest on the host")
+    engine.initialize_state()
+    build_s = time.perf_counter() - t0
+    streamer = engine._streamer
+    streamer.timing = True
+    batch = offload_batches(seed + 19, 1)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts = []
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    for _ in range(warmup + steps):
+        streamer.reset_counters()
+        t0 = time.perf_counter()
+        loss = engine.forward(batch)
+        engine.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.step()
+        t2 = time.perf_counter()
+        parts.append(dict(loss=float(loss.detach()), step_s=t2 - t0, device_grads_s=t1 - t0, optimizer_s=t2 - t1,
+                          stream_ms=streamer.stream_ms(), stream_gb=streamer.bytes / 1e9,
+                          stream_copies=streamer.copies, **engine.offload_timings))
+    counts = launches()
+    # ---- end of the main path ----
+
+    peak = torch.cuda.max_memory_allocated()
+    losses = [p["loss"] for p in parts]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"offload (a): losses not finite and falling: {losses}")
+    n = warmup + steps
+    if counts["flash_fwd"] != 2 * layers * n or counts["flash_bwd"] != layers * n:
+        raise AssertionError(f"offload (a): expected K1 {2 * layers} (forward, remat recompute) and K4 "
+                             f"{layers} launches a step, got {counts} over {n} steps")
+    grad_bytes = n_params * 4
+    bf16_copy = n_params * 2
+    # the card holds the gradient buffer and a block's working set, never a
+    # whole copy of the parameters (beside what earlier phases left)
+    if peak - before - grad_bytes >= bf16_copy / 2:
+        raise AssertionError(f"offload (a): peak {peak / 1e9:.2f} GB ({before / 1e9:.2f} GB before the "
+                             f"phase) beside {grad_bytes / 1e9:.2f} GB of gradients: as much as half a "
+                             f"bf16 copy of the parameters")
+    peak -= before
+    timed = parts[warmup:]
+
+    def mean(key):
+        return float(np.mean([p[key] for p in timed]))
+
+    out = dict(layers=layers, n_params=n_params, host_memory_gb=mem, host_need_gb=need_gb,
+               card_bytes_before=before,
+               build_s=build_s, losses=losses, parts=parts, launches=counts,
+               launches_per_step={k: c / n for k, c in counts.items()},
+               peak_memory_gb=peak / 1e9, grad_buffer_gb=grad_bytes / 1e9,
+               step_s=mean("step_s"), device_grads_s=mean("device_grads_s"),
+               host_adam_s=mean("host_adam_s"), d2h_wait_s=mean("d2h_wait_s"),
+               d2h_gb_s=float(np.mean([p["d2h_bytes"] / p["d2h_ms"] / 1e6 for p in timed])),
+               stream_ms=mean("stream_ms"), stream_gb=mean("stream_gb"),
+               h2d_gb_s=float(np.mean([p["stream_gb"] / p["stream_ms"] * 1e3 for p in timed])),
+               host_adam_gelem_s=n_params / mean("host_adam_s") / 1e9,
+               tokens_per_s=OFFLOAD_SEQ / mean("step_s"), **rss_gb())
+    log(f"offload (a): LLaMA-7b width at {layers} of 32 layers ({n_params} params), seq {OFFLOAD_SEQ}, "
+        f"micro-batch 1, bf16 over fp32 masters, remat, flash, fused head, both offloads on cpu; "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}; build and rest on the host {build_s:.1f} s  [{card}]")
+    log(f"offload (a): step {out['step_s']:.2f} s ({out['tokens_per_s']:.1f} tokens/s): device grads "
+        f"{out['device_grads_s']:.2f} s (streaming {out['stream_ms'] / 1e3:.2f} s, {out['stream_gb']:.1f} GB at "
+        f"{out['h2d_gb_s']:.1f} GB/s), host Adam {out['host_adam_s']:.2f} s ({out['host_adam_gelem_s']:.3f} "
+        f"G elem/s, one core), waits on d2h {out['d2h_wait_s']:.3f} s (d2h {out['d2h_gb_s']:.1f} GB/s on "
+        f"the copy stream); device peak {out['peak_memory_gb']:.2f} GB (gradients {out['grad_buffer_gb']:.2f}); "
+        f"host RSS {out['rss_gb']:.1f} GB, peak {out['peak_rss_gb']:.1f} GB of {mem['MemTotal']:.1f}  [{card}]")
+    log(f"offload (a) launches on the main path: {counts}  [{card}]")
+    del engine, optimizer, streamer
+    _free()
+    return out, counts
+
+
+def _offload_run(zero: dict, batches: list, seed: int, save=None):
+    """A 2-layer engine at LLaMA-7b's width through ``train_batch``, its
+    losses, and with ``save = (step, dir)`` a checkpoint after that step
+    and its seconds."""
+    from deepspeed_tpu_torch import initialize
+
+    engine, _, _, _ = initialize(model=offload_llama(2, seed + 20), config=offload_config(zero))
+    losses, save_s = [], None
+    for i, b in enumerate(batches):
+        losses.append(float(engine.train_batch(b)))
+        if save is not None and save[0] == i + 1:
+            t0 = time.perf_counter()
+            engine.save_checkpoint(save[1])
+            save_s = time.perf_counter() - t0
+    return engine, losses, save_s
+
+
+def _max_param_diff(a, b) -> float:
+    worst = 0.0
+    with torch.no_grad():
+        for p, q in zip(a.module.parameters(), b.module.parameters()):
+            worst = max(worst, float((p.to("cuda") - q.to("cuda")).abs().max()))
+    return worst
+
+
+def _same_params(a, b) -> bool:
+    with torch.no_grad():
+        return all(torch.equal(p.to("cuda"), q.to("cuda"))
+                   for p, q in zip(a.module.parameters(), b.module.parameters()))
+
+
+def offload_parity(seed: int, card: str, work: str) -> dict:
+    """(b) at LLaMA-7b's width, 2 layers, 3 seeded batches: the optimizer on
+    the host against ``FusedAdam`` (losses within JAX's 2e-3, no moment on
+    the card), parameter offload against dense stage 3 and stage 3 against
+    stage 0 (the same bits); (d) the host-Adam run saved after step 1 and
+    resumed by a fresh engine, bit-equal."""
+    from deepspeed_tpu_torch import initialize
+
+    batches = offload_batches(seed + 20, 3)
+    out = {}
+    base = torch.cuda.memory_allocated()
+    e0, l0, _ = _offload_run({"stage": 0}, batches, seed)
+    n_params = sum(p.numel() for p in e0.module.parameters())
+    p_bytes = n_params * 4
+    held0 = torch.cuda.memory_allocated() - base
+    ckpt = os.path.join(work, "ckpt")
+    mid = torch.cuda.memory_allocated()
+    e1, l1, save_s = _offload_run({"stage": 2, "offload_optimizer": {"device": "cpu"}}, batches, seed,
+                                  save=(1, ckpt))
+    held1 = torch.cuda.memory_allocated() - mid
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    diff = _max_param_diff(e1, e0)
+    out["b_offload_optimizer"] = dict(n_params=n_params, losses_fused_adam=l0, losses_host_adam=l1, max_rel=rel,
+                                      max_param_diff=diff, card_bytes_fused_adam=held0, card_bytes_host_adam=held1,
+                                      host_adam_s=e1.offload_timings["host_adam_s"],
+                                      d2h_wait_s=e1.offload_timings["d2h_wait_s"],
+                                      h2d_s=e1.offload_timings["h2d_s"],
+                                      h2d_gb_s=e1.offload_timings["h2d_bytes"] / e1.offload_timings["h2d_s"] / 1e9)
+    log(f"offload (b) optimizer on the host (stage 2, cpu) vs FusedAdam, LLaMA-7b width, 2 layers ({n_params} "
+        f"params), 3 steps: losses {l1} vs {l0}, max rel {rel:.3e} (JAX's limit 2e-3); largest parameter "
+        f"difference {diff:.3e}; card bytes held {held1 / 1e9:.2f} GB vs {held0 / 1e9:.2f} GB with FusedAdam "
+        f"(fp32 parameters {p_bytes / 1e9:.2f} GB); host Adam {e1.offload_timings['host_adam_s']:.2f} s, h2d "
+        f"{out['b_offload_optimizer']['h2d_gb_s']:.1f} GB/s  [{card}]")
+    if rel > 2e-3:
+        raise AssertionError(f"offload (b): host Adam's losses {l1} vs FusedAdam's {l0}: {rel:.3e} > 2e-3")
+    # no moment on the card: the fp32 parameters and their gradients alone
+    if held1 > 2 * p_bytes + (256 << 20) or held0 < 4 * p_bytes:
+        raise AssertionError(f"offload (b): card bytes {held1} (host Adam) and {held0} (FusedAdam) for "
+                             f"{p_bytes} bytes of parameters")
+    del e0
+    _free()
+
+    # (d) the round trip
+    t0 = time.perf_counter()
+    e1b, _, _, _ = initialize(model=offload_llama(2, seed + 21),
+                              config=offload_config({"stage": 2, "offload_optimizer": {"device": "cpu"}}))
+    tag, _ = e1b.resume(ckpt)
+    load_s = time.perf_counter() - t0
+    resumed = [float(e1b.train_batch(b)) for b in batches[1:]]
+    same = resumed == l1[1:] and _same_params(e1b, e1)
+    tag_gb = _dir_bytes(os.path.join(ckpt, "global_step1")) / 1e9
+    out["d_checkpoint"] = dict(tag=tag, tag_gb=tag_gb, save_s=save_s, load_s=load_s, resumed=resumed,
+                               uninterrupted=l1[1:], bit_equal=same)
+    log(f"offload (d) checkpoint under the host optimizer: {tag} ({tag_gb:.2f} GB: parameters and the host "
+        f"Adam's moments) saved in {save_s:.2f} s, resumed by a fresh engine in {load_s:.2f} s; steps 2-3 "
+        f"{resumed} vs uninterrupted {l1[1:]}: {'bit-equal' if same else 'DIFFER'}  [{card}]")
+    if not same:
+        raise AssertionError("offload (d): the resumed run is not bit-equal to the uninterrupted one")
+    del e1, e1b
+    _free()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    e3, l3, _ = _offload_run({"stage": 3}, batches, seed)
+    e0b, l0b, _ = _offload_run({"stage": 0}, batches, seed)
+    stage_same = l3 == l0b and _same_params(e3, e0b)
+    del e0b
+    _free()
+    mid = torch.cuda.memory_allocated()
+    e3p, l3p, _ = _offload_run({"stage": 3, "offload_param": {"device": "cpu"}}, batches, seed)
+    held3p = torch.cuda.memory_allocated() - mid
+    param_same = l3p == l3 and _same_params(e3p, e3)
+    out["b_stage3"] = dict(losses_stage0=l0b, losses_stage3=l3, bit_equal=stage_same)
+    out["b_offload_param"] = dict(losses=l3p, losses_dense_stage3=l3, bit_equal=param_same,
+                                  card_bytes_held=held3p, stream_gb_per_step=e3p._streamer.bytes / 1e9)
+    log(f"offload (b) stage 3 vs stage 0: {l3} vs {l0b}: {'bit-equal' if stage_same else 'DIFFER'}; parameter "
+        f"offload (stage 3, cpu) vs dense stage 3: {l3p}: {'bit-equal' if param_same else 'DIFFER'}; card bytes "
+        f"held {held3p / 1e9:.2f} GB (gradients and moments; parameters {p_bytes / 1e9:.2f} GB rest on the "
+        f"host)  [{card}]")
+    if not stage_same or not param_same:
+        raise AssertionError("offload (b): stage 3 or parameter offload is not bit-equal to its reference")
+    if held3p > 3 * p_bytes + (256 << 20) or any(p.device.type != "cpu" for p in e3p.module.parameters()):
+        raise AssertionError(f"offload (b): parameter offload holds {held3p} bytes on the card")
+    del e3, e3p
+    _free()
+    return out
+
+
+def offload_nvme(seed: int, card: str, work: str) -> dict:
+    """(c) the nvme tiers at LLaMA-7b's width, 2 layers, one step each,
+    under ``work`` (removed by the caller)."""
+    batches = offload_batches(seed + 22, 1)
+    out = {}
+    swap = os.path.join(work, "nvme")
+    t0 = time.perf_counter()
+    e, l, _ = _offload_run({"stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": swap}}, batches,
+                           seed)
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in e.module.parameters())
+    files = sorted(os.listdir(os.path.join(swap, "optimizer")))
+    sw = e.optimizer.swapper
+    fallbacks = sw.direct_fallbacks()
+    host_s = e.offload_timings["host_adam_s"]
+    out["optimizer"] = dict(loss=l, files=len(files), swap_gb=n_params * 8 / 1e9,
+                            step_swap_and_adam_s=host_s, swap_gb_s_with_adam=n_params * 16 / host_s / 1e9,
+                            aio_direct_fallbacks=fallbacks, wall_s=wall)
+    log(f"offload (c) optimizer on nvme: {len(files)} moment files ({n_params * 8 / 1e9:.2f} GB), one step's "
+        f"swap-in, host Adam and swap-out {host_s:.2f} s ({out['optimizer']['swap_gb_s_with_adam']:.2f} GB/s "
+        f"read + written, Adam included); aio_direct_fallbacks {fallbacks}; loss {l}  [{card}]")
+    if len(files) != 2 * len(list(e.module.parameters())) or not np.isfinite(l[0]):
+        raise AssertionError(f"offload (c): {len(files)} moment files, loss {l}")
+    sw.close()
+    del e, sw
+    _free()
+    shutil.rmtree(swap, ignore_errors=True)
+
+    window = 1 << 30
+    t0 = time.perf_counter()
+    zero = {"stage": 3, "offload_param": {"device": "nvme", "nvme_path": swap, "max_in_cpu": window}}
+    from deepspeed_tpu_torch import initialize
+    e, _, _, _ = initialize(model=offload_llama(2, seed + 20), config=offload_config(zero))
+    init_s = time.perf_counter() - t0
+    p_bytes = sum(p.numel() * 4 for p in e.module.parameters())
+    loss = float(e.train_batch(batches[0]))
+    sw = e._param_swapper
+    released = e.params_released and all(p.numel() == 0 for p in e.module.parameters())
+    resident = sw.resident_bytes()
+    t0 = time.perf_counter()
+    fetched = sw.fetch_all()
+    fetch_s = time.perf_counter() - t0
+    e._ensure_params_resident()
+    same = all(a.tobytes() == p.detach().numpy().tobytes() for a, p in zip(fetched, e.module.parameters()))
+    t0 = time.perf_counter()
+    e._journal_params_to_nvme()
+    write_s = time.perf_counter() - t0
+    fallbacks = sw.direct_fallbacks()
+    read_gb = (p_bytes - resident) / 1e9
+    out["params"] = dict(loss=loss, param_gb=p_bytes / 1e9, window_bytes=window, resident_bytes=resident,
+                         released=released, fetch_bit_equal=same, init_and_journal_s=init_s,
+                         read_gb=read_gb, read_s=fetch_s, read_gb_s=read_gb / fetch_s,
+                         write_gb_s=p_bytes / 1e9 / write_s, write_s=write_s, aio_direct_fallbacks=fallbacks)
+    log(f"offload (c) parameters on nvme (max_in_cpu {window}): {p_bytes / 1e9:.2f} GB journaled; after the step "
+        f"released {released}, {resident} bytes resident; a fetch read {read_gb:.2f} GB in {fetch_s:.2f} s "
+        f"({out['params']['read_gb_s']:.2f} GB/s), {'bit-equal to' if same else 'DIFFERS from'} the live values; "
+        f"a journal wrote {p_bytes / 1e9:.2f} GB in {write_s:.2f} s ({out['params']['write_gb_s']:.2f} GB/s); "
+        f"aio_direct_fallbacks {fallbacks}; loss {loss}  [{card}]")
+    if not (released and resident <= window and same and np.isfinite(loss)):
+        raise AssertionError(f"offload (c): parameters on nvme: {out['params']}")
+    sw.close()
+    del e, sw
+    _free()
+    return out
+
+
+def offload_kernel_line(gen: torch.Generator) -> dict:
+    """K1 and K4 at phase 19's shape, q,k,v [1,2048,32,128] bf16 causal:
+    against their plain versions, timed beside them, SDPA and the bound."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, l, h, d = 1, OFFLOAD_SEQ, 32, 128
+    scale = d**-0.5
+    q, k, v, do = (torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    kw = dict(scale=scale, causal=True)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    err_f = compare("flash_fwd phase 19 [1,2048,32,128] bf16 causal", o, fa.flash_fwd_plain(q, k, v, **kw)[0],
+                    torch.bfloat16)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    err_b = max(compare(f"flash_bwd phase 19 [1,2048,32,128] bf16 causal d{x}", g, r, torch.bfloat16)
+                for x, g, r in zip("qkv", got, ref))
+    del got, ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * h * l * (l + 1) / 2
+    fwd = lambda: fa.flash_fwd(q, k, v, **kw)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
+    shape = "q,k,v [1,2048,32,128] bf16 causal (phase 19, LLaMA-7b width)"
+    lines = {"flash_fwd": dict(name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+                               replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117", shape=shape,
+                               max_abs_err=err_f, ms=time_ms(fwd, iters=10), device_ms=device_ms(fwd),
+                               plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=2, warmup=1),
+                               bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa))}
+    bwd = lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    qg, kg, vg = (x.requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)  # noqa: E731
+    bnd, by = bound_ms(8 * b * h * l * d * 2 + b * h * l * 4, 10 * d * pairs)
+    lines["flash_bwd"] = dict(name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                              replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403",
+                              shape=shape.replace("q,k,v", "q,k,v,o,dO"), max_abs_err=err_b,
+                              ms=time_ms(bwd, iters=10), device_ms=device_ms(bwd),
+                              plain_ms=time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=2,
+                                               warmup=1),
+                              bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa_bwd))
+    for line in lines.values():
+        log_time(line)
+    return lines
+
+
+def offload_phase(seed: int, card: str, layers: int = OFFLOAD_LAYERS):
+    """Phase 19: (a) training under both cpu offloads at ``layers``, the
+    main path; K1 and K4 at its shape against their plain versions; (b) and
+    (d) the parity and round-trip checks; (c) the nvme tiers. Returns the
+    results and (a)'s launches."""
+    from deepspeed_tpu_torch.ops.op_builder import build_all
+
+    if layers < OFFLOAD_MIN_LAYERS:
+        raise ValueError(f"phase 19 trains at least {OFFLOAD_MIN_LAYERS} layers")
+    seconds = {}
+    t0 = time.perf_counter()
+    libs = build_all()
+    seconds["host library build"] = time.perf_counter() - t0
+    log(f"offload: host libraries {', '.join(p.name for p in libs.values())} in "
+        f"{seconds['host library build']:.1f} s; host memory {host_memory_gb()}")
+    out = {}
+    t0 = time.perf_counter()
+    out["a_train"], counts = offload_train(seed, card, layers)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["kernel_lines"] = offload_kernel_line(torch.Generator(device="cuda").manual_seed(seed + 19))
+    torch.cuda.empty_cache()
+    seconds["kernels"] = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="ds_offload_")
+    try:
+        t0 = time.perf_counter()
+        out.update(offload_parity(seed, card, work))
+        seconds["b and d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c_nvme"] = offload_nvme(seed, card, work)
+        seconds["c"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = seconds
+    log("phase 19 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6055,7 +6542,11 @@ def main(argv=None) -> int:
                          "earlier checkout this script measures that commit the same way, "
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
                          "phase 4, whose measured rounding it reads), 'resilience' (phase 15), "
-                         "'moe' (phase 16) and 'rlhf' (phase 17)")
+                         "'moe' (phase 16), 'rlhf' (phase 17), 'fleet' (phases 4 and 18) and 'offload' "
+                         "(phase 19)")
+    ap.add_argument("--offload-layers", type=int, default=OFFLOAD_LAYERS,
+                    help=f"phase 19 (a)'s depth at LLaMA-7b's width (default {OFFLOAD_LAYERS}, at least "
+                         f"{OFFLOAD_MIN_LAYERS}; the host needs {OFFLOAD_HOST_BYTES} bytes a parameter)")
     ap.add_argument("--child", choices=("preempt", "resume", "agent", "torn"),
                     help="run as one of phase 15's training processes (the phase starts them)")
     ap.add_argument("--dir", help="--child: the checkpoint dir")
@@ -6066,10 +6557,10 @@ def main(argv=None) -> int:
         return child_main(args)
     phases = set(args.phases.split(","))
     if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf",
-                       "fleet"}
+                       "fleet", "offload"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience', 'moe', 'rlhf' and 'fleet', got {args.phases!r}")
+                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet' and 'offload', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -6121,6 +6612,10 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["fleet"] = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))[0]
             RESULTS.setdefault("phase_s", {})["18 the serving fleet"] = time.perf_counter() - t_phase
+        if "offload" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["offload"] = offload_phase(args.seed, card, args.offload_layers)[0]
+            RESULTS.setdefault("phase_s", {})["19 ZeRO-Offload and ZeRO-Infinity"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -6188,6 +6683,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["fleet"], fleet_counts = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))
         phase_s["18 the serving fleet"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        RESULTS["offload"], offload_counts = offload_phase(args.seed, card, args.offload_layers)
+        phase_s["19 ZeRO-Offload and ZeRO-Infinity"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -6208,10 +6707,10 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts, rlhf_counts, fleet_counts)
+                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
-        llama_paths = (llama_train_counts, llama_serve_counts)
+        llama_paths = (llama_train_counts, llama_serve_counts, offload_counts)
         kernels = []
         for name in ("flash_fwd", "quant_matmul", "flash_decode", "flash_bwd", "moe_permute",
                      "sparse_fwd", "sparse_bwd"):
@@ -6230,6 +6729,12 @@ def main(argv=None) -> int:
                         "target verify": student["target verify"][name],
                         f"drafter decode x{SPEC_K} (4-layer student)": student["drafter decode"][name],
                         "drafter refeed (24-layer drafter run)": full["drafter refeed"][name]})
+            if name in RESULTS["offload"]["kernel_lines"]:
+                # phase 19: LLaMA-7b's width under both offloads, its
+                # launches (part of at_head_dim_128's) and its shape
+                entry["at_phase19"] = dict(
+                    {k: v for k, v in RESULTS["offload"]["kernel_lines"][name].items()
+                     if k in KERNEL_LINE_KEYS + ("shape",)}, launches=offload_counts.get(name, 0))
             if name == "moe_permute":
                 # phase 16: the MoE serving tick and the Mixtral step, their
                 # launches as the tick probe and the training phase read them

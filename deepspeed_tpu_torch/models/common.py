@@ -7,6 +7,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.runtime.zero.param_offload import stream_block
+
 
 def embed_lookup(wte: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Token-embedding gather. Its backward is ``F.embedding``'s
@@ -54,7 +56,14 @@ def maybe_remat(block: Callable, cfg, layer_idx: int, enabled: Optional[bool] = 
     the ``remat_every`` stride, else ``block`` itself. Full recompute only
     (the JAX package's saveable-op ``remat_policy`` belongs to the
     activation-checkpointing slice; ``GPT2Config`` refuses it). Runs the
-    block plainly when no graph is recorded (inference)."""
+    block plainly when no graph is recorded (inference).
+
+    Every block first passes through ``runtime/zero/param_offload.stream_block``:
+    the identity unless an ``offload_param`` engine's forward is streaming,
+    where the block's parameters are copied to the card inside the
+    checkpoint region, so the recompute streams them again (JAX's
+    ``stream_block_params``)."""
+    block = stream_block(block)
     enabled = getattr(cfg, "remat", False) if enabled is None else enabled
     if not enabled or layer_idx % max(getattr(cfg, "remat_every", 1), 1) != 0:
         return block

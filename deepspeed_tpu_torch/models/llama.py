@@ -360,6 +360,11 @@ class LlamaForCausalLM(nn.Module):
     in the compute dtype; ``model(ids, cache)`` runs the decode branch and
     updates ``cache`` in place."""
 
+    #: the numbered blocks, which stream their own parameters under
+    #: ``offload_param`` (``runtime/zero/param_offload.py``); the engine
+    #: streams the other leaves
+    streamed_block_prefixes = ("layers_",)
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

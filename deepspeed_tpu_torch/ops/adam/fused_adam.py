@@ -40,7 +40,7 @@ class FusedAdam(torch.optim.Optimizer):
     def __init__(self, params: Iterable[torch.Tensor], lr: ScalarOrSchedule = 1e-3,
                  bias_correction: bool = True, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, adam_w_mode: bool = True, weight_decay: float = 0.0,
-                 amsgrad: bool = False):
+                 amsgrad: bool = False, state_device=None):
         if amsgrad:
             raise NotImplementedError("FusedAdam does not support the AMSGrad variant "
                                       "(parity with the reference)")
@@ -52,41 +52,62 @@ class FusedAdam(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.dtype != torch.float32:
                     raise ValueError(f"FusedAdam updates fp32 master parameters, got {p.dtype}")
-                self.state[p] = {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+                dev = p.device if state_device is None else state_device
+                self.state[p] = {"exp_avg": torch.zeros(p.shape, dtype=p.dtype, device=dev),
+                                 "exp_avg_sq": torch.zeros(p.shape, dtype=p.dtype, device=dev)}
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("FusedAdam.step takes no closure")
         self.count += 1
-        count = _fp32(self.count)
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            grads = [p.grad for p in params]
-            ms = [self.state[p]["exp_avg"] for p in params]
-            vs = [self.state[p]["exp_avg_sq"] for p in params]
-            b1, b2 = group["betas"]
-            wd, eps = group["weight_decay"], group["eps"]
-            lr = float(group["lr"](self.count)) if callable(group["lr"]) else float(group["lr"])
-            if not group["adam_w_mode"] and wd > 0.0:
-                grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
-            torch._foreach_mul_(ms, b1)
-            torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
-            torch._foreach_mul_(vs, b2)
-            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-            if group["bias_correction"]:
-                bc1 = float(1 - _fp32(b1) ** count)
-                bc2 = float(1 - _fp32(b2) ** count)
-            else:
-                bc1 = bc2 = 1.0
-            denom = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
-            torch._foreach_add_(denom, eps)
-            upd = torch._foreach_div(torch._foreach_div(ms, bc1), denom)
-            if group["adam_w_mode"] and wd > 0.0:
-                torch._foreach_add_(upd, torch._foreach_mul(params, wd))
-            torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
+            if params:
+                self._update(group, params, [p.grad for p in params])
+
+    @torch.no_grad()
+    def step_resting(self, grads: Dict[int, torch.Tensor], device) -> None:
+        """The step of parameters that rest off ``device`` (``offload_param``
+        with the moments on the card, ``state_device=device``): each
+        parameter is copied to ``device``, updated there with its gradient
+        ``grads[id(p)]`` by the same arithmetic as :meth:`step`, and copied
+        back to its resting place."""
+        self.count += 1
+        for group in self.param_groups:
+            for p in group["params"]:
+                work = p.to(device)
+                self._update(group, [work], [grads[id(p)]], state_of=p)
+                p.copy_(work)
+
+    def _update(self, group: dict, params, grads, state_of=None) -> None:
+        """The update of ``params`` (a list) in place with ``grads`` at
+        ``self.count``; the moments are those of ``params`` (or of the one
+        parameter ``state_of``)."""
+        keys = params if state_of is None else [state_of]
+        count = _fp32(self.count)
+        ms = [self.state[p]["exp_avg"] for p in keys]
+        vs = [self.state[p]["exp_avg_sq"] for p in keys]
+        b1, b2 = group["betas"]
+        wd, eps = group["weight_decay"], group["eps"]
+        lr = float(group["lr"](self.count)) if callable(group["lr"]) else float(group["lr"])
+        if not group["adam_w_mode"] and wd > 0.0:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+        if group["bias_correction"]:
+            bc1 = float(1 - _fp32(b1) ** count)
+            bc2 = float(1 - _fp32(b2) ** count)
+        else:
+            bc1 = bc2 = 1.0
+        denom = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(torch._foreach_div(ms, bc1), denom)
+        if group["adam_w_mode"] and wd > 0.0:
+            torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+        torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
 
     def named_state(self, named_params: Dict[str, torch.Tensor]) -> dict:
         """The state keyed by the parameter names of ``named_params``, the

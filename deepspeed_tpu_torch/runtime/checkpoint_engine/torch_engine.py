@@ -5,7 +5,9 @@
 A state is a flat ``{"<group>/<name>": tensor}`` dict of the live tensors
 (``DeepSpeedEngine.checkpoint_state``): group ``module`` the parameters,
 ``optimizer`` the optimizer state, any other group (the engine's ``rng``)
-state that travels with the counters. A tag is a directory::
+state that travels with the counters (``host_optimizer`` the host
+optimizer's step and moments under ``offload_optimizer``, an optimizer group
+as well). A tag is a directory::
 
     <tag>/state/<group>.pt   one torch.save'd {name: tensor} per group
     <tag>/metadata.json      the engine's counters and client_state (JSON)
@@ -51,6 +53,8 @@ STATE_DIR = "state"
 METADATA_NAME = "metadata.json"
 MODULE_GROUP = "module"
 OPTIMIZER_GROUP = "optimizer"
+#: the host optimizer's state under ``offload_optimizer``
+HOST_OPTIMIZER_GROUP = "host_optimizer"
 
 
 def _group(name: str) -> str:
@@ -216,7 +220,8 @@ class TorchCheckpointEngine(CheckpointEngine):
         tag's metadata. ``verify``: "off", "files" (the inventory before
         deserializing) or "full" (and every leaf's digest after).
         ``load_module_only`` copies the module group alone,
-        ``load_optimizer_states=False`` every group but the optimizer's.
+        ``load_optimizer_states=False`` every group but the optimizer's
+        (``optimizer`` and ``host_optimizer``).
         Raises :class:`CheckpointCorruptError` on any integrity failure and
         ``ValueError`` when the tag holds another model's state."""
         if verify not in VERIFY_CHECKPOINT_MODES:
@@ -248,13 +253,20 @@ class TorchCheckpointEngine(CheckpointEngine):
         if bad:
             raise ValueError(f"checkpoint {path} holds another state: " + "; ".join(bad[:8]))
         if verify == "full":
-            ckpt_manifest.verify_state_leaves(restored, man or {}, ckpt_dir=path)
+            # the leaves of the groups read (a tag may hold a group this
+            # state has none of: an optimizer saved without offload, read
+            # by an engine that offloads it)
+            read = {_group(k) for k in state}
+            man = dict(man or {})
+            if man.get("leaves"):
+                man["leaves"] = {k: v for k, v in man["leaves"].items() if _group(k) in read}
+            ckpt_manifest.verify_state_leaves(restored, man, ckpt_dir=path)
         if load_module_only:
             groups = {MODULE_GROUP}
         else:
             groups = {_group(k) for k in state}
             if not load_optimizer_states:
-                groups.discard(OPTIMIZER_GROUP)
+                groups -= {OPTIMIZER_GROUP, HOST_OPTIMIZER_GROUP}
         with torch.no_grad():
             for k, t in state.items():
                 if _group(k) in groups:

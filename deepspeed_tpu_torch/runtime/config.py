@@ -4,7 +4,10 @@ the port's training engine uses).
 Read: the batch triangle (``train_batch_size``,
 ``train_micro_batch_size_per_gpu``, ``gradient_accumulation_steps``) on one
 device, ``optimizer`` (Adam/AdamW), ``scheduler``, ``bf16``,
-``gradient_clipping``, ``zero_optimization`` at stage 0, ``steps_per_print``,
+``gradient_clipping``, ``zero_optimization`` (every key of JAX's
+``DeepSpeedZeroConfig``, ``runtime/zero/config.py``: stages 0-3, on one card
+stages 1-3 train with stage 0's bits; ``offload_optimizer`` and
+``offload_param`` on ``cpu`` and ``nvme``), ``steps_per_print``,
 ``seed``, ``dataloader_drop_last``, the ``"moe"`` block (``route``,
 ``kernel``: the MoE dispatch route and permutation, ``moe/routing.py``), and
 every key of JAX's ``"resilience"`` and ``"nebula"`` blocks with their
@@ -18,7 +21,8 @@ block, which at one data-parallel rank overrides the batch triangle as JAX's
 ``inference_tp_size`` above 1 raises). Everything else raises
 ``NotImplementedError`` naming the slice of the port it belongs to, so that
 a setting is never dropped quietly: fp16 (the kernels take fp32 and bf16
-only), ZeRO stages 1-3 and offload, other optimizers, and any other block.
+only), the ZeRO keys that only mean something across ranks, other
+optimizers, and any other block.
 """
 
 import json
@@ -246,15 +250,11 @@ class DeepSpeedConfig:
         bf16 = dict(config.get("bf16", config.get("bfloat16", {})))
         self.bfloat16_enabled = bool(bf16.get("enabled", False))
 
-        zero = dict(config.get("zero_optimization", {}))
-        self.zero_optimization_stage = int(zero.pop("stage", 0))
-        if self.zero_optimization_stage != 0:
-            raise _later(f"ZeRO stage {self.zero_optimization_stage}", "ZeRO")
-        for key, val in zero.items():
-            if key.startswith("offload") and (val or {}).get("device", "none") not in (None, "none"):
-                raise _later(f"zero_optimization.{key}", "offload")
-            if not key.startswith("offload"):
-                raise _later(f"zero_optimization.{key}", "ZeRO")
+        from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+
+        self.zero_config = DeepSpeedZeroConfig(config.get("zero_optimization"))
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_enabled = self.zero_optimization_stage > 0
 
         triangle = (config.get("train_batch_size"), config.get("train_micro_batch_size_per_gpu"),
                     config.get("gradient_accumulation_steps"))

@@ -62,11 +62,46 @@ jitted program and ``train_batches`` as a ``lax.scan``; here they are
 Python loops over eager PyTorch (a CUDA graph is later work). The
 gradients live in one flat fp32 buffer, each parameter's ``.grad`` a view
 of it, so the norm, the division and the clipping are one launch each.
+
+ZeRO (JAX ``engine.py:1110-1354``; the ``zero_optimization`` block,
+``runtime/zero/config.py``). On one card stages 1-3 partition nothing and
+give stage 0's bits. Offload changes where state lives:
+
+- ``offload_optimizer`` (``cpu`` or ``nvme``): no ``FusedAdam`` and no
+  moment on the card. The engine keeps fp32 host masters (copies of the
+  parameters, or the host-resting parameters themselves under
+  ``offload_param``) and a host optimizer (``DeepSpeedCPUAdam``;
+  ``NVMeAdam``, its moments swapped to ``<nvme_path>/optimizer``). The step
+  keeps the device's ``/gas``, norm, clip and overflow skip, then fetches
+  the flat fp32 gradients leaf by leaf into pinned staging on a copy
+  stream (leaf i+1's copy overlaps leaf i's host update), runs
+  ``step_single`` on each master and copies it back into its device
+  parameter (no copy back when the parameters rest on the host: the
+  master is the parameter). ``nvme`` fetches the whole buffer once and
+  runs ``NVMeAdam.step``.
+- ``offload_param`` (stage 3; ``cpu`` or ``nvme``): the parameters rest on
+  the host as fp32 tensors and stream through the card block by block
+  (``runtime/zero/param_offload.py``); the backward adds into the flat
+  device gradient buffer. Without ``offload_optimizer`` the moments stay
+  on the card and each leaf is copied in, updated and copied home
+  (``FusedAdam.step_resting``). Under ``nvme`` every leaf is journaled to
+  ``<nvme_path>/params`` after each step and released from the host but
+  for ``max_in_cpu`` bytes; the next forward, eval, save or load brings
+  them back.
+
+A checkpoint under ``offload_optimizer`` holds the host optimizer's step
+and moments in the ``host_optimizer`` group; the masters are the module
+group's leaves bit for bit (the device parameters are fp32 copies of them)
+and are rebuilt from it on load. A tag without that group (saved without
+offload) loads its parameters and resets the host moments, with a warning
+(JAX's rebuild rule).
 """
 
 import logging
 import os
+import tempfile
 import threading
+import time
 import weakref
 from typing import Callable, Dict, Optional
 
@@ -79,9 +114,12 @@ from deepspeed_tpu_torch.elasticity.elastic_agent import touch_heartbeat
 from deepspeed_tpu_torch.models.common import cross_entropy_loss
 from deepspeed_tpu_torch.moe import routing as moe_routing
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
-from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (MODULE_GROUP,
+from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (HOST_OPTIMIZER_GROUP,
+                                                                        MODULE_GROUP,
                                                                         OPTIMIZER_GROUP,
+                                                                        STATE_DIR,
                                                                         HostSnapshotPool,
                                                                         TorchCheckpointEngine)
 from deepspeed_tpu_torch.runtime.config import ADAMW_OPTIMIZER, DeepSpeedConfig
@@ -94,11 +132,16 @@ from deepspeed_tpu_torch.runtime.resilience.manifest import (CheckpointCorruptEr
                                                              sweep_stale_staging,
                                                              write_atomic_text)
 from deepspeed_tpu_torch.runtime.resilience.signals import PreemptionGuard
+from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import NVMeAdam
 from deepspeed_tpu_torch.runtime.utils import global_norm_l2
+from deepspeed_tpu_torch.runtime.zero.param_offload import (ParamStreamer, PartitionedParamSwapper,
+                                                            param_streaming, stream_top)
 
 logger = logging.getLogger(__name__)
 
 LATEST_NAME = "latest"
+#: where the nvme tiers swap when ``nvme_path`` is not set
+DEFAULT_NVME_DIR = "ds_tpu_torch_nvme"
 #: the checkpoint leaf of ``self.generator``'s state
 RNG_KEY = "rng/generator"
 
@@ -141,6 +184,19 @@ class DeepSpeedEngine:
         self.lr_scheduler = lr_scheduler
         if self.lr_scheduler is None and config.scheduler_name is not None:
             self.lr_scheduler = get_lr_schedule(config.scheduler_name, config.scheduler_params)
+        zcfg = config.zero_config
+        self._param_offload = zcfg.offload_param_device != "none"
+        self._host_opt = None
+        self._host_masters = None
+        self._streamer: Optional[ParamStreamer] = None
+        self._param_swapper: Optional[PartitionedParamSwapper] = None
+        self._params_released = False
+        self._staging = None
+        self._copy_stream = None
+        #: the last offloaded step's host-side parts (seconds and bytes)
+        self.offload_timings: dict = {}
+        if self._param_offload:
+            self._rest_params_on_host()
         self.optimizer = self._configure_optimizer()
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.global_steps = 0
@@ -174,7 +230,12 @@ class DeepSpeedEngine:
         if rcfg.preempt_save_dir:
             self.enable_preemption_checkpoint(rcfg.preempt_save_dir)
 
-    def _configure_optimizer(self) -> FusedAdam:
+    def _configure_optimizer(self):
+        """``FusedAdam`` over the parameters (its moments on the card, also
+        under ``offload_param``), or under ``offload_optimizer`` the host
+        optimizer, with no moment on the card."""
+        if self.config.zero_config.offload_optimizer_device != "none":
+            return self._setup_offload_optimizer()
         params = dict(self.config.optimizer_params or {})
         lr = params.pop("lr", 1e-3)
         if self.lr_scheduler is not None:
@@ -184,7 +245,68 @@ class DeepSpeedEngine:
         params.pop("fused", None)
         if "betas" in params:
             params["betas"] = tuple(params["betas"])
-        return FusedAdam(self.module.parameters(), lr=lr, adam_w_mode=adam_w_mode, **params)
+        return FusedAdam(self.module.parameters(), lr=lr, adam_w_mode=adam_w_mode,
+                         state_device=self.device if self._param_offload else None, **params)
+
+    # -- ZeRO offload (JAX ``engine.py:1110-1354``) ------------------------------
+    def _nvme_dir(self, block, leaf: str) -> str:
+        base = block.nvme_path or os.path.join(tempfile.gettempdir(), DEFAULT_NVME_DIR)
+        return os.path.join(str(base), leaf)
+
+    def _rest_params_on_host(self) -> None:
+        """Move every parameter to its host resting place (fp32, pinned when
+        ``offload_param.pin_memory``), and under ``nvme`` journal it to
+        ``<nvme_path>/params`` (JAX ``_setup_param_offload``)."""
+        poff = self.config.zero_config.offload_param
+        pin = poff.pin_memory and self.device.type == "cuda"
+        with torch.no_grad():
+            for p in self.module.parameters():
+                if p.device.type != "cpu" or pin:
+                    host = torch.empty(p.shape, dtype=p.dtype, pin_memory=pin)
+                    host.copy_(p)
+                    p.data = host
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        n_bytes = sum(p.numel() * p.element_size() for p in self.module.parameters())
+        if poff.device == "nvme":
+            self._param_swapper = PartitionedParamSwapper(
+                self._nvme_dir(poff, "params"), window_bytes=poff.max_in_cpu,
+                n_threads=max(poff.buffer_count, 1))
+            self._param_swapper.initialize([p.detach().numpy() for p in self.module.parameters()])
+        logger.info(f"parameter offload enabled: device={poff.device} ({n_bytes / 1e6:.1f} MB "
+                    f"resting off the card{', pinned' if pin else ''})")
+
+    def _setup_offload_optimizer(self):
+        """The host optimizer and its fp32 masters (JAX
+        ``_setup_offload_optimizer``, single process)."""
+        off = self.config.zero_config.offload_optimizer
+        params = dict(self.config.optimizer_params or {})
+        kwargs = dict(lr=params.get("lr", 1e-3), betas=tuple(params.get("betas", (0.9, 0.999))),
+                      eps=params.get("eps", 1e-8), weight_decay=params.get("weight_decay", 0.0),
+                      adamw_mode=params.get("adam_w_mode",
+                                            self.config.optimizer_name == ADAMW_OPTIMIZER))
+        named = list(self.module.named_parameters())
+        if off.device == "cpu":
+            opt = DeepSpeedCPUAdam(bias_correction=params.get("bias_correction", True), **kwargs)
+            for i, (_, p) in enumerate(named):
+                opt.ensure_state(i, p.numel())
+        elif off.device == "nvme":
+            opt = NVMeAdam(swap_dir=self._nvme_dir(off, "optimizer"), **kwargs)
+        else:
+            raise ValueError(f"unknown offload_optimizer.device {off.device!r}")
+        self._host_opt = opt
+        if self._param_offload:
+            # the host-resting parameters are the masters: the update lands
+            # in their resting place with no trip through the card
+            self._host_masters = [p for _, p in named]
+        else:
+            pin = off.pin_memory and self.device.type == "cuda"
+            with torch.no_grad():
+                self._host_masters = [torch.empty(p.shape, dtype=torch.float32,
+                                                  pin_memory=pin).copy_(p) for _, p in named]
+        logger.info(f"optimizer offload enabled: device={off.device} "
+                    f"({sum(p.numel() for _, p in named) / 1e6:.1f}M host master elems)")
+        return opt
 
     # ------------------------------------------------------------------
     def initialize_state(self, example_batch=None) -> None:
@@ -197,10 +319,19 @@ class DeepSpeedEngine:
         self._grads = torch.zeros(sum(p.numel() for _, p in named), dtype=torch.float32,
                                   device=self.device)
         offset = 0
+        views = {}
         for name, p in named:
             self._grad_slices[name] = slice(offset, offset + p.numel())
-            p.grad = self._grads[self._grad_slices[name]].view_as(p)
+            view = self._grads[self._grad_slices[name]].view(p.shape)
+            if self._param_offload:
+                # a host-resting parameter takes no device .grad: the
+                # streaming backward adds into its view
+                views[id(p)] = view
+            else:
+                p.grad = view
             offset += p.numel()
+        if self._param_offload:
+            self._streamer = ParamStreamer(self.device, self.module.config.dtype, views)
 
     def _stage(self, batch) -> dict:
         if not isinstance(batch, dict):
@@ -221,12 +352,23 @@ class DeepSpeedEngine:
         fused_head = self.loss_fn is default_causal_lm_loss and mcfg.fused_head_loss_chunk > 0
         if fused_head:
             kwargs["labels"] = mb.get("labels", ids)
-        outputs = self.module(ids, **kwargs)
+        outputs = self._run_module(ids, **kwargs)
         if not train and moe and isinstance(outputs, (tuple, list)):
             # eval reports the pure cross-entropy: the load-balancing loss
             # regularizes training only
             outputs = outputs[0]
         return outputs if fused_head else self.loss_fn(outputs, mb)
+
+    def _run_module(self, ids, **kwargs):
+        """The model's forward; under ``offload_param`` its leaves outside
+        the blocks streamed here and the blocks' inside their regions."""
+        if not self._param_offload:
+            return self.module(ids, **kwargs)
+        self.initialize_state()
+        self._ensure_params_resident()
+        with param_streaming(self._streamer):
+            return torch.func.functional_call(self.module, stream_top(self.module, self._streamer),
+                                              (ids,), kwargs)
 
     # -- the training loop -------------------------------------------------
     def forward(self, batch) -> torch.Tensor:
@@ -275,12 +417,119 @@ class DeepSpeedEngine:
             self.skipped_steps += 1
         else:
             self._await_snapshot()
-            self.optimizer.step()
+            if self._host_opt is not None:
+                self._offload_step()
+            elif self._param_offload:
+                self.optimizer.step_resting(self._streamer.grad_views, self.device)
+            else:
+                self.optimizer.step()
+        self._journal_params_to_nvme()
         self._last_grad_norm = gnorm
         self._window_open = False
         self.global_steps += 1
         self.global_samples += cfg.train_batch_size
         self._after_boundary(overflow)
+
+    def _offload_step(self) -> None:
+        """The host update of every master (JAX ``_offload_train_batch``,
+        single process): ``step_single`` leaf by leaf, each leaf's gradient
+        fetched into pinned staging on a copy stream while the previous
+        leaf is updated, each updated master copied into its device
+        parameter unless the parameters rest on the host. ``NVMeAdam``
+        takes the whole host gradient at once. Records
+        ``offload_timings``."""
+        opt, masters = self._host_opt, self._host_masters
+        slices = list(self._grad_slices.values())
+        cuda = self.device.type == "cuda"
+        t = {"d2h_wait_s": 0.0, "host_adam_s": 0.0, "h2d_s": 0.0, "d2h_ms": 0.0,
+             "d2h_bytes": self._grads.numel() * 4, "h2d_bytes": 0}
+        lr = self.get_lr()[0]
+        if isinstance(opt, NVMeAdam):
+            t0 = time.perf_counter()
+            host = self._grads.to("cpu")
+            t["d2h_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            opt.step(masters, [host[sl] for sl in slices], lr=lr)
+            t["host_adam_s"] = time.perf_counter() - t0
+        elif not cuda:
+            opt.begin_step(lr=lr)
+            t0 = time.perf_counter()
+            for i, (m, sl) in enumerate(zip(masters, slices)):
+                opt.step_single(i, m, self._grads[sl])
+            t["host_adam_s"] = time.perf_counter() - t0
+        else:
+            largest = max(sl.stop - sl.start for sl in slices)
+            if self._staging is None or self._staging[0].numel() < largest:
+                self._staging = [torch.empty(largest, dtype=torch.float32, pin_memory=True)
+                                 for _ in range(2)]
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            events = []
+
+            def fetch(sl, buf):
+                with torch.cuda.stream(stream):
+                    start = torch.cuda.Event(enable_timing=True)
+                    done = torch.cuda.Event(enable_timing=True)
+                    start.record(stream)
+                    buf[:sl.stop - sl.start].copy_(self._grads[sl], non_blocking=True)
+                    done.record(stream)
+                events.append((start, done))
+                return done
+
+            opt.begin_step(lr=lr)
+            cur, nxt = self._staging
+            done = fetch(slices[0], cur)
+            for i, (m, sl) in enumerate(zip(masters, slices)):
+                t0 = time.perf_counter()
+                done.synchronize()
+                t1 = time.perf_counter()
+                t["d2h_wait_s"] += t1 - t0
+                if i + 1 < len(slices):
+                    done = fetch(slices[i + 1], nxt)
+                opt.step_single(i, m, cur[:sl.stop - sl.start])
+                t2 = time.perf_counter()
+                t["host_adam_s"] += t2 - t1
+                cur, nxt = nxt, cur
+            t["d2h_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        if not self._param_offload:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for p, m in zip(self.module.parameters(), masters):
+                    p.copy_(m.view(p.shape), non_blocking=m.is_pinned())
+                    t["h2d_bytes"] += m.numel() * 4
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+            t["h2d_s"] = time.perf_counter() - t0
+        self.offload_timings = t
+
+    def _journal_params_to_nvme(self) -> None:
+        """Under ``offload_param.device: nvme``: persist every leaf to its
+        swap file and release it from the host but for the swapper's
+        ``max_in_cpu`` window (JAX ``_journal_params_to_nvme``)."""
+        if self._param_swapper is None:
+            return
+        params = list(self.module.parameters())
+        self._param_swapper.write_back([p.detach().numpy() for p in params])
+        empty = torch.empty(0, dtype=torch.float32)
+        for p in params:
+            p.data = empty
+        self._params_released = True
+
+    def _ensure_params_resident(self) -> None:
+        """Bring released parameters back from the journal (window leaves
+        from RAM, the rest read pipelined; JAX ``_ensure_params_resident``)."""
+        if not self._params_released:
+            return
+        for p, arr in zip(self.module.parameters(), self._param_swapper.fetch_all()):
+            p.data = torch.from_numpy(arr)
+        self._params_released = False
+
+    @property
+    def params_released(self) -> bool:
+        """True between steps under ``offload_param.device: nvme``: the host
+        holds only the swapper's window."""
+        return self._params_released
 
     def _after_boundary(self, overflow: bool) -> None:
         """The end of a step's boundary, in JAX's order (``engine.py:2477-2534``):
@@ -346,9 +595,20 @@ class DeepSpeedEngine:
 
     def load_optimizer_state(self, state: dict) -> None:
         """Load an optimizer state keyed by parameter name (e.g.
-        ``checkpoint.from_jax.opt_state_from_jax``)."""
+        ``checkpoint.from_jax.opt_state_from_jax``), into ``FusedAdam`` or
+        the host optimizer."""
         self._await_snapshot()
-        self.optimizer.load_named_state(dict(self.module.named_parameters()), state)
+        named = dict(self.module.named_parameters())
+        if self._host_opt is None:
+            self.optimizer.load_named_state(named, state)
+            return
+        for key in ("exp_avg", "exp_avg_sq"):
+            if set(state[key]) != set(named):
+                raise KeyError(f"optimizer state {key}: the names differ from the model's")
+        flat = {str(i): {"m": torch.as_tensor(state["exp_avg"][k]).reshape(-1).float().numpy(),
+                         "v": torch.as_tensor(state["exp_avg_sq"][k]).reshape(-1).float().numpy()}
+                for i, k in enumerate(named)}
+        self._host_opt.load_state_dict({"step": int(state["count"]), "state": flat})
 
     # -- data ----------------------------------------------------------------
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None,
@@ -382,7 +642,7 @@ class DeepSpeedEngine:
         stats call leaves the next training step as it was."""
         seed = np.random.SeedSequence([self.config.seed, self.global_steps]).generate_state(1, np.uint64)
         gen = torch.Generator(device=self.device).manual_seed(int(seed[0]))
-        self.module(self._stage(batch)["input_ids"], deterministic=False, generator=gen)
+        self._run_module(self._stage(batch)["input_ids"], deterministic=False, generator=gen)
         stats = {}
         for name, layer in self.module.named_modules():
             if isinstance(layer, MOELayer):
@@ -418,15 +678,87 @@ class DeepSpeedEngine:
         parameters and ``optimizer/exp_avg/<name>``,
         ``optimizer/exp_avg_sq/<name>`` the Adam moments (the live tensors),
         ``optimizer/count`` the Adam count and ``rng/generator`` the state of
-        ``self.generator`` (host tensors made now)."""
+        ``self.generator`` (host tensors made now). Under
+        ``offload_optimizer`` the moments are the host optimizer's:
+        ``host_optimizer/exp_avg/<name>``, ``host_optimizer/exp_avg_sq/<name>``
+        and ``host_optimizer/step``."""
+        self._ensure_params_resident()
         named = dict(self.module.named_parameters())
-        opt = self.optimizer.named_state(named)
         state = {f"{MODULE_GROUP}/{k}": p for k, p in named.items()}
-        for key in ("exp_avg", "exp_avg_sq"):
-            state.update({f"{OPTIMIZER_GROUP}/{key}/{k}": t for k, t in opt[key].items()})
-        state[f"{OPTIMIZER_GROUP}/count"] = torch.tensor(opt["count"], dtype=torch.int64)
+        if self._host_opt is None:
+            opt = self.optimizer.named_state(named)
+            for key in ("exp_avg", "exp_avg_sq"):
+                state.update({f"{OPTIMIZER_GROUP}/{key}/{k}": t for k, t in opt[key].items()})
+            state[f"{OPTIMIZER_GROUP}/count"] = torch.tensor(opt["count"], dtype=torch.int64)
+        else:
+            state.update(self._host_optimizer_state(named))
         state[RNG_KEY] = self.generator.get_state()
         return state
+
+    def _host_optimizer_state(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The host optimizer's step and moments, keyed by parameter name:
+        the live moment arrays (``DeepSpeedCPUAdam``) or their read-back
+        (``NVMeAdam``)."""
+        opt = self._host_opt
+        if isinstance(opt, NVMeAdam):
+            moments = opt.state_dict()["state"]
+            step = opt.step_count
+        else:
+            moments = {str(i): opt.ensure_state(i, p.numel()) for i, p in enumerate(named.values())}
+            step = opt.step_count
+        g = HOST_OPTIMIZER_GROUP
+        state = {f"{g}/step": torch.tensor(step, dtype=torch.int64)}
+        for i, (name, p) in enumerate(named.items()):
+            st = moments.get(str(i))
+            for key, short in (("exp_avg", "m"), ("exp_avg_sq", "v")):
+                t = (torch.from_numpy(st[short]) if st is not None
+                     else torch.zeros(p.numel(), dtype=torch.float32))
+                state[f"{g}/{key}/{name}"] = t.view(p.shape)
+        return state
+
+    def host_optimizer_state(self, name: str) -> Dict[str, torch.Tensor]:
+        """Parameter ``name``'s host optimizer state, ``{"exp_avg",
+        "exp_avg_sq"}`` shaped as the parameter (copies)."""
+        named = dict(self.module.named_parameters())
+        g = HOST_OPTIMIZER_GROUP
+        state = self._host_optimizer_state(named)
+        return {key: state[f"{g}/{key}/{name}"].clone() for key in ("exp_avg", "exp_avg_sq")}
+
+    def refresh_host_master(self, name: str) -> None:
+        """After a write into parameter ``name`` outside the step: copy it
+        into its host master, where the master is a tensor of its own."""
+        if self._host_masters is None or self._param_offload:
+            return
+        named = list(self.module.named_parameters())
+        i = [k for k, _ in named].index(name)
+        with torch.no_grad():
+            self._host_masters[i].copy_(named[i][1])
+
+    def _load_host_optimizer(self, state: Optional[Dict[str, torch.Tensor]], reset: bool) -> None:
+        """After a load: the host optimizer takes the loaded step and
+        moments (``state``), or is reset (``reset``: a tag saved without
+        offload), or keeps its own (neither: the optimizer state was not
+        asked for); the masters are rebuilt from the loaded parameters."""
+        opt, g = self._host_opt, HOST_OPTIMIZER_GROUP
+        named = dict(self.module.named_parameters())
+        if reset:
+            opt.reset_state()
+            if isinstance(opt, DeepSpeedCPUAdam):
+                for i, p in enumerate(named.values()):
+                    opt.ensure_state(i, p.numel())
+        elif state is None:
+            pass
+        elif isinstance(opt, NVMeAdam):
+            opt.load_state_dict({"step": int(state[f"{g}/step"]), "state": {
+                str(i): {"m": state[f"{g}/exp_avg/{k}"].reshape(-1).numpy(),
+                         "v": state[f"{g}/exp_avg_sq/{k}"].reshape(-1).numpy()}
+                for i, k in enumerate(named)}})
+        else:
+            opt.step_count = int(state[f"{g}/step"])  # the moments were loaded in place
+        if not self._param_offload:
+            with torch.no_grad():
+                for m, p in zip(self._host_masters, named.values()):
+                    m.copy_(p.view(m.shape))
 
     def save_checkpoint(self, save_dir: str, tag=None, client_state: Optional[dict] = None,
                         save_latest: bool = True) -> bool:
@@ -576,9 +908,18 @@ class DeepSpeedEngine:
         engine = TorchCheckpointEngine(load_dir)
         state = self.checkpoint_state()
         meta, loaded_tag, last_err = None, None, None
+        host_state = None
         for cand in candidates:
+            cand_state = state
+            host_state = None
+            if self._host_opt is not None:
+                if os.path.exists(os.path.join(load_dir, cand, STATE_DIR, f"{HOST_OPTIMIZER_GROUP}.pt")):
+                    host_state = state
+                else:  # saved without offload: JAX's rebuild rule
+                    cand_state = {k: v for k, v in state.items()
+                                  if not k.startswith(HOST_OPTIMIZER_GROUP + "/")}
             try:
-                meta = engine.load(state, cand, load_optimizer_states=load_optimizer_states,
+                meta = engine.load(cand_state, cand, load_optimizer_states=load_optimizer_states,
                                    load_module_only=load_module_only, verify=cfg.verify_checkpoint)
             except CheckpointCorruptError as e:
                 last_err = e
@@ -594,7 +935,17 @@ class DeepSpeedEngine:
         if loaded_tag != tag:
             logger.error(f"fell back from corrupt checkpoint {tag} to the newest older intact "
                          f"tag {loaded_tag}: training resumes from the older state")
-        self.optimizer.count = int(state[f"{OPTIMIZER_GROUP}/count"])
+        if self._host_opt is None:
+            self.optimizer.count = int(state[f"{OPTIMIZER_GROUP}/count"])
+        else:
+            reset = host_state is None
+            if reset:
+                logger.warning(f"no host_optimizer state in {loaded_tag} at {load_dir}: the fp32 "
+                               f"masters are rebuilt from the loaded parameters and the host "
+                               f"optimizer's moments reset")
+            if load_module_only or not load_optimizer_states:
+                host_state = None
+            self._load_host_optimizer(host_state, reset)
         self.generator.set_state(state[RNG_KEY])
         self.global_steps = meta.get("global_steps", 0)
         self.global_samples = meta.get("global_samples", 0)
@@ -642,6 +993,7 @@ class DeepSpeedEngine:
         JAX paths, bf16 stored as its ``uint16`` bits with a ``__dtypes__``
         map), so either package's ``load_state_dict_from_npz`` reads the
         file. Returns the file's path."""
+        self._ensure_params_resident()
         with torch.no_grad():
             sd = {k: (p.to(torch.bfloat16) if p.is_floating_point() else p)
                   for k, p in self.module.named_parameters()}
@@ -699,7 +1051,12 @@ class DeepSpeedEngine:
         return False
 
     def zero_offload_optimizer(self):
-        return None  # offload is refused by the config
+        """The ``offload_optimizer`` block (None when the config has none)."""
+        return self.config.zero_config.offload_optimizer
+
+    def zero_offload_param(self):
+        """The ``offload_param`` block (None when the config has none)."""
+        return self.config.zero_config.offload_param
 
     def sparse_gradients_enabled(self) -> bool:
         return False

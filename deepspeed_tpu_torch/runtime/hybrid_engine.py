@@ -61,6 +61,10 @@ class DeepSpeedHybridEngine(DeepSpeedEngine):
     ``RuntimeTelemetry`` for the rollout loop's learner and sync spans."""
 
     def __init__(self, model, config, **kwargs):
+        if config.zero_config.offload_param_device != "none":
+            raise NotImplementedError("the hybrid engine with offload_param (a serving view of "
+                                      "host-resting parameters) belongs to a later slice of the "
+                                      "PyTorch port (ROADMAP.md Queue A item 8)")
         super().__init__(model, config, **kwargs)
         self.he_config = config.hybrid_engine_config
         self.telemetry = None

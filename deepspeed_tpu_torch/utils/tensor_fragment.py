@@ -27,6 +27,7 @@ def list_param_names(engine) -> List[str]:
 
 
 def _param(engine, name: str) -> torch.nn.Parameter:
+    engine._ensure_params_resident()
     params = dict(engine.module.named_parameters())
     if name not in params:
         close = [k for k in params if name in k or k in name][:5]
@@ -48,13 +49,18 @@ def safe_set_full_fp32_param(engine, name: str, value) -> None:
         raise ValueError(f"shape mismatch for {name}: {tuple(value.shape)} vs {tuple(p.shape)}")
     with torch.no_grad():
         p.copy_(value)
+    engine.refresh_host_master(name)
 
 
 def safe_get_full_optimizer_state(engine, name: str, optim_state_key: str) -> torch.Tensor:
     """A copy of parameter ``name``'s optimizer state ``optim_state_key``
     (``"exp_avg"``/``"exp_avg_sq"``, or optax's ``"mu"``/``"nu"``)."""
     key = _MOMENT_ALIASES.get(optim_state_key, optim_state_key)
-    state = engine.optimizer.state[_param(engine, name)]
+    p = _param(engine, name)
+    if engine.zero_offload_optimizer() is not None and engine.zero_offload_optimizer().device != "none":
+        state = engine.host_optimizer_state(name)  # the host optimizer's, by name
+    else:
+        state = engine.optimizer.state[p]
     if key not in state:
         raise KeyError(f"optimizer state has no field {optim_state_key!r}; it has {sorted(state)}")
     return state[key].detach().clone()

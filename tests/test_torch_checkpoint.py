@@ -333,7 +333,8 @@ def test_refused_options_raise_not_implemented(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         e.load_universal(str(tmp_path))
     with pytest.raises(NotImplementedError, match="slice"):
-        _engine(_config(zero_optimization={"stage": 0, "offload_optimizer": {"device": "cpu"}}))
+        _engine(_config(zero_optimization={"stage": 2, "offload_optimizer": {"device": "cpu"},
+                                           "zero_quantized_gradients": True}))
     _engine(_config(nebula={"enabled": False}))
     with pytest.raises(TypeError, match="JSON serializable"):
         e.save_checkpoint(str(tmp_path), client_state={"step": object()})

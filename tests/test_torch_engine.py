@@ -220,9 +220,11 @@ def test_dropout_is_seeded_and_survives_remat(jax_run):
         engine.train_batch(_batches(1)[0])
 
 
-@pytest.mark.parametrize("block", [dict(fp16={"enabled": True}), dict(zero_optimization={"stage": 1}),
-                                   dict(zero_optimization={"stage": 0,
-                                                           "offload_optimizer": {"device": "cpu"}}),
+@pytest.mark.parametrize("block", [dict(fp16={"enabled": True}),
+                                   dict(zero_optimization={"stage": 1, "mics_shard_size": 2}),
+                                   dict(zero_optimization={"stage": 3,
+                                                           "offload_param": {"device": "cpu"},
+                                                           "zero_hpz_partition_size": 2}),
                                    dict(optimizer={"type": "Lamb", "params": {}}),
                                    dict(pipeline={"stages": 2})],
                          ids=["fp16", "zero1", "offload", "lamb", "pipeline"])

@@ -50,7 +50,10 @@ def _port_sources():
                    "elasticity/elastic_agent.py", "inference/fleet/protocol.py",
                    "inference/fleet/migrate.py", "inference/fleet/replica.py",
                    "inference/fleet/router.py", "inference/fleet/autoscaler.py",
-                   "inference/fleet/worker.py"):
+                   "inference/fleet/worker.py", "ops/op_builder.py", "ops/adam/cpu_adam.py",
+                   "ops/aio/aio_handle.py", "runtime/swap_tensor/optimizer_swapper.py",
+                   "runtime/zero/config.py", "runtime/zero/param_offload.py",
+                   "runtime/zero/partition_parameters.py"):
         assert f"deepspeed_tpu_torch/{module}" in names, module
     return files
 
@@ -133,3 +136,28 @@ def test_importing_builds_nothing():
     for name in build.KERNELS:
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
     assert not build._loaded
+
+
+def test_host_sources_are_the_ports_own():
+    """The host libraries (``csrc/host/``: the CPU Adam and the aio engine)
+    are the port's own copies: they include system headers only (nothing of
+    the root ``csrc/``), define the C entry points the wrappers declare, and
+    the builders compile them from there into the port's build directory."""
+    from deepspeed_tpu_torch.ops import op_builder
+    host = ROOT / "deepspeed_tpu_torch" / "csrc" / "host"
+    sources = sorted(host.glob("*.cpp"))
+    assert [s.name for s in sources] == ["cpu_adam.cpp", "ds_aio.cpp"]
+    for src in sources:
+        for line in src.read_text().splitlines():
+            if line.startswith("#include"):
+                assert line.split()[1].startswith("<"), f"{src.name}: {line}"
+    entries = {"cpu_adam.cpp": ("ds_adam_update", "ds_adam_update_copy_bf16", "ds_adagrad_update"),
+               "ds_aio.cpp": ("aio_handle_create2", "aio_pwrite_async", "aio_pread_async", "aio_wait",
+                              "aio_direct_fallbacks", "aio_write_sync", "aio_read_sync")}
+    for name, fns in entries.items():
+        text = (host / name).read_text()
+        assert all(f" {fn}(" in text for fn in fns), name
+    for cls in op_builder.ALL_BUILDERS.values():
+        b = cls()
+        assert all(s.parent == host for s in b.absolute_sources())
+        assert b.lib_path().parent == ROOT / "build" / "deepspeed_tpu_torch" / "host"
