@@ -6532,6 +6532,587 @@ def offload_phase(seed: int, card: str, layers: int = OFFLOAD_LAYERS):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training config breadth under fp16
+# ---------------------------------------------------------------------------
+#: depth of phase 20 (c)-(f): GPT-2 350m's width at 4 of its 24 layers
+FP16_CUT_LAYERS = 4
+#: fp16 tolerances, max |err| / max |ref|: K1's o (p as an fp16 hi + lo
+#: pair within 2^-25 of p, under o's fp16 rounding), K4's gradients (p and
+#: the power-of-two-scaled ds rounded to fp16), lse
+TOL_FP16 = {"o": 2e-3, "grad": 5e-3, "lse": 1e-4}
+#: the remat policies phase 20 (c) trains under, beside remat off
+FP16_POLICIES = ("nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+                 "everything_saveable")
+#: phase 20 (c)'s bound on a policy's first-step gradients against remat off
+REMAT_GRAD_TOL = 1e-3
+
+
+def fp16_config(micro: int, optimizer=None, **over) -> dict:
+    """The training config of phase 20: fp16 at JAX's defaults (dynamic
+    scaling from 2^16, hysteresis 2, window 1000), clip 1.0, ZeRO 0."""
+    cfg = {"train_batch_size": micro, "gradient_accumulation_steps": 1,
+           "optimizer": optimizer or {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+           "fp16": {"enabled": True}, "gradient_clipping": 1.0,
+           "zero_optimization": {"stage": 0}, "steps_per_print": 10**9}
+    cfg.update(over)
+    return cfg
+
+
+def fp16_gpt2(seed: int, layers: int = 24, **over):
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config
+    kw = dict(vocab_size=50304, n_positions=1024, n_layer=layers, remat=True,
+              attention_backend="flash", dtype=torch.float16, fused_head_loss_chunk=1024)
+    kw.update(over)
+    cfg = get_gpt2_config("350m", **kw)
+    return GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def fp16_kernel_lines(gen) -> dict:
+    """(a) K1 and K4 in fp16 at [8,1024,16,64] and [4,2048,16,128] causal,
+    K5 dispatch and combine at [1,8192,1024] fp16: each against its plain
+    version, timed (event and device), beside SDPA's fp16 call and the
+    bound; and K4's large-dS probe at the training shape."""
+    from deepspeed_tpu_torch.moe.sharded_moe import _gate_capacity
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
+
+    dev = torch.device("cuda")
+    f16 = torch.float16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(f16)
+
+    lines = {"flash_fwd": {}, "flash_bwd": {}, "moe_permute": {}}
+    for b, l, h, d in ((8, 1024, 16, 64), (4, 2048, 16, 128)):
+        shape = f"[{b},{l},{h},{d}] fp16 causal"
+        qkv = randn(b, l, 3, h, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = randn(b, l, h, d)
+        kw = dict(scale=d**-0.5, causal=True)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+        err_o = compare(f"flash_fwd fp16 {shape}", o, ro, f16, tol=TOL_FP16["o"])
+        compare(f"flash_fwd fp16 {shape} lse", lse, rlse, torch.float32, tol=TOL_FP16["lse"])
+        del ro, rlse
+        got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        err_g = max(compare(f"flash_bwd fp16 {shape} d{x}", g, r, f16, tol=TOL_FP16["grad"])
+                    for x, g, r in zip("qkv", got, ref))
+        del got, ref
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        pairs = b * h * l * (l + 1) / 2
+        fwd = lambda: fa.flash_fwd(q, k, v, **kw)  # noqa: E731
+        bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
+        lines["flash_fwd"][shape] = dict(
+            name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117", shape=f"q,k,v {shape}",
+            max_abs_err=err_o, ms=time_ms(fwd, iters=10), device_ms=device_ms(fwd),
+            plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa), library_event_ms=time_ms(sdpa, iters=10))
+        bwd = lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)  # noqa: E731
+        bnd, by = bound_ms(8 * b * h * l * d * 2 + b * h * l * 4, 10 * d * pairs)
+        lines["flash_bwd"][shape] = dict(
+            name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403", shape=f"q,k,v,o,dO {shape}",
+            max_abs_err=err_g, ms=time_ms(bwd, iters=10), device_ms=device_ms(bwd),
+            plain_ms=time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=3, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa_bwd),
+            library_event_ms=time_ms(sdpa_bwd, iters=10))
+        del out, qg, kg, vg, dot, sdpa_bwd, qkv, q, k, v, o, lse, do, qt, kt, vt
+        torch.cuda.empty_cache()
+        for what in ("flash_fwd", "flash_bwd"):
+            log_time(lines[what][shape])
+
+    # K4's large-dS probe: near-uniform attention (small q, k), a wide v and
+    # a loss-scaled dO give a ds past fp16's 65504 with every gradient in range
+    b, l, h, d = 8, 1024, 16, 64
+    q, k = randn(b, l, h, d, std=0.05), randn(b, l, h, d, std=0.05)
+    v, do = randn(b, l, h, d, std=8.0), randn(b, l, h, d, std=1e4)
+    kw = dict(scale=d**-0.5, causal=True)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * kw["scale"], k.float())
+    p = torch.exp(s - lse[..., None]) * fa.live_pairs(l, l, True, None, None, dev)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds_max = (p * (dp - (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None])).abs().max().item()
+    del p, dp
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    plain_overflow = not all(bool(torch.isfinite(r).all()) for r in ref)
+    kernel_overflow = not all(bool(torch.isfinite(g).all()) for g in got)
+    if ds_max <= 65504.0 or plain_overflow or kernel_overflow:
+        raise AssertionError(f"fp16 K4 large-ds probe: max |ds| {ds_max:.1f} (must pass 65504), "
+                             f"plain non-finite {plain_overflow}, kernel non-finite {kernel_overflow}")
+    probe_err = max(compare(f"flash_bwd fp16 large-ds probe (max |ds| {ds_max:.0f}) d{x}", g, r, f16,
+                            tol=TOL_FP16["grad"]) for x, g, r in zip("qkv", got, ref))
+    del q, k, v, do, o, lse, ref, got
+    torch.cuda.empty_cache()
+    log(f"fp16 K4 large-ds probe: max |ds| {ds_max:.1f} > 65504; the kernel and the fp32-math plain "
+        f"version both finite (both skip no step), max |err| {probe_err:.3e}")
+
+    S, E, M = 8192, 8, 1024
+    C = _gate_capacity(S, E, 1.25, 4, True, 1)
+    flat, src = routed_maps(gen, 1, S, E, C)
+    errs = []
+    for what, n_rows, fwd_idx, bwd_idx in (("dispatch", S, src, flat), ("combine", E * C, flat, src)):
+        x = randn(1, n_rows, M)
+        errs.append(compare_exact(f"moe_permute fp16 {what}", md.moe_permute(x, fwd_idx),
+                                  md.moe_permute_plain(x, fwd_idx)))
+        cot = randn(1, fwd_idx.shape[1], M)
+        xk, xp = x.detach().requires_grad_(), x.detach().requires_grad_()
+        (gk,) = torch.autograd.grad(md.permute_rows(xk, fwd_idx, bwd_idx, impl="pallas"), xk, cot)
+        (gp,) = torch.autograd.grad(md.permute_rows(xp, fwd_idx, bwd_idx, impl="xla"), xp, cot)
+        errs.append(compare_exact(f"moe_permute fp16 {what} VJP", gk, gp))
+        t = k5_times(lambda: randn(1, n_rows, M), fwd_idx, n_rows, M)
+        shape = (f"x [1,{n_rows},{M}] fp16 -> [1,{fwd_idx.shape[1]},{M}], {t.pop('live')} live rows "
+                 f"({what}, S={S} E={E} C={C})")
+        lines["moe_permute"][what] = dict(
+            name="moe_permute", route="cuda", source="deepspeed_tpu_torch/csrc/moe_permute.cu",
+            replaces="deepspeed_tpu/ops/pallas/moe_dispatch.py:76", shape=shape, max_abs_err=max(errs), **t)
+        log_k5_time(shape, t)
+    lines["large_ds_probe"] = dict(max_ds=ds_max, max_abs_err=probe_err)
+    return lines
+
+
+def _step_record(engine, t_ms: float, counts: dict) -> dict:
+    return dict(loss=None, cur_scale=engine.cur_scale, skipped_steps=engine.skipped_steps,
+                step_ms=t_ms, flash_fwd=counts.get("flash_fwd", 0), flash_bwd=counts.get("flash_bwd", 0))
+
+
+def _fp16_steps(engine, batches, card: str, label: str) -> list:
+    """One ``train_batch`` a batch, each timed and its K1 and K4 launches
+    read around it; the records printed."""
+    from deepspeed_tpu_torch.ops.cuda import launches
+    rows = []
+    for batch in batches:
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        after = launches()
+        row = _step_record(engine, t_ms, {k: after[k] - before[k] for k in after})
+        row["loss"] = loss
+        rows.append(row)
+        log(f"fp16 {label} step {engine.global_steps}: loss {loss:.5f}, cur_scale {row['cur_scale']:g}, "
+            f"skipped {row['skipped_steps']}, {t_ms:.1f} ms, K1 {row['flash_fwd']}, K4 {row['flash_bwd']}  "
+            f"[{card}]")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the flash backend's K1 and K4 calls through their fp32-math
+    plain versions on the card (the comparison run of (b); these launches
+    are no kernel launches)."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    saved = fa.flash_fwd, fa.flash_bwd
+    fa.flash_fwd = lambda q, k, v, **kw: fa.flash_fwd_plain(q, k, v, **kw)
+    fa.flash_bwd = lambda q, k, v, o, lse, do, **kw: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd = saved
+
+
+def fp16_train(seed: int, card: str, work: str, steps: int = 4) -> tuple:
+    """(b) GPT-2 350m at full width and depth (seq 1024, micro-batch 8,
+    remat, flash, fused head) under fp16 at JAX's defaults, with
+    ``wall_clock_breakdown``: the main path. Then the same first two steps
+    with K1 and K4 replaced by their fp32-math plain versions (the same
+    skips); JAX's overflow case (``initial_scale_power`` 40, hysteresis 1:
+    the first step skipped, the scale cut, the parameters bit-equal); a save
+    after step 2 and a fresh engine's resume, its steps 3-4 bit-equal."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+
+    micro, seq = 8, 1024
+    rng = np.random.default_rng(seed + 20)
+    batches = [{"input_ids": rng.integers(0, 50304, (micro, seq)).astype(np.int32)} for _ in range(steps)]
+    model = fp16_gpt2(seed + 20)
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = initialize(model=model, config=fp16_config(micro, wall_clock_breakdown=True))[0]
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    rows = _fp16_steps(engine, batches[:2], card, "350m")
+    save_t0 = time.perf_counter()
+    engine.save_checkpoint(work, tag="fp16_step2")
+    save_s = time.perf_counter() - save_t0
+    rows += _fp16_steps(engine, batches[2:], card, "350m")
+    counts = launches()
+    # ---- end of the main path ----
+    want = _params(engine)
+    # wall_clock_breakdown's train_batch timer (CUDA events), over the steps
+    timer_ms = engine.timers("train_batch").elapsed(reset=False) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fp16 (b): non-finite losses {losses}")
+    per_step = {k: counts[k] / steps for k in ("flash_fwd", "flash_bwd")}
+    if per_step != {"flash_fwd": 2 * 24, "flash_bwd": 24}:
+        raise AssertionError(f"fp16 (b): expected K1 48 and K4 24 launches a step, got {per_step}")
+    del engine
+    _free()
+
+    # the same first two steps with the plain versions: the same skips
+    model = fp16_gpt2(seed + 20)
+    plain = initialize(model=model, config=fp16_config(micro))[0]
+    del model
+    with plain_flash():
+        plain_rows = _fp16_steps(plain, batches[:2], card, "350m, K1/K4 plain")
+    if [r["skipped_steps"] for r in plain_rows] != [r["skipped_steps"] for r in rows[:2]]:
+        raise AssertionError(f"fp16 (b): the kernels skip {[r['skipped_steps'] for r in rows[:2]]}, "
+                             f"the plain versions {[r['skipped_steps'] for r in plain_rows]}")
+    plain_losses = [r["loss"] for r in plain_rows]
+    del plain
+    _free()
+
+    # a fresh engine resumes the step-2 tag: steps 3-4 bit-equal
+    model = fp16_gpt2(seed + 21)
+    resumed = initialize(model=model, config=fp16_config(micro))[0]
+    del model
+    load_t0 = time.perf_counter()
+    resumed.load_checkpoint(work, tag="fp16_step2")
+    load_s = time.perf_counter() - load_t0
+    resumed_rows = _fp16_steps(resumed, batches[2:], card, "350m resumed")
+    same = _same_bits(_params(resumed), want) and [r["loss"] for r in resumed_rows] == losses[2:]
+    if not same or resumed.cur_scale != rows[-1]["cur_scale"]:
+        raise AssertionError("fp16 (b): the resumed steps 3-4 are not bit-equal to the uninterrupted run")
+    del resumed, want
+    _free()
+
+    # JAX's overflow case: scale 2^40, hysteresis 1
+    model = fp16_gpt2(seed + 20)
+    over = initialize(model=model, config=fp16_config(micro, fp16={"enabled": True,
+                                                                    "initial_scale_power": 40,
+                                                                    "hysteresis": 1}))[0]
+    del model
+    before = _params(over)
+    over_rows = _fp16_steps(over, batches[:1], card, "350m, initial_scale_power 40")
+    bit_equal = _same_bits(_params(over), before)
+    if not (over.skipped_steps == 1 and over.cur_scale == 2.0**39 and bit_equal):
+        raise AssertionError(f"fp16 (b) overflow case: skipped {over.skipped_steps}, scale "
+                             f"{over.cur_scale}, parameters bit-equal {bit_equal}")
+    del over, before
+    _free()
+    out = dict(n_params=n_params, steps=rows, launches=counts, launches_per_step=per_step,
+               peak_memory_gb=peak, train_batch_timer_ms=timer_ms, plain_steps=plain_rows,
+               plain_losses=plain_losses, save_s=save_s, load_s=load_s, resumed_steps=resumed_rows,
+               resume_bit_equal=True, overflow_case=dict(steps=over_rows, skipped=1, cur_scale=2.0**39,
+                                                         params_bit_equal=True))
+    log(f"fp16 (b): GPT-2 350m ({n_params} params) fp16, losses {losses}, K1 {per_step['flash_fwd']:.0f} "
+        f"and K4 {per_step['flash_bwd']:.0f} a step, peak {peak:.2f} GB; the plain versions skip the same "
+        f"steps (losses {plain_losses}); a 2^40 scale skipped step 1, cut to 2^39, parameters bit-equal; "
+        f"save {save_s:.1f} s, resume {load_s:.1f} s, steps 3-4 bit-equal  [{card}]")
+    return out, counts
+
+
+def _engine_at(seed: int, layers: int, config: dict, **model_kw):
+    from deepspeed_tpu_torch import initialize
+    model = fp16_gpt2(seed, layers=layers, **model_kw)
+    engine = initialize(model=model, config=config)[0]
+    return engine
+
+
+def fp16_remat(seed: int, card: str) -> dict:
+    """(c) The four remat policies at 350m's width and 4 layers, fp16: each
+    policy's first-step gradients (retained, before clipping) against remat
+    off, its peak memory and step time."""
+    micro = 8
+    rng = np.random.default_rng(seed + 22)
+    batches = [{"input_ids": rng.integers(0, 50304, (micro, 1024)).astype(np.int32)} for _ in range(2)]
+    out = {}
+    ref = None
+    for policy in (None,) + FP16_POLICIES:
+        over = dict(remat=False) if policy is None else dict(remat=True, remat_policy=policy)
+        engine = _engine_at(seed + 22, FP16_CUT_LAYERS, fp16_config(micro), **over)
+        engine.retain_grads()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine.train_batch(batches[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        grads = engine._retained_grads.clone()
+        t0 = time.perf_counter()
+        engine.train_batch(batches[1])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        name = policy or "remat off"
+        row = dict(peak_memory_gb=peak / 1e9, step_activation_peak_gb=(peak - base) / 1e9, step_ms=step_ms)
+        if ref is None:
+            ref = grads
+        else:
+            err, rel = rel_err(grads, ref)
+            row.update(grad_max_abs_err=err, grad_rel_err=rel, bit_equal=bool(torch.equal(grads, ref)))
+            if not rel <= REMAT_GRAD_TOL:
+                raise AssertionError(f"fp16 (c) {name}: first-step gradients {rel:.3e} of max |g| off "
+                                     f"remat off's (limit {REMAT_GRAD_TOL})")
+        out[name] = row
+        log(f"fp16 (c) {name}: peak {row['peak_memory_gb']:.3f} GB ({row['step_activation_peak_gb']:.3f} "
+            f"above the state), step {step_ms:.1f} ms"
+            + (f", gradients vs remat off: rel {row['grad_rel_err']:.3e}, bit-equal {row['bit_equal']}"
+               if "grad_rel_err" in row else "") + f"  [{card}]")
+        del engine, grads
+        _free()
+    return out
+
+
+#: phase 20 (d)'s optimizers, as a config names them
+FP16_OPTIMIZERS = {"lamb": {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+                   "adagrad": {"type": "Adagrad", "params": {"lr": 1e-2}},
+                   "sgd": {"type": "SGD", "params": {"lr": 1e-2, "momentum": 0.9}},
+                   "lion": {"type": "Lion", "params": {"lr": 1e-4}}}
+
+
+def fp16_optimizers(seed: int, card: str) -> dict:
+    """(d) LAMB, Adagrad, SGD with momentum and Lion, two fp16 steps each at
+    350m's width and 4 layers, on K1 and K4."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    micro = 8
+    rng = np.random.default_rng(seed + 23)
+    batches = [{"input_ids": rng.integers(0, 50304, (micro, 1024)).astype(np.int32)} for _ in range(2)]
+    out = {}
+    for name, opt in FP16_OPTIMIZERS.items():
+        engine = _engine_at(seed + 23, FP16_CUT_LAYERS, fp16_config(micro, optimizer=opt))
+        if type(engine.optimizer).__name__.lower().replace("fused", "") != name:
+            raise AssertionError(f"fp16 (d): {name} built {type(engine.optimizer).__name__}")
+        reset_launches()
+        rows = _fp16_steps(engine, batches, card, name)
+        counts = launches()
+        losses = [r["loss"] for r in rows]
+        if not (all(np.isfinite(losses)) and counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
+            raise AssertionError(f"fp16 (d) {name}: losses {losses}, launches {counts}")
+        out[name] = dict(steps=rows, step_ms=rows[-1]["step_ms"], launches=counts)
+        del engine
+        _free()
+    return out
+
+
+def fp16_pld(seed: int, card: str, steps: int = 3) -> dict:
+    """(e) Progressive layer drop at 350m's width and 4 layers, fp16, theta
+    0.5 and gamma 0.5 (so that blocks drop within a few steps): theta after
+    each step against the formula, and the dropped sublayers a step."""
+    micro = 8
+    theta, gamma = 0.5, 0.5
+    cfg = fp16_config(micro, progressive_layer_drop={"enabled": True, "theta": theta, "gamma": gamma})
+    engine = _engine_at(seed + 24, FP16_CUT_LAYERS, cfg, progressive_layer_drop=True)
+    rng = np.random.default_rng(seed + 24)
+    rows = []
+    for _ in range(steps):
+        engine.train_batch({"input_ids": rng.integers(0, 50304, (micro, 1024)).astype(np.int32)})
+        kept = engine.module.last_pld_keep
+        want = (1.0 - theta) * float(np.exp(-gamma * engine.global_steps)) + theta
+        got = engine.progressive_layer_drop.get_theta()
+        if got != want:
+            raise AssertionError(f"fp16 (e): theta {got} after {engine.global_steps} steps, formula {want}")
+        rows.append(dict(step=engine.global_steps, theta=got, dropped_sublayers=int((~kept).sum()),
+                         dropped_by_block=[[int(not x) for x in blk] for blk in kept.tolist()]))
+        log(f"fp16 (e) PLD step {engine.global_steps}: theta {got:.6f} (formula {want:.6f}), dropped "
+            f"sublayers (attention, MLP) by block {rows[-1]['dropped_by_block']}  [{card}]")
+    del engine
+    _free()
+    return dict(theta=theta, gamma=gamma, steps=rows)
+
+
+def fp16_moe(seed: int, card: str) -> tuple:
+    """(f) The 350m MoE model (8 experts every other layer, top-1, sorted
+    route) at 4 layers under fp16, two steps: K5's fp16 instance on the main
+    path (dispatch and combine, forward, recompute and backward)."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    micro = 8
+    engine = _engine_at(seed + 25, FP16_CUT_LAYERS, fp16_config(micro), moe_num_experts=8,
+                        moe_layer_freq=2, moe_k=1)
+    rng = np.random.default_rng(seed + 25)
+    batches = [{"input_ids": rng.integers(0, 50304, (micro, 1024)).astype(np.int32)} for _ in range(2)]
+    # ---- the main path: counts zeroed just before, read just after ----
+    reset_launches()
+    rows = _fp16_steps(engine, batches, card, "350m MoE")
+    counts = launches()
+    # ---- end of the main path ----
+    moe_layers = sum(engine.module.config.is_moe_layer(i) for i in range(FP16_CUT_LAYERS))
+    per_step = counts["moe_permute"] / len(batches)
+    # dispatch and combine, each forward, remat recompute and backward
+    if per_step != 6 * moe_layers or not all(np.isfinite([r["loss"] for r in rows])):
+        raise AssertionError(f"fp16 (f): K5 {per_step} launches a step for {moe_layers} MoE layers "
+                             f"(expected {6 * moe_layers}); losses {[r['loss'] for r in rows]}")
+    del engine
+    _free()
+    return dict(steps=rows, launches=counts, k5_per_step=per_step), counts
+
+
+def fp16_phase(seed: int, card: str):
+    """Phase 20: (a) the fp16 instances of K1, K4 and K5 against their plain
+    versions; (b) 350m under fp16 (the main path), its plain-version twin,
+    the overflow case and the resume; (c) remat policies; (d) optimizers;
+    (e) progressive layer drop; (f) fp16 MoE on K5. Returns the results and
+    the launches of (b) and (f), the phase's fp16 paths."""
+    seconds = {}
+    out = {}
+    t0 = time.perf_counter()
+    out["kernel_lines"] = fp16_kernel_lines(torch.Generator(device="cuda").manual_seed(seed + 20))
+    seconds["a"] = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="ds_fp16_")
+    try:
+        t0 = time.perf_counter()
+        out["b_train"], counts = fp16_train(seed, card, work)
+        seconds["b"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for key, fn in (("c_remat", fp16_remat), ("d_optimizers", fp16_optimizers), ("e_pld", fp16_pld)):
+        t0 = time.perf_counter()
+        out[key] = fn(seed, card)
+        seconds[key[0]] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["f_moe"], moe_counts = fp16_moe(seed, card)
+    seconds["f"] = time.perf_counter() - t0
+    counts = {k: counts.get(k, 0) + moe_counts.get(k, 0) for k in set(counts) | set(moe_counts)}
+    missing = [k for k in MOE_TRAINING_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 20: fp16 kernels never launched on its paths: {missing} ({counts})")
+    out["seconds"] = seconds
+    log("phase 20 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, counts
+
+
+def _cyclic_garbage_owners(min_bytes: int) -> dict:
+    """Collect the reference cycles nobody can reach any more, keeping them
+    (``gc.DEBUG_SAVEALL``) long enough to weigh the CUDA storages among them
+    and name the objects of the port or of this script in those cycles;
+    then release them. Returns the card bytes freed and those names."""
+    import gc
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        garbage = list(gc.garbage)
+        del gc.garbage[:]
+    finally:
+        gc.set_debug(0)
+    sizes, names = {}, {}
+    for obj in garbage:
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                sizes[st.data_ptr()] = st.nbytes()
+                continue
+        except Exception:  # noqa: BLE001 (a freed or meta storage)
+            continue
+        mod = type(obj).__module__ or ""
+        if mod.startswith("deepspeed_tpu_torch") or mod == "__main__":
+            key = f"{mod}.{type(obj).__name__}"
+            names[key] = names.get(key, 0) + 1
+    del garbage
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
+    out = dict(cyclic_garbage_gb=sum(n for n in sizes.values() if n >= 0) / 1e9,
+               freed_by_collecting_gb=freed / 1e9, storages=len(sizes),
+               big_storages=sum(n >= min_bytes for n in sizes.values()),
+               objects_in_the_cycles=dict(top))
+    log(f"card memory in unreachable reference cycles: {out['cyclic_garbage_gb']:.2f} GB in "
+        f"{out['storages']} storages, {out['freed_by_collecting_gb']:.2f} GB freed by collecting them; "
+        f"the port's and this script's objects among them: "
+        + ", ".join(f"{k} x{v}" for k, v in top))
+    return out
+
+
+def cuda_memory_owners(top: int = 8, min_bytes: int = 16 << 20) -> dict:
+    """What holds the card's allocated memory: first the reference cycles
+    that nothing reaches any more (:func:`_cyclic_garbage_owners`, which
+    frees them), then the caching allocator's totals and
+    ``torch.cuda.memory_snapshot()``'s allocated blocks, and the CUDA
+    tensors the garbage collector can reach, by storage, each with the
+    chain of objects that refer to it (the first few types up to an object
+    of the port or of this script, or a module's globals). Bytes that no
+    reachable tensor accounts for are held outside Python (an autograd
+    graph's saved tensors, the libraries' workspaces, say)."""
+    import gc
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    cycles = _cyclic_garbage_owners(min_bytes)
+    torch.cuda.synchronize()
+    snap = torch.cuda.memory_snapshot()
+    blocks = [b for seg in snap for b in seg["blocks"] if b["state"] == "active_allocated"]
+    out = dict(allocated_before_collecting_gb=allocated_before / 1e9, cycles=cycles,
+               allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9,
+               snapshot_allocated_gb=sum(b["size"] for b in blocks) / 1e9,
+               snapshot_blocks=len(blocks), owners=[])
+    storages = {}
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+            st = obj.untyped_storage()
+        except Exception:  # noqa: BLE001 (a tensor subclass or a freed storage)
+            continue
+        entry = storages.setdefault(st.data_ptr(), [st.nbytes(), []])
+        entry[1].append(obj)
+    out["reachable_gb"] = sum(n for n, _ in storages.values()) / 1e9
+    ignore = {id(storages), id(out)}
+
+    def chain(obj, depth: int = 6) -> list:
+        path, seen = [], {id(obj)}
+        for _ in range(depth):
+            refs = [r for r in gc.get_referrers(obj) if id(r) not in seen and id(r) not in ignore
+                    and not isinstance(r, type(sys._getframe()))]
+            if not refs:
+                break
+            # a __dict__ stands for its owner; prefer an object of the port
+            pick = None
+            for r in refs:
+                if isinstance(r, dict):
+                    owners = [o for o in gc.get_referrers(r) if getattr(o, "__dict__", None) is r]
+                    if owners:
+                        r = owners[0]
+                    elif "__name__" in r:
+                        path.append(f"module {r['__name__']} globals")
+                        return path
+                mod = type(r).__module__ or ""
+                if mod.startswith("deepspeed_tpu_torch") or mod == "__main__":
+                    pick = r
+                    break
+                if pick is None:
+                    pick = r
+            seen.add(id(pick))
+            path.append(f"{type(pick).__module__}.{type(pick).__name__}")
+            if (type(pick).__module__ or "").startswith("deepspeed_tpu_torch"):
+                break
+            obj = pick
+        return path
+
+    big = sorted(((n, ts) for n, ts in storages.values() if n >= min_bytes), key=lambda e: -e[0])
+    groups = {}
+    for n, ts in big:
+        t = ts[0]
+        key = " <- ".join(chain(t)) or "no referrer"
+        g = groups.setdefault(key, dict(owner=key, gb=0.0, storages=0, example=None))
+        g["gb"] += n / 1e9
+        g["storages"] += 1
+        g["example"] = g["example"] or f"{tuple(t.shape)} {t.dtype}"
+    out["owners"] = sorted(groups.values(), key=lambda g: -g["gb"])[:top]
+    out["unaccounted_gb"] = out["allocated_gb"] - out["reachable_gb"]
+    log(f"card memory: {out['allocated_before_collecting_gb']:.2f} GB allocated before collecting, "
+        f"{out['allocated_gb']:.2f} GB after ({out['reserved_gb']:.2f} reserved; "
+        f"{out['snapshot_blocks']} blocks in the snapshot), {out['reachable_gb']:.2f} GB in tensors "
+        f"Python reaches, {out['unaccounted_gb']:.2f} GB held elsewhere")
+    for g in out["owners"]:
+        log(f"  {g['gb']:.3f} GB in {g['storages']} storages (e.g. {g['example']}): {g['owner']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6542,8 +7123,8 @@ def main(argv=None) -> int:
                          "earlier checkout this script measures that commit the same way, "
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
                          "phase 4, whose measured rounding it reads), 'resilience' (phase 15), "
-                         "'moe' (phase 16), 'rlhf' (phase 17), 'fleet' (phases 4 and 18) and 'offload' "
-                         "(phase 19)")
+                         "'moe' (phase 16), 'rlhf' (phase 17), 'fleet' (phases 4 and 18), 'offload' "
+                         "(phase 19) and 'fp16' (phase 20)")
     ap.add_argument("--offload-layers", type=int, default=OFFLOAD_LAYERS,
                     help=f"phase 19 (a)'s depth at LLaMA-7b's width (default {OFFLOAD_LAYERS}, at least "
                          f"{OFFLOAD_MIN_LAYERS}; the host needs {OFFLOAD_HOST_BYTES} bytes a parameter)")
@@ -6557,10 +7138,11 @@ def main(argv=None) -> int:
         return child_main(args)
     phases = set(args.phases.split(","))
     if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf",
-                       "fleet", "offload"}
+                       "fleet", "offload", "fp16"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet' and 'offload', got {args.phases!r}")
+                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet', 'offload' and 'fp16', got "
+                 f"{args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -6616,6 +7198,10 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["offload"] = offload_phase(args.seed, card, args.offload_layers)[0]
             RESULTS.setdefault("phase_s", {})["19 ZeRO-Offload and ZeRO-Infinity"] = time.perf_counter() - t_phase
+        if "fp16" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["fp16"] = fp16_phase(args.seed, card)[0]
+            RESULTS.setdefault("phase_s", {})["20 fp16 and the training config"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -6684,9 +7270,16 @@ def main(argv=None) -> int:
         RESULTS["fleet"], fleet_counts = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))
         phase_s["18 the serving fleet"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
+        # what the earlier phases leave on the card (ROADMAP.md Queue C)
+        RESULTS["phase19_start_memory"] = cuda_memory_owners()
         t_phase = time.perf_counter()
         RESULTS["offload"], offload_counts = offload_phase(args.seed, card, args.offload_layers)
         phase_s["19 ZeRO-Offload and ZeRO-Infinity"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        RESULTS["phase20_start_memory"] = cuda_memory_owners()
+        t_phase = time.perf_counter()
+        RESULTS["fp16"], fp16_counts = fp16_phase(args.seed, card)
+        phase_s["20 fp16 and the training config"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -6707,7 +7300,7 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts)
+                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts, fp16_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts, offload_counts)
@@ -6729,6 +7322,14 @@ def main(argv=None) -> int:
                         "target verify": student["target verify"][name],
                         f"drafter decode x{SPEC_K} (4-layer student)": student["drafter decode"][name],
                         "drafter refeed (24-layer drafter run)": full["drafter refeed"][name]})
+            if name in RESULTS["fp16"]["kernel_lines"]:
+                # phase 20: the fp16 instance at its shapes (K1 and K4 at head
+                # dims 64 and 128, K5 dispatch and combine), with the launches
+                # of phase 20's fp16 paths (all of which run fp16)
+                entry["at_fp16"] = dict(
+                    shapes=[{k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)}
+                            for t in RESULTS["fp16"]["kernel_lines"][name].values()],
+                    launches=fp16_counts.get(name, 0))
             if name in RESULTS["offload"]["kernel_lines"]:
                 # phase 19: LLaMA-7b's width under both offloads, its
                 # launches (part of at_head_dim_128's) and its shape

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,6 +16,7 @@ namespace ds {
 // dtype codes shared with the Python wrappers (ops/cuda/build.py DTYPE_CODES)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
 
 // finfo(float32).min: the masked-logit value of the JAX kernels (NEG_INF)
 constexpr float kNegInf = -3.4028234663852886e38f;
@@ -27,6 +29,10 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_f<__half>(__half v) {
+  return __half2float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -35,6 +41,10 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

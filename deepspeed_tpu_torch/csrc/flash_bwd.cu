@@ -60,6 +60,22 @@
 // routing downstream; K4's rounding reaches only gradients, and the dense
 // bf16 gradcheck of chip_smoke.py stays at about half its limit with it.)
 //
+// fp16 inputs run the same tensor-core body on the f16 form of mma.sync
+// (the JAX kernels take fp16 and compute in fp32; their outputs are q's
+// dtype). There rounding dS would be wrong: fp16 stops at 65504, and under
+// fp16 training dO carries the loss scale (2^16 by default), so dS = P (dP -
+// delta) in fp32 can pass 65504 where JAX's fp32 dS stays finite, and a
+// cast would turn a finite gradient into inf: an overflow skip that JAX
+// does not take. So each row of a dS tile (a query in the dq kernel, a key
+// in dk/dv) is scaled by a power of two 2^-e before the cast, with e chosen
+// from the row's largest |dS| so that it lies below 2^15 (csrc/mma.cuh
+// fit_rows_f16). e only grows along the walk; when it grows the row's
+// accumulator is scaled down by the same power, and the output is the
+// accumulator times 2^e. Powers of two multiply exactly in fp32, so the
+// scaled dS carries fp16's 11 bits (bf16's dS carries 8) and dq and dk are
+// inf only where their own fp16 values are, as in the plain version and
+// in JAX. P (in [0, 1]) needs no scale.
+//
 // fp32 inputs keep the FMA body below (256 threads, 4x4 register tiles of
 // every product from 68-float padded shared rows): a bf16 or TF32 product
 // cannot meet the fp32 checks' 1e-4. The C entry picks the body by the
@@ -83,12 +99,19 @@ using ds::mma::load_a;
 using ds::mma::load_b;
 using ds::mma::load_b_trans;
 using ds::mma::load_tile;
-using ds::mma::mma_bf16;
+using ds::mma::fit_rows_f16;
+using ds::mma::mma16;
 using ds::mma::row_bytes;
 using ds::mma::smem_addr;
 using ds::mma::store_rows;
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the factor that undoes fit_rows_f16's scale of a row with exponent e
+// (1 for bf16, whose rows are never scaled, and for a row that saw no dS)
+__device__ __forceinline__ float row_scale(int e) {
+  return e == ds::mma::kNoExp ? 1.f : ds::mma::pow2(e);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -152,13 +175,14 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[(static_cast<long long>(b) * H + h) * Lq + row] = acc;
 }
 
-template <int D>
+// T: bf16 or __half, the element type of q, k, v, dO and the outputs
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreadsMMA)
-    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ kv_lengths, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal,
+                    const int* __restrict__ kv_lengths, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal,
                     int window, long long q_sb, long long q_sl, long long q_sh, long long k_sb,
                     long long k_sl, long long k_sh, long long v_sb, long long v_sl,
                     long long v_sh, long long do_sb, long long do_sl, long long do_sh) {
@@ -193,8 +217,8 @@ __global__ void __launch_bounds__(kThreadsMMA)
     }
   }
 
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* dob = dout + b * do_sb + h * do_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* dob = dout + b * do_sb + h * do_sh;
   const float* lse_bh = lse + (static_cast<long long>(b) * H + h) * Lq;
   const float* delta_bh = delta + (static_cast<long long>(b) * H + h) * Lq;
   auto load_queries = [&](int it, int stage) {
@@ -222,6 +246,7 @@ __global__ void __launch_bounds__(kThreadsMMA)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_dk[n][c] = acc_dv[n][c] = 0.f;
+  int ds_exp[2] = {ds::mma::kNoExp, ds::mma::kNoExp};  // fp16: dS^T's row exponents
 
   for (int it = i_begin; it < i_end; ++it) {
     const int stage = (it - i_begin) & 1;
@@ -253,10 +278,10 @@ __global__ void __launch_bounds__(kThreadsMMA)
         uint32_t bq[4], bo[4];
         load_b<D>(bq, tQ, 16 * np, 16 * kk, lane);
         load_b<D>(bo, tdO, 16 * np, 16 * kk, lane);
-        mma_bf16(st[2 * np], ka, bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
-        mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
-        mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+        mma16<T>(st[2 * np], ka, bq[0], bq[1]);
+        mma16<T>(st[2 * np + 1], ka, bq[2], bq[3]);
+        mma16<T>(dpt[2 * np], va, bo[0], bo[1]);
+        mma16<T>(dpt[2 * np + 1], va, bo[2], bo[3]);
       }
     }
 
@@ -274,22 +299,23 @@ __global__ void __launch_bounds__(kThreadsMMA)
         st[n][c] = ok ? p : 0.f;
         dpt[n][c] = ok ? p * (dpt[n][c] - Ds[col]) : 0.f;
       }
+    if constexpr (std::is_same<T, __half>::value) fit_rows_f16(dpt, ds_exp, acc_dk);
 
     // dV += P^T dO and dK += dS^T Q, P^T and dS^T from registers
 #pragma unroll
     for (int kk = 0; kk < kI / 16; ++kk) {
       uint32_t pa[4], da[4];
-      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+      acc_to_a<T>(pa, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a<T>(da, dpt[2 * kk], dpt[2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         uint32_t bo[4], bq[4];
         load_b_trans<D>(bo, tdO, 16 * np, 16 * kk, lane);
         load_b_trans<D>(bq, tQ, 16 * np, 16 * kk, lane);
-        mma_bf16(acc_dv[2 * np], pa, bo[0], bo[1]);
-        mma_bf16(acc_dv[2 * np + 1], pa, bo[2], bo[3]);
-        mma_bf16(acc_dk[2 * np], da, bq[0], bq[1]);
-        mma_bf16(acc_dk[2 * np + 1], da, bq[2], bq[3]);
+        mma16<T>(acc_dv[2 * np], pa, bo[0], bo[1]);
+        mma16<T>(acc_dv[2 * np + 1], pa, bo[2], bo[3]);
+        mma16<T>(acc_dk[2 * np], da, bq[0], bq[1]);
+        mma16<T>(acc_dk[2 * np + 1], da, bq[2], bq[3]);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -297,16 +323,17 @@ __global__ void __launch_bounds__(kThreadsMMA)
 
   const long long ld = static_cast<long long>(H) * D;
   const long long base = static_cast<long long>(b) * Lk * ld + h * D;
-  store_rows(dk + base, ld, key_base, Lk, acc_dk, scale, scale, lane);
+  store_rows(dk + base, ld, key_base, Lk, acc_dk, scale * row_scale(ds_exp[0]),
+             scale * row_scale(ds_exp[1]), lane);
   store_rows(dv + base, ld, key_base, Lk, acc_dv, 1.f, 1.f, lane);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreadsMMA)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  const int* __restrict__ kv_lengths, bf16* __restrict__ dq, int H, int Lq,
+                  const int* __restrict__ kv_lengths, T* __restrict__ dq, int H, int Lq,
                   int Lk, float scale, int causal, int window, int n_qt, long long q_sb,
                   long long q_sl, long long q_sh, long long k_sb, long long k_sl, long long k_sh,
                   long long v_sb, long long v_sl, long long v_sh, long long do_sb,
@@ -339,8 +366,8 @@ __global__ void __launch_bounds__(kThreadsMMA)
   const int t_begin = k_begin / kI;
   const int t_end = k_end > k_begin ? (k_end + kI - 1) / kI : t_begin;
 
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
   if (t_begin < t_end) {
     load_tile<kT, kThreadsMMA, D>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
     load_tile<kT, kThreadsMMA, D>(sdO, dout + b * do_sb + h * do_sh, q0, Lq, do_sl);
@@ -364,6 +391,7 @@ __global__ void __launch_bounds__(kThreadsMMA)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  int ds_exp[2] = {ds::mma::kNoExp, ds::mma::kNoExp};  // fp16: dS's row exponents
   uint32_t qf[D / 16][4], dof[D / 16][4];
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -398,10 +426,10 @@ __global__ void __launch_bounds__(kThreadsMMA)
         uint32_t bk[4], bv[4];
         load_b<D>(bk, sK + stage, 16 * np, 16 * kk, lane);
         load_b<D>(bv, sV + stage, 16 * np, 16 * kk, lane);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        mma_bf16(dp[2 * np], dof[kk], bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
+        mma16<T>(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma16<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma16<T>(dp[2 * np], dof[kk], bv[0], bv[1]);
+        mma16<T>(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
       }
 
     // dS in place of dP; lse and delta belong to the rows
@@ -417,26 +445,27 @@ __global__ void __launch_bounds__(kThreadsMMA)
                                      kv_len, off, causal, window);
         dp[n][c] = ok ? p * (dp[n][c] - dlt[hf]) : 0.f;
       }
+    if constexpr (std::is_same<T, __half>::value) fit_rows_f16(dp, ds_exp, acc);
 
     // dQ += dS K, dS from registers, K through ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < kI / 16; ++kk) {
       uint32_t da[4];
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      acc_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         uint32_t bk[4];
         load_b_trans<D>(bk, sK + stage, 16 * np, 16 * kk, lane);
-        mma_bf16(acc[2 * np], da, bk[0], bk[1]);
-        mma_bf16(acc[2 * np + 1], da, bk[2], bk[3]);
+        mma16<T>(acc[2 * np], da, bk[0], bk[1]);
+        mma16<T>(acc[2 * np + 1], da, bk[2], bk[3]);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   const long long ld = static_cast<long long>(H) * D;
-  store_rows(dq + static_cast<long long>(b) * Lq * ld + h * D, ld, row_base, Lq, acc, scale,
-             scale, lane);
+  store_rows(dq + static_cast<long long>(b) * Lq * ld + h * D, ld, row_base, Lq, acc,
+             scale * row_scale(ds_exp[0]), scale * row_scale(ds_exp[1]), lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -759,30 +788,30 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, const int* lens, void* dq, void* dk,
-                        void* dv, int B, int H, int Lq, int Lk, float scale, int causal,
-                        int window, const long long* st, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, const int* lens, void* dq, void* dk,
+                       void* dv, int B, int H, int Lq, int Lk, float scale, int causal,
+                       int window, const long long* st, cudaStream_t stream) {
   using Tile = BwdTile<D>;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
   const int n_qt = (Lq + kT - 1) / kT, n_kt = (Lk + kT - 1) / kT;
   if (n_qt > 65535 || n_kt > 65535) return cudaErrorInvalidValue;
-  static cudaError_t dq_attr = ds::allow_smem(dq_mma_kernel<D>, Tile::kDqSmem);
+  static cudaError_t dq_attr = ds::allow_smem(dq_mma_kernel<T, D>, Tile::kDqSmem);
   if (dq_attr != cudaSuccess) return dq_attr;
-  dq_mma_kernel<D><<<dim3(B * H, n_qt), kThreadsMMA, Tile::kDqSmem, stream>>>(
-      qp, kp, vp, dop, lse, delta, lens, static_cast<bf16*>(dq), H, Lq, Lk, scale, causal, window,
+  dq_mma_kernel<T, D><<<dim3(B * H, n_qt), kThreadsMMA, Tile::kDqSmem, stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<T*>(dq), H, Lq, Lk, scale, causal, window,
       n_qt, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  static cudaError_t kv_attr = ds::allow_smem(dkdv_mma_kernel<D>, Tile::kDkdvSmem);
+  static cudaError_t kv_attr = ds::allow_smem(dkdv_mma_kernel<T, D>, Tile::kDkdvSmem);
   if (kv_attr != cudaSuccess) return kv_attr;
-  dkdv_mma_kernel<D><<<dim3(B * H, n_kt), kThreadsMMA, Tile::kDkdvSmem, stream>>>(
-      qp, kp, vp, dop, lse, delta, lens, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq,
+  dkdv_mma_kernel<T, D><<<dim3(B * H, n_kt), kThreadsMMA, Tile::kDkdvSmem, stream>>>(
+      qp, kp, vp, dop, lse, delta, lens, static_cast<T*>(dk), static_cast<T*>(dv), H, Lq,
       Lk, scale, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11]);
   return cudaGetLastError();
@@ -811,8 +840,14 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
   if (dtype == ds::kBFloat16) {
     err = launch_delta<bf16, D>(o, dout, delta, B, H, Lq, st, s);
     if (err != cudaSuccess) return err;
-    return launch_bf16<D>(q, k, v, dout, lse, delta, lens, dq, dk, dv, B, H, Lq, Lk, scale,
-                          causal, window, st, s);
+    return launch_mma<bf16, D>(q, k, v, dout, lse, delta, lens, dq, dk, dv, B, H, Lq, Lk, scale,
+                               causal, window, st, s);
+  }
+  if (dtype == ds::kFloat16) {
+    err = launch_delta<__half, D>(o, dout, delta, B, H, Lq, st, s);
+    if (err != cudaSuccess) return err;
+    return launch_mma<__half, D>(q, k, v, dout, lse, delta, lens, dq, dk, dv, B, H, Lq, Lk,
+                                 scale, causal, window, st, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -826,8 +861,8 @@ extern "C" {
 // lse: contiguous [B, H, Lq] fp32; kv_lengths: [B] int32 or null; delta:
 // [B, H, Lq] fp32 scratch; dq: contiguous [B, Lq, H, D] of q's dtype; dk,
 // dv: contiguous [B, Lk, H, D] of k's dtype; window <= 0 means none. bf16
-// runs on the tensor cores and needs 16-byte aligned q/k/v/dout with strides
-// that are multiples of 8 elements; fp32 runs the FMA body.
+// and fp16 run on the tensor cores and need 16-byte aligned q/k/v/dout with
+// strides that are multiples of 8 elements; fp32 runs the FMA body.
 int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
                  const void* dout, const void* kv_lengths, void* delta, void* dq, void* dk,
                  void* dv, int dtype, int B, int H, int Lq, int Lk, int D, float scale,

@@ -47,6 +47,16 @@
 // own bf16 rounding allows, for one more product per tile (P V costs two of
 // the three) and about a fifth more time.
 //
+// fp16 inputs run the same tensor-core body on the f16 form of mma.sync
+// (the JAX kernel takes fp16 and computes in fp32 the same way: its output
+// is q's dtype). Only P's split differs: fp16's hi keeps 11 bits against
+// bf16's 8, but lo has no exponent below 2^-24, so hi + lo carries p in [0, 1]
+// to within 2^-25 absolute (bf16's pair: 2^-17 relative, csrc/mma.cuh
+// split_f16). O = (sum_j p_j v_j) / l with l >= 1 is then off by at most
+// 2^-25 Lk max|v| from the split, 6.1e-5 max|v| at Lk 2048, under O's own
+// fp16 rounding of 2^-11 relative: the fp16 checks hold O to 2e-3 of
+// max|O| of the plain version, tenfold tighter than bf16's 2e-2.
+//
 // fp32 inputs keep the FMA body below (two threads per query row, fp32
 // products from padded shared rows; instantiated for head dims 64 and 128,
 // where a thread holds its 128-float query row and 64 output columns in
@@ -94,10 +104,11 @@ struct FwdTile {
   static constexpr int kSmem = (kRows + 4 * kKeys) * kRowB;  // Q + two K/V stages
 };
 
-template <int D>
+// T: bf16 or __half, the element type of q, k, v and o
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreadsBF16)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                          const int* __restrict__ kv_lengths, int H, int Lq, int Lk, float scale,
                          int causal, int window, int n_qt, long long q_sb, long long q_sl,
                          long long q_sh, long long k_sb, long long k_sl, long long k_sh,
@@ -130,8 +141,8 @@ __global__ void __launch_bounds__(kThreadsBF16)
   const int t_begin = k_begin / kKeys;
   const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
 
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
   if (t_begin < t_end) {  // a block with no live key loads nothing
     load_tile<kRows, kThreadsBF16, D>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
     load_tile<kKeys, kThreadsBF16, D>(sK, kb, t_begin * kKeys, Lk, k_sl);
@@ -189,8 +200,8 @@ __global__ void __launch_bounds__(kThreadsBF16)
         load_b<D>(bk, sK + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
+          mma16<T>(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
+          mma16<T>(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
         }
       }
     }
@@ -252,23 +263,23 @@ __global__ void __launch_bounds__(kThreadsBF16)
       }
     }
 
-    // O += P V, P from registers as bf16 hi + lo
+    // O += P V, P from registers as a T hi + lo pair
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       uint32_t pa[kMT][4], pl[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
-        acc_to_a_split(pa[mt], pl[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
+        acc_to_a_split<T>(pa[mt], pl[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < kKD; ++np) {
         uint32_t bv[4];
         load_b_trans<D>(bv, sV + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * np], pa[mt], bv[0], bv[1]);
-          mma_bf16(acc[mt][2 * np + 1], pa[mt], bv[2], bv[3]);
-          mma_bf16(acc[mt][2 * np], pl[mt], bv[0], bv[1]);
-          mma_bf16(acc[mt][2 * np + 1], pl[mt], bv[2], bv[3]);
+          mma16<T>(acc[mt][2 * np], pa[mt], bv[0], bv[1]);
+          mma16<T>(acc[mt][2 * np + 1], pa[mt], bv[2], bv[3]);
+          mma16<T>(acc[mt][2 * np], pl[mt], bv[0], bv[1]);
+          mma16<T>(acc[mt][2 * np + 1], pl[mt], bv[2], bv[3]);
         }
       }
     }
@@ -276,7 +287,7 @@ __global__ void __launch_bounds__(kThreadsBF16)
   }
 
   float* lse_bh = lse + (static_cast<long long>(b) * H + h) * Lq;
-  bf16* o_bh = o + static_cast<long long>(b) * Lq * H * D + h * D;
+  T* o_bh = o + static_cast<long long>(b) * Lq * H * D + h * D;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
     float inv[2];
@@ -440,19 +451,19 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, vo
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
-                        const void* kv_lengths, int B, int H, int Lq, int Lk, float scale,
-                        int causal, int window, const long long* st, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+                       const void* kv_lengths, int B, int H, int Lq, int Lk, float scale,
+                       int causal, int window, const long long* st, cudaStream_t stream) {
   using Tile = FwdTile<D>;
-  static cudaError_t attr = ds::allow_smem(flash_fwd_mma_kernel<D>, Tile::kSmem);
+  static cudaError_t attr = ds::allow_smem(flash_fwd_mma_kernel<T, D>, Tile::kSmem);
   if (attr != cudaSuccess) return attr;
   const int n_qt = (Lq + Tile::kRows - 1) / Tile::kRows;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   dim3 grid(B * H, n_qt);
-  flash_fwd_mma_kernel<D><<<grid, kThreadsBF16, Tile::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_lengths), H,
+  flash_fwd_mma_kernel<T, D><<<grid, kThreadsBF16, Tile::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_lengths), H,
       Lq, Lk, scale, causal, window, n_qt, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8]);
   return cudaGetLastError();
@@ -466,8 +477,11 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     return launch_fp32<D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st,
                           stream);
   if (dtype == ds::kBFloat16)
-    return launch_bf16<D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window, st,
-                          stream);
+    return launch_mma<bf16, D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
+                               st, stream);
+  if (dtype == ds::kFloat16)
+    return launch_mma<__half, D>(q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
+                               st, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -479,8 +493,8 @@ extern "C" {
 // head) for each, D 64 or 128; o: contiguous [B, Lq, H, D] of q's dtype; lse:
 // contiguous [B, H, Lq] fp32; kv_lengths: [B] int32 or null; window <= 0
 // means none.
-// bf16 runs on the tensor cores and needs 16-byte aligned q/k/v with strides
-// that are multiples of 8 elements; fp32 runs the FMA body.
+// bf16 and fp16 run on the tensor cores and need 16-byte aligned q/k/v with
+// strides that are multiples of 8 elements; fp32 runs the FMA body.
 int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                  const void* kv_lengths, int dtype, int B, int H, int Lq, int Lk, int D,
                  float scale, int causal, int window, long long q_sb, long long q_sl,

@@ -1,7 +1,11 @@
-// Tensor-core building blocks for the bf16 attention kernels (K1, K4, K6):
-// cp.async tile loads into swizzled shared memory (rows in order, or
+// Tensor-core building blocks for the bf16 and fp16 attention kernels (K1,
+// K4, K6): cp.async tile loads into swizzled shared memory (rows in order, or
 // gathered from a block list), ldmatrix fragment loads and the mma.sync
-// m16n8k16 bf16 product with fp32 accumulation.
+// m16n8k16 bf16 and f16 products with fp32 accumulation. Both 16-bit types
+// share every layout below (two bytes an element); only the product's
+// instruction and the rounding of fp32 into a register pair differ, so the
+// helpers that touch values take the element type T (bf16 by default, what
+// the kernels that name none compile to) and the loads deduce it.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane l with g = l / 4 and t = l % 4:
@@ -25,7 +29,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ds {
 namespace mma {
@@ -82,8 +89,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // share a block list in K6); rows >= L are zero-filled and never read.
 // Needs a 16-byte aligned `src` and `ld` a multiple of 8 (the Python
 // wrappers check both).
-template <int ROWS, int THREADS, int COLS = 64>
-__device__ __forceinline__ void load_tile_by(uint32_t tile, const bf16* __restrict__ src, int row0,
+template <int ROWS, int THREADS, int COLS = 64, typename T = bf16>
+__device__ __forceinline__ void load_tile_by(uint32_t tile, const T* __restrict__ src, int row0,
                                              int L, long long ld, int tid) {
   constexpr int kChunks = COLS / 8;  // 16-byte chunks per row
   // log2(kChunks): a shift and a mask, where a signed i / kChunks would add
@@ -100,10 +107,10 @@ __device__ __forceinline__ void load_tile_by(uint32_t tile, const bf16* __restri
 }
 
 // load_tile_by the whole thread block of THREADS threads
-template <int ROWS, int THREADS, int COLS = 64>
-__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict__ src, int row0,
+template <int ROWS, int THREADS, int COLS = 64, typename T = bf16>
+__device__ __forceinline__ void load_tile(uint32_t tile, const T* __restrict__ src, int row0,
                                           int L, long long ld) {
-  load_tile_by<ROWS, THREADS, COLS>(tile, src, row0, L, ld, threadIdx.x);
+  load_tile_by<ROWS, THREADS, COLS, T>(tile, src, row0, L, ld, threadIdx.x);
 }
 
 // A gathered tile (K6): tile row r holds slot s0 + r of the concatenation
@@ -181,20 +188,55 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a * b over one m16n8k16 step, fp16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the m16n8k16 product of element type T
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
+
 // two floats rounded to nearest even into one bf16 pair, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the same into one fp16 pair (values past 65504 round to inf)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
 // The A operand of k-step kk (columns 16 kk .. 16 kk + 15) from the fp32
-// accumulators of n-tiles 2 kk and 2 kk + 1, rounded to bf16.
+// accumulators of n-tiles 2 kk and 2 kk + 1, rounded to T.
+template <typename T = bf16>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
                                          const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
 }
 
 // The same A operand as an unevaluated bf16 sum hi + lo: hi is the
@@ -209,32 +251,102 @@ __device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float a, 
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// The fp16 pair: hi keeps 11 significant bits, and lo the rest down to
+// fp16's least step, 2^-24 (lo of a value below 2^-3 is subnormal). So for
+// K1's p in [0, 1] hi + lo is within 2^-25 of p, an absolute bound where
+// bf16's hi + lo is within 2^-17 of p relative to it.
+__device__ __forceinline__ void split_f16(uint32_t& hi, uint32_t& lo, float a, float b) {
+  const __half2 h = __floats2half2_rn(a, b);
+  const float2 hf = __half22float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_f16(a - hf.x, b - hf.y);
+}
+
+template <typename T = bf16>
 __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                                const float (&c0)[4], const float (&c1)[4]) {
-  split_bf16(hi[0], lo[0], c0[0], c0[1]);
-  split_bf16(hi[1], lo[1], c0[2], c0[3]);
-  split_bf16(hi[2], lo[2], c1[0], c1[1]);
-  split_bf16(hi[3], lo[3], c1[2], c1[3]);
+  if constexpr (std::is_same<T, __half>::value) {
+    split_f16(hi[0], lo[0], c0[0], c0[1]);
+    split_f16(hi[1], lo[1], c0[2], c0[3]);
+    split_f16(hi[2], lo[2], c1[0], c1[1]);
+    split_f16(hi[3], lo[3], c1[2], c1[3]);
+  } else {
+    split_bf16(hi[0], lo[0], c0[0], c0[1]);
+    split_bf16(hi[1], lo[1], c0[2], c0[3]);
+    split_bf16(hi[2], lo[2], c1[0], c1[1]);
+    split_bf16(hi[3], lo[3], c1[2], c1[3]);
+  }
+}
+
+// 2^e as a float, exactly, for e in [-126, 127]
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((e + 127) << 23); }
+
+// K4's fp16 dS (see flash_bwd.cu): the exponent of a row with no scale yet
+constexpr int kNoExp = -1000;
+
+// Scale each of the two rows a lane holds of a 16 x 8 N8 fp32 tile (rows g
+// and g + 8: elements c = 0, 1 and c = 2, 3, shared by the four lanes of a
+// quad) by 2^-e, so that the row's largest magnitude lies below 2^15 and
+// rounds to a finite fp16 (max 65504). The exponent e of a row only grows
+// from tile to tile; where it grows, the row of `acc` (the fp32 sum of
+// products of earlier scaled tiles) is scaled down by the same power of
+// two, so acc times 2^e stays the unscaled sum. Exact in fp32: only powers
+// of two multiply. A non-finite row keeps its exponent and stays non-finite.
+template <int N8, int NA>
+__device__ __forceinline__ void fit_rows_f16(float (&x)[N8][4], int (&e)[2], float (&acc)[NA][4]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float mx = 0.f;
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+      mx = fmaxf(mx, fmaxf(fabsf(x[n][2 * hf]), fabsf(x[n][2 * hf + 1])));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if (mx > 0.f && isfinite(mx)) {
+      int x_exp;
+      frexpf(mx, &x_exp);  // mx < 2^x_exp
+      const int want = min(max(x_exp - 15, -110), 110);
+      if (e[hf] == kNoExp) {
+        e[hf] = want;
+      } else if (want > e[hf]) {
+        const float r = pow2(max(e[hf] - want, -126));
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          acc[a][2 * hf] *= r;
+          acc[a][2 * hf + 1] *= r;
+        }
+        e[hf] = want;
+      }
+    }
+    if (e[hf] != kNoExp) {
+      const float inv = pow2(-e[hf]);
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        x[n][2 * hf] *= inv;
+        x[n][2 * hf + 1] *= inv;
+      }
+    }
+  }
 }
 
 // acc[n][c] (the N8 n-tiles of a 16 x 8 N8 result) times `mul`, rounded to
-// bf16 and stored as pairs into rows row0 + g and row0 + g + 8 of a
+// T and stored as pairs into rows row0 + g and row0 + g + 8 of a
 // [rows, 8 N8] tensor with row stride `ld`; rows >= rows_end are skipped.
-template <int N8>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long ld, int row0,
+template <int N8, typename T = bf16>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long ld, int row0,
                                            int rows_end, const float (&acc)[N8][4], float mul0,
                                            float mul1, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + g + 8 * hf;
     if (row >= rows_end) continue;
-    const float mul = half ? mul1 : mul0;
-    bf16* p = dst + row * ld + 2 * t;
+    const float mul = hf ? mul1 : mul0;
+    T* p = dst + row * ld + 2 * t;
 #pragma unroll
     for (int n = 0; n < N8; ++n)
       *reinterpret_cast<uint32_t*>(p + 8 * n) =
-          pack_bf16(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+          pack2<T>(acc[n][2 * hf] * mul, acc[n][2 * hf + 1] * mul);
   }
 }
 

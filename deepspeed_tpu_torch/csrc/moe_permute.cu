@@ -21,7 +21,9 @@
 // issuing all kRows loads of a column before their stores, so each thread
 // keeps kRows independent loads in flight. A dead row (index out of range)
 // reads nothing and writes zeros. The copy is exact in any element type;
-// the dtype code only fixes the element size.
+// the dtype code only fixes the element size, so fp32, bf16 and the fp16 of
+// fp16 MoE training (the JAX kernel moves whatever dtype it is given) are
+// instances of one body: bf16 and fp16 share its 2-byte path.
 #include "common.cuh"
 
 namespace {
@@ -85,14 +87,14 @@ cudaError_t launch(const void* x, const void* idx, void* out, int G, int N, int 
 
 extern "C" {
 
-// x: contiguous [G, N, M] of `dtype`; idx: contiguous [G, R] int32; out:
+// x: contiguous [G, N, M] of `dtype` (fp32, bf16 or fp16); idx: contiguous [G, R] int32; out:
 // contiguous [G, R, M] of `dtype`. N may be 0 (every row dead).
 int ds_moe_permute(const void* x, const void* idx, void* out, int dtype, int G, int N, int R,
                    int M, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   int elem = 0;
   if (dtype == ds::kFloat32) elem = 4;
-  if (dtype == ds::kBFloat16) elem = 2;
+  if (dtype == ds::kBFloat16 || dtype == ds::kFloat16) elem = 2;
   if (elem == 0 || G <= 0 || G > 65535 || N < 0 || R <= 0 || M <= 0) return cudaErrorInvalidValue;
   const long long row_bytes = static_cast<long long>(M) * elem;
   const unsigned long long base =

@@ -5,8 +5,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
-
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint_with_policy
 from deepspeed_tpu_torch.runtime.zero.param_offload import stream_block
 
 
@@ -53,10 +52,10 @@ def dense_init(scale: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Ge
 def maybe_remat(block: Callable, cfg, layer_idx: int, enabled: Optional[bool] = None) -> Callable:
     """Activation checkpointing of one block: ``torch.utils.checkpoint``
     (non-reentrant) around ``block`` when remat is on and ``layer_idx`` hits
-    the ``remat_every`` stride, else ``block`` itself. Full recompute only
-    (the JAX package's saveable-op ``remat_policy`` belongs to the
-    activation-checkpointing slice; ``GPT2Config`` refuses it). Runs the
-    block plainly when no graph is recorded (inference).
+    the ``remat_every`` stride, else ``block`` itself, under the config's
+    ``remat_policy`` (``runtime/activation_checkpointing``: which products
+    the block keeps; None recomputes everything). Runs the block plainly
+    when no graph is recorded (inference).
 
     Every block first passes through ``runtime/zero/param_offload.stream_block``:
     the identity unless an ``offload_param`` engine's forward is streaming,
@@ -68,10 +67,12 @@ def maybe_remat(block: Callable, cfg, layer_idx: int, enabled: Optional[bool] = 
     if not enabled or layer_idx % max(getattr(cfg, "remat_every", 1), 1) != 0:
         return block
 
+    policy = getattr(cfg, "remat_policy", None)
+
     def run(*args):
         if not torch.is_grad_enabled():
             return block(*args)
-        return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint_with_policy(block, *args, policy=policy)
 
     return run
 

@@ -35,8 +35,20 @@ decodes against both caches with eval-mode gating; its weight-quantized
 serving view builds the attention projections and the dense blocks' MLP on
 K2 and keeps every MoE leaf (experts, gate, PR-MoE residual and
 coefficient) in the serving dtype, as the JAX quantizer's skip list leaves
-every leaf under ``moe`` in fp. Progressive layer drop and the pipeline
-adapters belong to later slices and raise if configured.
+every leaf under ``moe`` in fp. The pipeline adapters belong to a later
+slice.
+
+``remat_policy`` names what a checkpointed block keeps
+(``runtime/activation_checkpointing``). ``attn_fused_qkv=False`` runs the
+QKV projection as three products over slices of the one ``[E, 3, H, D]``
+kernel, ``attn_fused_out=False`` the attention-out projection as an
+explicit ``[B, L, H*D]`` reshape and a 2-D product: JAX's program forms,
+over the same parameters. With ``progressive_layer_drop`` and a
+``pld_theta`` from the engine, training keeps each sublayer (attention,
+MLP or MoE) of block i with probability ``1 - (i + 1) / n_layer * (1 -
+theta)`` (JAX ``gpt2.py:536-542``), drawn from the caller's generator, and
+scales a kept one by ``1 / keep``; a dropped MoE sublayer adds no
+load-balancing loss. ``last_pld_keep`` holds the last draw ([n_layer, 2]).
 """
 
 import dataclasses
@@ -55,12 +67,11 @@ from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
 from deepspeed_tpu_torch.ops.quantizer.weights import quant_bits
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import get_remat_policy
 
 #: config fields of the JAX model that belong to later slices of the port,
 #: with the value that means "off" and the slice
-_LATER_SLICES = {"progressive_layer_drop": (False, "progressive-layer-drop"),
-                 "remat_policy": (None, "activation-checkpointing"),
-                 "attention_blocks": (None, "attention-tuning")}
+_LATER_SLICES = {"attention_blocks": (None, "attention-tuning")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,11 +93,15 @@ class GPT2Config:
     serve_weight_dtype: Optional[str] = None
     # target rows per quantization group along the contraction axis
     serve_weight_group_size: int = 64
-    # checkpoint every ``remat_every``-th block (full recompute; the JAX
-    # package's saveable-op ``remat_policy`` is a later slice)
+    # checkpoint every ``remat_every``-th block, keeping what
+    # ``remat_policy`` names (runtime/activation_checkpointing; None: full
+    # recompute)
     remat: bool = False
     remat_every: int = 1
     remat_policy: Optional[str] = None
+    # JAX's program forms of the two attention projections (same parameters)
+    attn_fused_qkv: bool = True
+    attn_fused_out: bool = True
     # >0: called with ``labels=``, return the chunked fused LM-head loss
     # (tokens per chunk) instead of [B, L, V] logits
     fused_head_loss_chunk: int = 0
@@ -117,6 +132,7 @@ class GPT2Config:
                                           f"{where} slice of the PyTorch port")
         if self.serve_weight_dtype not in (None, "fp", "int8", "int4"):
             raise ValueError(f"unknown serve_weight_dtype {self.serve_weight_dtype!r}")
+        get_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self):
@@ -237,22 +253,42 @@ class _Projection(nn.Module):
 
 
 class QKVProj(_Projection):
-    """Fused QKV projection over the ``[E, 3, H, D]`` kernel."""
+    """QKV projection over the ``[E, 3, H, D]`` kernel: one product, or with
+    ``attn_fused_qkv=False`` three over its slices (fp weights; a quantized
+    kernel is always one product, as in JAX)."""
 
     def __init__(self, cfg, device):
         super().__init__(cfg, (cfg.n_embd, 3, cfg.n_head, cfg.head_dim),
                          (3, cfg.n_head, cfg.head_dim), 1, device)
 
     def forward(self, x):
-        qkv = super().forward(x)
-        return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        cfg = self.cfg
+        if cfg.attn_fused_qkv or self.bits is not None:
+            qkv = super().forward(x)
+            return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        x = x.to(cfg.dtype)
+        kernel, bias = self.kernel.to(cfg.dtype), self.bias.to(cfg.dtype)
+        hd = (cfg.n_head, cfg.head_dim)
+        return tuple((x @ kernel[:, i].reshape(cfg.n_embd, -1)).reshape(*x.shape[:-1], *hd) + bias[i]
+                     for i in range(3))
 
 
 class AttnOutProj(_Projection):
-    """Attention-output projection over the ``[H, D, E]`` kernel."""
+    """Attention-output projection over the ``[H, D, E]`` kernel: the
+    ``(heads, head_dim)`` contraction of ``[B, L, H, D]``, or with
+    ``attn_fused_out=False`` an explicit ``[B, L, H*D]`` reshape and a 2-D
+    product (torch runs the contraction as that same product)."""
 
     def __init__(self, cfg, device):
         super().__init__(cfg, (cfg.n_head, cfg.head_dim, cfg.n_embd), (cfg.n_embd,), 2, device)
+
+    def forward(self, x):
+        cfg = self.cfg
+        if cfg.attn_fused_out or self.bits is not None:
+            return super().forward(x)
+        flat = x.to(cfg.dtype).reshape(*x.shape[:-2], cfg.n_head * cfg.head_dim)
+        kernel = self.kernel.to(cfg.dtype).reshape(cfg.n_head * cfg.head_dim, cfg.n_embd)
+        return flat @ kernel + self.bias.to(cfg.dtype)
 
 
 class QuantDense(_Projection):
@@ -444,26 +480,43 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device)
 
     def forward(self, x, cache=None, prefix="", plans=None, dropout_seed: Optional[int] = None,
-                gating_seed: Optional[int] = None, deterministic: bool = True):
+                gating_seed: Optional[int] = None, deterministic: bool = True,
+                pld_keep: Optional[float] = None, pld_mask: Optional[torch.Tensor] = None):
         """``(x, l_aux)``: the block's output and, for an MoE block, its
         load-balancing loss (None for a dense block). ``dropout_seed`` and
         ``gating_seed`` seed this block's dropout and gating generators
         (None: no draws). Ints and not generators, so that a checkpointed
         block draws the same masks and routes the same way when it is
         recomputed. ``deterministic=False`` is training-mode gating (train
-        capacity factor, noise)."""
+        capacity factor, noise). With ``pld_keep`` (the keep probability)
+        and ``pld_mask`` (bool [2]: attention, then the MLP or MoE), a
+        sublayer whose flag is False adds nothing and a kept one adds its
+        output over ``pld_keep``."""
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        x = x + self.attn(self.ln_1(x), cache, prefix, plans, gen)
+        x = x + _pld_gate(self.attn(self.ln_1(x), cache, prefix, plans, gen), pld_keep, pld_mask, 0)
         if not self.use_moe:
-            return x + self.mlp(self.ln_2(x), gen), None
+            return x + _pld_gate(self.mlp(self.ln_2(x), gen), pld_keep, pld_mask, 1), None
         gate_gen = None
         if gating_seed is not None:
             gate_gen = torch.Generator(device=x.device).manual_seed(gating_seed)
         out, l_aux, _ = self.moe(self.ln_2(x), deterministic=deterministic,
                                  gate_generator=gate_gen, generator=gen)
-        return x + out, l_aux
+        if pld_mask is not None:
+            # a dropped expert layer pushes no balancing gradient into its router
+            l_aux = torch.where(pld_mask[1], l_aux, torch.zeros_like(l_aux))
+        return x + _pld_gate(out, pld_keep, pld_mask, 1), l_aux
+
+
+def _pld_gate(branch: torch.Tensor, keep: Optional[float], mask: Optional[torch.Tensor],
+              which: int) -> torch.Tensor:
+    """JAX ``pld_gate``: ``branch / keep`` where the sublayer is kept, 0
+    where it is dropped; the branch itself without a draw."""
+    if mask is None:
+        return branch
+    return torch.where(mask[which], branch / keep, torch.zeros((), dtype=branch.dtype,
+                                                                device=branch.device))
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -488,6 +541,7 @@ class GPT2LMHeadModel(nn.Module):
         for i in range(cfg.n_layer):
             setattr(self, f"h_{i}", Block(cfg, dev, cfg.is_moe_layer(i)))
         self.ln_f = LayerNorm(cfg, dev)
+        self.last_pld_keep: Optional[torch.Tensor] = None
         self.reset_parameters(generator)
 
     @property
@@ -526,13 +580,15 @@ class GPT2LMHeadModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None, *,
                 labels: Optional[torch.Tensor] = None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                pld_theta: Optional[float] = None):
         """Logits [B, L, V] in the compute dtype, or with ``labels`` and
         ``fused_head_loss_chunk > 0`` the mean next-token loss (fp32
         scalar). An MoE model returns ``(logits, aux_total *
         moe_aux_loss_coef)`` instead of logits, and its fused-head loss
         includes that term in training. ``deterministic=False`` is training:
-        dropout, and training-mode gating, draw from ``generator``."""
+        dropout, training-mode gating and, under ``progressive_layer_drop``
+        with a ``pld_theta``, the sublayer drops draw from ``generator``."""
         cfg = self.config
         ids = input_ids.to(self.device)
         seq_len = ids.shape[1]
@@ -547,6 +603,16 @@ class GPT2LMHeadModel(nn.Module):
             if cfg.moe_gate_draws:
                 gate_seeds = torch.randint(0, 2**62, (cfg.n_layer,), generator=generator,
                                            device=generator.device).tolist()
+        keeps = [None] * cfg.n_layer
+        pld = None
+        if cfg.progressive_layer_drop and pld_theta is not None and not deterministic:
+            if generator is None:
+                raise ValueError("progressive layer drop in training needs a generator")
+            keeps = [1.0 - (i + 1) / cfg.n_layer * (1.0 - float(pld_theta))
+                     for i in range(cfg.n_layer)]
+            draws = torch.rand((cfg.n_layer, 2), generator=generator, device=generator.device)
+            pld = (draws < torch.tensor(keeps, device=draws.device)[:, None]).to(self.device)
+            self.last_pld_keep = pld
         wte = self.wte.to(cfg.dtype)  # once: both uses of the tied table share its gradient
         x = embed_lookup(wte, ids)
         plans = None
@@ -573,7 +639,7 @@ class GPT2LMHeadModel(nn.Module):
         for i, block in enumerate(self.blocks):
             run = maybe_remat(block, cfg, i, enabled=cfg.remat and cache is None)
             x, l_aux = run(x, cache, f"h_{i}/attn/", plans, seeds[i], gate_seeds[i],
-                           deterministic)
+                           deterministic, keeps[i], None if pld is None else pld[i])
             if l_aux is not None:
                 aux_total = aux_total + l_aux
         x = self.ln_f(x)

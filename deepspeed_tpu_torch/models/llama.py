@@ -31,8 +31,10 @@ training. Training-mode gating draws its noise (top-2's Gumbel second
 choice) from a generator per layer, seeded from the caller's generator, so
 a checkpointed layer routes the same way when it is recomputed.
 
-``remat_policy`` and the TPU ``attention_blocks`` belong to later slices
-and raise ``NotImplementedError``; the per-slot serving cache of
+``remat_policy`` names what a checkpointed layer keeps
+(``runtime/activation_checkpointing``). The TPU ``attention_blocks``
+belongs to a later slice and raises ``NotImplementedError``; the per-slot
+serving cache of
 ``ContinuousBatchingScheduler`` does not take this family, as the JAX
 scheduler does not. The JAX model's ``attention_mask`` and
 explicit ``positions`` arguments are not taken: neither JAX engine passes
@@ -52,11 +54,11 @@ from deepspeed_tpu_torch.models.common import (StackedDense, config_from, dense_
                                                embed_lookup, fused_head_loss_output, maybe_remat,
                                                rms_norm)
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import get_remat_policy
 
 #: config fields of the JAX model that belong to later slices of the port,
 #: with the value that means "off" and where the slice stands
-_LATER_SLICES = {"remat_policy": (None, "the activation-checkpointing slice (Queue A item 3)"),
-                 "attention_blocks": (None, "the attention-tuning slice")}
+_LATER_SLICES = {"attention_blocks": (None, "the attention-tuning slice")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +74,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.float32  # compute dtype; params stay in param_dtype
     param_dtype: torch.dtype = torch.float32
-    # checkpoint every ``remat_every``-th block (full recompute)
+    # checkpoint every ``remat_every``-th block, keeping what ``remat_policy``
+    # names (runtime/activation_checkpointing; None: full recompute)
     remat: bool = False
     remat_policy: Optional[str] = None
     remat_every: int = 1
@@ -107,6 +110,7 @@ class LlamaConfig:
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError(f"num_attention_heads {self.num_attention_heads} is not a multiple "
                              f"of num_key_value_heads {self.num_key_value_heads}")
+        get_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self):

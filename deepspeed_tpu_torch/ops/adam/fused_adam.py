@@ -18,24 +18,24 @@ Decay applies to every parameter, biases and norms included.
 its corrections in float64 on the host), so it is not used.
 """
 
-from typing import Callable, Dict, Iterable, Tuple, Union
+from typing import Dict, Iterable, Tuple
 
 import torch
 
-ScalarOrSchedule = Union[float, Callable[[int], float]]
+from deepspeed_tpu_torch.ops.optimizer_base import NamedStateOptimizer, ScalarOrSchedule
+from deepspeed_tpu_torch.ops.optimizer_base import fp32 as _fp32
 
 
-def _fp32(x) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32)
-
-
-class FusedAdam(torch.optim.Optimizer):
+class FusedAdam(NamedStateOptimizer):
     """Adam with decoupled (``adam_w_mode=True``) or L2 weight decay over
     fp32 parameters. ``lr`` is a float or a ``count -> lr`` schedule read
     at the incremented count. The state is one ``count`` shared by every
     parameter (the JAX ``AdamState.count``) and per parameter fp32
-    ``exp_avg`` and ``exp_avg_sq``, allocated here (as ``optimizer.init``
-    does) so that a state can be loaded before the first step."""
+    ``exp_avg`` and ``exp_avg_sq`` (on ``state_device`` when given),
+    allocated here (as ``optimizer.init`` does) so that a state can be
+    loaded before the first step."""
+
+    SLOTS = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params: Iterable[torch.Tensor], lr: ScalarOrSchedule = 1e-3,
                  bias_correction: bool = True, betas: Tuple[float, float] = (0.9, 0.999),
@@ -46,25 +46,7 @@ class FusedAdam(torch.optim.Optimizer):
                                       "(parity with the reference)")
         defaults = dict(lr=lr, bias_correction=bias_correction, betas=tuple(betas), eps=eps,
                         adam_w_mode=adam_w_mode, weight_decay=weight_decay)
-        super().__init__(params, defaults)
-        self.count = 0
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.dtype != torch.float32:
-                    raise ValueError(f"FusedAdam updates fp32 master parameters, got {p.dtype}")
-                dev = p.device if state_device is None else state_device
-                self.state[p] = {"exp_avg": torch.zeros(p.shape, dtype=p.dtype, device=dev),
-                                 "exp_avg_sq": torch.zeros(p.shape, dtype=p.dtype, device=dev)}
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise NotImplementedError("FusedAdam.step takes no closure")
-        self.count += 1
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if params:
-                self._update(group, params, [p.grad for p in params])
+        super().__init__(params, defaults, state_device=state_device)
 
     @torch.no_grad()
     def step_resting(self, grads: Dict[int, torch.Tensor], device) -> None:
@@ -90,7 +72,7 @@ class FusedAdam(torch.optim.Optimizer):
         vs = [self.state[p]["exp_avg_sq"] for p in keys]
         b1, b2 = group["betas"]
         wd, eps = group["weight_decay"], group["eps"]
-        lr = float(group["lr"](self.count)) if callable(group["lr"]) else float(group["lr"])
+        lr = self.lr_at(group, self.count)
         if not group["adam_w_mode"] and wd > 0.0:
             grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
         torch._foreach_mul_(ms, b1)
@@ -108,29 +90,3 @@ class FusedAdam(torch.optim.Optimizer):
         if group["adam_w_mode"] and wd > 0.0:
             torch._foreach_add_(upd, torch._foreach_mul(params, wd))
         torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
-
-    def named_state(self, named_params: Dict[str, torch.Tensor]) -> dict:
-        """The state keyed by the parameter names of ``named_params``, the
-        inverse of :meth:`load_named_state`: ``{"count": int, "exp_avg":
-        {name: tensor}, "exp_avg_sq": {name: tensor}}``, holding the live
-        moment tensors (not copies)."""
-        out = {"count": self.count}
-        for key in ("exp_avg", "exp_avg_sq"):
-            out[key] = {name: self.state[p][key] for name, p in named_params.items()}
-        return out
-
-    def load_named_state(self, named_params: Dict[str, torch.Tensor], state: dict) -> None:
-        """Load ``{"count": int, "exp_avg": {name: tensor}, "exp_avg_sq":
-        {name: tensor}}`` (``checkpoint/from_jax.opt_state_from_jax``) for
-        the parameters ``named_params`` names. Raises ``KeyError`` on a
-        missing or extra name."""
-        for key in ("exp_avg", "exp_avg_sq"):
-            if set(state[key]) != set(named_params):
-                missing = sorted(set(named_params) - set(state[key]))
-                extra = sorted(set(state[key]) - set(named_params))
-                raise KeyError(f"optimizer state {key}: missing {missing[:8]}, extra {extra[:8]}")
-        with torch.no_grad():
-            for name, p in named_params.items():
-                for key in ("exp_avg", "exp_avg_sq"):
-                    self.state[p][key].copy_(state[key][name])
-        self.count = int(state["count"])

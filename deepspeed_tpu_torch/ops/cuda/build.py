@@ -36,7 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: dtype codes of ``csrc/common.cuh``
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the dtypes every kernel takes; K1, K4 and K5 also take fp16
+#: (``FP16_DTYPES``), while K2, K3 and K6 wait for their fp16 instances
+#: (ROADMAP.md Queue B item 3)
+BASE_DTYPES = (torch.float32, torch.bfloat16)
+FP16_DTYPES = BASE_DTYPES + (torch.float16,)
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -165,11 +171,15 @@ def load(name: str) -> KernelLibrary:
         return lib
 
 
-def dtype_code(t: torch.Tensor, what: str) -> int:
-    code = DTYPE_CODES.get(t.dtype)
-    if code is None:
-        raise ValueError(f"{what}: the CUDA kernel takes float32 or bfloat16, got {t.dtype}")
-    return code
+def dtype_code(t: torch.Tensor, what: str, dtypes=BASE_DTYPES) -> int:
+    """The ``csrc/common.cuh`` code of ``t``'s dtype, which must be one of
+    the kernel's ``dtypes``; ``ValueError`` otherwise."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        later = (" (its fp16 instance waits in ROADMAP.md Queue B item 3)"
+                 if t.dtype == torch.float16 else "")
+        raise ValueError(f"{what}: the CUDA kernel takes {names}, got {t.dtype}{later}")
+    return DTYPE_CODES[t.dtype]
 
 
 def stream_ptr(device: torch.device) -> int:

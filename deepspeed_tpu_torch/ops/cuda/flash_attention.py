@@ -8,11 +8,14 @@ the public boundary is ``[batch, length, heads, head_dim]`` (BLHD), as in
 the JAX package; the kernels read it in place through strides.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches the kernel or raises. K1 and K4 run bf16 on the tensor cores (K1
-carries p as a bf16 hi + lo pair into its second product, K4 rounds p and
-ds to bf16) and fp32 as FMAs, at head dim 64 or 128 (any other raises
-``ValueError`` before anything is built or launched); a bf16 tensor whose
-rows are not 16-byte aligned raises ``ValueError``. K3 splits the cache
+launches the kernel or raises. K1 and K4 run bf16 and fp16 on the tensor
+cores (K1 carries p as a hi + lo pair of the input's type into its second
+product; K4 rounds p and ds to it, fp16's ds scaled by a power of two per
+row first so that it cannot pass 65504, ``csrc/flash_bwd.cu``) and fp32 as
+FMAs, at head dim 64 or 128 (any other raises ``ValueError`` before
+anything is built or launched); a bf16 or fp16 tensor whose rows are not
+16-byte aligned raises ``ValueError``. K3 takes fp32 and bf16 only (its
+fp16 instance waits, ROADMAP.md Queue B item 3). K3 splits the cache
 over thread blocks and reads it either as values of q's dtype or as the
 int8 KV pool's codes with their scales, dequantised on read
 (:func:`flash_decode`). The JAX backend
@@ -141,7 +144,7 @@ def _check_operands(what, q, k, v):
         raise ValueError(f"{what}: q, k and v must lie on one CUDA device")
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise ValueError(f"{what}: q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
-    build.dtype_code(q, what)
+    build.dtype_code(q, what, build.FP16_DTYPES)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{what}: expected [B, L, H, D] tensors")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -152,13 +155,15 @@ def _check_operands(what, q, k, v):
 
 
 def _check_tensor_core_operands(what, **tensors):
-    """The bf16 bodies of K1 and K4 load rows with 16-byte ``cp.async``: each
+    """The bf16 and fp16 bodies of K1 and K4 (and K3's bf16 tile body) load
+    rows with 16-byte ``cp.async``: each
     tensor must start on a 16-byte boundary and step through its batch,
     length and head axes in multiples of 8 elements (an axis of size 1 is
     never stepped through)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-            raise ValueError(f"{what}: bf16 {name} must start 16-byte aligned with batch, "
+            raise ValueError(f"{what}: {'fp16' if t.dtype == torch.float16 else 'bf16'} {name} "
+                             f"must start 16-byte aligned with batch, "
                              f"length and head strides that are multiples of 8 elements; got "
                              f"address offset {t.data_ptr() % 16} bytes, strides {t.stride()}")
 
@@ -184,7 +189,7 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
                                kv_lengths=kv_lengths, window=window)
     _check_operands("flash_fwd", q, k, v)
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _check_tensor_core_operands("flash_fwd", q=q, k=k, v=v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
@@ -193,7 +198,7 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = build.load("flash_fwd")
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), build.ptr(lens),
-        build.dtype_code(q, "flash_fwd"), b, h, lq, lk, d, float(scale), int(bool(causal)),
+        build.dtype_code(q, "flash_fwd", build.FP16_DTYPES), b, h, lq, lk, d, float(scale), int(bool(causal)),
         int(window) if window is not None else 0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], build.stream_ptr(q.device))
     LAUNCHES["flash_fwd"] += 1
@@ -217,7 +222,7 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
         raise ValueError(f"flash_bwd: do must match q [B, Lq, H, D] {q.dtype} with unit-stride "
                          f"head_dim, got {tuple(do.shape)} {do.dtype}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _check_tensor_core_operands("flash_bwd", q=q, k=k, v=v, do=do)
     if o.shape != q.shape or o.dtype != q.dtype or not o.is_contiguous():
         raise ValueError("flash_bwd: o must be K1's contiguous [B, Lq, H, D] output")
@@ -231,7 +236,7 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
     lib = build.load("flash_bwd")
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
         build.ptr(lens), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        build.dtype_code(q, "flash_bwd"), b, h, lq, lk, d, float(scale), int(bool(causal)),
+        build.dtype_code(q, "flash_bwd", build.FP16_DTYPES), b, h, lq, lk, d, float(scale), int(bool(causal)),
         int(window) if window is not None else 0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         build.stream_ptr(q.device))
@@ -242,6 +247,17 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
 #: ``policy`` of :class:`FlashAttention`: keep K1's log-sum-exp for the
 #: backward, or drop it and re-run K1 there to regenerate it
 POLICIES = ("lse", "recompute")
+_default_policy = "lse"
+
+
+def set_default_policy(policy: Optional[str]) -> None:
+    """The backward policy of calls that name none: the training engine's
+    ``attention.policy`` installs it for the process (None: ``"lse"``),
+    as the JAX engine installs its attention block's defaults."""
+    global _default_policy
+    if policy is not None and policy not in POLICIES:
+        raise ValueError(f"unknown flash backward policy {policy!r}; expected one of {POLICIES}")
+    _default_policy = policy or "lse"
 
 
 class FlashAttention(torch.autograd.Function):
@@ -360,7 +376,7 @@ def flash_attention(q: torch.Tensor,
                     decode_lengths: Optional[torch.Tensor] = None,
                     kv_lengths: Optional[torch.Tensor] = None,
                     window: Optional[int] = None,
-                    policy: str = "lse",
+                    policy: Optional[str] = None,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flash attention over BLHD tensors: K3 when ``decode_lengths`` is
@@ -371,6 +387,7 @@ def flash_attention(q: torch.Tensor,
     del generator  # dropout is refused below; the argument mirrors the plain backend
     if bias is not None or mask is not None or dropout_rate > 0.0:
         raise ValueError("the flash backend takes no bias, mask or dropout; use backend='xla'")
+    policy = _default_policy if policy is None else policy
     if policy not in POLICIES:
         raise ValueError(f"unknown flash backward policy {policy!r}; expected one of {POLICIES}")
     if decode_lengths is not None and kv_lengths is not None:

@@ -69,7 +69,7 @@ def _kernel_permute(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{what}: x and idx must lie on one CUDA device")
     if idx.dtype != torch.int32:
         raise ValueError(f"{what}: the CUDA kernel takes int32 indices, got {idx.dtype}")
-    code = build.dtype_code(x, what)
+    code = build.dtype_code(x, what, build.FP16_DTYPES)
     x = x.contiguous()
     idx = idx.contiguous()
     g, n, m = x.shape
@@ -85,7 +85,7 @@ def _kernel_permute(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def moe_permute(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K5: ``out[g, r] = x[g, idx[g, r]]``, a zero row where ``idx[g, r]``
-    is out of ``[0, N)``. The kernel takes fp32 or bf16 ``x`` and int32
+    is out of ``[0, N)``. The kernel takes fp32, bf16 or fp16 ``x`` and int32
     ``idx`` on one CUDA device (non-contiguous operands are copied first);
     a CPU ``x`` gets the plain version."""
     _check_shapes(x, idx)

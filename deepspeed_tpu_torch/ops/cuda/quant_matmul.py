@@ -80,6 +80,7 @@ def _kernel_quant_matmul(x, qw, scale, bits):
         raise ValueError(f"{what}: x, codes and scales must lie on one CUDA device")
     if qw.dtype != torch.int8 or scale.dtype != torch.float32:
         raise ValueError(f"{what}: codes must be int8 and scales float32, got {qw.dtype}, {scale.dtype}")
+    code = build.dtype_code(x, what)
     if x.stride(1) != 1:
         x = x.contiguous()
     qw = qw.contiguous()
@@ -97,7 +98,7 @@ def _kernel_quant_matmul(x, qw, scale, bits):
         counters = build.counters(x.device, -(-m // bm) * -(-n // bn))
     lib = build.load("quant_matmul")
     lib(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), build.ptr(workspace),
-        build.ptr(counters), build.dtype_code(x, what), bits, QMM_BODIES.index(body), m, k, n,
+        build.ptr(counters), code, bits, QMM_BODIES.index(body), m, k, n,
         k // g, x.stride(0), k_chunk, splits, build.stream_ptr(x.device))
     LAUNCHES["quant_matmul"] += 1
     return out

@@ -57,7 +57,28 @@ by an engine without one).
 
 The model holds fp32 master parameters and computes in its config's
 ``dtype``, rounding each parameter to it where it is used (the JAX engine
-casts the whole tree before ``apply``). The JAX engine ran the step as one
+casts the whole tree before ``apply``): bf16 under ``bf16``, fp16 under
+``fp16``. Under fp16 the loss is multiplied by the live loss scale before
+its backward, the step divides the gradients by ``gas * scale`` (JAX
+``engine.py:915``), an overflow is ``has_overflow`` (any non-finite
+gradient; without fp16 a non-finite norm), and after every step the scale
+moves by ``create_loss_scaler``'s rule (``cur_scale``; JAX
+``engine.py:1925``); the scaler's state travels in every checkpoint tag
+(group ``loss_scale``), so a resume under fp16 is bit-exact. Under
+``offload_optimizer`` the device divides before the gradients leave it and
+an overflow skips the host update and cuts the scale (JAX
+``engine.py:1166-1179``).
+
+The optimizer is the config's type (``runtime/optimizers.py``: Adam,
+AdamW, LAMB, Adagrad, SGD, Lion), or a client ``torch.optim.Optimizer`` over
+the engine's parameters (``initialize(optimizer=...)``); its state goes into
+every tag by parameter name. The ``program`` block (and the
+``DS_REMAT_POLICY`` / ``DS_LMHEAD_CHUNK`` env layer) lands on the model's
+config before anything else (JAX ``_apply_program_knobs``); the
+``attention`` block's ``policy`` becomes the flash backend's default;
+``progressive_layer_drop`` anneals theta on the host and hands
+``pld_theta`` to a model that takes it (JAX ``engine.py:365-386``);
+``wall_clock_breakdown`` times ``train_batch`` (``utils/timer.py``). The JAX engine ran the step as one
 jitted program and ``train_batches`` as a ``lax.scan``; here they are
 Python loops over eager PyTorch (a CUDA graph is later work). The
 gradients live in one flat fp32 buffer, each parameter's ``.grad`` a view
@@ -97,8 +118,11 @@ offload) loads its parameters and resets the host moments, with a warning
 (JAX's rebuild rule).
 """
 
+import dataclasses
+import inspect
 import logging
 import os
+import pickle
 import tempfile
 import threading
 import time
@@ -115,16 +139,19 @@ from deepspeed_tpu_torch.models.common import cross_entropy_loss
 from deepspeed_tpu_torch.moe import routing as moe_routing
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
-from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (HOST_OPTIMIZER_GROUP,
                                                                         MODULE_GROUP,
                                                                         OPTIMIZER_GROUP,
                                                                         STATE_DIR,
                                                                         HostSnapshotPool,
                                                                         TorchCheckpointEngine)
-from deepspeed_tpu_torch.runtime.config import ADAMW_OPTIMIZER, DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, DeepSpeedConfig,
+                                                comm_dtype, program_env_updates)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
-from deepspeed_tpu_torch.runtime.fp16.loss_scaler import OverflowWatcher
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState, OverflowWatcher,
+                                                          create_loss_scaler, has_overflow)
+from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.resilience.faults import fault_point
 from deepspeed_tpu_torch.runtime.resilience.manifest import (CheckpointCorruptError,
@@ -136,6 +163,7 @@ from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import NVMeAdam
 from deepspeed_tpu_torch.runtime.utils import global_norm_l2
 from deepspeed_tpu_torch.runtime.zero.param_offload import (ParamStreamer, PartitionedParamSwapper,
                                                             param_streaming, stream_top)
+from deepspeed_tpu_torch.utils.timer import TRAIN_BATCH_TIMER, NoopTimer, SynchronizedWallClockTimer
 
 logger = logging.getLogger(__name__)
 
@@ -144,6 +172,47 @@ LATEST_NAME = "latest"
 DEFAULT_NVME_DIR = "ds_tpu_torch_nvme"
 #: the checkpoint leaf of ``self.generator``'s state
 RNG_KEY = "rng/generator"
+#: the checkpoint group of the fp16 loss scaler's state
+LOSS_SCALE_GROUP = "loss_scale"
+#: the optimizer group's prefix of a client optimizer's state tensors
+CLIENT_PREFIX = "client"
+
+
+def _apply_program_knobs(module, program_config) -> None:
+    """Put the ``program`` block's knobs and the ``DS_REMAT_POLICY`` /
+    ``DS_LMHEAD_CHUNK`` env layer (env wins) onto ``module``'s config (JAX
+    ``_apply_program_knobs``, ``engine.py:114-152``): a block knob the
+    family's config does not declare raises, an env knob warns. The port's
+    modules hold their config, so the replaced config is set on every
+    submodule that held the old one."""
+    cfg_updates = program_config.model_updates()
+    env_updates = program_env_updates()
+    if not cfg_updates and not env_updates:
+        return
+    mcfg = getattr(module, "config", None)
+    if mcfg is None or not dataclasses.is_dataclass(mcfg):
+        if cfg_updates:
+            raise ValueError(f"'program' config block set but {type(module).__name__} carries no "
+                             f"dataclass model config to apply it to")
+        logger.warning("program env override (%s) ignored: %s has no model config",
+                       sorted(env_updates), type(module).__name__)
+        return
+    missing = sorted(f for f in cfg_updates if not hasattr(mcfg, f))
+    if missing:
+        raise ValueError(f"'program' config block sets {missing} but {type(mcfg).__name__} does not "
+                         f"declare those fields — the knob would silently not apply")
+    for f in sorted(set(env_updates) - set(mcfg.__dataclass_fields__)):
+        logger.warning("program env override %s ignored: %s does not declare it",
+                       f, type(mcfg).__name__)
+        env_updates.pop(f)
+    changed = {f: v for f, v in {**cfg_updates, **env_updates}.items() if getattr(mcfg, f) != v}
+    if not changed:
+        return
+    new = dataclasses.replace(mcfg, **changed)
+    for sub in module.modules():
+        for attr in ("config", "cfg"):
+            if getattr(sub, attr, None) is mcfg:
+                object.__setattr__(sub, attr, new)
 
 
 def default_causal_lm_loss(outputs, batch: dict) -> torch.Tensor:
@@ -164,8 +233,10 @@ class DeepSpeedEngine:
 
     def __init__(self, model, config: DeepSpeedConfig, loss_fn: Optional[Callable] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None, device: DeviceLike = None,
-                 training_data=None, collate_fn: Optional[Callable] = None):
+                 training_data=None, collate_fn: Optional[Callable] = None,
+                 optimizer: Optional[torch.optim.Optimizer] = None):
         self.device = resolve_device(device)
+        _apply_program_knobs(model, config.program_config)
         mcfg = model.config
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the engine runs on "
@@ -177,9 +248,39 @@ class DeepSpeedEngine:
         if config.bfloat16_enabled and mcfg.dtype != torch.bfloat16:
             raise ValueError("bf16 is enabled but the model computes in "
                              f"{mcfg.dtype}; build it with {cfg_name}.dtype=torch.bfloat16")
+        if config.fp16_enabled and mcfg.dtype != torch.float16:
+            raise ValueError("fp16 is enabled but the model computes in "
+                             f"{mcfg.dtype}; build it with {cfg_name}.dtype=torch.float16")
         self.module = model
         self.config = config
+        self.client_optimizer = optimizer
         moe_routing.set_default_route(config.moe_route, config.moe_kernel)
+        from deepspeed_tpu_torch.ops.cuda import flash_attention
+        flash_attention.set_default_policy(config.attention_config.policy)
+        # the loss scaler (JAX ``engine.py:241-246``): static 1.0 without fp16
+        if config.fp16_enabled:
+            self._ls_state, self._ls_update = create_loss_scaler(
+                static_loss_scale=config.loss_scale, **config.dynamic_loss_scale_args)
+        else:
+            self._ls_state, self._ls_update = create_loss_scaler(static_loss_scale=1.0)
+        self.timers = (SynchronizedWallClockTimer(self.device) if config.wall_clock_breakdown
+                       else NoopTimer())
+        #: the overflow watcher's monitor events, in order (JAX buffers them
+        #: for its monitor)
+        self.overflow_events: list = []
+        self.progressive_layer_drop = None
+        self._pld_model = False
+        if config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(**config.pld_params)
+            accepts = "pld_theta" in inspect.signature(type(model).forward).parameters
+            flag_on = bool(getattr(mcfg, "progressive_layer_drop", False))
+            self._pld_model = accepts and flag_on
+            if not self._pld_model:
+                logger.warning("progressive_layer_drop enabled but the model will not drop layers "
+                               "(model accepts pld_theta: %s, model config progressive_layer_drop "
+                               "flag: %s) — set progressive_layer_drop=True on a supporting model "
+                               "config, e.g. GPT2Config; theta will anneal but no layers will drop",
+                               accepts, flag_on)
         self.loss_fn = loss_fn or default_causal_lm_loss
         self.lr_scheduler = lr_scheduler
         if self.lr_scheduler is None and config.scheduler_name is not None:
@@ -231,22 +332,34 @@ class DeepSpeedEngine:
             self.enable_preemption_checkpoint(rcfg.preempt_save_dir)
 
     def _configure_optimizer(self):
-        """``FusedAdam`` over the parameters (its moments on the card, also
-        under ``offload_param``), or under ``offload_optimizer`` the host
-        optimizer, with no moment on the card."""
-        if self.config.zero_config.offload_optimizer_device != "none":
+        """The client optimizer; or the config's type over the parameters
+        (``FusedAdam`` by default, its moments on the card, also under
+        ``offload_param``); or under ``offload_optimizer`` the host
+        optimizer, with no moment on the card. The host path runs Adam only:
+        where JAX swaps Adam in for another type, the port refuses it."""
+        name = self.config.optimizer_name or ADAM_OPTIMIZER
+        offload = self.config.zero_config.offload_optimizer_device != "none"
+        if offload or self._param_offload:
+            if self.client_optimizer is not None:
+                raise NotImplementedError("a client optimizer under ZeRO offload: the offloaded "
+                                          "step runs the port's own Adam on the host-resting or "
+                                          "host-mastered parameters")
+            if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+                where = "offload_optimizer" if offload else "offload_param"
+                raise NotImplementedError(f"optimizer {name!r} under {where}: the offloaded step "
+                                          f"runs Adam (JAX runs its host Adam in place of "
+                                          f"{name!r} without a word; the PyTorch port refuses)")
+        if offload:
             return self._setup_offload_optimizer()
-        params = dict(self.config.optimizer_params or {})
-        lr = params.pop("lr", 1e-3)
-        if self.lr_scheduler is not None:
-            lr = self.lr_scheduler
-        adam_w_mode = params.pop("adam_w_mode", self.config.optimizer_name == ADAMW_OPTIMIZER)
-        params.pop("torch_adam", None)
-        params.pop("fused", None)
-        if "betas" in params:
-            params["betas"] = tuple(params["betas"])
-        return FusedAdam(self.module.parameters(), lr=lr, adam_w_mode=adam_w_mode,
-                         state_device=self.device if self._param_offload else None, **params)
+        if self.client_optimizer is not None:
+            own = {id(p) for p in self.module.parameters()}
+            theirs = [p for g in self.client_optimizer.param_groups for p in g["params"]]
+            if any(id(p) not in own for p in theirs):
+                raise ValueError("the client optimizer must hold the engine's model parameters")
+            return self.client_optimizer
+        return build_optimizer(name, self.module.parameters(), self.config.optimizer_params or {},
+                               lr_schedule=self.lr_scheduler,
+                               state_device=self.device if self._param_offload else None)
 
     # -- ZeRO offload (JAX ``engine.py:1110-1354``) ------------------------------
     def _nvme_dir(self, block, leaf: str) -> str:
@@ -352,6 +465,9 @@ class DeepSpeedEngine:
         fused_head = self.loss_fn is default_causal_lm_loss and mcfg.fused_head_loss_chunk > 0
         if fused_head:
             kwargs["labels"] = mb.get("labels", ids)
+        if train and self._pld_model:
+            kwargs.update(deterministic=False, generator=self.generator,
+                          pld_theta=self.progressive_layer_drop.get_theta())
         outputs = self._run_module(ids, **kwargs)
         if not train and moe and isinstance(outputs, (tuple, list)):
             # eval reports the pure cross-entropy: the load-balancing loss
@@ -392,7 +508,11 @@ class DeepSpeedEngine:
         if not self._window_open:
             self._grads.zero_()
             self._window_open = True
-        loss.backward()
+        if self.config.fp16_enabled:
+            (loss * torch.tensor(self._ls_state.loss_scale, dtype=torch.float32,
+                                 device=loss.device)).backward()
+        else:
+            loss.backward()
         self.micro_steps += 1
         return loss
 
@@ -406,15 +526,24 @@ class DeepSpeedEngine:
             return
         cfg = self.config
         grads = self._grads
-        grads.div_(cfg.gradient_accumulation_steps)
+        gas = cfg.gradient_accumulation_steps
+        if cfg.fp16_enabled:
+            # one fp32 divisor, gas * scale, as JAX divides
+            grads.div_(float(torch.tensor(gas, dtype=torch.float32)
+                             * torch.tensor(self._ls_state.loss_scale, dtype=torch.float32)))
+        else:
+            grads.div_(gas)
         if self._retain_grads:
             self._retained_grads = grads.clone()
         gnorm = global_norm_l2([grads])
-        overflow = not bool(torch.isfinite(gnorm))
+        overflow = has_overflow([grads]) if cfg.fp16_enabled else not bool(torch.isfinite(gnorm))
         if cfg.gradient_clipping > 0:
             grads.mul_(torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0))
+        self._ls_state = self._ls_update(self._ls_state, overflow)
         if overflow:
             self.skipped_steps += 1
+            logger.info(f"step {self.global_steps} overflow: skipped update"
+                        + (f", loss scale -> {self.cur_scale}" if cfg.fp16_enabled else ""))
         else:
             self._await_snapshot()
             if self._host_opt is not None:
@@ -428,6 +557,8 @@ class DeepSpeedEngine:
         self._window_open = False
         self.global_steps += 1
         self.global_samples += cfg.train_batch_size
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self._after_boundary(overflow)
 
     def _offload_step(self) -> None:
@@ -539,7 +670,8 @@ class DeepSpeedEngine:
                         payload={"global_step": self.global_steps,
                                  # the training telemetry is not ported yet
                                  "last_span": None, "world_size": 1, "mesh_axes": None})
-        self._overflow_watcher.record(self.global_steps, overflow)
+        self.overflow_events += self._overflow_watcher.record(self.global_steps, overflow,
+                                                              self.cur_scale)
         fault_point("step", step=self.global_steps)
         self._maybe_preempt_checkpoint()
 
@@ -566,6 +698,7 @@ class DeepSpeedEngine:
             batch = next(it)
         cfg = self.config
         gas = cfg.gradient_accumulation_steps
+        self.timers(TRAIN_BATCH_TIMER).start()
         staged = self._stage(batch)
         n = staged["input_ids"].shape[0]
         if n != cfg.train_batch_size:
@@ -577,6 +710,9 @@ class DeepSpeedEngine:
             losses.append(self.forward({k: v[i] for k, v in micro.items()}).detach().float())
             self.backward()
         self.step()
+        self.timers(TRAIN_BATCH_TIMER).stop()
+        if cfg.wall_clock_breakdown and self.global_steps % cfg.steps_per_print == 0:
+            self.timers.log([TRAIN_BATCH_TIMER], memory_breakdown=cfg.memory_breakdown)
         return torch.stack(losses).mean()
 
     def train_batches(self, batch_stack) -> torch.Tensor:
@@ -685,15 +821,64 @@ class DeepSpeedEngine:
         self._ensure_params_resident()
         named = dict(self.module.named_parameters())
         state = {f"{MODULE_GROUP}/{k}": p for k, p in named.items()}
-        if self._host_opt is None:
+        if self.client_optimizer is not None:
+            state.update(self._client_optimizer_state(named))
+        elif self._host_opt is None:
             opt = self.optimizer.named_state(named)
-            for key in ("exp_avg", "exp_avg_sq"):
-                state.update({f"{OPTIMIZER_GROUP}/{key}/{k}": t for k, t in opt[key].items()})
+            for key, by_name in opt.items():
+                if key != "count":
+                    state.update({f"{OPTIMIZER_GROUP}/{key}/{k}": t for k, t in by_name.items()})
             state[f"{OPTIMIZER_GROUP}/count"] = torch.tensor(opt["count"], dtype=torch.int64)
         else:
             state.update(self._host_optimizer_state(named))
         state[RNG_KEY] = self.generator.get_state()
+        if self.config.fp16_enabled:
+            ls = self._ls_state
+            state[f"{LOSS_SCALE_GROUP}/loss_scale"] = torch.tensor(ls.loss_scale, dtype=torch.float32)
+            state[f"{LOSS_SCALE_GROUP}/good_steps"] = torch.tensor(ls.good_steps, dtype=torch.int64)
+            state[f"{LOSS_SCALE_GROUP}/hysteresis"] = torch.tensor(ls.hysteresis, dtype=torch.int64)
         return state
+
+    def _client_optimizer_state(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A client optimizer's per-parameter state tensors (the live ones),
+        keyed ``optimizer/client/<param name>/<state key>``; a number in its
+        state travels as a 0-d tensor."""
+        out = {}
+        for name, p in named.items():
+            for key, value in self.client_optimizer.state.get(p, {}).items():
+                if value is None:
+                    continue
+                if not isinstance(value, torch.Tensor):
+                    value = torch.tensor(value)
+                    self.client_optimizer.state[p][key] = value
+                out[f"{OPTIMIZER_GROUP}/{CLIENT_PREFIX}/{name}/{key}"] = value
+        return out
+
+    def _client_state_like(self, load_dir: str, tag: str,
+                           state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``state`` with the client optimizer's entries made to match the
+        tag's: a state entry the optimizer does not hold yet (a fresh
+        engine, before its first step) is created with the tag's shape and
+        dtype, so that the load fills it in place."""
+        path = os.path.join(load_dir, tag, STATE_DIR, f"{OPTIMIZER_GROUP}.pt")
+        try:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+        except (OSError, EOFError, RuntimeError, ValueError, pickle.UnpicklingError) as e:
+            raise CheckpointCorruptError(f"{path} failed to deserialize: {e}") from e
+        named = dict(self.module.named_parameters())
+        prefix = f"{OPTIMIZER_GROUP}/{CLIENT_PREFIX}/"
+        out = {k: v for k, v in state.items() if not k.startswith(prefix)}
+        for full, t in saved.items():
+            name, slot = full[len(prefix):].rsplit("/", 1) if full.startswith(prefix) else ("", "")
+            if name not in named:
+                continue  # another optimizer's or model's tag: the load names the difference
+            p = named[name]
+            live = self.client_optimizer.state[p].get(slot)
+            if not isinstance(live, torch.Tensor) or live.shape != t.shape or live.dtype != t.dtype:
+                live = torch.zeros_like(t, device=p.device if t.dim() else t.device)
+                self.client_optimizer.state[p][slot] = live
+            out[full] = live
+        return out
 
     def _host_optimizer_state(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The host optimizer's step and moments, keyed by parameter name:
@@ -912,6 +1097,15 @@ class DeepSpeedEngine:
         for cand in candidates:
             cand_state = state
             host_state = None
+            if self.client_optimizer is not None and not load_module_only:
+                try:
+                    cand_state = state = self._client_state_like(load_dir, cand, state)
+                except CheckpointCorruptError as e:
+                    last_err = e
+                    logger.error(f"checkpoint {cand} at {load_dir} is corrupt: {e}")
+                    if not cfg.fallback_on_corruption:
+                        raise
+                    continue
             if self._host_opt is not None:
                 if os.path.exists(os.path.join(load_dir, cand, STATE_DIR, f"{HOST_OPTIMIZER_GROUP}.pt")):
                     host_state = state
@@ -935,7 +1129,9 @@ class DeepSpeedEngine:
         if loaded_tag != tag:
             logger.error(f"fell back from corrupt checkpoint {tag} to the newest older intact "
                          f"tag {loaded_tag}: training resumes from the older state")
-        if self._host_opt is None:
+        if self.client_optimizer is not None:
+            pass  # its state tensors were loaded in place
+        elif self._host_opt is None:
             self.optimizer.count = int(state[f"{OPTIMIZER_GROUP}/count"])
         else:
             reset = host_state is None
@@ -947,10 +1143,17 @@ class DeepSpeedEngine:
                 host_state = None
             self._load_host_optimizer(host_state, reset)
         self.generator.set_state(state[RNG_KEY])
+        if self.config.fp16_enabled:
+            g = LOSS_SCALE_GROUP
+            self._ls_state = LossScaleState(loss_scale=float(state[f"{g}/loss_scale"]),
+                                            good_steps=int(state[f"{g}/good_steps"]),
+                                            hysteresis=int(state[f"{g}/hysteresis"]))
         self.global_steps = meta.get("global_steps", 0)
         self.global_samples = meta.get("global_samples", 0)
         self.micro_steps = meta.get("micro_steps", 0)
         self.skipped_steps = meta.get("skipped_steps", 0)
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self._pending_loss = None
         self._window_open = False
         self.loaded_checkpoint_tag = loaded_tag
@@ -1045,10 +1248,39 @@ class DeepSpeedEngine:
         return self.config.fp16_enabled
 
     def dynamic_loss_scale(self) -> bool:
-        return False  # fp16, and with it loss scaling, is refused by the config
+        """``loss_scale`` 0 under fp16 (JAX ``engine.py:2594``)."""
+        return bool(self.config.fp16_enabled and self.config.fp16_config.loss_scale == 0)
+
+    @property
+    def cur_scale(self) -> float:
+        """The live loss scale (1.0 outside fp16; JAX ``engine.py:2562``)."""
+        return float(self._ls_state.loss_scale)
+
+    def get_loss_scale(self) -> float:
+        return self.cur_scale
+
+    @property
+    def loss_scale_state(self) -> LossScaleState:
+        return self._ls_state
 
     def wall_clock_breakdown(self) -> bool:
-        return False
+        return bool(self.config.wall_clock_breakdown)
+
+    @property
+    def communication_data_type(self) -> torch.dtype:
+        """The dtype gradients would reduce in (JAX ``engine.py:2619``): the
+        configured one, else fp16 or bf16 as the precision is, else fp32.
+        One card reduces nothing."""
+        resolved = comm_dtype(self.config.communication_data_type)
+        if resolved is not None:
+            return getattr(torch, resolved)
+        if self.config.communication_data_type is not None:
+            return torch.float32
+        if self.fp16_enabled():
+            return torch.float16
+        if self.bfloat16_enabled():
+            return torch.bfloat16
+        return torch.float32
 
     def zero_offload_optimizer(self):
         """The ``offload_optimizer`` block (None when the config has none)."""
@@ -1059,7 +1291,7 @@ class DeepSpeedEngine:
         return self.config.zero_config.offload_param
 
     def sparse_gradients_enabled(self) -> bool:
-        return False
+        return bool(self.config.sparse_gradients_enabled)
 
     def get_lr(self):
         if self.lr_scheduler is not None:

@@ -503,8 +503,8 @@ def test_moe_permute_refuses_what_the_kernel_does_not_take(gen):
     x = _randn(gen, 1, 8, 16, dtype=torch.float32)
     with pytest.raises(ValueError, match="int32"):
         md.moe_permute(x, torch.zeros(1, 4, dtype=torch.int64, device="cuda"))
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        md.moe_permute(x.half(), torch.zeros(1, 4, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="float32 or bfloat16 or float16"):
+        md.moe_permute(x.double(), torch.zeros(1, 4, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="one CUDA device"):
         md.moe_permute(x, torch.zeros(1, 4, dtype=torch.int32))
 

@@ -116,7 +116,11 @@ def test_hang_is_detected_killed_and_restarted(tmp_path):
     """``step=hang@2``: the heartbeat goes silent after step 2's touch; the
     agent kills the child after ``heartbeat_timeout`` and the relaunch
     completes from ``global_step1``."""
-    rc, agent, rows, _ = _run_agent(tmp_path, "step=hang@2", heartbeat_timeout=3.0)
+    # The budget covers the child's longest silence that is no hang: its
+    # interpreter's exit after the last heartbeat (1.3 s idle, up to 6.8 s
+    # with 16 busy processes on 8 CPU cores; a step and its save
+    # stay under 0.3 s), with twice that as headroom. JAX's test gives 30 s.
+    rc, agent, rows, _ = _run_agent(tmp_path, "step=hang@2", heartbeat_timeout=15.0)
     assert rc == 0 and agent.restart_count == 1, agent.history
     assert "heartbeat silent" in agent.history[0]["reason"], agent.history
     assert agent.history[0]["rc"] not in (0, None)

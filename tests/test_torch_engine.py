@@ -220,14 +220,14 @@ def test_dropout_is_seeded_and_survives_remat(jax_run):
         engine.train_batch(_batches(1)[0])
 
 
-@pytest.mark.parametrize("block", [dict(fp16={"enabled": True}),
+@pytest.mark.parametrize("block", [dict(telemetry={"enabled": True}),
                                    dict(zero_optimization={"stage": 1, "mics_shard_size": 2}),
                                    dict(zero_optimization={"stage": 3,
                                                            "offload_param": {"device": "cpu"},
                                                            "zero_hpz_partition_size": 2}),
-                                   dict(optimizer={"type": "Lamb", "params": {}}),
+                                   dict(optimizer={"type": "OneBitLamb", "params": {}}),
                                    dict(pipeline={"stages": 2})],
-                         ids=["fp16", "zero1", "offload", "lamb", "pipeline"])
+                         ids=["telemetry", "zero1", "offload", "onebitlamb", "pipeline"])
 def test_config_refuses_later_slices(jax_run, block):
     with pytest.raises(NotImplementedError, match="slice"):
         _port_engine(jax_run["init"], dict(CONFIG, **block))

@@ -178,9 +178,18 @@ def test_slot_decode_int8_kv_matches_jax(jax_side, backend, weight_dtype):
     assert written[:8].all() and not written[8:].any()
 
 
-@pytest.mark.parametrize("field,value", [("remat_policy", "dots_saveable"),
-                                         ("progressive_layer_drop", True),
-                                         ("attention_blocks", "block_q=64")])
+@pytest.mark.parametrize("field,value", [("attention_blocks", "block_q=64")])
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError):
         get_gpt2_config("test", **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("remat_policy", "dots_saveable"),
+                                         ("progressive_layer_drop", True),
+                                         ("attn_fused_qkv", False), ("attn_fused_out", False)])
+def test_training_config_fields_are_taken(field, value):
+    """The JAX fields that the remat-policy, PLD and program-form slice
+    brought: taken, and an unknown remat policy raises as JAX's does."""
+    assert getattr(get_gpt2_config("test", **{field: value}), field) == value
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        get_gpt2_config("test", remat_policy="dots")

@@ -238,11 +238,18 @@ def test_scheduler_refuses_llama():
         ContinuousBatchingScheduler(engine)
 
 
-@pytest.mark.parametrize("field,value", [("remat_policy", "dots"),
-                                         ("attention_blocks", "block_q=64")])
+@pytest.mark.parametrize("field,value", [("attention_blocks", "block_q=64")])
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         get_llama_config("test", **{field: value})
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable",
+                                    "dots_with_no_batch_dims_saveable", "everything_saveable"])
+def test_remat_policy_is_taken(policy):
+    assert get_llama_config("test", remat=True, remat_policy=policy).remat_policy == policy
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        get_llama_config("test", remat_policy="dots")
 
 
 # ---------------------------------------------------------------------------

@@ -288,11 +288,6 @@ def test_contract_errors(case):
         _engine(block)
 
 
-def test_fp16_stays_refused_under_offload():
-    with pytest.raises(NotImplementedError, match="fp16"):
-        _engine(COMBOS["offload_optimizer"], fp16={"enabled": True})
-
-
 @pytest.mark.parametrize("cls,jax_cls", [(DeepSpeedZeroConfig, JaxZeroConfig),
                                          (DeepSpeedZeroOffloadParamConfig, JaxOffParam),
                                          (DeepSpeedZeroOffloadOptimizerConfig, JaxOffOpt)],
