@@ -160,7 +160,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               seq 512; (b) Mistral-7b's width at 1 layer
               (GQA 32/8, FFN 14336) with ``sliding_window`` overridden from 4096 to 256 at
               seq 1024, so that the window mask bites in K1 and K4.
-13. LLaMA-7b serving — 16 of its 32 layers, 32 heads
+13. LLaMA-7b serving — 8 of its 32 layers, 32 heads
               of 128, cache 2048, bf16
               (random seeded weights), ``init_inference(kernel_inject=True,
               use_flash_prefill=True)``: ``forward`` on [4, 2048] (K1 once a
@@ -251,7 +251,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               run's routing, injected at the gate; the fp32 sides must route
               alike); at 2 layers in fp32, lockstep ``generate`` against the
               scheduler, one request at a time, token for token; (b)
-              Mixtral-8x7B at 8 of its 32 layers, bf16: ``forward`` on [4,
+              Mixtral-8x7B at 4 of its 32 layers, bf16: ``forward`` on [4,
               2048] and ``generate`` of 1 and 64 greedy tokens after 4
               prompts of 512, K1, K3 and K5 counts asserted, tokens/s, ms per
               token step, TTFT, peak memory, the first prefill chunk's and
@@ -311,8 +311,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               sequences appended across page edges, gathered, K3 on the
               view against its plain version. Its tags live in a temp dir,
               deleted at the end.
-18. the serving fleet — GPT-2 350m (full width and depth, random seeded
-              weights) behind ``inference.fleet.FleetRouter``, 16 greedy
+18. the serving fleet — GPT-2 350m (full width; (a) at 12 of its 24
+              layers, (b) at all 24; random seeded weights) behind ``inference.fleet.FleetRouter``, 16 greedy
               requests submitted at once (prompts of 64-512 tokens from 4
               shared 256-token prefixes, 64 new tokens each; cut from 32
               for the script's time limit). (a) Two
@@ -360,7 +360,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               needs 12 bytes a parameter, checked against ``MemAvailable``),
               seq 2048, micro-batch 1, bf16 over fp32 masters, remat, flash,
               the fused head, through ``initialize`` with ``stage 3,
-              offload_param cpu, offload_optimizer cpu``: 1 + 2 steps by
+              offload_param cpu, offload_optimizer cpu``: 1 + 1 steps by
               ``forward``/``backward``/``step``, each split into device
               gradients (with the parameter streaming's device ms and GB),
               the host Adam, and the waits on the gradients' copies to the
@@ -380,6 +380,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
               ``aio_direct_fallbacks``. (d) (b)'s host-Adam run saved after
               step 1 and resumed by a fresh engine: steps 2-3 bit-equal.
               Its files live in a temp dir, removed at the end.
+20. fp16 and the training config — (a) the fp16 instances of K1 and K4
+              at [8,1024,16,64] and [4,2048,16,128] causal and of K5 at
+              [1,8192,1024], each against its plain version, timed beside
+              SDPA's fp16 call and its bound, and K4 on operands whose dS
+              passes fp16's 65504. (b) GPT-2 350m at full width and depth
+              (seq 1024, micro-batch 8, remat, flash, the fused head) under
+              ``fp16`` at JAX's defaults through ``initialize``: 4 steps
+              (the main path; K1 48 and K4 24 a step); the same model on
+              the kernels and on their fp32-math plain versions from 2^20
+              with a window and hysteresis of 1, so that the scale climbs to
+              where the step overflows: the same skips and scales, losses
+              within ``TWIN_LOSS_TOL``; JAX's overflow case (2^40: step 1
+              skipped, the scale halved, the parameters bit-equal); a save
+              after step 2 resumed by a fresh engine, steps 3-4 bit-equal.
+              (c)-(f) at 4 of its 24 layers: the remat policies (first-step
+              gradients against remat off, peak memory), LAMB, Adagrad, SGD
+              and Lion, progressive layer drop (theta against its formula)
+              and an fp16 MoE model on K5.
 
 A device time that ``torch.profiler`` fails to record (its profiles have
 come back empty on the card, early and late in a run) is timed with CUDA
@@ -395,7 +413,7 @@ that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
 resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
 alone, ``--phases fleet`` phase 4 and phase 18, ``--phases offload`` phase 19
-alone. Details go to
+alone, ``--phases fp16`` phase 20 alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -3051,9 +3069,9 @@ def _profile_generate(engine, prompts: np.ndarray, card: str, new_tokens: int = 
     return out
 
 
-#: phase 13's depth: LLaMA-7b at 16 of its 32 layers, to keep the script
-#: inside its limit beside phase 19
-LLAMA_SERVE_LAYERS = 16
+#: phase 13's depth: LLaMA-7b at 8 of its 32 layers, to keep the script
+#: inside its limit (16 until the whole script took 1237 s on a slow host)
+LLAMA_SERVE_LAYERS = 8
 
 
 def llama_serving_phase(seed: int, card: str):
@@ -4207,8 +4225,9 @@ MOE_SERVE_MODEL = dict(moe_num_experts=8, moe_layer_freq=2, moe_k=1)
 #: layers (3.16 B parameters, 50.6 GB of fp32 masters, gradients and Adam
 #: moments) the step ran out of the card's 79 GiB in ``FusedAdam.step``,
 #: whose ``torch._foreach_*`` temporaries take about three times the fp32
-#: parameter bytes; 1 layer (1.71 B parameters) fits
-MIXTRAL_SERVE_LAYERS = 8
+#: parameter bytes; 1 layer (1.71 B parameters) fits. Serving runs 4 layers
+#: (8 until the whole script took 1237 s on a slow host)
+MIXTRAL_SERVE_LAYERS = 4
 MIXTRAL_TRAIN_LAYERS = 1
 
 
@@ -4527,11 +4546,11 @@ def mixtral_config(layers: int, **over):
 
 
 def mixtral_serving_phase(seed: int, card: str):
-    """Phase 16 (b): Mixtral-8x7B at 8 of its 32 layers, bf16, random seeded
+    """Phase 16 (b): Mixtral-8x7B at ``MIXTRAL_SERVE_LAYERS`` of its 32 layers, bf16, random seeded
     weights, through ``init_inference(kernel_inject=True,
     use_flash_prefill=True)``: ``forward`` on [4, 2048], then ``generate`` of
     1 and of 64 greedy tokens after 4 prompts of 512, launch counts zeroed
-    just before and read just after (K1 8 on the forward; K3 and K5 on
+    just before and read just after (K1 once a layer on the forward; K3 and K5 on
     every cached call); then the first prefill chunk's and decode step's
     logits at ``GRADCHECK_LAYERS``, card against CPU."""
     from deepspeed_tpu_torch import LlamaForCausalLM, init_inference
@@ -5480,6 +5499,9 @@ def rlhf_phase(seed: int, card: str, times: dict = None):
 #: phase 18's trace: 16 greedy requests of 64 new tokens (cut from 32 for
 #: the script's time limit), served by replicas of 8 slots
 FLEET_REQUESTS, FLEET_NEW, FLEET_SLOTS = 16, 64, 8
+#: phase 18 (a)'s depth: 12 of GPT-2 350m's 24 layers (24 until the whole
+#: script took 1237 s on a slow host); (b)'s workers build all 24
+FLEET_INPROCESS_LAYERS = 12
 #: the kernels phase 18 (a)'s path runs (int8 weights: K2; the flash backend: K3)
 FLEET_KERNELS = ("quant_matmul", "flash_decode")
 #: the subprocess workers' knobs (GPT-2 350m at its full context, 8 slots;
@@ -5792,7 +5814,8 @@ def _fleet_checks(what: str, run: dict, n: int, signal: str) -> None:
 
 
 def fleet_inprocess(seed: int, card: str, rounding: float, work: str):
-    """Phase 18 (a): two ``LocalReplica``s of GPT-2 350m (bf16, int8
+    """Phase 18 (a): two ``LocalReplica``s of GPT-2 350m at
+    ``FLEET_INPROCESS_LAYERS`` (bf16, int8
     weights, int8 KV, the prefix cache on: every ``ServingConfig`` field but
     ``slots`` and ``weight_dtype`` at its default) under one ``FleetRouter``,
     on the phase's trace: against one uninterrupted scheduler, a SIGTERM
@@ -5810,7 +5833,8 @@ def fleet_inprocess(seed: int, card: str, rounding: float, work: str):
             total[k] = total.get(k, 0) + v
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 18)
-    cfg = get_gpt2_config("350m", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = get_gpt2_config("350m", n_layer=FLEET_INPROCESS_LAYERS, dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16)
     engine = init_inference(GPT2LMHeadModel(cfg, device="cuda", generator=gen), dtype="bf16",
                             kernel_inject=True, use_flash_prefill=True)
     trace = fleet_trace(np.random.default_rng(seed + 18), cfg.vocab_size)
@@ -6165,7 +6189,15 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int = 2):
+def card_allocated_gb(what: str) -> float:
+    """The card memory allocated before ``what`` starts, logged."""
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    log(f"card memory allocated before {what}: {gb:.2f} GB")
+    return gb
+
+
+def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int = 1):
     """(a) LLaMA-7b's width at ``layers`` through ``initialize`` under both
     cpu offloads; each step by ``forward``, ``backward`` and ``step``, timed
     by part, launches counted around the steps."""
@@ -6546,6 +6578,13 @@ FP16_POLICIES = ("nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_s
                  "everything_saveable")
 #: phase 20 (c)'s bound on a policy's first-step gradients against remat off
 REMAT_GRAD_TOL = 1e-3
+#: phase 20 (b)'s boundary run: the fp16 block that walks the scale up to
+#: where the 350m step overflows and back, one doubling or halving a step
+FP16_BOUNDARY = {"enabled": True, "initial_scale_power": 20, "loss_scale_window": 1, "hysteresis": 1}
+FP16_BOUNDARY_STEPS = 6
+#: its bound on |loss(K1, K4) - loss(plain)| / |loss(plain)| at each step
+#: (fp16 rounding of o, lse and the gradients; 1.5e-6 measured at 2^16)
+TWIN_LOSS_TOL = 1e-4
 
 
 def fp16_config(micro: int, optimizer=None, **over) -> dict:
@@ -6637,12 +6676,7 @@ def fp16_kernel_lines(gen) -> dict:
     kw = dict(scale=d**-0.5, causal=True)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * kw["scale"], k.float())
-    p = torch.exp(s - lse[..., None]) * fa.live_pairs(l, l, True, None, None, dev)
-    del s
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds_max = (p * (dp - (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None])).abs().max().item()
-    del p, dp
+    ds_max = plain_ds_max(q, k, v, o, lse, do, **kw)
     got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
     plain_overflow = not all(bool(torch.isfinite(r).all()) for r in ref)
     kernel_overflow = not all(bool(torch.isfinite(g).all()) for g in got)
@@ -6680,6 +6714,18 @@ def fp16_kernel_lines(gen) -> dict:
     return lines
 
 
+def plain_ds_max(q, k, v, o, lse, do, *, scale: float, causal: bool, **_) -> float:
+    """max |dS| of the fp32-math plain K4 (``ds = p (dp - delta)``) on
+    these operands: what an fp16 dS would have to hold."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    p = torch.exp(s - lse[..., None]) * fa.live_pairs(q.shape[1], k.shape[1], causal, None, None,
+                                                      q.device)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return (p * (dp - (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None])).abs().max().item()
+
+
 def _step_record(engine, t_ms: float, counts: dict) -> dict:
     return dict(loss=None, cur_scale=engine.cur_scale, skipped_steps=engine.skipped_steps,
                 step_ms=t_ms, flash_fwd=counts.get("flash_fwd", 0), flash_bwd=counts.get("flash_bwd", 0))
@@ -6708,14 +6754,21 @@ def _fp16_steps(engine, batches, card: str, label: str) -> list:
 
 
 @contextlib.contextmanager
-def plain_flash():
+def plain_flash(ds_max=None):
     """Route the flash backend's K1 and K4 calls through their fp32-math
     plain versions on the card (the comparison run of (b); these launches
-    are no kernel launches)."""
+    are no kernel launches). With ``ds_max``, each backward appends its max
+    |dS| there."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     saved = fa.flash_fwd, fa.flash_bwd
+
+    def bwd(q, k, v, o, lse, do, **kw):
+        if ds_max is not None:
+            ds_max.append(plain_ds_max(q, k, v, o, lse, do, **kw))
+        return fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+
     fa.flash_fwd = lambda q, k, v, **kw: fa.flash_fwd_plain(q, k, v, **kw)
-    fa.flash_bwd = lambda q, k, v, o, lse, do, **kw: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    fa.flash_bwd = bwd
     try:
         yield
     finally:
@@ -6725,9 +6778,9 @@ def plain_flash():
 def fp16_train(seed: int, card: str, work: str, steps: int = 4) -> tuple:
     """(b) GPT-2 350m at full width and depth (seq 1024, micro-batch 8,
     remat, flash, fused head) under fp16 at JAX's defaults, with
-    ``wall_clock_breakdown``: the main path. Then the same first two steps
-    with K1 and K4 replaced by their fp32-math plain versions (the same
-    skips); JAX's overflow case (``initial_scale_power`` 40, hysteresis 1:
+    ``wall_clock_breakdown``: the main path. Then the kernels against their
+    fp32-math plain versions at the overflow boundary (:func:`fp16_boundary`);
+    JAX's overflow case (``initial_scale_power`` 40, hysteresis 1:
     the first step skipped, the scale cut, the parameters bit-equal); a save
     after step 2 and a fresh engine's resume, its steps 3-4 bit-equal."""
     from deepspeed_tpu_torch import initialize
@@ -6763,19 +6816,7 @@ def fp16_train(seed: int, card: str, work: str, steps: int = 4) -> tuple:
     del engine
     _free()
 
-    # the same first two steps with the plain versions: the same skips
-    model = fp16_gpt2(seed + 20)
-    plain = initialize(model=model, config=fp16_config(micro))[0]
-    del model
-    with plain_flash():
-        plain_rows = _fp16_steps(plain, batches[:2], card, "350m, K1/K4 plain")
-    if [r["skipped_steps"] for r in plain_rows] != [r["skipped_steps"] for r in rows[:2]]:
-        raise AssertionError(f"fp16 (b): the kernels skip {[r['skipped_steps'] for r in rows[:2]]}, "
-                             f"the plain versions {[r['skipped_steps'] for r in plain_rows]}")
-    plain_losses = [r["loss"] for r in plain_rows]
-    del plain
-    _free()
-
+    boundary = fp16_boundary(seed, card, micro, seq)
     # a fresh engine resumes the step-2 tag: steps 3-4 bit-equal
     model = fp16_gpt2(seed + 21)
     resumed = initialize(model=model, config=fp16_config(micro))[0]
@@ -6805,15 +6846,68 @@ def fp16_train(seed: int, card: str, work: str, steps: int = 4) -> tuple:
     del over, before
     _free()
     out = dict(n_params=n_params, steps=rows, launches=counts, launches_per_step=per_step,
-               peak_memory_gb=peak, train_batch_timer_ms=timer_ms, plain_steps=plain_rows,
-               plain_losses=plain_losses, save_s=save_s, load_s=load_s, resumed_steps=resumed_rows,
+               peak_memory_gb=peak, train_batch_timer_ms=timer_ms, boundary=boundary,
+               save_s=save_s, load_s=load_s, resumed_steps=resumed_rows,
                resume_bit_equal=True, overflow_case=dict(steps=over_rows, skipped=1, cur_scale=2.0**39,
                                                          params_bit_equal=True))
     log(f"fp16 (b): GPT-2 350m ({n_params} params) fp16, losses {losses}, K1 {per_step['flash_fwd']:.0f} "
-        f"and K4 {per_step['flash_bwd']:.0f} a step, peak {peak:.2f} GB; the plain versions skip the same "
-        f"steps (losses {plain_losses}); a 2^40 scale skipped step 1, cut to 2^39, parameters bit-equal; "
+        f"and K4 {per_step['flash_bwd']:.0f} a step, peak {peak:.2f} GB; at the overflow boundary the "
+        f"plain versions skip the same steps {boundary['skipped']}; a 2^40 scale skipped step 1, cut to "
+        f"2^39, parameters bit-equal; "
         f"save {save_s:.1f} s, resume {load_s:.1f} s, steps 3-4 bit-equal  [{card}]")
     return out, counts
+
+
+def fp16_boundary(seed: int, card: str, micro: int, seq: int) -> dict:
+    """(b) The kernels against their fp32-math plain versions where skips
+    happen: two 350m engines from one seed under ``FP16_BOUNDARY`` (2^20,
+    the scale doubled after every good step and halved on every overflow)
+    take the same ``FP16_BOUNDARY_STEPS`` batches, one on K1 and K4, one on
+    the plain versions. Each step's skip and scale must agree, the losses
+    within ``TWIN_LOSS_TOL``, and the run must both skip and not skip; the
+    plain backward's max |dS| of each step is recorded beside fp16's 65504."""
+    from deepspeed_tpu_torch import initialize
+    rng = np.random.default_rng(seed + 22)
+    batches = [{"input_ids": rng.integers(0, 50304, (micro, seq)).astype(np.int32)}
+               for _ in range(FP16_BOUNDARY_STEPS)]
+    config = fp16_config(micro, fp16=dict(FP16_BOUNDARY))
+    runs = {}
+    for kind in ("kernels", "plain"):
+        model = fp16_gpt2(seed + 20)
+        engine = initialize(model=model, config=config)[0]
+        del model
+        ds = []
+        if kind == "plain":
+            with plain_flash(ds):
+                rows = _fp16_steps(engine, batches, card, "350m at the overflow boundary, K1/K4 plain")
+        else:
+            rows = _fp16_steps(engine, batches, card, "350m at the overflow boundary")
+        runs[kind] = dict(rows=rows, ds_max=ds)
+        del engine
+        _free()
+    per_step = len(runs["plain"]["ds_max"]) // FP16_BOUNDARY_STEPS
+    ds_step = [max(runs["plain"]["ds_max"][i * per_step:(i + 1) * per_step])
+               for i in range(FP16_BOUNDARY_STEPS)]
+    skipped = {k: [r["skipped_steps"] for r in v["rows"]] for k, v in runs.items()}
+    scales = {k: [r["cur_scale"] for r in v["rows"]] for k, v in runs.items()}
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(runs["kernels"]["rows"], runs["plain"]["rows"]))
+    if skipped["kernels"] != skipped["plain"] or scales["kernels"] != scales["plain"]:
+        raise AssertionError(f"fp16 (b) boundary: the kernels skip {skipped['kernels']} at scales "
+                             f"{scales['kernels']}, the plain versions {skipped['plain']} at {scales['plain']}")
+    if not 0 < skipped["plain"][-1] < FP16_BOUNDARY_STEPS:
+        raise AssertionError(f"fp16 (b) boundary: skipped {skipped['plain']}: the run did not reach the "
+                             f"overflow boundary, so it tests nothing")
+    if loss_err > TWIN_LOSS_TOL:
+        raise AssertionError(f"fp16 (b) boundary: losses differ by {loss_err:.3e} of the plain loss "
+                             f"(> {TWIN_LOSS_TOL})")
+    log(f"fp16 (b) boundary: from 2^20, window 1, hysteresis 1: the kernels and the plain versions skip "
+        f"{skipped['plain']} at post-step scales {scales['plain']}; losses within {loss_err:.2e} "
+        f"(tol {TWIN_LOSS_TOL}); the plain max |dS| a step {[f'{d:.4g}' for d in ds_step]} "
+        f"(fp16 holds 65504)  [{card}]")
+    return dict(config=FP16_BOUNDARY, skipped=skipped["plain"], post_step_scales=scales["plain"],
+                loss_rel_err=loss_err, plain_max_ds_per_step=ds_step,
+                kernels_steps=runs["kernels"]["rows"], plain_steps=runs["plain"]["rows"])
 
 
 def _engine_at(seed: int, layers: int, config: dict, **model_kw):
@@ -6984,135 +7078,6 @@ def fp16_phase(seed: int, card: str):
     return out, counts
 
 
-def _cyclic_garbage_owners(min_bytes: int) -> dict:
-    """Collect the reference cycles nobody can reach any more, keeping them
-    (``gc.DEBUG_SAVEALL``) long enough to weigh the CUDA storages among them
-    and name the objects of the port or of this script in those cycles;
-    then release them. Returns the card bytes freed and those names."""
-    import gc
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    gc.set_debug(gc.DEBUG_SAVEALL)
-    try:
-        gc.collect()
-        garbage = list(gc.garbage)
-        del gc.garbage[:]
-    finally:
-        gc.set_debug(0)
-    sizes, names = {}, {}
-    for obj in garbage:
-        try:
-            if isinstance(obj, torch.Tensor) and obj.is_cuda:
-                st = obj.untyped_storage()
-                sizes[st.data_ptr()] = st.nbytes()
-                continue
-        except Exception:  # noqa: BLE001 (a freed or meta storage)
-            continue
-        mod = type(obj).__module__ or ""
-        if mod.startswith("deepspeed_tpu_torch") or mod == "__main__":
-            key = f"{mod}.{type(obj).__name__}"
-            names[key] = names.get(key, 0) + 1
-    del garbage
-    gc.collect()
-    torch.cuda.synchronize()
-    freed = before - torch.cuda.memory_allocated()
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:20]
-    out = dict(cyclic_garbage_gb=sum(n for n in sizes.values() if n >= 0) / 1e9,
-               freed_by_collecting_gb=freed / 1e9, storages=len(sizes),
-               big_storages=sum(n >= min_bytes for n in sizes.values()),
-               objects_in_the_cycles=dict(top))
-    log(f"card memory in unreachable reference cycles: {out['cyclic_garbage_gb']:.2f} GB in "
-        f"{out['storages']} storages, {out['freed_by_collecting_gb']:.2f} GB freed by collecting them; "
-        f"the port's and this script's objects among them: "
-        + ", ".join(f"{k} x{v}" for k, v in top))
-    return out
-
-
-def cuda_memory_owners(top: int = 8, min_bytes: int = 16 << 20) -> dict:
-    """What holds the card's allocated memory: first the reference cycles
-    that nothing reaches any more (:func:`_cyclic_garbage_owners`, which
-    frees them), then the caching allocator's totals and
-    ``torch.cuda.memory_snapshot()``'s allocated blocks, and the CUDA
-    tensors the garbage collector can reach, by storage, each with the
-    chain of objects that refer to it (the first few types up to an object
-    of the port or of this script, or a module's globals). Bytes that no
-    reachable tensor accounts for are held outside Python (an autograd
-    graph's saved tensors, the libraries' workspaces, say)."""
-    import gc
-    torch.cuda.synchronize()
-    allocated_before = torch.cuda.memory_allocated()
-    cycles = _cyclic_garbage_owners(min_bytes)
-    torch.cuda.synchronize()
-    snap = torch.cuda.memory_snapshot()
-    blocks = [b for seg in snap for b in seg["blocks"] if b["state"] == "active_allocated"]
-    out = dict(allocated_before_collecting_gb=allocated_before / 1e9, cycles=cycles,
-               allocated_gb=torch.cuda.memory_allocated() / 1e9,
-               reserved_gb=torch.cuda.memory_reserved() / 1e9,
-               snapshot_allocated_gb=sum(b["size"] for b in blocks) / 1e9,
-               snapshot_blocks=len(blocks), owners=[])
-    storages = {}
-    for obj in gc.get_objects():
-        try:
-            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
-                continue
-            st = obj.untyped_storage()
-        except Exception:  # noqa: BLE001 (a tensor subclass or a freed storage)
-            continue
-        entry = storages.setdefault(st.data_ptr(), [st.nbytes(), []])
-        entry[1].append(obj)
-    out["reachable_gb"] = sum(n for n, _ in storages.values()) / 1e9
-    ignore = {id(storages), id(out)}
-
-    def chain(obj, depth: int = 6) -> list:
-        path, seen = [], {id(obj)}
-        for _ in range(depth):
-            refs = [r for r in gc.get_referrers(obj) if id(r) not in seen and id(r) not in ignore
-                    and not isinstance(r, type(sys._getframe()))]
-            if not refs:
-                break
-            # a __dict__ stands for its owner; prefer an object of the port
-            pick = None
-            for r in refs:
-                if isinstance(r, dict):
-                    owners = [o for o in gc.get_referrers(r) if getattr(o, "__dict__", None) is r]
-                    if owners:
-                        r = owners[0]
-                    elif "__name__" in r:
-                        path.append(f"module {r['__name__']} globals")
-                        return path
-                mod = type(r).__module__ or ""
-                if mod.startswith("deepspeed_tpu_torch") or mod == "__main__":
-                    pick = r
-                    break
-                if pick is None:
-                    pick = r
-            seen.add(id(pick))
-            path.append(f"{type(pick).__module__}.{type(pick).__name__}")
-            if (type(pick).__module__ or "").startswith("deepspeed_tpu_torch"):
-                break
-            obj = pick
-        return path
-
-    big = sorted(((n, ts) for n, ts in storages.values() if n >= min_bytes), key=lambda e: -e[0])
-    groups = {}
-    for n, ts in big:
-        t = ts[0]
-        key = " <- ".join(chain(t)) or "no referrer"
-        g = groups.setdefault(key, dict(owner=key, gb=0.0, storages=0, example=None))
-        g["gb"] += n / 1e9
-        g["storages"] += 1
-        g["example"] = g["example"] or f"{tuple(t.shape)} {t.dtype}"
-    out["owners"] = sorted(groups.values(), key=lambda g: -g["gb"])[:top]
-    out["unaccounted_gb"] = out["allocated_gb"] - out["reachable_gb"]
-    log(f"card memory: {out['allocated_before_collecting_gb']:.2f} GB allocated before collecting, "
-        f"{out['allocated_gb']:.2f} GB after ({out['reserved_gb']:.2f} reserved; "
-        f"{out['snapshot_blocks']} blocks in the snapshot), {out['reachable_gb']:.2f} GB in tensors "
-        f"Python reaches, {out['unaccounted_gb']:.2f} GB held elsewhere")
-    for g in out["owners"]:
-        log(f"  {g['gb']:.3f} GB in {g['storages']} storages (e.g. {g['example']}): {g['owner']}")
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7265,18 +7230,21 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["rlhf"], rlhf_counts = rlhf_phase(args.seed, card, times_17)
         phase_s["17 RLHF and the inference engine"] = time.perf_counter() - t_phase
-        torch.cuda.empty_cache()
+        # phases 17 and 18 wrap methods of their schedulers and engines with
+        # closures that hold the object (``_timed_ticks``, ``_timed_calls``,
+        # ``_count_syncs``, ...): reference cycles, which only the cyclic
+        # collector frees
+        _free()
         t_phase = time.perf_counter()
         RESULTS["fleet"], fleet_counts = fleet_phase(args.seed, card, measured_rounding(RESULTS["slice"]))
         phase_s["18 the serving fleet"] = time.perf_counter() - t_phase
-        torch.cuda.empty_cache()
-        # what the earlier phases leave on the card (ROADMAP.md Queue C)
-        RESULTS["phase19_start_memory"] = cuda_memory_owners()
+        _free()
+        RESULTS["phase19_start_allocated_gb"] = card_allocated_gb("phase 19")
         t_phase = time.perf_counter()
         RESULTS["offload"], offload_counts = offload_phase(args.seed, card, args.offload_layers)
         phase_s["19 ZeRO-Offload and ZeRO-Infinity"] = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
-        RESULTS["phase20_start_memory"] = cuda_memory_owners()
+        RESULTS["phase20_start_allocated_gb"] = card_allocated_gb("phase 20")
         t_phase = time.perf_counter()
         RESULTS["fp16"], fp16_counts = fp16_phase(args.seed, card)
         phase_s["20 fp16 and the training config"] = time.perf_counter() - t_phase

@@ -39,11 +39,11 @@ every leaf under ``moe`` in fp. The pipeline adapters belong to a later
 slice.
 
 ``remat_policy`` names what a checkpointed block keeps
-(``runtime/activation_checkpointing``). ``attn_fused_qkv=False`` runs the
-QKV projection as three products over slices of the one ``[E, 3, H, D]``
-kernel, ``attn_fused_out=False`` the attention-out projection as an
-explicit ``[B, L, H*D]`` reshape and a 2-D product: JAX's program forms,
-over the same parameters. With ``progressive_layer_drop`` and a
+(``runtime/activation_checkpointing``); ``attention_policy`` is the flash
+backward's (``"lse"`` or ``"recompute"``). ``attn_fused_qkv`` and
+``attn_fused_out`` are taken and inert: in JAX they choose how XLA's
+program contracts the same parameters, and torch runs either form as the
+same product. With ``progressive_layer_drop`` and a
 ``pld_theta`` from the engine, training keeps each sublayer (attention,
 MLP or MoE) of block i with probability ``1 - (i + 1) / n_layer * (1 -
 theta)`` (JAX ``gpt2.py:536-542``), drawn from the caller's generator, and
@@ -99,9 +99,15 @@ class GPT2Config:
     remat: bool = False
     remat_every: int = 1
     remat_policy: Optional[str] = None
-    # JAX's program forms of the two attention projections (same parameters)
+    # JAX's program forms of the two attention projections: inert here (one
+    # product either way over the same parameters), taken so JAX's configs
+    # and ``program`` blocks load
     attn_fused_qkv: bool = True
     attn_fused_out: bool = True
+    # the flash backend's backward policy (ops/cuda/flash_attention.POLICIES;
+    # None: "lse"), read by no other backend; the engine's
+    # ``attention.policy`` lands here
+    attention_policy: Optional[str] = None
     # >0: called with ``labels=``, return the chunked fused LM-head loss
     # (tokens per chunk) instead of [B, L, V] logits
     fused_head_loss_chunk: int = 0
@@ -133,6 +139,9 @@ class GPT2Config:
         if self.serve_weight_dtype not in (None, "fp", "int8", "int4"):
             raise ValueError(f"unknown serve_weight_dtype {self.serve_weight_dtype!r}")
         get_remat_policy(self.remat_policy)
+        if self.attention_policy is not None:
+            from deepspeed_tpu_torch.ops.cuda.flash_attention import check_policy
+            check_policy(self.attention_policy)
 
     @property
     def head_dim(self):
@@ -253,42 +262,22 @@ class _Projection(nn.Module):
 
 
 class QKVProj(_Projection):
-    """QKV projection over the ``[E, 3, H, D]`` kernel: one product, or with
-    ``attn_fused_qkv=False`` three over its slices (fp weights; a quantized
-    kernel is always one product, as in JAX)."""
+    """Fused QKV projection over the ``[E, 3, H, D]`` kernel."""
 
     def __init__(self, cfg, device):
         super().__init__(cfg, (cfg.n_embd, 3, cfg.n_head, cfg.head_dim),
                          (3, cfg.n_head, cfg.head_dim), 1, device)
 
     def forward(self, x):
-        cfg = self.cfg
-        if cfg.attn_fused_qkv or self.bits is not None:
-            qkv = super().forward(x)
-            return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
-        x = x.to(cfg.dtype)
-        kernel, bias = self.kernel.to(cfg.dtype), self.bias.to(cfg.dtype)
-        hd = (cfg.n_head, cfg.head_dim)
-        return tuple((x @ kernel[:, i].reshape(cfg.n_embd, -1)).reshape(*x.shape[:-1], *hd) + bias[i]
-                     for i in range(3))
+        qkv = super().forward(x)
+        return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
 
 
 class AttnOutProj(_Projection):
-    """Attention-output projection over the ``[H, D, E]`` kernel: the
-    ``(heads, head_dim)`` contraction of ``[B, L, H, D]``, or with
-    ``attn_fused_out=False`` an explicit ``[B, L, H*D]`` reshape and a 2-D
-    product (torch runs the contraction as that same product)."""
+    """Attention-output projection over the ``[H, D, E]`` kernel."""
 
     def __init__(self, cfg, device):
         super().__init__(cfg, (cfg.n_head, cfg.head_dim, cfg.n_embd), (cfg.n_embd,), 2, device)
-
-    def forward(self, x):
-        cfg = self.cfg
-        if cfg.attn_fused_out or self.bits is not None:
-            return super().forward(x)
-        flat = x.to(cfg.dtype).reshape(*x.shape[:-2], cfg.n_head * cfg.head_dim)
-        kernel = self.kernel.to(cfg.dtype).reshape(cfg.n_head * cfg.head_dim, cfg.n_embd)
-        return flat @ kernel + self.bias.to(cfg.dtype)
 
 
 class QuantDense(_Projection):
@@ -452,7 +441,9 @@ class SelfAttention(nn.Module):
         rate = cfg.dropout if generator is not None else 0.0
         attn_out = dot_product_attention(q, k, v, backend=cfg.attention_backend, causal=causal,
                                          decode_lengths=decode_lengths, dropout_rate=rate,
-                                         generator=generator, k_scale=k_scale, v_scale=v_scale)
+                                         generator=generator, k_scale=k_scale, v_scale=v_scale,
+                                         policy=cfg.attention_policy if cfg.attention_backend == "flash"
+                                         else None)
         return dropout(self.c_proj(attn_out), rate, generator)
 
 

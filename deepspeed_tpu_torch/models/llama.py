@@ -32,7 +32,8 @@ choice) from a generator per layer, seeded from the caller's generator, so
 a checkpointed layer routes the same way when it is recomputed.
 
 ``remat_policy`` names what a checkpointed layer keeps
-(``runtime/activation_checkpointing``). The TPU ``attention_blocks``
+(``runtime/activation_checkpointing``), ``attention_policy`` the flash
+backward's. The TPU ``attention_blocks``
 belongs to a later slice and raises ``NotImplementedError``; the per-slot
 serving cache of
 ``ContinuousBatchingScheduler`` does not take this family, as the JAX
@@ -80,6 +81,10 @@ class LlamaConfig:
     remat_policy: Optional[str] = None
     remat_every: int = 1
     attention_backend: str = "xla"
+    # the flash backend's backward policy (ops/cuda/flash_attention.POLICIES;
+    # None: "lse"), read by no other backend; the engine's
+    # ``attention.policy`` lands here
+    attention_policy: Optional[str] = None
     # the JAX flash kernel's TPU block geometry; the Hopper kernels have their own tiles
     attention_blocks: Optional[str] = None
     attention_bias: bool = False  # Qwen2: biased q/k/v projections
@@ -111,6 +116,9 @@ class LlamaConfig:
             raise ValueError(f"num_attention_heads {self.num_attention_heads} is not a multiple "
                              f"of num_key_value_heads {self.num_key_value_heads}")
         get_remat_policy(self.remat_policy)
+        if self.attention_policy is not None:
+            from deepspeed_tpu_torch.ops.cuda.flash_attention import check_policy
+            check_policy(self.attention_policy)
 
     @property
     def head_dim(self):
@@ -283,7 +291,9 @@ class LlamaAttention(nn.Module):
             k = k.repeat_interleave(n_rep, dim=2)
             v = v.repeat_interleave(n_rep, dim=2)
         out = dot_product_attention(q, k, v, backend=cfg.attention_backend, causal=causal,
-                                    decode_lengths=decode_lengths, window=window)
+                                    decode_lengths=decode_lengths, window=window,
+                                    policy=cfg.attention_policy if cfg.attention_backend == "flash"
+                                    else None)
         return self.o_proj(out)
 
 

@@ -126,8 +126,8 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, float]:
     """Compile every library in ``names`` that is not cached yet, one
     ``nvcc`` process per source, all started together. Returns the wall
-    seconds each took (0.0 when it was cached). Raises with the compiler's
-    output when one fails."""
+    seconds each took, from its start to its own exit (0.0 when it was
+    cached). Raises with the compiler's output when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -144,10 +144,21 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, fl
         cmd += ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+    logs = {}
+
+    def drain(name, proc, t0):
+        logs[name] = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(name, proc, t0))
+               for name, (proc, _, _, t0) in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    failures = []
+    for name, (proc, tmp, out, _) in procs.items():
+        log = logs[name]
         if proc.returncode != 0:
             failures.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log}")
             continue

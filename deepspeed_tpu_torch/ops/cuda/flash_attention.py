@@ -247,17 +247,12 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
 #: ``policy`` of :class:`FlashAttention`: keep K1's log-sum-exp for the
 #: backward, or drop it and re-run K1 there to regenerate it
 POLICIES = ("lse", "recompute")
-_default_policy = "lse"
 
 
-def set_default_policy(policy: Optional[str]) -> None:
-    """The backward policy of calls that name none: the training engine's
-    ``attention.policy`` installs it for the process (None: ``"lse"``),
-    as the JAX engine installs its attention block's defaults."""
-    global _default_policy
-    if policy is not None and policy not in POLICIES:
+def check_policy(policy: str) -> None:
+    """Raise ``ValueError`` unless ``policy`` is one of :data:`POLICIES`."""
+    if policy not in POLICIES:
         raise ValueError(f"unknown flash backward policy {policy!r}; expected one of {POLICIES}")
-    _default_policy = policy or "lse"
 
 
 class FlashAttention(torch.autograd.Function):
@@ -387,9 +382,8 @@ def flash_attention(q: torch.Tensor,
     del generator  # dropout is refused below; the argument mirrors the plain backend
     if bias is not None or mask is not None or dropout_rate > 0.0:
         raise ValueError("the flash backend takes no bias, mask or dropout; use backend='xla'")
-    policy = _default_policy if policy is None else policy
-    if policy not in POLICIES:
-        raise ValueError(f"unknown flash backward policy {policy!r}; expected one of {POLICIES}")
+    policy = "lse" if policy is None else policy
+    check_policy(policy)
     if decode_lengths is not None and kv_lengths is not None:
         raise ValueError("pass decode_lengths (cache decode) or kv_lengths "
                          "(padded prefill), not both")

@@ -100,8 +100,6 @@ ENV_LMHEAD_CHUNK = "DS_LMHEAD_CHUNK"
 #: the ``attention`` block's TPU block-geometry knobs (JAX ``AttentionConfig``)
 ATTENTION_GRID_KEYS = ("block_q", "block_k", "block_q_bwd", "block_k_bwd", "bwd_skip",
                        "cache_file")
-#: the flash backward's lse policies (``ops/cuda/flash_attention.POLICIES``)
-ATTENTION_POLICIES = ("lse", "recompute")
 
 #: keys of the ``"moe"`` block (JAX ``MoEConfig``)
 MOE_KEYS = ("route", "kernel")
@@ -376,10 +374,12 @@ def program_env_updates() -> dict:
 
 
 class AttentionConfig(_Block):
-    """JAX ``AttentionConfig`` (``config.py:70``): ``policy`` ("lse" or
-    "recompute", the flash backward's) becomes the flash backend's default;
-    the block geometry knobs raise, one at a time: they are TPU grid policy
-    (the Hopper kernels have their own tiles)."""
+    """JAX ``AttentionConfig`` (``config.py:70``): ``policy`` (the flash
+    backward's, ``ops/cuda/flash_attention.POLICIES``) lands on the model's
+    config as ``attention_policy``, which checks it, as JAX checks it when
+    its engine installs the block; the block geometry knobs raise, one at a
+    time: they are TPU grid policy (the Hopper kernels have their own
+    tiles)."""
 
     NAME = "attention"
     FIELDS = {"block_q": ("int?", None, 8),
@@ -397,9 +397,6 @@ class AttentionConfig(_Block):
                 raise NotImplementedError(
                     f"attention.{key}: the JAX flash kernel's TPU block geometry (grid policy); "
                     f"the Hopper kernels have their own tiles and always skip dead ones")
-        if self.policy is not None and self.policy not in ATTENTION_POLICIES:
-            raise ValueError(f"attention.policy must be one of {list(ATTENTION_POLICIES)}, "
-                             f"got {self.policy!r}")
 
 
 class ProgressiveLayerDropConfig(_Block):

@@ -74,8 +74,8 @@ AdamW, LAMB, Adagrad, SGD, Lion), or a client ``torch.optim.Optimizer`` over
 the engine's parameters (``initialize(optimizer=...)``); its state goes into
 every tag by parameter name. The ``program`` block (and the
 ``DS_REMAT_POLICY`` / ``DS_LMHEAD_CHUNK`` env layer) lands on the model's
-config before anything else (JAX ``_apply_program_knobs``); the
-``attention`` block's ``policy`` becomes the flash backend's default;
+config before anything else (JAX ``_apply_program_knobs``), and so does
+the ``attention`` block's ``policy``, as ``attention_policy``;
 ``progressive_layer_drop`` anneals theta on the host and hands
 ``pld_theta`` to a model that takes it (JAX ``engine.py:365-386``);
 ``wall_clock_breakdown`` times ``train_batch`` (``utils/timer.py``). The JAX engine ran the step as one
@@ -178,29 +178,35 @@ LOSS_SCALE_GROUP = "loss_scale"
 CLIENT_PREFIX = "client"
 
 
-def _apply_program_knobs(module, program_config) -> None:
-    """Put the ``program`` block's knobs and the ``DS_REMAT_POLICY`` /
+def _apply_program_knobs(module, program_config, attention_policy: Optional[str] = None) -> None:
+    """Put the ``program`` block's knobs, the ``attention`` block's
+    ``policy`` (as ``attention_policy``) and the ``DS_REMAT_POLICY`` /
     ``DS_LMHEAD_CHUNK`` env layer (env wins) onto ``module``'s config (JAX
     ``_apply_program_knobs``, ``engine.py:114-152``): a block knob the
     family's config does not declare raises, an env knob warns. The port's
     modules hold their config, so the replaced config is set on every
-    submodule that held the old one."""
+    submodule that held the old one. Per engine: JAX installs the attention
+    block for the whole process, the port keeps it on the model."""
     cfg_updates = program_config.model_updates()
+    if attention_policy is not None:
+        cfg_updates["attention_policy"] = attention_policy
     env_updates = program_env_updates()
     if not cfg_updates and not env_updates:
         return
     mcfg = getattr(module, "config", None)
     if mcfg is None or not dataclasses.is_dataclass(mcfg):
         if cfg_updates:
-            raise ValueError(f"'program' config block set but {type(module).__name__} carries no "
-                             f"dataclass model config to apply it to")
+            raise ValueError(f"'program' or 'attention' config block set but "
+                             f"{type(module).__name__} carries no dataclass model config to apply "
+                             f"it to")
         logger.warning("program env override (%s) ignored: %s has no model config",
                        sorted(env_updates), type(module).__name__)
         return
     missing = sorted(f for f in cfg_updates if not hasattr(mcfg, f))
     if missing:
-        raise ValueError(f"'program' config block sets {missing} but {type(mcfg).__name__} does not "
-                         f"declare those fields — the knob would silently not apply")
+        raise ValueError(f"the config's 'program' or 'attention' block sets {missing} but "
+                         f"{type(mcfg).__name__} does not declare those fields — the knob would "
+                         f"silently not apply")
     for f in sorted(set(env_updates) - set(mcfg.__dataclass_fields__)):
         logger.warning("program env override %s ignored: %s does not declare it",
                        f, type(mcfg).__name__)
@@ -236,7 +242,7 @@ class DeepSpeedEngine:
                  training_data=None, collate_fn: Optional[Callable] = None,
                  optimizer: Optional[torch.optim.Optimizer] = None):
         self.device = resolve_device(device)
-        _apply_program_knobs(model, config.program_config)
+        _apply_program_knobs(model, config.program_config, config.attention_config.policy)
         mcfg = model.config
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the engine runs on "
@@ -255,8 +261,6 @@ class DeepSpeedEngine:
         self.config = config
         self.client_optimizer = optimizer
         moe_routing.set_default_route(config.moe_route, config.moe_kernel)
-        from deepspeed_tpu_torch.ops.cuda import flash_attention
-        flash_attention.set_default_policy(config.attention_config.policy)
         # the loss scaler (JAX ``engine.py:241-246``): static 1.0 without fp16
         if config.fp16_enabled:
             self._ls_state, self._ls_update = create_loss_scaler(

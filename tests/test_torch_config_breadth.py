@@ -152,3 +152,43 @@ def test_wall_clock_breakdown_times_train_batch():
     assert "train_batch" in engine.timers.log(["train_batch"])
     off = deepspeed_tpu_torch.initialize(model=model, device="cpu", config=dict(BASE))[0]
     assert off.timers("train_batch").elapsed() == 0
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_attention_policy_is_the_engines_own(family, monkeypatch):
+    """``attention.policy`` lands on the model's config as
+    ``attention_policy`` and reaches each flash call of that model; an
+    engine built later without the block keeps the default, and an unknown
+    policy raises when the engine is built."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.cuda import flash_attention
+
+    seen = []
+    apply = flash_attention.FlashAttention.apply
+    monkeypatch.setattr(flash_attention.FlashAttention, "apply",
+                        lambda *args: seen.append(args[-1]) or apply(*args))
+
+    def engine(extra):
+        if family == "gpt2":
+            cfg = deepspeed_tpu_torch.get_gpt2_config("test", n_layer=2, attention_backend="flash")
+            model = deepspeed_tpu_torch.GPT2LMHeadModel(cfg, device="cpu")
+        else:
+            cfg = deepspeed_tpu_torch.get_llama_config("test", num_hidden_layers=2,
+                                                       attention_backend="flash")
+            model = deepspeed_tpu_torch.LlamaForCausalLM(cfg, device="cpu")
+        return deepspeed_tpu_torch.initialize(model=model, device="cpu",
+                                              config=dict(BASE, steps_per_print=10**9, **extra))[0]
+
+    batch = np.zeros((8, 16), np.int32)
+    recompute = engine({"attention": {"policy": "recompute"}})
+    assert recompute.module.config.attention_policy == "recompute"
+    recompute.train_batch(batch)
+    assert seen and set(seen) == {"recompute"}
+    seen.clear()
+    plain = engine({})
+    assert plain.module.config.attention_policy is None
+    plain.train_batch(batch)
+    recompute.train_batch(batch)
+    assert seen == ["lse"] * (len(seen) // 2) + ["recompute"] * (len(seen) // 2)
+    with pytest.raises(ValueError, match="unknown flash backward policy 'keep'"):
+        engine({"attention": {"policy": "keep"}})
