@@ -80,7 +80,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               have launched), finite and falling loss, step ms, tokens/s and
               model TFLOP/s, and one steady step under ``torch.profiler``.
 6. gradcheck — one training step of the same model at 2 layers, seq 512,
-              batch 2 on the card and on the CPU (plain versions): the loss
+              batch 2 on the card through the kernels and through their
+              plain versions (``plain_kernels``): the loss
               and every parameter's gradient within 1e-4 in fp32, and in bf16
               within 1.5x the rounding the same run measures (plain bf16
               against plain fp32).
@@ -93,7 +94,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               finite and falling loss, step ms, tokens/s, model TFLOP/s by
               active parameters, peak memory, and one profiled step.
 8. MoE gradcheck — one step of a 2-layer MoE model (layer 1 MoE, top-1, no
-              RTS, so routing is deterministic) on the card and on the CPU:
+              RTS, so routing is deterministic) through the kernels and
+              through their plain versions, both on the card:
               in fp32 every token's expert and slot identical and the loss
               and every gradient within 1e-4; in bf16, with the plain bf16
               step's routing injected at the gate on the card and in the
@@ -154,9 +156,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               step), finite and falling loss, step ms, tokens/s, model
               TFLOP/s (the JAX bench's formula), peak memory and one
               profiled step by kernel family.
-12. LLaMA gradcheck — one step on the card and on the CPU (plain
-              versions), fp32 within 1e-4 and bf16 within 1.5x the measured
-              rounding, as phase 6: (a) LLaMA-1b's width at 1 layer, batch 2 x
+12. LLaMA gradcheck — one step on the card through the kernels and
+              through their plain versions, fp32 within 1e-4 and bf16
+              within 1.5x the measured rounding, as phase 6: (a) LLaMA-1b's width at 1 layer, batch 2 x
               seq 512; (b) Mistral-7b's width at 1 layer
               (GQA 32/8, FFN 14336) with ``sliding_window`` overridden from 4096 to 256 at
               seq 1024, so that the window mask bites in K1 and K4.
@@ -255,20 +257,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
               2048] and ``generate`` of 1 and 64 greedy tokens after 4
               prompts of 512, K1, K3 and K5 counts asserted, tokens/s, ms per
               token step, TTFT, peak memory, the first prefill chunk's and
-              decode step's logits at 1 layer card against
-              CPU (as (a));
+              decode step's logits at 1 layer, the kernels against
+              their plain versions on the card (else as (a));
               (c) Mixtral training at 1 layer (at 2, Adam's temporaries
               ran the card out of memory), seq 4096, micro-batch 1, bf16
               over fp32 masters, remat, the fused [E, V] head, AdamW,
               clipping 1.0: 2 + 10 steps, K1 2, K4 1 and K5 6 a step
               asserted, step ms, tokens/s, model TFLOP/s over the active
               parameters, peak memory, a profiled step; (d) one 1-layer
-              Mixtral forward and backward at seq 256, card
-              against CPU, every
+              Mixtral forward and backward at seq 256, the kernels
+              against their plain versions on the card, every
               side under the plain bf16 step's top-2 routing: fp32 within
               1e-4, bf16 within 1.5x the measured rounding.
 
-17. RLHF and the inference engine — GPT-2 350m (full width, 12 of its
+17. RLHF and the inference engine — GPT-2 350m (full width, 6 of its
               24 layers in (a) and (d); random seeded weights, bf16 over fp32 masters, the ``"flash"``
               backend) under ``initialize`` with ``hybrid_engine.enabled``
               and the JAX RLHF test's policy-gradient loss. K2 at the
@@ -311,7 +313,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               sequences appended across page edges, gathered, K3 on the
               view against its plain version. Its tags live in a temp dir,
               deleted at the end.
-18. the serving fleet — GPT-2 350m (full width; (a) at 12 of its 24
+18. the serving fleet — GPT-2 350m (full width; (a) at 6 of its 24
               layers, (b) at all 24; random seeded weights) behind ``inference.fleet.FleetRouter``, 16 greedy
               requests submitted at once (prompts of 64-512 tokens from 4
               shared 256-token prefixes, 64 new tokens each; cut from 32
@@ -360,15 +362,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
               needs 12 bytes a parameter, checked against ``MemAvailable``),
               seq 2048, micro-batch 1, bf16 over fp32 masters, remat, flash,
               the fused head, through ``initialize`` with ``stage 3,
-              offload_param cpu, offload_optimizer cpu``: 1 + 1 steps by
-              ``forward``/``backward``/``step``, each split into device
+              offload_param cpu, offload_optimizer cpu``: 1 step by
+              ``forward``/``backward``/``step`` (then ``eval_batch`` on its
+              batch, whose loss must fall below the step's), split into device
               gradients (with the parameter streaming's device ms and GB),
               the host Adam, and the waits on the gradients' copies to the
               host; K1 and K4 launches counted (2 L and L a step), the card's
               peak (the gradient buffer and one block's working set: less
               than half a bf16 copy of the parameters beside the gradients),
               the host's RSS; K1 and K4 at its [1,2048,32,128] against their
-              plain versions and timed. (b) At 2 layers of that width, 3
+              plain versions and timed. (b) At 1 layer of that width, 3
               seeded batches: the host Adam (stage 2, cpu) against
               ``FusedAdam`` (losses within JAX's 2e-3, the largest parameter
               difference, the card holding the parameters and gradients
@@ -1906,31 +1909,32 @@ def train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
 
 def gradcheck(label: str, build, state: dict, ids: np.ndarray) -> dict:
     """One training step (no clipping) of the model ``build(device,
-    dtype)`` with weights ``state`` on ``ids``, on the card and on the CPU,
-    where every kernel wrapper computes its plain version: the loss and
-    each parameter's gradient held to 1e-4 in fp32; in bf16 the largest
-    relative error over those tensors is held to 1.5x the same largest
-    error of plain bf16 against plain fp32."""
+    dtype)`` with weights ``state`` on ``ids``, on the card through the
+    kernels and on the card through their plain versions
+    (:func:`plain_kernels`): the loss and each parameter's gradient held to
+    1e-4 in fp32; in bf16 the largest relative error over those tensors is
+    held to 1.5x the same largest error of plain bf16 against plain fp32."""
     from deepspeed_tpu_torch import initialize
 
-    def one_step(device: str, dtype) -> dict:
+    def one_step(side: str, dtype) -> dict:
         with skipped_init():
-            model = build(device, dtype)
+            model = build("cuda", dtype)
         model.load_state_dict(state, strict=True)
         engine, _, _, _ = initialize(model=model, config=train_config(ids.shape[0], 0.0, dtype == torch.bfloat16),
-                                     device=device)
-        loss = engine.train_batch({"input_ids": ids})
+                                     device="cuda")
+        with on_card(side):
+            loss = engine.train_batch({"input_ids": ids})
         out = {"loss": loss.detach().float().cpu().reshape(1)}
         out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
         return out
 
-    runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
-            for dev in ("cuda", "cpu")}
-    for name, ref in runs[("cpu", "float32")].items():
+    runs = {(side, str(dt)[6:]): one_step(side, dt) for dt in (torch.float32, torch.bfloat16)
+            for side in ("cuda", "plain")}
+    for name, ref in runs[("plain", "float32")].items():
         compare(f"{label} fp32 {name} (card vs plain)", runs[("cuda", "float32")][name], ref,
                 torch.float32)
-    served = {n: rel_err(g, runs[("cpu", "bfloat16")][n])[1] for n, g in runs[("cuda", "bfloat16")].items()}
-    rounding = {n: rel_err(g, runs[("cpu", "float32")][n])[1] for n, g in runs[("cpu", "bfloat16")].items()}
+    served = {n: rel_err(g, runs[("plain", "bfloat16")][n])[1] for n, g in runs[("cuda", "bfloat16")].items()}
+    rounding = {n: rel_err(g, runs[("plain", "float32")][n])[1] for n, g in runs[("plain", "bfloat16")].items()}
     worst = max(served, key=served.get)
     out = {"bf16_served_vs_plain_max_rel": served[worst], "bf16_served_worst_tensor": worst,
            "bf16_rounding_max_rel": max(rounding.values()),
@@ -2041,8 +2045,9 @@ def moe_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
 def moe_gradcheck_phase(seed: int, card: str) -> dict:
     """One training step of a 2-layer MoE model at 350m width (layer 1 MoE,
     8 experts, top-1, no RTS: routing depends on the data alone) on the card
-    and on the CPU (plain versions). fp32: every token's expert, slot and
-    keep identical, the loss and each gradient within 1e-4. bf16: the card's
+    through the kernels and through their plain versions
+    (:func:`plain_kernels`). fp32: every token's expert, slot and keep
+    identical, the loss and each gradient within 1e-4. bf16: the card's
     step runs under the plain bf16 step's routing, injected at the gate's
     output (``deepspeed_tpu_torch.testing.injected_routing``), and its
     largest relative error against the plain bf16 step is held within 1.5x
@@ -2065,13 +2070,13 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
     del base
     ids = np.random.default_rng(seed + 3).integers(0, 50304, (2, 512)).astype(np.int32)
 
-    def one_step(device: str, dtype, routing=None):
+    def one_step(side: str, dtype, routing=None):
         with skipped_init():
-            model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device=device)
+            model = GPT2LMHeadModel(get_gpt2_config("350m", dtype=dtype, **kw), device="cuda")
         model.load_state_dict(state, strict=True)
         engine, _, _, _ = initialize(model=model, config=train_config(2, 0.0, dtype == torch.bfloat16),
-                                     device=device)
-        with injected_routing(routing):
+                                     device="cuda")
+        with injected_routing(routing), on_card(side):
             loss = engine.train_batch({"input_ids": ids})
         out = {"loss": loss.detach().float().cpu().reshape(1)}
         out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
@@ -2079,14 +2084,14 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
         return out, type(used)(*(t[0].cpu() for t in used))
 
     runs = {(dev, str(dt)[6:]): one_step(dev, dt) for dt in (torch.float32, torch.bfloat16)
-            for dev in ("cuda", "cpu")}
+            for dev in ("cuda", "plain")}
     for f in ("expert", "slot", "keep"):
-        got, ref = getattr(runs[("cuda", "float32")][1], f), getattr(runs[("cpu", "float32")][1], f)
+        got, ref = getattr(runs[("cuda", "float32")][1], f), getattr(runs[("plain", "float32")][1], f)
         if not torch.equal(got, ref):
             raise AssertionError(f"moe gradcheck fp32: routing field {f} differs in "
                                  f"{int((got != ref).sum())} token copies")
     RESULTS["checks"].append({"name": "moe gradcheck fp32 routing identical", "ok": True})
-    for name, ref in runs[("cpu", "float32")][0].items():
+    for name, ref in runs[("plain", "float32")][0].items():
         compare(f"moe gradcheck fp32 {name} (card vs plain)", runs[("cuda", "float32")][0][name], ref,
                 torch.float32)
 
@@ -2101,15 +2106,15 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
 
     # the gate: the card's bf16 step and the plain fp32 yardstick under the
     # plain bf16 step's routing
-    fixed = runs[("cpu", "bfloat16")][1]
+    fixed = runs[("plain", "bfloat16")][1]
     injected = {("cuda", "bfloat16"): one_step("cuda", torch.bfloat16, fixed),
-                ("cpu", "float32"): one_step("cpu", torch.float32, fixed)}
-    if any(flips(r, runs[("cpu", "bfloat16")]) for r in injected.values()):
+                ("plain", "float32"): one_step("plain", torch.float32, fixed)}
+    if any(flips(r, runs[("plain", "bfloat16")]) for r in injected.values()):
         raise AssertionError("moe gradcheck bf16: the injected routing was not followed")
-    worst, served, rounding = worst_share(injected[("cuda", "bfloat16")], runs[("cpu", "bfloat16")],
-                                          injected[("cpu", "float32")])
+    worst, served, rounding = worst_share(injected[("cuda", "bfloat16")], runs[("plain", "bfloat16")],
+                                          injected[("plain", "float32")])
     free_worst, free_served, free_rounding = worst_share(
-        runs[("cuda", "bfloat16")], runs[("cpu", "bfloat16")], runs[("cpu", "float32")])
+        runs[("cuda", "bfloat16")], runs[("plain", "bfloat16")], runs[("plain", "float32")])
     out = {"bf16_served_vs_plain_max_rel": served, "bf16_served_worst_tensor": worst,
            "bf16_rounding_max_rel": rounding, "bf16_share_of_limit": served / (1.5 * rounding),
            "free_routing": {
@@ -2117,9 +2122,9 @@ def moe_gradcheck_phase(seed: int, card: str) -> dict:
                "bf16_rounding_max_rel": free_rounding,
                "bf16_share_of_limit": free_served / (1.5 * free_rounding),
                "bf16_routing_flips_card_vs_plain": flips(runs[("cuda", "bfloat16")],
-                                                         runs[("cpu", "bfloat16")]),
-               "bf16_routing_flips_plain_bf16_vs_fp32": flips(runs[("cpu", "bfloat16")],
-                                                              runs[("cpu", "float32")])},
+                                                         runs[("plain", "bfloat16")]),
+               "bf16_routing_flips_plain_bf16_vs_fp32": flips(runs[("plain", "bfloat16")],
+                                                              runs[("plain", "float32")])},
            "tokens": int(ids.size),
            "loss": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in runs.items()},
            "loss_injected": {f"{d}_{t}": float(r[0]["loss"]) for (d, t), r in injected.items()}}
@@ -4393,7 +4398,7 @@ def _held_logits(label: str, runs: dict, out: dict) -> None:
 
 
 def _routed_runs(label: str, order, run_one) -> dict:
-    """The sides of a card-against-CPU check of an MoE model, each
+    """The sides of a card-against-plain check of an MoE model, each
     ``run_one(name, device, dtype, routing) -> ({tick: logits}, {tick:
     {gate: the routing it ran under}})``: plain bf16 first, the card's bf16
     under its routing, both fp32 sides free (their routings must agree),
@@ -4416,6 +4421,8 @@ def _routed_runs(label: str, order, run_one) -> dict:
 SIDES = (("plain_bf16", "cpu", torch.bfloat16), ("served_bf16", "cuda", torch.bfloat16),
          ("served_fp32", "cuda", torch.float32), ("plain_fp32", "cpu", torch.float32),
          ("plain_fp32_bf16_routing", "cpu", torch.float32))
+#: the same sides with the plain ones on the card (:func:`on_card`)
+CARD_SIDES = tuple((name, "plain" if dev == "cpu" else dev, dtype) for name, dev, dtype in SIDES)
 
 
 def moe_scheduler_phase(seed: int, card: str):
@@ -4631,31 +4638,31 @@ def mixtral_serving_phase(seed: int, card: str):
     ids = torch.as_tensor(prompts[:, :16])
     nxt, models = {}, {}
 
-    def run_one(name, device, dtype, inject):
-        m = models.get((device, dtype))
+    def run_one(name, side, dtype, inject):
+        m = models.get((side, dtype))
         if m is None:  # the plain fp32 model serves twice, each with a fresh cache
             with skipped_init():
-                m = models[(device, dtype)] = LlamaForCausalLM(
-                    dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device=device)
+                m = models[(side, dtype)] = LlamaForCausalLM(
+                    dataclasses.replace(small, dtype=dtype, param_dtype=dtype), device="cuda")
             m.load_state_dict({k: v if k.endswith(".wg") else v.to(dtype) for k, v in state.items()},
                               strict=True)
         logits, used = {}, {}
-        with torch.inference_mode():
+        with torch.inference_mode(), on_card(side):
             cache = init_cache(m, 4)
             for tick in ("prefill", "decode"):
                 feed = ids if tick == "prefill" else nxt["tok"][:, None]
                 with injected_routing(None if inject is None else inject[tick], model=m):
-                    logits[tick] = m(feed.to(device), cache)[0][:, -1].float().cpu()
+                    logits[tick] = m(feed.cuda(), cache)[0][:, -1].float().cpu()
                 used[tick] = _used_routing(m)
                 if name == "plain_bf16" and tick == "prefill":
                     nxt["tok"] = logits[tick].argmax(-1)
         del cache
         return logits, used
 
-    runs = _routed_runs(f"phase 16 (b) Mixtral {GRADCHECK_LAYERS}-layer", SIDES, run_one)
+    runs = _routed_runs(f"phase 16 (b) Mixtral {GRADCHECK_LAYERS}-layer", CARD_SIDES, run_one)
     models.clear()
     _held_logits(f"phase 16 (b) Mixtral {GRADCHECK_LAYERS}-layer", runs, out)
-    seconds[f"{GRADCHECK_LAYERS}-layer card vs CPU"] = time.perf_counter() - t_part
+    seconds[f"{GRADCHECK_LAYERS}-layer kernels vs plain"] = time.perf_counter() - t_part
     out["seconds"] = seconds
     log("phase 16 (b) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return out, counts
@@ -4735,12 +4742,12 @@ def mixtral_train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
 def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
     """Phase 16 (d): one training forward and backward of Mixtral-8x7B's
     width at ``GRADCHECK_LAYERS`` (seq 256, batch 1, remat, flash, the fused head), on
-    the card and on the CPU (plain versions), every side under the plain
-    bf16 step's top-2 routing (its Gumbel second choices included),
-    injected at the gate: fp32 card against fp32 plain, the loss and every
-    gradient within 1e-4; bf16 card against bf16 plain within 1.5x the
-    rounding of plain bf16 against plain fp32. The CPU's gradients wait on
-    the card, so the host holds one model at a time."""
+    the card through the kernels and through their plain versions
+    (:func:`plain_kernels`), every side under the plain bf16 step's top-2
+    routing (its Gumbel second choices included), injected at the gate:
+    fp32 card against fp32 plain, the loss and every gradient within 1e-4;
+    bf16 card against bf16 plain within 1.5x the rounding of plain bf16
+    against plain fp32. One model is held at a time."""
     from deepspeed_tpu_torch import LlamaForCausalLM
     from deepspeed_tpu_torch.testing import injected_routing
 
@@ -4753,13 +4760,13 @@ def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
     vocab = mixtral_config(2).vocab_size
     ids = torch.as_tensor(np.random.default_rng(seed + 11).integers(0, vocab, (1, 256)).astype(np.int64))
 
-    def one_step(device: str, dtype, routing=None):
+    def one_step(side: str, dtype, routing=None):
         with skipped_init():
-            model = LlamaForCausalLM(mixtral_config(GRADCHECK_LAYERS, dtype=dtype, **kw), device=device)
+            model = LlamaForCausalLM(mixtral_config(GRADCHECK_LAYERS, dtype=dtype, **kw), device="cuda")
         model.load_state_dict(state, strict=True)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        with injected_routing(routing, model=model):
-            loss = model(ids.to(device), labels=ids.to(device), deterministic=False, generator=gen)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with injected_routing(routing, model=model), on_card(side):
+            loss = model(ids.cuda(), labels=ids.cuda(), deterministic=False, generator=gen)
             loss.backward()
         grads = {"loss": loss.detach().float().reshape(1).cuda()}
         grads.update({n: p.grad.detach().float().cuda() for n, p in model.named_parameters()})
@@ -4767,8 +4774,8 @@ def mixtral_gradcheck_phase(seed: int, card: str) -> dict:
         del model
         return grads, used
 
-    plain_bf16, fixed = one_step("cpu", torch.bfloat16)
-    plain_fp32, _ = one_step("cpu", torch.float32, fixed)
+    plain_bf16, fixed = one_step("plain", torch.bfloat16)
+    plain_fp32, _ = one_step("plain", torch.float32, fixed)
     card_fp32, used = one_step("cuda", torch.float32, fixed)
     if _same_routing(used, fixed):
         raise AssertionError("Mixtral gradcheck fp32: the injected routing was not followed")
@@ -4853,9 +4860,10 @@ def pg_loss(logits, batch):
     return -(adv[:, None] * tgt * mask[:, 1:]).sum() / mask[:, 1:].sum().clamp_min(1.0)
 
 
-#: the hybrid engine's depth: 12 of 350m's 24 layers, to keep the script
-#: inside its limit beside phase 19
-RLHF_LAYERS = 12
+#: the hybrid engine's depth: 6 of 350m's 24 layers (12 until the whole
+#: script ran past its 1200 s on a slow host), to keep the script inside
+#: its limit
+RLHF_LAYERS = 6
 
 
 def rlhf_engine(seed: int):
@@ -5499,9 +5507,10 @@ def rlhf_phase(seed: int, card: str, times: dict = None):
 #: phase 18's trace: 16 greedy requests of 64 new tokens (cut from 32 for
 #: the script's time limit), served by replicas of 8 slots
 FLEET_REQUESTS, FLEET_NEW, FLEET_SLOTS = 16, 64, 8
-#: phase 18 (a)'s depth: 12 of GPT-2 350m's 24 layers (24 until the whole
-#: script took 1237 s on a slow host); (b)'s workers build all 24
-FLEET_INPROCESS_LAYERS = 12
+#: phase 18 (a)'s depth: 6 of GPT-2 350m's 24 layers (24 until the whole
+#: script took 1237 s on a slow host, then 12 until it ran past its 1200 s
+#: there again); (b)'s workers build all 24
+FLEET_INPROCESS_LAYERS = 6
 #: the kernels phase 18 (a)'s path runs (int8 weights: K2; the flash backend: K3)
 FLEET_KERNELS = ("quant_matmul", "flash_decode")
 #: the subprocess workers' knobs (GPT-2 350m at its full context, 8 slots;
@@ -6128,6 +6137,8 @@ def fleet_phase(seed: int, card: str, rounding: float):
 OFFLOAD_LAYERS = 16
 OFFLOAD_MIN_LAYERS = 16
 OFFLOAD_SEQ = 2048
+#: the depth of (b)-(d) at that width (cut from 2 for the script's limit)
+OFFLOAD_CHECK_LAYERS = 1
 #: the host bytes a parameter takes under both offloads: the fp32 resting
 #: parameter (the master) and the two fp32 moments
 OFFLOAD_HOST_BYTES = 12
@@ -6197,10 +6208,11 @@ def card_allocated_gb(what: str) -> float:
     return gb
 
 
-def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int = 1):
+def offload_train(seed: int, card: str, layers: int, warmup: int = 0, steps: int = 1):
     """(a) LLaMA-7b's width at ``layers`` through ``initialize`` under both
     cpu offloads; each step by ``forward``, ``backward`` and ``step``, timed
-    by part, launches counted around the steps."""
+    by part, launches counted around the steps; then ``eval_batch`` on the
+    same batch, whose loss must be below the first step's."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
     from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
@@ -6248,9 +6260,10 @@ def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int
     # ---- end of the main path ----
 
     peak = torch.cuda.max_memory_allocated()
-    losses = [p["loss"] for p in parts]
+    losses = [p["loss"] for p in parts] + [float(engine.eval_batch(batch))]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"offload (a): losses not finite and falling: {losses}")
+        raise AssertionError(f"offload (a): losses (the steps', then eval_batch's after them) not "
+                             f"finite and falling: {losses}")
     n = warmup + steps
     if counts["flash_fwd"] != 2 * layers * n or counts["flash_bwd"] != layers * n:
         raise AssertionError(f"offload (a): expected K1 {2 * layers} (forward, remat recompute) and K4 "
@@ -6297,12 +6310,12 @@ def offload_train(seed: int, card: str, layers: int, warmup: int = 1, steps: int
 
 
 def _offload_run(zero: dict, batches: list, seed: int, save=None):
-    """A 2-layer engine at LLaMA-7b's width through ``train_batch``, its
+    """An engine at LLaMA-7b's width and ``OFFLOAD_CHECK_LAYERS`` through ``train_batch``, its
     losses, and with ``save = (step, dir)`` a checkpoint after that step
     and its seconds."""
     from deepspeed_tpu_torch import initialize
 
-    engine, _, _, _ = initialize(model=offload_llama(2, seed + 20), config=offload_config(zero))
+    engine, _, _, _ = initialize(model=offload_llama(OFFLOAD_CHECK_LAYERS, seed + 20), config=offload_config(zero))
     losses, save_s = [], None
     for i, b in enumerate(batches):
         losses.append(float(engine.train_batch(b)))
@@ -6328,7 +6341,7 @@ def _same_params(a, b) -> bool:
 
 
 def offload_parity(seed: int, card: str, work: str) -> dict:
-    """(b) at LLaMA-7b's width, 2 layers, 3 seeded batches: the optimizer on
+    """(b) at LLaMA-7b's width, ``OFFLOAD_CHECK_LAYERS``, 3 seeded batches: the optimizer on
     the host against ``FusedAdam`` (losses within JAX's 2e-3, no moment on
     the card), parameter offload against dense stage 3 and stage 3 against
     stage 0 (the same bits); (d) the host-Adam run saved after step 1 and
@@ -6355,7 +6368,7 @@ def offload_parity(seed: int, card: str, work: str) -> dict:
                                       d2h_wait_s=e1.offload_timings["d2h_wait_s"],
                                       h2d_s=e1.offload_timings["h2d_s"],
                                       h2d_gb_s=e1.offload_timings["h2d_bytes"] / e1.offload_timings["h2d_s"] / 1e9)
-    log(f"offload (b) optimizer on the host (stage 2, cpu) vs FusedAdam, LLaMA-7b width, 2 layers ({n_params} "
+    log(f"offload (b) optimizer on the host (stage 2, cpu) vs FusedAdam, LLaMA-7b width, {OFFLOAD_CHECK_LAYERS} layers ({n_params} "
         f"params), 3 steps: losses {l1} vs {l0}, max rel {rel:.3e} (JAX's limit 2e-3); largest parameter "
         f"difference {diff:.3e}; card bytes held {held1 / 1e9:.2f} GB vs {held0 / 1e9:.2f} GB with FusedAdam "
         f"(fp32 parameters {p_bytes / 1e9:.2f} GB); host Adam {e1.offload_timings['host_adam_s']:.2f} s, h2d "
@@ -6371,7 +6384,7 @@ def offload_parity(seed: int, card: str, work: str) -> dict:
 
     # (d) the round trip
     t0 = time.perf_counter()
-    e1b, _, _, _ = initialize(model=offload_llama(2, seed + 21),
+    e1b, _, _, _ = initialize(model=offload_llama(OFFLOAD_CHECK_LAYERS, seed + 21),
                               config=offload_config({"stage": 2, "offload_optimizer": {"device": "cpu"}}))
     tag, _ = e1b.resume(ckpt)
     load_s = time.perf_counter() - t0
@@ -6415,7 +6428,7 @@ def offload_parity(seed: int, card: str, work: str) -> dict:
 
 
 def offload_nvme(seed: int, card: str, work: str) -> dict:
-    """(c) the nvme tiers at LLaMA-7b's width, 2 layers, one step each,
+    """(c) the nvme tiers at LLaMA-7b's width, ``OFFLOAD_CHECK_LAYERS``, one step each,
     under ``work`` (removed by the caller)."""
     batches = offload_batches(seed + 22, 1)
     out = {}
@@ -6446,7 +6459,7 @@ def offload_nvme(seed: int, card: str, work: str) -> dict:
     t0 = time.perf_counter()
     zero = {"stage": 3, "offload_param": {"device": "nvme", "nvme_path": swap, "max_in_cpu": window}}
     from deepspeed_tpu_torch import initialize
-    e, _, _, _ = initialize(model=offload_llama(2, seed + 20), config=offload_config(zero))
+    e, _, _, _ = initialize(model=offload_llama(OFFLOAD_CHECK_LAYERS, seed + 20), config=offload_config(zero))
     init_s = time.perf_counter() - t0
     p_bytes = sum(p.numel() * 4 for p in e.module.parameters())
     loss = float(e.train_batch(batches[0]))
@@ -6754,25 +6767,38 @@ def _fp16_steps(engine, batches, card: str, label: str) -> list:
 
 
 @contextlib.contextmanager
-def plain_flash(ds_max=None):
-    """Route the flash backend's K1 and K4 calls through their fp32-math
-    plain versions on the card (the comparison run of (b); these launches
-    are no kernel launches). With ``ds_max``, each backward appends its max
-    |dS| there."""
+def plain_kernels(ds_max=None):
+    """Route K1, K4, K3 and K5 through their plain versions on the card:
+    the reference side of a check against the kernels, run on the same
+    device (these calls are no kernel launches). With ``ds_max``, each
+    K4 call appends its max |dS| there."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    saved = fa.flash_fwd, fa.flash_bwd
+    from deepspeed_tpu_torch.ops.cuda import moe_dispatch as md
+    saved = fa.flash_fwd, fa.flash_bwd, fa.flash_decode, md._kernel_permute
 
     def bwd(q, k, v, o, lse, do, **kw):
         if ds_max is not None:
             ds_max.append(plain_ds_max(q, k, v, o, lse, do, **kw))
         return fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
 
+    def decode(q, k, v, lengths, *, scale=None, **kw):
+        return fa.flash_decode_plain(q, k, v, lengths, scale=q.shape[-1]**-0.5 if scale is None else scale,
+                                     **kw)
+
     fa.flash_fwd = lambda q, k, v, **kw: fa.flash_fwd_plain(q, k, v, **kw)
     fa.flash_bwd = bwd
+    fa.flash_decode = decode
+    md._kernel_permute = md.moe_permute_plain
     try:
         yield
     finally:
-        fa.flash_fwd, fa.flash_bwd = saved
+        fa.flash_fwd, fa.flash_bwd, fa.flash_decode, md._kernel_permute = saved
+
+
+def on_card(side: str):
+    """The context of a check's side: ``"cuda"`` runs the kernels, ``"plain"``
+    their plain versions (:func:`plain_kernels`), both on the card."""
+    return plain_kernels() if side == "plain" else contextlib.nullcontext()
 
 
 def fp16_train(seed: int, card: str, work: str, steps: int = 4) -> tuple:
@@ -6878,7 +6904,7 @@ def fp16_boundary(seed: int, card: str, micro: int, seq: int) -> dict:
         del model
         ds = []
         if kind == "plain":
-            with plain_flash(ds):
+            with plain_kernels(ds):
                 rows = _fp16_steps(engine, batches, card, "350m at the overflow boundary, K1/K4 plain")
         else:
             rows = _fp16_steps(engine, batches, card, "350m at the overflow boundary")

@@ -385,9 +385,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    float s[kBK / 2];
+    // the row's scores go to its row of Ps (each thread its own columns)
+    // and are read back as probabilities: a register array of them would
+    // unroll the key loop with the head-dim loop inside it, which took
+    // nvcc a minute at head dim 128
+    float* s = Ps + r * (kBK + 1) + half;
     float tmax = ds::kNegInf;
-#pragma unroll
+#pragma unroll 1
     for (int jj = 0; jj < kBK / 2; ++jj) {
       const int j = 2 * jj + half;
       const int kj = k0 + j;
@@ -397,19 +401,19 @@ __global__ void __launch_bounds__(kThreads)
       bool ok = row_ok && kj < kv_len;
       if (causal) ok = ok && kj <= qpos;
       if (window > 0) ok = ok && kj > qpos - window;
-      s[jj] = ok ? dot : ds::kNegInf;
-      tmax = fmaxf(tmax, s[jj]);
+      s[2 * jj] = ok ? dot : ds::kNegInf;
+      tmax = fmaxf(tmax, s[2 * jj]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
     const float alpha = expf(m - m_new);  // 1 while the row has seen no live key
     float psum = 0.f;
-#pragma unroll
+#pragma unroll 8
     for (int jj = 0; jj < kBK / 2; ++jj) {
       // masked keys contribute an explicit 0, so a row with no live key
       // keeps l = 0 and finishes as zeros
-      const float p = s[jj] == ds::kNegInf ? 0.f : expf(s[jj] - m_new);
-      Ps[r * (kBK + 1) + 2 * jj + half] = p;
+      const float p = s[2 * jj] == ds::kNegInf ? 0.f : expf(s[2 * jj] - m_new);
+      s[2 * jj] = p;
       psum += p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
