@@ -401,6 +401,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
               gradients against remat off, peak memory), LAMB, Adagrad, SGD
               and Lion, progressive layer drop (theta against its formula)
               and an fp16 MoE model on K5.
+21. data and quantized training — at GPT-2 350m's width, bf16, seeded.
+              (a) K1 and K4 at the ragged curriculum lengths [8,72,16,64]
+              and [8,1016,16,64] causal against their plain versions,
+              timed beside SDPA and the bound; 24 layers (seq 1024,
+              micro-batch 8, remat, the fused head, flash) under
+              ``curriculum_learning`` (``fixed_linear`` 64 to 1024 in steps
+              of 8 over 8 steps): the truncated lengths, K1 48 and K4 24 a
+              step, the difficulty ending at 1024, finite losses; at 4
+              layers a save mid-ramp resumed by a fresh engine, the next two
+              steps bit-equal. (b) A 350m block in ``RandomLayerTokenDrop``
+              (batch 8, seq 1024, 512 kept), forward and backward on the
+              kernels against their plain versions: the tokens not kept
+              come through bit for bit, every token gets a gradient;
+              ``RandomLTDScheduler`` (128 to 1024 by 16) drives 4 steps of a
+              4-block stack. (c) MoQ at 4 layers (16 to 8 bits, period 2),
+              6 steps on K1 and K4: finite losses, each group of the
+              forward's weights on at most 2^bits levels, the gradients equal
+              to the straight-through gradients of the quantized model; the
+              eigenvalue factors at 2 layers on ``"xla"`` finite, the same
+              probe on ``"flash"`` raising. (d) ``checkpoint()`` over 4
+              blocks with ``cpu_checkpointing``: gradients bit-equal to it
+              without, the device peak against keeping the products on the
+              card, the pinned host bytes.
 
 A device time that ``torch.profiler`` fails to record (its profiles have
 come back empty on the card, early and late in a run) is timed with CUDA
@@ -416,7 +439,7 @@ that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
 resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
 alone, ``--phases fleet`` phase 4 and phase 18, ``--phases offload`` phase 19
-alone, ``--phases fp16`` phase 20 alone. Details go to
+alone, ``--phases fp16`` phase 20 alone, ``--phases data`` phase 21 alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -7104,6 +7127,401 @@ def fp16_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data and quantized training
+# ---------------------------------------------------------------------------
+#: phase 21's depth for its resume, MoQ and random-LTD stacks (350m has 24)
+DATA_CUT_LAYERS = 4
+#: the curriculum of (a): JAX's seqlen schedule, 64 to 1024 in steps of 8
+CURRICULUM_350M = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 64,
+                   "max_difficulty": 1024, "schedule_type": "fixed_linear",
+                   "schedule_config": {"total_curriculum_step": 8, "difficulty_step": 8}}
+#: K1 and K4's ragged lengths of (a): neither a multiple of a 64-row tile
+RAGGED_LENGTHS = (72, 1016)
+MOQ_350M = {"enabled": True, "quantize_bits": {"start_bits": 16, "target_bits": 8},
+            "quantize_period": 2}
+
+
+def data_gpt2(seed: int, layers: int, **over):
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config
+    kw = dict(vocab_size=50304, n_positions=1024, n_layer=layers, remat=True, attention_backend="flash",
+              dtype=torch.bfloat16, fused_head_loss_chunk=1024)
+    kw.update(over)
+    return GPT2LMHeadModel(get_gpt2_config("350m", **kw), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def data_engine(seed: int, layers: int, config_over=None, **model_kw):
+    from deepspeed_tpu_torch import initialize
+    config = train_config(8, 1.0, True)
+    config.update(config_over or {})
+    return initialize(model=data_gpt2(seed, layers, **model_kw), config=config)[0]
+
+
+def ragged_kernel_lines(gen) -> dict:
+    """(a) K1 and K4 in bf16 at the ragged curriculum lengths, each against
+    its plain version, timed beside SDPA and the bound."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    lines = {"flash_fwd": {}, "flash_bwd": {}}
+    b, h, d = 8, 16, 64
+    for l in RAGGED_LENGTHS:
+        shape = f"[{b},{l},{h},{d}] bf16 causal"
+        qkv = torch.randn(b, l, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(scale=d**-0.5, causal=True)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, _ = fa.flash_fwd_plain(q, k, v, **kw)
+        err_o = compare(f"flash_fwd ragged {shape}", o, ro, torch.bfloat16)
+        got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        err_g = max(compare(f"flash_bwd ragged {shape} d{x}", g, r, torch.bfloat16)
+                    for x, g, r in zip("qkv", got, ref))
+        del ro, got, ref
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        pairs = b * h * l * (l + 1) / 2
+        fwd = lambda: fa.flash_fwd(q, k, v, **kw)  # noqa: E731
+        bnd, by = bound_ms(4 * b * h * l * d * 2 + b * h * l * 4, 4 * d * pairs)
+        lines["flash_fwd"][shape] = dict(
+            name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117", shape=f"q,k,v {shape}",
+            max_abs_err=err_o, ms=time_ms(fwd, iters=10), device_ms=device_ms(fwd),
+            plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa))
+        bwd = lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)  # noqa: E731
+        bnd, by = bound_ms(8 * b * h * l * d * 2 + b * h * l * 4, 10 * d * pairs)
+        lines["flash_bwd"][shape] = dict(
+            name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+            replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403", shape=f"q,k,v,o,dO {shape}",
+            max_abs_err=err_g, ms=time_ms(bwd, iters=10), device_ms=device_ms(bwd),
+            plain_ms=time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=3, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa_bwd))
+        del out, qg, kg, vg, dot, sdpa_bwd, qkv, q, k, v, o, lse, do, qt, kt, vt
+        torch.cuda.empty_cache()
+        for what in ("flash_fwd", "flash_bwd"):
+            log_time(lines[what][shape])
+    return lines
+
+
+def _counted_steps(engine, batches, label: str, card: str, seq_of=None) -> list:
+    """``train_batch`` on each batch, K1 and K4 launches read around each
+    step; the rows logged."""
+    from deepspeed_tpu_torch.ops.cuda import launches
+    rows = []
+    for batch in batches:
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        after = launches()
+        row = dict(step=engine.global_steps, loss=loss, step_ms=(time.perf_counter() - t0) * 1e3,
+                   flash_fwd=after["flash_fwd"] - before["flash_fwd"],
+                   flash_bwd=after["flash_bwd"] - before["flash_bwd"])
+        if seq_of is not None:
+            row["seq"] = seq_of()
+        rows.append(row)
+        log(f"data {label} step {row['step']}: loss {loss:.5f}, {row['step_ms']:.1f} ms, K1 "
+            f"{row['flash_fwd']}, K4 {row['flash_bwd']}" + (f", seq {row['seq']}" if seq_of else "")
+            + f"  [{card}]")
+    return rows
+
+
+def data_curriculum(seed: int, card: str, work: str) -> dict:
+    """(a) The curriculum: 24 layers over the 8-step ramp (the main path),
+    then a 4-layer save mid-ramp resumed bit-equal."""
+    config = {"curriculum_learning": CURRICULUM_350M}
+    rng = np.random.default_rng(seed + 21)
+    batches = [{"input_ids": rng.integers(0, 50304, (8, 1024)).astype(np.int32)} for _ in range(8)]
+    engine = data_engine(seed + 21, 24, config)
+    seen = []
+    engine.module.register_forward_pre_hook(lambda m, args: seen.append(args[0].shape[1]))
+    rows = _counted_steps(engine, batches, "(a) curriculum", card, seq_of=lambda: seen[-1])
+    sched = engine.curriculum_scheduler
+    want = [sched.get_difficulty(s) for s in range(1, 9)]
+    lengths = [r["seq"] for r in rows]
+    bad = [r for r in rows if r["flash_fwd"] != 48 or r["flash_bwd"] != 24]
+    if (lengths != want or lengths[-1] != 1024 or sched.get_current_difficulty() != 1024 or bad
+            or not all(np.isfinite(r["loss"]) for r in rows)):
+        raise AssertionError(f"phase 21 (a): lengths {lengths} (want {want}), steps {rows}")
+    # the first length again, twice: a step's time at a length met before
+    short = {"input_ids": batches[0]["input_ids"][:, :lengths[0]]}
+    again = _counted_steps(engine, [short, short], "(a) first length again", card, seq_of=lambda: seen[-1])
+    del engine
+    _free()
+    # 4 layers: a save after step 3, a fresh engine resumes, steps 4-5 bit-equal
+    first = data_engine(seed + 21, DATA_CUT_LAYERS, config)
+    straight = [float(first.train_batch(b)) for b in batches[:5]]
+    first_params = [p.detach().clone() for p in first.module.parameters()]
+    del first
+    _free()
+    saver = data_engine(seed + 21, DATA_CUT_LAYERS, config)
+    for b in batches[:3]:
+        saver.train_batch(b)
+    saver.save_checkpoint(work, tag="mid_ramp")
+    del saver
+    _free()
+    fresh = data_engine(seed + 21, DATA_CUT_LAYERS, config)
+    fresh.load_checkpoint(work, tag="mid_ramp")
+    difficulty = fresh.curriculum_scheduler.get_current_difficulty()
+    resumed = [float(fresh.train_batch(b)) for b in batches[3:5]]
+    same = resumed == straight[3:] and all(torch.equal(a, b.detach()) for a, b in
+                                            zip(first_params, fresh.module.parameters()))
+    log(f"data (a) resume at difficulty {difficulty}: steps 4-5 {resumed} vs {straight[3:]}, "
+        f"bit-equal {same}  [{card}]")
+    if not same:
+        raise AssertionError(f"phase 21 (a): the resumed steps differ: {resumed} vs {straight[3:]}")
+    del fresh, first_params
+    _free()
+    return dict(steps=rows, lengths=lengths, first_length_again=again,
+                resume=dict(difficulty_at_save=difficulty,
+                                                          losses=resumed, bit_equal=same))
+
+
+def data_random_ltd(seed: int, card: str) -> dict:
+    """(b) One 350m block in ``RandomLayerTokenDrop`` on the kernels against
+    their plain versions; ``RandomLTDScheduler`` over 4 steps of a 4-block
+    stack."""
+    from deepspeed_tpu_torch.models.gpt2 import Block
+    from deepspeed_tpu_torch.ops.random_ltd import gpt_sample_tokens
+    from deepspeed_tpu_torch.runtime.data_pipeline import RandomLayerTokenDrop, RandomLTDScheduler
+
+    model = data_gpt2(seed + 22, 1)
+    layer = RandomLayerTokenDrop(model.h_0)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    x = (torch.randn(8, 1024, 1024, generator=gen, device="cuda")).to(torch.bfloat16)
+    cot = torch.randn(8, 1024, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    idx, _ = gpt_sample_tokens(512, 1024, 8, generator=gen)
+    runs = {}
+    for side in ("cuda", "plain"):
+        layer.zero_grad(set_to_none=True)
+        xs = x.detach().requires_grad_()
+        with on_card(side):
+            out, _ = layer(xs, deterministic=False, reserved_length=512, sampled_indices=idx)
+            out.backward(cot)
+        runs[side] = dict(out=out.detach(), dx=xs.grad, dw=[p.grad.clone() for p in layer.parameters()])
+    got, ref = runs["cuda"], runs["plain"]
+    err = compare("random-LTD block out", got["out"], ref["out"], torch.bfloat16)
+    err = max(err, compare("random-LTD block dx", got["dx"], ref["dx"], torch.bfloat16))
+    err = max([err] + [compare(f"random-LTD block d{n}", a, b, torch.bfloat16)
+                       for (n, _), a, b in zip(layer.named_parameters(), got["dw"], ref["dw"])])
+    dropped = torch.ones(8, 1024, dtype=torch.bool, device="cuda")
+    dropped[torch.arange(8, device="cuda")[:, None], idx[0]] = False
+    passed = bool(torch.equal(got["out"][dropped], x[dropped]))
+    every_grad = bool((got["dx"].float().abs().sum(-1) > 0).all())
+    if not (passed and every_grad):
+        raise AssertionError(f"phase 21 (b): dropped tokens bit-equal {passed}, every token's "
+                             f"gradient non-zero {every_grad}")
+    log(f"data (b) random-LTD block: 512 of 1024 kept, dropped tokens bit for bit, every token's "
+        f"gradient non-zero, max |err| {err:.3e}  [{card}]")
+    del runs, got, ref, model, layer
+    _free()
+
+    stack = data_gpt2(seed + 23, DATA_CUT_LAYERS)
+    layers = [RandomLayerTokenDrop(b) for b in stack.blocks]
+    opt = torch.optim.AdamW(stack.parameters(), lr=1e-4)
+    sched = RandomLTDScheduler({"total_layer_num": DATA_CUT_LAYERS, "random_ltd_layer_num": DATA_CUT_LAYERS,
+                                "global_batch_size": 8,
+                                "random_ltd_schedule": {"min_value": 128, "max_value": 1024,
+                                                        "schedule_type": "fixed_linear",
+                                                        "schedule_config": {"require_steps": 4,
+                                                                            "seq_per_step": 16}}})
+    from deepspeed_tpu_torch.ops.cuda import launches
+    steps = []
+    for step in range(1, 5):
+        reserved = sched.update_seq(step)
+        h = x.detach()
+        before = launches()
+        for lay in layers:
+            h, _ = lay(h, deterministic=False, reserved_length=reserved, generator=gen)
+        loss = h.float().square().mean()
+        loss.backward()
+        loss = loss.detach()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        after = launches()
+        steps.append(dict(reserved=reserved, loss=float(loss), flash_fwd=after["flash_fwd"] - before["flash_fwd"],
+                          flash_bwd=after["flash_bwd"] - before["flash_bwd"]))
+        log(f"data (b) random-LTD stack step {step}: reserved {reserved}, loss {float(loss):.5f}, "
+            f"K1 {steps[-1]['flash_fwd']}, K4 {steps[-1]['flash_bwd']}  [{card}]")
+    if ([s["reserved"] for s in steps] != [352, 576, 800, 1024]
+            or any(s["flash_fwd"] != DATA_CUT_LAYERS or s["flash_bwd"] != DATA_CUT_LAYERS for s in steps)
+            or not all(np.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"phase 21 (b): scheduler steps {steps}")
+    out = dict(block=dict(max_abs_err=err, dropped_bit_equal=passed, every_token_grad=every_grad),
+               scheduler=steps, scheduler_state=sched.state_dict())
+    del stack, layers, opt, x, cot
+    _free()
+    return out
+
+
+def _levels(q: torch.Tensor, master: torch.Tensor, bits: float) -> int:
+    """The distinct levels a tensor's single group uses: its quantized
+    values ``q`` on the symmetric quantizer's grid ``k * scale``, the scale
+    ``2 max |master| / 2^bits``."""
+    scale = 2 * master.detach().float().abs().amax() / 2.0**bits
+    k = q.detach().float() / scale
+    if float((k - k.round()).abs().max()) > 1e-2:
+        raise AssertionError(f"phase 21 (c): values off the {bits:g}-bit grid")
+    return int(torch.unique(k.round()).numel())
+
+
+def data_moq(seed: int, card: str) -> dict:
+    """(c) MoQ at 4 layers over 6 steps on K1 and K4; the straight-through
+    gradients; the eigenvalue probe at 2 layers on ``"xla"`` and on
+    ``"flash"``."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.runtime.quantize import moq_bits_at
+    rng = np.random.default_rng(seed + 24)
+    batches = [{"input_ids": rng.integers(0, 50304, (8, 1024)).astype(np.int32)} for _ in range(6)]
+    engine = data_engine(seed + 24, DATA_CUT_LAYERS, {"quantize_training": MOQ_350M})
+    rows = _counted_steps(engine, batches[:5], "(c) MoQ", card)
+    step = engine.global_steps
+    bits = float(moq_bits_at(step, 16, 8, 2))
+    quantized = engine._moq(engine._moq_params, step)
+    levels = max(_levels(q, engine._moq_params[n], bits) for n, q in quantized.items())
+    # step 6 against the plain model at the quantized weights: the same gradients
+    engine.retain_grads()
+    twin_model = data_gpt2(seed + 24, DATA_CUT_LAYERS)
+    with torch.no_grad():
+        named = dict(twin_model.named_parameters())
+        for n, p in engine.module.named_parameters():
+            named[n].copy_(quantized[n] if n in quantized else p)
+    twin = initialize(model=twin_model, config=train_config(8, 1.0, True))[0]
+    twin.retain_grads()
+    rows += _counted_steps(engine, batches[5:], "(c) MoQ", card)
+    twin_rows = _counted_steps(twin, batches[5:], "(c) plain model at the quantized weights", card)
+    ste_equal = bool(torch.equal(engine._retained_grads, twin._retained_grads))
+    ste_err, ste_rel = rel_err(engine._retained_grads, twin._retained_grads)
+    twin_rows += _counted_steps(twin, batches[4:5], "(c) plain model, a second step", card)
+    log(f"data (c) MoQ: {bits:g} bits at step {step}, at most {levels} levels a group (<= {2**bits:g}); "
+        f"gradients vs the plain model at the quantized weights: bit-equal {ste_equal} "
+        f"(rel {ste_rel:.3e})  [{card}]")
+    if (levels > 2**bits or not ste_equal or any(r["flash_fwd"] != 2 * DATA_CUT_LAYERS
+                                                or r["flash_bwd"] != DATA_CUT_LAYERS for r in rows)
+            or not all(np.isfinite(r["loss"]) for r in rows)):
+        raise AssertionError(f"phase 21 (c): levels {levels} at {bits} bits, straight-through "
+                             f"gradients equal {ste_equal}, steps {rows}")
+    del engine, twin, twin_model, quantized
+    _free()
+    eig_cfg = {"quantize_training": MOQ_350M,
+               "eigenvalue": {"enabled": True, "max_iter": 4, "tol": 0.1, "layer_name": "h", "layer_num": 2}}
+    t0 = time.perf_counter()
+    probe = data_engine(seed + 25, 2, eig_cfg, attention_backend="xla")
+    loss = float(probe.train_batch(batches[0]))
+    factors = probe.moq_period_factors
+    eig_s = time.perf_counter() - t0
+    log(f"data (c) eigenvalue probe at 2 layers on xla: period factors {factors}, loss {loss:.5f} "
+        f"({eig_s:.1f} s)  [{card}]")
+    if (factors is None or set(factors) != {"h_0", "h_1"}
+            or not all(np.isfinite(f) and 1.0 <= f <= 5.0 for f in factors.values()) or not np.isfinite(loss)):
+        raise AssertionError(f"phase 21 (c): eigenvalue period factors {factors}")
+    del probe
+    _free()
+    flash = data_engine(seed + 25, 2, eig_cfg)
+    try:
+        flash.train_batch(batches[0])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    if raised is None or "differentiate twice" not in raised:
+        raise AssertionError(f"phase 21 (c): the eigenvalue probe on flash did not raise ({raised})")
+    log(f"data (c) eigenvalue probe on flash raises: {raised[:90]}...  [{card}]")
+    del flash
+    _free()
+    return dict(steps=rows, plain_steps=twin_rows, bits=bits, max_levels=levels, ste_bit_equal=ste_equal,
+                eigen_factors=factors, eigen_s=eig_s, flash_probe_raises=raised)
+
+
+def data_cpu_checkpointing(seed: int, card: str) -> dict:
+    """(d) ``checkpoint()`` over 4 blocks: cpu_checkpointing against the full
+    recompute (gradients bit-equal) and against the products kept on the
+    card (peak)."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ck
+    stack = data_gpt2(seed + 26, DATA_CUT_LAYERS, remat=False)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 26)
+    x = torch.randn(8, 1024, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(8, 1024, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    runs = {}
+    # each twice, the second kept: the first pays for the pinned buffers and
+    # the libraries' first calls
+    for name, cpu, policy in 2 * (("cpu_checkpointing", True, None), ("full recompute", False, None),
+                                  ("products on the card", False, "dots_with_no_batch_dims_saveable")):
+        ck.reset()
+        ck.configure(checkpoint_in_cpu=cpu, policy=policy)
+        stack.zero_grad(set_to_none=True)
+        xs = x.detach().requires_grad_()
+        before = dict(ck.OFFLOADED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        h = xs
+        for block in stack.blocks:
+            h = ck.checkpoint(lambda t, blk=block: blk(t)[0], h)
+        forward_peak = torch.cuda.max_memory_allocated() - base
+        h.backward(cot)
+        torch.cuda.synchronize()
+        runs[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                          peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                          after_forward_peak_gb=forward_peak / 1e9,
+                          host_gb=(ck.OFFLOADED["bytes"] - before["bytes"]) / 1e9,
+                          products=ck.OFFLOADED["products"] - before["products"],
+                          grads=[xs.grad] + [p.grad.clone() for b in stack.blocks for p in b.parameters()])
+        log(f"data (d) {name}: peak {runs[name]['peak_gb']:.3f} GB above the inputs, pinned host "
+            f"{runs[name]['host_gb']:.3f} GB ({runs[name]['products']} products), "
+            f"{runs[name]['ms']:.1f} ms  [{card}]")
+    ck.reset()
+    got, ref = runs["cpu_checkpointing"]["grads"], runs["full recompute"]["grads"]
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    if not same or runs["cpu_checkpointing"]["products"] != 4 * DATA_CUT_LAYERS:
+        raise AssertionError(f"phase 21 (d): gradients bit-equal {same}, products "
+                             f"{runs['cpu_checkpointing']['products']}")
+    for r in runs.values():
+        del r["grads"]
+    del stack, x, cot, got, ref
+    _free()
+    return dict(runs=runs, bit_equal=same)
+
+
+def data_phase(seed: int, card: str):
+    """Phase 21: (a) curriculum learning on K1 and K4 at ragged lengths, (b)
+    random-LTD, (c) MoQ and the eigenvalue probe, (d) cpu_checkpointing.
+    Returns the results and the launches of its paths (a)-(d), each
+    zeroed before the phase and read after it."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+    out["kernel_lines"] = ragged_kernel_lines(torch.Generator(device="cuda").manual_seed(seed + 21))
+    seconds["a kernels"] = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="ds_data_")
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out["a_curriculum"] = data_curriculum(seed, card, work)
+        seconds["a"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for key, fn in (("b_random_ltd", data_random_ltd), ("c_moq", data_moq),
+                    ("d_cpu_checkpointing", data_cpu_checkpointing)):
+        t0 = time.perf_counter()
+        out[key] = fn(seed, card)
+        seconds[key[0]] = time.perf_counter() - t0
+    counts = launches()
+    missing = [k for k in TRAINING_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 21: kernels never launched on its paths: {missing} ({counts})")
+    out["seconds"] = seconds
+    log("phase 21 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7115,7 +7533,7 @@ def main(argv=None) -> int:
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
                          "phase 4, whose measured rounding it reads), 'resilience' (phase 15), "
                          "'moe' (phase 16), 'rlhf' (phase 17), 'fleet' (phases 4 and 18), 'offload' "
-                         "(phase 19) and 'fp16' (phase 20)")
+                         "(phase 19), 'fp16' (phase 20) and 'data' (phase 21)")
     ap.add_argument("--offload-layers", type=int, default=OFFLOAD_LAYERS,
                     help=f"phase 19 (a)'s depth at LLaMA-7b's width (default {OFFLOAD_LAYERS}, at least "
                          f"{OFFLOAD_MIN_LAYERS}; the host needs {OFFLOAD_HOST_BYTES} bytes a parameter)")
@@ -7129,10 +7547,10 @@ def main(argv=None) -> int:
         return child_main(args)
     phases = set(args.phases.split(","))
     if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf",
-                       "fleet", "offload", "fp16"}
+                       "fleet", "offload", "fp16", "data"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet', 'offload' and 'fp16', got "
+                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet', 'offload', 'fp16' and 'data', got "
                  f"{args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -7193,6 +7611,10 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["fp16"] = fp16_phase(args.seed, card)[0]
             RESULTS.setdefault("phase_s", {})["20 fp16 and the training config"] = time.perf_counter() - t_phase
+        if "data" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["data"] = data_phase(args.seed, card)[0]
+            RESULTS.setdefault("phase_s", {})["21 data and quantized training"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -7274,6 +7696,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["fp16"], fp16_counts = fp16_phase(args.seed, card)
         phase_s["20 fp16 and the training config"] = time.perf_counter() - t_phase
+        _free()
+        t_phase = time.perf_counter()
+        RESULTS["data"], data_counts = data_phase(args.seed, card)
+        phase_s["21 data and quantized training"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -7294,7 +7720,7 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts, fp16_counts)
+                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts, fp16_counts, data_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts, offload_counts)
@@ -7324,6 +7750,13 @@ def main(argv=None) -> int:
                     shapes=[{k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)}
                             for t in RESULTS["fp16"]["kernel_lines"][name].values()],
                     launches=fp16_counts.get(name, 0))
+            if name in RESULTS["data"]["kernel_lines"]:
+                # phase 21: K1 and K4 at the ragged curriculum lengths, with
+                # the launches of phase 21's paths
+                entry["at_phase21"] = dict(
+                    shapes=[{k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)}
+                            for t in RESULTS["data"]["kernel_lines"][name].values()],
+                    launches=data_counts.get(name, 0))
             if name in RESULTS["offload"]["kernel_lines"]:
                 # phase 19: LLaMA-7b's width under both offloads, its
                 # launches (part of at_head_dim_128's) and its shape

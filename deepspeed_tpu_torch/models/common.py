@@ -85,7 +85,10 @@ class _FusedLMHeadLoss(torch.autograd.Function):
     Port of ``_fused_lm_head_loss_fn`` (``models/common.py:292-399``), whose
     chunk loop was a ``lax.scan``. The head is the tied ``[V, E]`` table
     (``vocab_major``, GPT-2) or an untied ``[E, V]`` kernel (LLaMA); each
-    layout contracts its own axis, with no transposed copy."""
+    layout contracts its own axis, with no transposed copy. The backward is
+    plain differentiable PyTorch (out of place when it builds a graph), so a second
+    derivative (an HVP) is the derivative of this backward, as JAX's
+    ``jvp`` of its ``custom_vjp``'s backward is."""
 
     @staticmethod
     def _padded(x, labels, chunk, ignore_index):
@@ -126,23 +129,30 @@ class _FusedLMHeadLoss(torch.autograd.Function):
         scale = g / denom
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         dx_chunks = []
+        # in place, unless the backward builds a graph (create_graph=True)
+        graph = torch.is_grad_enabled()
         for lo in range(0, x_f.shape[0], chunk):
             x_c, lab_c = x_f[lo:lo + chunk], lab_f[lo:lo + chunk]
             logits = _FusedLMHeadLoss._logits(x_c, w, vocab_major)
             valid = lab_c != ignore_index
             safe = torch.where(valid, lab_c, torch.zeros_like(lab_c))
             coeff32 = torch.softmax(logits.float(), dim=-1)
-            coeff32.scatter_add_(-1, safe[:, None], torch.full_like(coeff32[:, :1], -1.0))
+            hot = torch.full_like(coeff32[:, :1], -1.0)
+            if graph:
+                coeff32 = coeff32.scatter_add(-1, safe[:, None], hot)
+            else:
+                coeff32.scatter_add_(-1, safe[:, None], hot)
             coeff32 = coeff32 * (valid * scale)[:, None]
             coeff = coeff32.to(x.dtype)
             # dx: fp32 accumulation rounded once to x's dtype; dw: fp32 sums
             # of the exact products of the x-dtype operands
             if vocab_major:
                 dx_chunks.append(coeff @ w)
-                dw += coeff.t().float() @ x_c.float()
+                prod = coeff.t().float() @ x_c.float()
             else:
                 dx_chunks.append(coeff @ w.t())
-                dw += x_c.t().float() @ coeff.float()
+                prod = x_c.t().float() @ coeff.float()
+            dw = dw + prod if graph else dw.add_(prod)
         dx = torch.cat(dx_chunks)[:x.shape[0] * x.shape[1]].reshape(x.shape)
         return dx, dw.to(w.dtype), None, None, None, None
 

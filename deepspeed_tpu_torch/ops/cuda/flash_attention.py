@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.ops.cuda import build
 from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_BODIES, DECODE_CHUNK,
                                                               check_head_dim, decode_body)
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF, register_backend
+from deepspeed_tpu_torch.utils.autograd import once_differentiable
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +262,8 @@ class FlashAttention(torch.autograd.Function):
     tensors. ``policy="recompute"`` saves no lse and re-runs K1 in the
     backward. The JAX kernel's block sizes and ``bwd_skip`` are TPU grid
     policy: the Hopper loops always skip dead tiles, which gives the result
-    of both JAX settings."""
+    of both JAX settings. Differentiable once, as JAX's ``custom_vjp``: a
+    second derivative (an HVP) raises instead of dropping K4's own terms."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, scale, causal, window, policy):
@@ -272,6 +274,7 @@ class FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse, kv_lengths = ctx.saved_tensors
         scale, causal, window = ctx.args

@@ -28,6 +28,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
+from deepspeed_tpu_torch.utils.autograd import once_differentiable
 
 IMPL_CHOICES = ("xla", "pallas")
 
@@ -98,7 +99,8 @@ class PermuteRows(torch.autograd.Function):
     """The gather by ``fwd_idx`` with the gather by ``bwd_idx`` as its
     backward: the port of ``_pallas_permute_vjp`` (JAX
     ``moe_dispatch.py:109-128``). The cotangent may arrive with any strides;
-    :func:`moe_permute` reads it contiguous."""
+    :func:`moe_permute` reads it contiguous. Differentiable once, as JAX's
+    ``custom_vjp``: a second derivative raises."""
 
     @staticmethod
     def forward(ctx, x, fwd_idx, bwd_idx):
@@ -106,6 +108,7 @@ class PermuteRows(torch.autograd.Function):
         return moe_permute(x, fwd_idx)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         (bwd_idx,) = ctx.saved_tensors
         return moe_permute(g.contiguous(), bwd_idx), None, None

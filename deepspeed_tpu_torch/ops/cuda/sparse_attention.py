@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.ops.cuda import build
 from deepspeed_tpu_torch.ops.cuda.attention_geometry import SPARSE_HEAD_DIMS
 from deepspeed_tpu_torch.ops.cuda.flash_attention import _check_tensor_core_operands
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF
+from deepspeed_tpu_torch.utils.autograd import once_differentiable
 
 #: layout blocks the kernels are instantiated for
 KERNEL_BLOCKS = (16, 32, 64, 128)
@@ -310,7 +311,8 @@ class SparseAttention(torch.autograd.Function):
     ``_sparse_attention_bhld`` with ``_sparse_fwd_rule`` /
     ``_sparse_bwd_rule`` (JAX ``sparse_self_attention.py:217-232``), over
     BLHD tensors, with the launch orders of the query and key side (or
-    None). It saves ``o`` and ``lse`` for the backward."""
+    None). It saves ``o`` and ``lse`` for the backward. Differentiable once,
+    as JAX's ``custom_vjp``: a second derivative raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, kidx, kcnt, qidx, qcnt, q_order, k_order, scale, causal, block):
@@ -321,6 +323,7 @@ class SparseAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse, kidx, kcnt, qidx, qcnt, q_order, k_order = ctx.saved_tensors
         scale, causal, block = ctx.args

@@ -25,7 +25,20 @@ as a ``pallas_call`` is no ``dot_general`` to JAX's policies.
 calls. ``partition_activations``, ``contiguous_memory_optimization``,
 ``synchronize_checkpoint_boundary`` and ``profile`` are taken as JAX takes
 them: on one card there is nothing to partition, and the caching allocator
-owns contiguity. ``cpu_checkpointing`` raises (:data:`CPU_CHECKPOINTING_REFUSAL`).
+owns contiguity.
+
+``cpu_checkpointing`` applies where JAX applies it: in :func:`checkpoint`
+when no policy is configured (JAX's ``offload_dot_with_no_batch_dims(
+"device", "pinned_host")``; the models' remat ignores it, as JAX's does).
+The outputs of the products with no batch dims (``aten.mm``, ``addmm``)
+are copied to pinned host memory on a side stream as the forward makes
+them; the recompute in the backward takes them back from there, ordered
+by events, and recomputes the rest (torch stops a recompute after the
+last op its backward needs, so a product that no backward reads, such as a
+block's last one, is copied and never taken back). Torch's selective-checkpoint cache
+keeps what it saves on the card, and ``torch.autograd.graph.save_on_cpu``
+never sees that cache, so the host cache is a pair of dispatch modes of
+its own (:func:`host_offload_contexts`).
 """
 
 import contextlib
@@ -34,6 +47,7 @@ import logging
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint as torch_checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -79,15 +93,71 @@ def _context_fn(saved):
                                                 allow_cache_entry_mutation=True)
 
 
-#: why ``cpu_checkpointing`` raises: JAX offloads the kept products to
-#: pinned host memory (``offload_dot_with_no_batch_dims``); torch's selective
-#: checkpointing keeps them in a cache of its own, which
-#: ``torch.autograd.graph.save_on_cpu`` (a saved-tensor hook) never sees
-CPU_CHECKPOINTING_REFUSAL = (
-    "activation_checkpointing.cpu_checkpointing: the products a remat policy keeps live in "
-    "torch's selective-checkpoint cache, which torch.autograd.graph.save_on_cpu does not "
-    "reach, so the host offload of JAX's offload_dot_with_no_batch_dims policy has no "
-    "counterpart in the PyTorch port yet (ROADMAP.md Queue A item 3)")
+#: products ``cpu_checkpointing`` has copied to the host since the process
+#: started: their count and bytes
+OFFLOADED = {"products": 0, "bytes": 0}
+
+
+class _OffloadProducts(TorchDispatchMode):
+    """The forward's mode: each no-batch-dims product's output is copied
+    to the host (pinned, on a side stream, behind an event, for a CUDA
+    tensor) and queued."""
+
+    def __init__(self, storage: list):
+        super().__init__()
+        self.storage = storage
+        self.stream = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func not in _DOTS_NO_BATCH:
+            return out
+        if out.is_cuda:
+            host = torch.empty(out.shape, dtype=out.dtype, device="cpu", pin_memory=True)
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(out.device)
+            self.stream.wait_stream(torch.cuda.current_stream(out.device))
+            with torch.cuda.stream(self.stream):
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            out.record_stream(self.stream)  # the block outlives the copy
+        else:
+            host, done = out.clone(), None
+        OFFLOADED["products"] += 1
+        OFFLOADED["bytes"] += host.numel() * host.element_size()
+        self.storage.append((host, done))
+        return out
+
+
+class _ReloadProducts(TorchDispatchMode):
+    """The recompute's mode: each no-batch-dims product takes its output
+    back from the host queue, in the forward's order, instead of running;
+    every other op runs."""
+
+    def __init__(self, storage: list):
+        super().__init__()
+        self.storage = storage
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _DOTS_NO_BATCH:
+            return func(*args, **(kwargs or {}))
+        if not self.storage:
+            raise RuntimeError(f"cpu_checkpointing: the recompute ran {func} more often than the "
+                               f"forward did")
+        host, done = self.storage.pop(0)
+        device = args[0].device
+        if done is None:
+            return host.to(device)
+        torch.cuda.current_stream(device).wait_event(done)
+        return host.to(device, non_blocking=True)
+
+
+def host_offload_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint``: the forward and
+    recompute modes of one region, sharing its host queue."""
+    storage: list = []
+    return _OffloadProducts(storage), _ReloadProducts(storage)
 
 
 def checkpoint_with_policy(function: Callable, *args, policy: Optional[str] = None) -> Any:
@@ -136,9 +206,6 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
     _State.profile = bool(profile if profile is not None else cfg.get("profile", False))
     _State.policy_name = policy or cfg.get("policy")
     get_remat_policy(_State.policy_name)
-    if _State.cpu_checkpointing:
-        _State.cpu_checkpointing = False
-        raise NotImplementedError(CPU_CHECKPOINTING_REFUSAL)
     _State.configured = True
     logger.info(f"activation checkpointing configured: policy="
                 f"{_State.policy_name or 'full-recompute'} cpu={_State.cpu_checkpointing} "
@@ -211,7 +278,12 @@ def model_parallel_cuda_manual_seed(seed):
 
 def checkpoint(function: Callable, *args) -> Any:
     """Checkpoint a function call (JAX ``checkpoint``): the backward
-    recomputes ``function`` under the configured policy."""
+    recomputes ``function`` under the configured policy; with
+    ``cpu_checkpointing`` and no policy, the products with no batch dims
+    come back from pinned host memory instead of being recomputed."""
+    if _State.cpu_checkpointing and get_remat_policy(_State.policy_name) is None:
+        return torch_checkpoint(function, *args, use_reentrant=False,
+                                context_fn=host_offload_contexts)
     return checkpoint_with_policy(function, *args, policy=_State.policy_name)
 
 

@@ -30,7 +30,13 @@ setting is never dropped quietly. Taken:
   ``moe``, ``resilience``, ``nebula``, ``elasticity`` (at one rank it
   overrides the batch triangle as JAX's ``_apply_elastic_config`` does) and
   ``hybrid_engine`` (``enabled`` makes ``initialize`` return the RLHF
-  hybrid engine; ``inference_tp_size`` above 1 raises).
+  hybrid engine; ``inference_tp_size`` above 1 raises);
+- ``curriculum_learning`` (the engine truncates batches to the seqlen
+  difficulty), ``quantize_training`` (MoQ, ``runtime/quantize.py``) and
+  ``eigenvalue`` (its period factors, ``runtime/eigenvalue.py``), read by
+  the engine as JAX's reads them; ``data_efficiency`` is stored and applied
+  nowhere, as in JAX (its components, ``runtime/data_pipeline/``, are used
+  by hand, as JAX's tests use them).
 """
 
 import json
@@ -53,7 +59,8 @@ _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumu
           "wall_clock_breakdown", "memory_breakdown", "prescale_gradients",
           "gradient_predivide_factor", "sparse_gradients", "communication_data_type",
           "disable_allgather", "checkpoint", "activation_checkpointing", "program",
-          "attention", "progressive_layer_drop")
+          "attention", "progressive_layer_drop", "data_efficiency", "curriculum_learning",
+          "quantize_training", "eigenvalue")
 
 #: the top-level keys JAX reads that the port refuses, with the reason
 REFUSED_KEYS = {
@@ -70,10 +77,6 @@ REFUSED_KEYS = {
     "autotuning": "autotuning/ is not ported (ROADMAP.md Queue A item 9)",
     "compression_training": "compression/'s training transforms are not ported (ROADMAP.md "
                             "Queue A item 7)",
-    "data_efficiency": "runtime/data_pipeline/ is not ported (ROADMAP.md Queue A item 3)",
-    "curriculum_learning": "runtime/data_pipeline/ is not ported (ROADMAP.md Queue A item 3)",
-    "quantize_training": "runtime/quantize.py is not ported (ROADMAP.md Queue A item 3)",
-    "eigenvalue": "runtime/eigenvalue.py is not ported (ROADMAP.md Queue A item 3)",
     "pipeline": "the pipeline engine (runtime/pipe/) spans several cards (ROADMAP.md Queue A "
                 "item 8)",
 }
@@ -312,8 +315,8 @@ class CheckpointConfig(_Block):
 
 class ActivationCheckpointingConfig(_Block):
     """JAX ``ActivationCheckpointingConfig`` (``config.py:58-67``), read by
-    ``runtime/activation_checkpointing.configure``. ``cpu_checkpointing``
-    raises (``checkpointing.CPU_CHECKPOINTING_REFUSAL``)."""
+    ``runtime/activation_checkpointing.configure`` (``cpu_checkpointing``
+    applies in its ``checkpoint()``, as in JAX)."""
 
     NAME = "activation_checkpointing"
     FIELDS = {"partition_activations": ("bool", False, None),
@@ -322,13 +325,6 @@ class ActivationCheckpointingConfig(_Block):
               "number_checkpoints": ("int?", None, None),
               "synchronize_checkpoint_boundary": ("bool", False, None),
               "profile": ("bool", False, None)}
-
-    def __init__(self, raw: Optional[dict] = None):
-        super().__init__(raw)
-        if self.cpu_checkpointing:
-            from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
-                CPU_CHECKPOINTING_REFUSAL)
-            raise NotImplementedError(CPU_CHECKPOINTING_REFUSAL)
 
 
 class ProgramConfig(_Block):
@@ -447,6 +443,14 @@ class DeepSpeedConfig:
         pld = ProgressiveLayerDropConfig(config.get("progressive_layer_drop"))
         self.pld_enabled = pld.enabled
         self.pld_params = {"theta": pld.theta, "gamma": pld.gamma}
+        # taken as JAX takes them (config.py:379-386): data_efficiency is
+        # stored and applied nowhere; curriculum_learning, quantize_training
+        # and eigenvalue are read by the engine
+        self.data_efficiency_config = dict(config.get("data_efficiency") or {})
+        self.curriculum_learning_legacy = dict(config.get("curriculum_learning") or {})
+        self.curriculum_enabled_legacy = bool(self.curriculum_learning_legacy.get("enabled", False))
+        self.quantize_training_config = dict(config.get("quantize_training") or {})
+        self.eigenvalue_config = dict(config.get("eigenvalue") or {})
         self.seed = int(config.get("seed", 1234))
         self.gradient_clipping = float(config.get("gradient_clipping", 0.0))
         moe = dict(config.get("moe") or {})

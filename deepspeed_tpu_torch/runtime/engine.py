@@ -78,7 +78,20 @@ config before anything else (JAX ``_apply_program_knobs``), and so does
 the ``attention`` block's ``policy``, as ``attention_policy``;
 ``progressive_layer_drop`` anneals theta on the host and hands
 ``pld_theta`` to a model that takes it (JAX ``engine.py:365-386``);
-``wall_clock_breakdown`` times ``train_batch`` (``utils/timer.py``). The JAX engine ran the step as one
+``wall_clock_breakdown`` times ``train_batch`` (``utils/timer.py``).
+``curriculum_learning`` with the ``seqlen`` metric truncates each
+``train_batch``'s sequences to the scheduler's difficulty before anything
+else (JAX ``engine.py:350-363, 2199-2201``), and its state travels in every
+tag's metadata. ``quantize_training`` (MoQ, ``runtime/quantize.py``) fake-
+quantizes the >= 2-D fp32 masters at the step's bit width in every training
+forward and eval, with the straight-through estimator: each master's data
+points at its quantized values from the forward until its backward has run
+(so that a remat region's recompute reads them too, and the model's per-use
+casts round them), and the gradient lands on the master; with
+``eigenvalue`` enabled too, each layer's period is stretched
+by its Hessian curvature, probed once before the first step on JAX's
+synthetic batch (JAX ``engine.py:1641-1696, 1820-1840, 1981-1982``). MoQ
+raises under either offload, where JAX applies it nowhere. The JAX engine ran the step as one
 jitted program and ``train_batches`` as a ``lax.scan``; here they are
 Python loops over eager PyTorch (a CUDA graph is later work). The
 gradients live in one flat fp32 buffer, each parameter's ``.grad`` a view
@@ -147,6 +160,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (HOST_OPT
                                                                         TorchCheckpointEngine)
 from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, DeepSpeedConfig,
                                                 comm_dtype, program_env_updates)
+from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState, OverflowWatcher,
                                                           create_loss_scaler, has_overflow)
@@ -230,6 +244,22 @@ def default_causal_lm_loss(outputs, batch: dict) -> torch.Tensor:
     return cross_entropy_loss(logits[:, :-1], labels[:, 1:]) + aux_loss
 
 
+def _truncate_seq(batch, seqlen: int):
+    """Every ``[batch, seq, ...]`` array or tensor of ``batch`` (a dict, or
+    the ``input_ids`` alone) cut to ``seqlen`` tokens (curriculum learning,
+    the seqlen metric; JAX ``engine.py:78-86``)."""
+    def trunc(x):
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if x.ndim >= 2 and x.shape[1] > seqlen:
+            x = x[:, :seqlen]
+            return x.contiguous() if isinstance(x, torch.Tensor) else np.ascontiguousarray(x)
+        return x
+    if isinstance(batch, dict):
+        return {k: trunc(v) for k, v in batch.items()}
+    return trunc(batch)
+
+
 def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} belongs to a later slice of the PyTorch port "
                                f"(ROADMAP.md Queue A item {item})")
@@ -300,6 +330,28 @@ class DeepSpeedEngine:
         self._copy_stream = None
         #: the last offloaded step's host-side parts (seconds and bytes)
         self.offload_timings: dict = {}
+        # curriculum learning (JAX ``engine.py:350-363``): for the seqlen
+        # metric the engine truncates each batch itself
+        cl_cfg = config.curriculum_learning_legacy
+        self.curriculum_scheduler = None
+        self.curriculum_metric = None
+        if cl_cfg.get("enabled", False):
+            self.curriculum_scheduler = CurriculumScheduler(cl_cfg)
+            self.curriculum_metric = cl_cfg.get("curriculum_type", "seqlen")
+            logger.info(f"curriculum learning enabled: metric={self.curriculum_metric} "
+                        f"schedule={cl_cfg.get('schedule_type')}")
+        # MoQ: resolved against the parameters before the first forward
+        self._moq = None
+        self._moq_params: Dict[str, torch.Tensor] = {}
+        self._moq_masters: Optional[Dict[str, torch.Tensor]] = None
+        self.moq_period_factors: Optional[Dict[str, float]] = None
+        self._moq_pending = bool(config.quantize_training_config.get("enabled", False))
+        if self._moq_pending and (self._param_offload or zcfg.offload_optimizer_device != "none"):
+            # JAX raises under offload_param and runs offloaded steps
+            # unquantized (engine.py:1848-1862)
+            raise ValueError("quantize_training (MoQ) does not compose with offload_param or "
+                             "offload_optimizer: the JAX engine applies it on neither path; "
+                             "disable one of the two")
         if self._param_offload:
             self._rest_params_on_host()
         self.optimizer = self._configure_optimizer()
@@ -456,6 +508,96 @@ class DeepSpeedEngine:
         return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(self.device)
                 for k, v in batch.items()}
 
+    def _resolve_moq(self) -> None:
+        """Build the MoQ transform once, before the first forward or eval
+        (JAX resolves it when the state first exists), with the eigenvalue
+        period factors when that block is enabled."""
+        if not self._moq_pending:
+            return
+        from deepspeed_tpu_torch.runtime.quantize import build_moq_transform
+        self._moq_pending = False
+        named = dict(self.module.named_parameters())
+        #: the eigenvalue block's period factor by layer (None without it)
+        self.moq_period_factors = self._moq_eigenvalue_factors()
+        self._moq = build_moq_transform(named, self.config.quantize_training_config,
+                                        period_factors=self.moq_period_factors)
+        if self._moq is not None:
+            self._moq_params = {n: named[n] for n in self._moq.names}
+
+    def _moq_swap_in(self) -> None:
+        """Point each quantized master's data at its values quantized at
+        this step (JAX's ``x + stop_gradient(q - x)``): the forward and any
+        recompute read them, the gradient lands on the master, as the
+        straight-through estimator wants."""
+        if self._moq is None or self._moq_masters is not None:
+            return
+        with torch.no_grad():
+            quantized = self._moq(self._moq_params, self.global_steps)
+        self._moq_masters = {n: p.data for n, p in self._moq_params.items()}
+        for n, p in self._moq_params.items():
+            p.data = quantized[n]
+
+    def _moq_swap_out(self) -> None:
+        """Point the masters' data back at the fp32 masters."""
+        if self._moq_masters is None:
+            return
+        for n, p in self._moq_params.items():
+            p.data = self._moq_masters[n]
+        self._moq_masters = None
+
+    def _moq_eigenvalue_factors(self) -> Optional[Dict[str, float]]:
+        """Eigenvalue-modulated MoQ periods (JAX ``engine.py:1641-1696``):
+        each layer's top Hessian eigenvalue, probed once on a synthetic
+        batch (numpy seed 0, ``[micro, min(positions, 128)]`` tokens, eval
+        loss), becomes the period factor ``1 + floor(eig / max_eig * 4)``.
+        None unless the ``eigenvalue`` block is enabled. The HVP is taken
+        with respect to the module's own parameters, so that a remat
+        region's recompute differentiates the same tensors. A loss that
+        cannot be differentiated twice (the flash kernels) raises, as JAX's
+        HVP through its Pallas kernels does."""
+        ev_cfg = self.config.eigenvalue_config
+        if not ev_cfg.get("enabled", False):
+            return None
+        import math
+
+        from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+
+        mcfg = self.module.config
+        layer_name = ev_cfg.get("layer_name", "h")
+        layer_num = int(ev_cfg.get("layer_num", getattr(mcfg, "n_layer",
+                                                        getattr(mcfg, "num_hidden_layers", 0))))
+        if not layer_name or layer_num <= 0:
+            logger.warning("eigenvalue enabled but layer_name/layer_num resolve to "
+                           f"{layer_name!r}/{layer_num}; skipping MoQ period modulation")
+            return None
+        seq = min(int(getattr(mcfg, "n_positions", getattr(mcfg, "max_position_embeddings", 128))),
+                  128)
+        vocab = int(getattr(mcfg, "vocab_size", 256))
+        rng = np.random.default_rng(0)
+        probe = self._stage({"input_ids": rng.integers(
+            0, vocab, (self.config.train_micro_batch_size_per_gpu, seq)).astype(np.int32)})
+        ev = Eigenvalue(verbose=bool(ev_cfg.get("verbose", False)),
+                        max_iter=int(ev_cfg.get("max_iter", 10)), tol=float(ev_cfg.get("tol", 1e-2)),
+                        stability=float(ev_cfg.get("stability", 1e-6)), layer_name=layer_name,
+                        layer_num=layer_num)
+        params = dict(self.module.named_parameters())
+        try:
+            with torch.enable_grad():
+                # raw values: a diverged layer skips the modulation
+                eigs = ev.compute_eigenvalue(lambda p: self._loss_for(probe, train=False),
+                                             params, generator=torch.Generator(
+                                                 device=self.device).manual_seed(0), scrub=False)
+        except KeyError as e:
+            logger.warning(f"eigenvalue: {e}; skipping MoQ period modulation")
+            return None
+        if not all(math.isfinite(e) for e in eigs):
+            logger.warning("eigenvalue returned non-finite values; skipping MoQ period modulation")
+            return None
+        max_eig = max(eigs) or 1.0
+        factors = {f"{layer_name}_{i}": 1.0 + math.floor(e / max_eig * 4) for i, e in enumerate(eigs)}
+        logger.info(f"MoQ eigenvalue period factors: {factors}")
+        return factors
+
     def _loss_for(self, mb: dict, train: bool) -> torch.Tensor:
         mcfg = self.module.config
         ids = mb["input_ids"]
@@ -497,7 +639,13 @@ class DeepSpeedEngine:
         ``backward`` consumes it. Dropout and MoE gating draw from
         ``self.generator``."""
         self.initialize_state()
-        self._pending_loss = self._loss_for(self._stage(batch), train=True)
+        self._resolve_moq()
+        self._moq_swap_in()  # out again after this loss's backward
+        try:
+            self._pending_loss = self._loss_for(self._stage(batch), train=True)
+        except BaseException:
+            self._moq_swap_out()
+            raise
         return self._pending_loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -512,11 +660,14 @@ class DeepSpeedEngine:
         if not self._window_open:
             self._grads.zero_()
             self._window_open = True
-        if self.config.fp16_enabled:
-            (loss * torch.tensor(self._ls_state.loss_scale, dtype=torch.float32,
-                                 device=loss.device)).backward()
-        else:
-            loss.backward()
+        try:
+            if self.config.fp16_enabled:
+                (loss * torch.tensor(self._ls_state.loss_scale, dtype=torch.float32,
+                                     device=loss.device)).backward()
+            else:
+                loss.backward()
+        finally:
+            self._moq_swap_out()
         self.micro_steps += 1
         return loss
 
@@ -700,6 +851,9 @@ class DeepSpeedEngine:
             if it is None:
                 raise ValueError("train_batch needs a batch, a data_iter or initialize(training_data=...)")
             batch = next(it)
+        if self.curriculum_scheduler is not None and self.curriculum_metric == "seqlen":
+            seqlen = self.curriculum_scheduler.update_difficulty(self.global_steps + 1)
+            batch = _truncate_seq(batch, seqlen)
         cfg = self.config
         gas = cfg.gradient_accumulation_steps
         self.timers(TRAIN_BATCH_TIMER).start()
@@ -730,8 +884,14 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        """The loss of the whole batch, deterministic (no dropout)."""
-        return self._loss_for(self._stage(batch), train=False)
+        """The loss of the whole batch, deterministic (no dropout); under
+        MoQ, of the quantized model that training optimizes."""
+        self._resolve_moq()
+        self._moq_swap_in()
+        try:
+            return self._loss_for(self._stage(batch), train=False)
+        finally:
+            self._moq_swap_out()
 
     def load_optimizer_state(self, state: dict) -> None:
         """Load an optimizer state keyed by parameter name (e.g.
@@ -969,6 +1129,8 @@ class DeepSpeedEngine:
         meta = {"global_steps": self.global_steps, "global_samples": self.global_samples,
                 "micro_steps": self.micro_steps, "skipped_steps": self.skipped_steps,
                 "world_size": 1, "client_state": client_state or {}}
+        if self.curriculum_scheduler is not None:
+            meta["curriculum_state"] = self.curriculum_scheduler.get_state()
         engine = TorchCheckpointEngine(save_dir)
         if self.config.nebula_config.enabled:
             if self._snapshot_pool is None:
@@ -1156,6 +1318,8 @@ class DeepSpeedEngine:
         self.global_samples = meta.get("global_samples", 0)
         self.micro_steps = meta.get("micro_steps", 0)
         self.skipped_steps = meta.get("skipped_steps", 0)
+        if self.curriculum_scheduler is not None and "curriculum_state" in meta:
+            self.curriculum_scheduler.set_state(meta["curriculum_state"])
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
         self._pending_loss = None

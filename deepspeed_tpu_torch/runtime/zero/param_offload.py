@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.aio.aio_handle import AsyncIOHandle, check_io
+from deepspeed_tpu_torch.utils.autograd import once_differentiable
 
 _state = threading.local()
 
@@ -96,6 +97,10 @@ class ParamStreamer:
 
 
 class _StreamIn(torch.autograd.Function):
+    """Differentiable once: its backward adds into the flat gradient buffer
+    outside the graph, so a second derivative raises (JAX's ``stream_in``,
+    whose backward is the identity, gives one; an HVP under
+    ``offload_param`` is out of reach here)."""
 
     @staticmethod
     def forward(ctx, host, grad_view, device, cast_dtype):
@@ -106,6 +111,7 @@ class _StreamIn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ct):
         if ctx.grad_view is not None:
             ctx.grad_view.add_(ct.to(ctx.grad_view.dtype))

@@ -121,8 +121,7 @@ def test_refused_keys_name_themselves(key):
     ({"attention": {"block_q": 128}}, "attention.block_q: the JAX flash kernel's TPU block geometry"),
     ({"attention": {"bwd_skip": "none"}}, "attention.bwd_skip"),
     ({"attention": {"cache_file": "x.json"}}, "attention.cache_file"),
-    ({"activation_checkpointing": {"cpu_checkpointing": True}},
-     "activation_checkpointing.cpu_checkpointing"),
+    ({"attention": {"block_k_bwd": 64}}, "attention.block_k_bwd"),
     ({"checkpoint": {"load_universal": True}}, "checkpoint.load_universal"),
     ({"optimizer": {"type": "Adam", "legacy_fusion": True}}, "optimizer.legacy_fusion"),
     ({"optimizer": {"type": "ZeroOneAdam"}}, "one-bit"),

@@ -102,12 +102,13 @@ def _jax_curve(family, config, n=STEPS):
     return init, rows
 
 
-def _jax_init(family):
-    """JAX's initial weights, from an engine without offload (under
-    ``offload_optimizer`` JAX's state holds the compute-dtype copies)."""
-    engine = _jax_engine(family, CONFIG)
-    engine.initialize_state({"input_ids": _batches(1)[0]})
-    return jax.device_get(engine.state.params)
+@pytest.fixture(scope="module")
+def jax_gpt2():
+    """JAX's GPT-2 curve at ``CONFIG`` and its initial weights, from an
+    engine without offload (under ``offload_optimizer`` JAX's state holds
+    the compute-dtype copies): one JAX run that the curve, resume and
+    offload tests share."""
+    return _jax_curve("gpt2", CONFIG)
 
 
 def _port_engine(family, tree, config):
@@ -133,8 +134,8 @@ def _check_rows(rows, want, what):
 
 
 @pytest.mark.parametrize("family", MODELS)
-def test_fp16_curve_and_scale_match_jax(family):
-    init, want = _jax_curve(family, CONFIG)
+def test_fp16_curve_and_scale_match_jax(family, jax_gpt2):
+    init, want = jax_gpt2 if family == "gpt2" else _jax_curve(family, CONFIG)
     assert [w[1] for w in want] == [2.0**16, 2.0**17, 2.0**17, 2.0**18, 2.0**18, 2.0**19]
     engine = _port_engine(family, init, CONFIG)
     assert engine.fp16_enabled() and engine.dynamic_loss_scale() and engine.cur_scale == 2.0**16
@@ -162,8 +163,8 @@ def test_fp16_overflow_skips_step_as_jax_does():
     assert ("Train/consecutive_overflow_skips", 1, 1) in engine.overflow_events
 
 
-def test_fp16_tag_resumes_bit_exact(tmp_path):
-    init = _jax_init("gpt2")
+def test_fp16_tag_resumes_bit_exact(tmp_path, jax_gpt2):
+    init = jax_gpt2[0]
     batches = _batches()
     engine = _port_engine("gpt2", init, CONFIG)
     _port_rows(engine, batches[:3])
@@ -183,19 +184,19 @@ def test_fp16_tag_resumes_bit_exact(tmp_path):
 OFFLOAD = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
 
 
-def test_fp16_under_offload_optimizer_matches_jax():
+def test_fp16_under_offload_optimizer_matches_jax(jax_gpt2):
     cfg = dict(CONFIG, zero_optimization=OFFLOAD)
     _, want = _jax_curve("gpt2", cfg, n=4)
-    engine = _port_engine("gpt2", _jax_init("gpt2"), cfg)
+    engine = _port_engine("gpt2", jax_gpt2[0], cfg)
     assert type(engine.optimizer).__name__ == "DeepSpeedCPUAdam"
     _check_rows(_port_rows(engine, _batches(4)), want, "offload_optimizer")
 
 
-def test_fp16_overflow_under_offload_skips_the_host_update():
+def test_fp16_overflow_under_offload_skips_the_host_update(jax_gpt2):
     cfg = dict(CONFIG, zero_optimization=OFFLOAD,
                fp16={"enabled": True, "initial_scale_power": 40, "hysteresis": 1})
     _, want = _jax_curve("gpt2", cfg, n=1)
-    engine = _port_engine("gpt2", _jax_init("gpt2"), cfg)
+    engine = _port_engine("gpt2", jax_gpt2[0], cfg)
     masters = [m.clone() for m in engine._host_masters]
     _check_rows(_port_rows(engine, _batches(1)), want, "offload overflow")
     assert engine.skipped_steps == 1 and engine.cur_scale == 2.0**39
