@@ -58,6 +58,12 @@ def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
+def _jit(fn, *args, **kw):
+    """``fn(*args, **kw)`` as one compiled program (the keywords closed over):
+    a cold compile cache builds it faster than op by op."""
+    return jax.jit(lambda *a: fn(*a, **kw))(*args)
+
+
 XLA_CASES = [
     dict(lq=8, lk=8, causal=True),
     dict(lq=8, lk=8, causal=False),
@@ -75,8 +81,8 @@ def test_plain_attention_matches_jax_xla(case):
     q, k, v = _qkv(0, 3, case.pop("lq"), case.pop("lk"))
     kw = {key: (np.asarray(val, np.int32) if isinstance(val, list) else val)
           for key, val in case.items()}
-    ref = jax_xla_attention(*_j(q, k, v), **{k_: (jnp.asarray(v_) if isinstance(v_, np.ndarray) else v_)
-                                             for k_, v_ in kw.items()})
+    ref = _jit(jax_xla_attention, *_j(q, k, v), **{k_: (jnp.asarray(v_) if isinstance(v_, np.ndarray)
+                                                        else v_) for k_, v_ in kw.items()})
     out = xla_attention(*_t(q, k, v), **{k_: (torch.from_numpy(v_) if isinstance(v_, np.ndarray) else v_)
                                          for k_, v_ in kw.items()})
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
@@ -118,10 +124,10 @@ def test_flash_forward_matches_jax_flash_and_xla(case):
     before = dict(LAUNCHES)
     out = dot_product_attention(*_t(q, k, v), backend="flash", **tkw).numpy()
     assert LAUNCHES == before, "the plain version on CPU tensors counts no kernel launch"
-    ref_flash = np.asarray(jax_flash.flash_attention(*_j(q, k, v), interpret=True, **jkw))
+    ref_flash = np.asarray(_jit(jax_flash.flash_attention, *_j(q, k, v), interpret=True, **jkw))
     np.testing.assert_allclose(out, ref_flash, atol=ATOL, rtol=0)
     live = _flash_live_rows(case, 3, lq, lk)
-    ref_xla = np.asarray(jax_xla_attention(*_j(q, k, v), **jkw))
+    ref_xla = np.asarray(_jit(jax_xla_attention, *_j(q, k, v), **jkw))
     np.testing.assert_allclose(out[live], ref_xla[live], atol=ATOL, rtol=0)
     assert np.all(out[~live] == 0.0)
 
@@ -160,11 +166,11 @@ def test_flash_decode_matches_jax_decode_and_xla(case):
     out = dot_product_attention(*_t(q, k, v), backend="flash", causal=False,
                                 decode_lengths=torch.tensor(lengths, dtype=torch.int32)).numpy()
     jlens = jnp.asarray(lengths, jnp.int32)
-    ref_kernel = np.asarray(jax_flash.flash_decode(*_j(q, k, v), jlens, interpret=True))
+    ref_kernel = np.asarray(_jit(jax_flash.flash_decode, *_j(q, k, v), jlens, interpret=True))
     np.testing.assert_allclose(out, ref_kernel, atol=ATOL, rtol=0)
     q_pos = np.asarray(lengths)[:, None] - lq + np.arange(lq)[None, :]
     live = q_pos >= 0
-    ref_xla = np.asarray(jax_xla_attention(*_j(q, k, v), causal=False, decode_lengths=jlens))
+    ref_xla = np.asarray(_jit(jax_xla_attention, *_j(q, k, v), causal=False, decode_lengths=jlens))
     np.testing.assert_allclose(out[live], ref_xla[live], atol=ATOL, rtol=0)
     assert np.all(out[~live] == 0.0)
 

@@ -210,10 +210,10 @@ def test_decode_cache_matches_full_forward(variant):
         np.testing.assert_allclose(got, np.asarray(out), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("backend", ["xla", "flash"])
-def test_generate_greedy_tokens_match_jax(backend):
-    """A 20-token prompt: one 16-token prefill chunk, four single-token
-    prefill calls, then the token loop."""
+@pytest.fixture(scope="module")
+def jax_greedy():
+    """JAX's engine, its weights as a port state dict, a 20-token prompt and
+    its 6 greedy tokens: one JAX run for both of the port's backends."""
     set_topology(None)
     cfg = jax_config("test")
     topo = MeshTopology(tensor=1, data=1, fsdp=1, devices=jax.devices()[:1])
@@ -222,7 +222,14 @@ def test_generate_greedy_tokens_match_jax(backend):
     state = params_from_jax(jax.device_get(jax_engine.params), get_llama_config("test"))
     set_topology(None)
     ids = _ids(5, 2, 20)
-    want = np.asarray(jax_engine.generate(ids, max_new_tokens=6))
+    return state, ids, np.asarray(jax_engine.generate(ids, max_new_tokens=6))
+
+
+@pytest.mark.parametrize("backend", ["xla", "flash"])
+def test_generate_greedy_tokens_match_jax(jax_greedy, backend):
+    """A 20-token prompt: one 16-token prefill chunk, four single-token
+    prefill calls, then the token loop."""
+    state, ids, want = jax_greedy
     model = LlamaForCausalLM(get_llama_config("test"), device="cpu")
     kw = dict(kernel_inject=True, use_flash_prefill=True) if backend == "flash" else {}
     engine = init_inference(model, params=state, device="cpu", **kw)

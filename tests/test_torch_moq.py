@@ -96,11 +96,14 @@ def test_fake_quantize_stepped_equals_jax_at_every_width(groups, symmetric):
 @pytest.mark.parametrize("start,target", [(16, 8), (8, 4), (16, 1), (12, 2)])
 def test_bit_schedule_equals_jax_for_every_step(start, target):
     steps = np.arange(100_001)
-    for period in (1, 2, 3, 5, 7, 10, 64, 100, 1000):
-        want = np.asarray(jax.jit(lambda s: jax_q.moq_bits_at(s, start, target, period))(
-            jnp.asarray(steps)))
+    periods = (1, 2, 3, 5, 7, 10, 64, 100, 1000)
+    # one JAX program for every period (a period array gives the same float32
+    # arithmetic as a Python int)
+    want = np.asarray(jax.jit(lambda s, p: jax_q.moq_bits_at(s, start, target, p))(
+        jnp.asarray(steps)[:, None], jnp.asarray(periods, jnp.int32)[None, :]))
+    for i, period in enumerate(periods):
         got = port_q.moq_bits_at(torch.from_numpy(steps), start, target, period).numpy()
-        np.testing.assert_array_equal(got, want, err_msg=f"period {period}")
+        np.testing.assert_array_equal(got, want[:, i], err_msg=f"period {period}")
     assert float(port_q.moq_bits_at(100, 8, 4, 100)) == 7.0
 
 

@@ -190,9 +190,14 @@ def _jax(q, k, v, w, layout, block, causal):
     def fn(q_, k_, v_):
         return jax_sparse.sparse_attention(q_, k_, v_, layout, block, causal=causal)
 
+    def loss(*a):
+        o = fn(*a)
+        return jnp.sum(o * jnp.asarray(w)), o
+
     args = [jnp.asarray(x) for x in (q, k, v)]
-    grads = jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(w)), argnums=(0, 1, 2)))(*args)
-    return np.asarray(jax.jit(fn)(*args)), [np.asarray(g) for g in grads]
+    # one program for the output and the gradients: each case compiles once
+    (_, o), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(*args)
+    return np.asarray(o), [np.asarray(g) for g in grads]
 
 
 # (config class, constructor arguments, causal, d)
