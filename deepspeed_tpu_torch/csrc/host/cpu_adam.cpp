@@ -6,35 +6,41 @@
 // gradients; deepspeed_tpu_torch/ops/op_builder.py builds it with g++ and
 // loads it with ctypes.
 //
-// AVX2 (+FMA) fast path with scalar tail; scalar fallback elsewhere.
+// AVX2 (+FMA) fast path with scalar tail; scalar fallback elsewhere. A
+// span of at least 2 * kMinPerThread elements is split across threads
+// (unlike the JAX package's one core) at multiples of 8 elements, so that
+// each element takes the same vector or scalar path, and the same bits, as
+// in one pass.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <thread>
+#include <vector>
 
 #if defined(__AVX2__)
 #include <immintrin.h>
 #endif
 
-extern "C" {
+namespace {
 
-// One fused Adam step over a contiguous span.
-//   p, g, m, v : fp32 arrays of length n (updated in place except g)
-//   step       : 1-based optimizer step (for bias correction)
-//   adamw      : 1 → decoupled weight decay (AdamW), 0 → L2-into-grad (Adam)
-void ds_adam_update(float* __restrict p,
-                    const float* __restrict g,
-                    float* __restrict m,
-                    float* __restrict v,
-                    int64_t n,
-                    int32_t step,
-                    float lr,
-                    float beta1,
-                    float beta2,
-                    float eps,
-                    float weight_decay,
-                    int32_t adamw,
-                    int32_t bias_correction) {
+// Elements a thread takes at the least: smaller spans stay on one core.
+constexpr int64_t kMinPerThread = int64_t(1) << 20;
+
+void adam_span(float* __restrict p,
+               const float* __restrict g,
+               float* __restrict m,
+               float* __restrict v,
+               int64_t n,
+               int32_t step,
+               float lr,
+               float beta1,
+               float beta2,
+               float eps,
+               float weight_decay,
+               int32_t adamw,
+               int32_t bias_correction) {
     float bc1 = 1.0f, bc2 = 1.0f;
     if (bias_correction) {
         bc1 = 1.0f - std::pow(beta1, (float)step);
@@ -82,6 +88,47 @@ void ds_adam_update(float* __restrict p,
         if (weight_decay != 0.0f && adamw) p[i] -= lr * weight_decay * p[i];
         p[i] -= step_size * (m[i] / denom);
     }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One fused Adam step over a contiguous span.
+//   p, g, m, v : fp32 arrays of length n (updated in place except g)
+//   step       : 1-based optimizer step (for bias correction)
+//   adamw      : 1 → decoupled weight decay (AdamW), 0 → L2-into-grad (Adam)
+void ds_adam_update(float* __restrict p,
+                    const float* __restrict g,
+                    float* __restrict m,
+                    float* __restrict v,
+                    int64_t n,
+                    int32_t step,
+                    float lr,
+                    float beta1,
+                    float beta2,
+                    float eps,
+                    float weight_decay,
+                    int32_t adamw,
+                    int32_t bias_correction) {
+    const int64_t cores = std::max<int64_t>(1, std::thread::hardware_concurrency());
+    const int64_t n_threads = std::min(cores, n / kMinPerThread);
+    if (n_threads < 2) {
+        adam_span(p, g, m, v, n, step, lr, beta1, beta2, eps, weight_decay, adamw,
+                  bias_correction);
+        return;
+    }
+    // chunks of a multiple of 8 elements: only the last one has a scalar tail
+    const int64_t chunk = ((n + n_threads - 1) / n_threads + 7) / 8 * 8;
+    std::vector<std::thread> workers;
+    for (int64_t start = chunk; start < n; start += chunk) {
+        const int64_t len = std::min(chunk, n - start);
+        workers.emplace_back(adam_span, p + start, g + start, m + start, v + start, len, step,
+                             lr, beta1, beta2, eps, weight_decay, adamw, bias_correction);
+    }
+    adam_span(p, g, m, v, std::min(chunk, n), step, lr, beta1, beta2, eps, weight_decay, adamw,
+              bias_correction);
+    for (auto& w : workers) w.join();
 }
 
 // Update + copy params out as bfloat16 (round-to-nearest-even), saving the

@@ -3,7 +3,8 @@ ZeRO-Offload (counterpart of ``deepspeed_tpu/ops/adam/cpu_adam.py``).
 
 The GPU computes the gradients; the fp32 master parameters and the moments
 live in host RAM and are updated in place by the AVX2 C++ kernel
-``csrc/host/cpu_adam.cpp`` (one core, leaf by leaf, as in the JAX package).
+``csrc/host/cpu_adam.cpp``, leaf by leaf (a large leaf split across the
+host's cores, where the JAX package's runs on one).
 Operands are CPU tensors or numpy arrays, fp32 and contiguous; a CPU tensor
 is updated through a numpy view of its memory. The moments are numpy arrays
 keyed by the leaf's stable index.

@@ -545,6 +545,13 @@ class DeepSpeedEngine:
             p.data = self._moq_masters[n]
         self._moq_masters = None
 
+    def _moq_refuse_pending(self, what: str) -> None:
+        """Raise while a ``forward`` waits for its ``backward``: the masters'
+        data are the quantized values until then."""
+        if self._moq_masters is not None:
+            raise RuntimeError(f"{what} between forward() and backward() under quantize_training: "
+                               f"the masters hold their quantized values until backward() ends")
+
     def _moq_eigenvalue_factors(self) -> Optional[Dict[str, float]]:
         """Eigenvalue-modulated MoQ periods (JAX ``engine.py:1641-1696``):
         each layer's top Hessian eigenvalue, probed once on a synthetic
@@ -646,6 +653,8 @@ class DeepSpeedEngine:
         except BaseException:
             self._moq_swap_out()
             raise
+        if not self._pending_loss.requires_grad:
+            self._moq_swap_out()  # no backward follows a loss without a graph
         return self._pending_loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -885,13 +894,16 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
         """The loss of the whole batch, deterministic (no dropout); under
-        MoQ, of the quantized model that training optimizes."""
+        MoQ, of the quantized model that training optimizes (between a
+        ``forward`` and its ``backward`` the swap stays that forward's)."""
         self._resolve_moq()
+        pending = self._moq_masters is not None
         self._moq_swap_in()
         try:
             return self._loss_for(self._stage(batch), train=False)
         finally:
-            self._moq_swap_out()
+            if not pending:
+                self._moq_swap_out()
 
     def load_optimizer_state(self, state: dict) -> None:
         """Load an optimizer state keyed by parameter name (e.g.
@@ -1119,7 +1131,9 @@ class DeepSpeedEngine:
         snapshot and returns; the tag and ``latest`` appear at
         ``flush_checkpoints`` (or the next save, a load or ``resume``).
         Raises ``RuntimeError`` inside an open accumulation window, whose
-        half-summed gradients a checkpoint does not hold."""
+        half-summed gradients a checkpoint does not hold, and under
+        ``quantize_training`` between a ``forward`` and its ``backward``."""
+        self._moq_refuse_pending("save_checkpoint")
         if self._window_open:
             raise RuntimeError(f"save_checkpoint inside an open accumulation window (micro_steps "
                                f"{self.micro_steps}, gas {self.config.gradient_accumulation_steps}): "
@@ -1230,7 +1244,9 @@ class DeepSpeedEngine:
         optimizer state. The counters are restored in every case, as in
         JAX; the LR schedules are functions of the step and have no state
         of their own (``load_lr_scheduler_states`` has nothing to load). A
-        pending async save is committed first."""
+        pending async save is committed first. Raises ``RuntimeError`` under
+        ``quantize_training`` between a ``forward`` and its ``backward``."""
+        self._moq_refuse_pending("load_checkpoint")
         self.flush_checkpoints()  # an async save must be durable before any load
         explicit_tag = tag is not None
         if tag is None:

@@ -83,6 +83,27 @@ def test_cpu_adam_gives_jax_bits(case, entry):
             assert sd_port["state"][k][m].tobytes() == sd_jax["state"][k][m].tobytes()
 
 
+@pytest.mark.parametrize("case", ["adamw-decay", "adam-l2"])
+def test_cpu_adam_split_across_threads_gives_jax_bits(case):
+    """A leaf of 4 Mi + 13 elements: the port splits it across threads at
+    multiples of 8 elements, JAX's runs it on one core; the bits are the
+    same, the scalar tail's included."""
+    adamw, wd, betas, bc = ADAM_CASES[case]
+    kw = dict(lr=1e-2, betas=betas, eps=1e-8, weight_decay=wd, bias_correction=bc, adamw_mode=adamw)
+    rng = np.random.default_rng(3)
+    n = (4 << 20) + 13
+    ours = rng.normal(size=n).astype(np.float32)
+    theirs = ours.copy()
+    port, jax_opt = DeepSpeedCPUAdam(**kw), JaxCPUAdam(**kw)
+    for _ in range(2):
+        g = rng.normal(size=n).astype(np.float32)
+        port.step([ours], [g])
+        jax_opt.step([theirs], [g])
+    assert ours.tobytes() == theirs.tobytes()
+    for m in ("m", "v"):
+        assert port.state[0][m].tobytes() == jax_opt.state_dict()["state"]["0"][m].tobytes()
+
+
 def test_cpu_adam_bf16_copy_gives_jax_bits():
     params, grads = _arrays(2, n_steps=2)
     ours, theirs = [p.copy() for p in params], [p.copy() for p in params]

@@ -283,6 +283,46 @@ def test_gradients_are_the_quantized_models():
     assert torch.equal(engine._retained_grads, twin._retained_grads)
 
 
+def test_eval_and_checkpoints_between_forward_and_backward(jax_moq, tmp_path):
+    """Under remat, an ``eval_batch`` between a forward and its backward
+    leaves that forward's quantized weights in place for the backward's
+    recompute: the gradients equal those without it, bit for bit. A save or
+    a load in that window raises; a forward without grad swaps the masters
+    back at once."""
+    grads = []
+    for interleave in (False, True):
+        engine = _port_engine(jax_moq["init"], dict(CONFIG, quantize_training=MOQ), remat=True)
+        engine.train_batch(_batch())
+        loss = engine.forward(_batch())
+        if interleave:
+            engine.eval_batch(_batch())
+            assert engine._moq_masters is not None  # the forward's swap stays
+            for call in (engine.save_checkpoint, engine.load_checkpoint):
+                with pytest.raises(RuntimeError, match="between forward"):
+                    call(str(tmp_path))
+        engine.backward(loss)
+        assert engine._moq_masters is None
+        grads.append(engine._grads.clone())
+        masters = {n: p.data_ptr() for n, p in engine._moq_params.items()}
+        with torch.no_grad():
+            engine.forward(_batch())
+        assert engine._moq_masters is None
+        assert {n: p.data_ptr() for n, p in engine._moq_params.items()} == masters
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("zero", [{"stage": 3, "offload_param": {"device": "cpu"}},
+                                  {"stage": 2, "offload_optimizer": {"device": "cpu"}}],
+                         ids=["offload_param", "offload_optimizer"])
+def test_moq_with_eigenvalue_refused_under_offload_at_initialize(zero):
+    """JAX applies MoQ on neither offload path; the port refuses the pair at
+    ``initialize``, before any eigenvalue probe (whose HVP would need a second
+    derivative through ``stream_in``, which the port refuses)."""
+    config = dict(CONFIG, quantize_training=MOQ, eigenvalue=EIGEN, zero_optimization=zero)
+    with pytest.raises(ValueError, match="does not compose with offload"):
+        _port_engine(None, config)
+
+
 def test_eigenvalues_and_factors_match_jax(jax_moq):
     engine = _port_engine(jax_moq["init"], dict(CONFIG, quantize_training=MOQ, eigenvalue=EIGEN))
     probe = engine._stage({"input_ids": np.random.default_rng(0).integers(0, 256, (8, 32)).astype(np.int32)})
