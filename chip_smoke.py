@@ -427,6 +427,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
               blocks with ``cpu_checkpointing``: gradients bit-equal to it
               without, the device peak against keeping the products on the
               card, the pinned host bytes.
+22. BERT and compression training — seeded. K1 and K4 in bf16 at
+              [32,512,16,64] non-causal with the batch's right-padding
+              lengths (128-512) against their plain versions, timed beside
+              SDPA with the boolean key mask and the bound over the live
+              pairs. (a) BERT-large MLM (24 layers, 1024 wide, bf16, flash,
+              Adam, ``bert_mlm_loss``) at micro-batch 32, seq 512, those
+              lengths: 3 steps, K1 24 and K4 24 a step; its logits against
+              ``"xla"`` with the ``[B, L]`` mask by the bf16 rule and its
+              first loss against ``"xla"``'s; tokens past each row's length
+              leaving the valid logits bit-equal; the gradcheck at 4 of its
+              24 layers on the same batch. (b) ``init_compression`` on
+              BERT-large (8 -> 4 bit weights, sparse pruning of
+              ``intermediate``, head pruning of ``attention/output``, row
+              pruning of ``output``, all from step 1): step 0 bit-equal to
+              (a)'s, then 8 of 16 blocks of 64 output features of each
+              attention-output kernel (JAX's head pruning splits the last
+              axis, E, into 16 blocks) and half the rows zero in the
+              forward's weights. (c) GPT-2 350m: a 24-layer teacher seeds a
+              6-layer student (layers 3, 7, ..., 23), KD from step 2 (seq
+              1024, micro-batch 8): steps 0-1 bit-equal to the student
+              without KD, 2-3 not; its int8 export smaller than the fp32
+              npz, the round trip within 0.02 of max |w|. (d) 4 pre-LN
+              ``DeepSpeedTransformerLayer``s at BERT-large's width on flash
+              against ``"xla"`` by the bf16 rule; ``TiledLinear`` 4096 ->
+              11008 in 2 x 4 tiles against one dense product; the spatial
+              ops at [2,64,64,320] bf16 bit-equal to their expressions.
 
 A device time that ``torch.profiler`` fails to record (its profiles have
 come back empty on the card, early and late in a run) is timed with CUDA
@@ -442,7 +468,8 @@ that commit the same way (no ``kernels`` line then); ``--phases
 kernels,defaults`` runs phase 3 at head dim 64, phase 4 and phase 14, ``--phases
 resilience`` phase 15 alone, ``--phases moe`` phase 16 alone, ``--phases rlhf`` phase 17
 alone, ``--phases fleet`` phase 4 and phase 18, ``--phases offload`` phase 19
-alone, ``--phases fp16`` phase 20 alone, ``--phases data`` phase 21 alone. Details go to
+alone, ``--phases fp16`` phase 20 alone, ``--phases data`` phase 21 alone, ``--phases
+bert`` phase 22 alone. Details go to
 ``chiprun_out/chip_smoke_seed<N>.json``. It exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -1518,7 +1545,8 @@ def skipped_init():
     the init draws a normal for each weight on one CPU thread, about 6 s a
     billion on the host, for values the state overwrites."""
     from deepspeed_tpu_torch import GPT2LMHeadModel, LlamaForCausalLM
-    saved = {cls: cls.reset_parameters for cls in (GPT2LMHeadModel, LlamaForCausalLM)}
+    from deepspeed_tpu_torch.models.bert import BertModel
+    saved = {cls: cls.reset_parameters for cls in (GPT2LMHeadModel, LlamaForCausalLM, BertModel)}
     for cls in saved:
         cls.reset_parameters = lambda self, generator=None: None
     try:
@@ -1944,29 +1972,42 @@ def train_phase(seed: int, card: str, warmup: int = 2, steps: int = 10):
     return out, counts
 
 
-def gradcheck(label: str, build, state: dict, ids: np.ndarray) -> dict:
+def gradcheck(label: str, build, state: dict, ids, loss_fn=None, zero_grads=()) -> dict:
     """One training step (no clipping) of the model ``build(device,
-    dtype)`` with weights ``state`` on ``ids``, on the card through the
+    dtype)`` with weights ``state`` on ``ids`` (the ``input_ids``, or a
+    whole batch dict), under ``loss_fn`` (None: the engine's default), on the card through the
     kernels and on the card through their plain versions
     (:func:`plain_kernels`): the loss and each parameter's gradient held to
     1e-4 in fp32; in bf16 the largest relative error over those tensors is
-    held to 1.5x the same largest error of plain bf16 against plain fp32."""
+    held to 1.5x the same largest error of plain bf16 against plain fp32.
+    A parameter whose name ends in one of ``zero_grads`` has a gradient
+    that is zero but for rounding (attention's key bias: softmax ignores a
+    shift shared by every key), which has no relative error to hold: on
+    every side it is held to 1e-4 of the run's largest gradient entry."""
     from deepspeed_tpu_torch import initialize
 
     def one_step(side: str, dtype) -> dict:
         with skipped_init():
             model = build("cuda", dtype)
         model.load_state_dict(state, strict=True)
-        engine, _, _, _ = initialize(model=model, config=train_config(ids.shape[0], 0.0, dtype == torch.bfloat16),
-                                     device="cuda")
+        batch = ids if isinstance(ids, dict) else {"input_ids": ids}
+        engine, _, _, _ = initialize(model=model, config=train_config(batch["input_ids"].shape[0], 0.0,
+                                                                      dtype == torch.bfloat16),
+                                     loss_fn=loss_fn, device="cuda")
         with on_card(side):
-            loss = engine.train_batch({"input_ids": ids})
+            loss = engine.train_batch(batch)
         out = {"loss": loss.detach().float().cpu().reshape(1)}
         out.update({name: p.grad.detach().float().cpu() for name, p in model.named_parameters()})
         return out
 
     runs = {(side, str(dt)[6:]): one_step(side, dt) for dt in (torch.float32, torch.bfloat16)
             for side in ("cuda", "plain")}
+    for key, run in runs.items():
+        noise = [n for n in run if n.endswith(tuple(zero_grads)) and zero_grads]
+        top = max(float(g.abs().max()) for n, g in run.items() if n != "loss")
+        for n in noise:
+            if float(run.pop(n).abs().max()) > 1e-4 * top:
+                raise AssertionError(f"{label} {key}: {n}'s gradient is not zero but for rounding")
     for name, ref in runs[("plain", "float32")].items():
         compare(f"{label} fp32 {name} (card vs plain)", runs[("cuda", "float32")][name], ref,
                 torch.float32)
@@ -7555,6 +7596,501 @@ def data_phase(seed: int, card: str):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 22: BERT and compression training
+# ---------------------------------------------------------------------------
+#: BERT-large MLM's batch: micro-batch 32 at seq 512, right-padded lengths
+#: drawn in [128, 512] with one row at 512, 15% of the tokens labelled
+BERT_MICRO, BERT_SEQ, BERT_MIN_LEN = 32, 512, 128
+#: the gradcheck's depth at BERT-large's width (it has 24 layers)
+BERT_GRADCHECK_LAYERS = 4
+#: (b)'s compression recipe on BERT-large: 8 -> 4 bit weights from step 1,
+#: sparse pruning on the MLP input, head pruning on the attention output,
+#: row pruning on every ``output`` kernel
+BERT_COMPRESSION = {"compression_training": {
+    "weight_quantization": {"shared_parameters": {"enabled": True, "schedule_offset": 1},
+                            "different_groups": {"wq": {"params": {"start_bits": 8, "target_bits": 4,
+                                                                   "quantization_period": 1},
+                                                        "modules": ["*"]}}},
+    "sparse_pruning": {"shared_parameters": {"enabled": True, "schedule_offset": 1},
+                       "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
+                                                   "modules": ["intermediate"]}}},
+    "head_pruning": {"shared_parameters": {"enabled": True, "schedule_offset": 1, "num_heads": 16},
+                     "different_groups": {"hp": {"params": {"dense_ratio": 0.5},
+                                                 "modules": ["attention/output"]}}},
+    "row_pruning": {"shared_parameters": {"enabled": True, "schedule_offset": 1},
+                    "different_groups": {"rp": {"params": {"dense_ratio": 0.5},
+                                                "modules": ["output"]}}}}}
+#: (c)'s layer reduction (24 -> 6 layers of GPT-2 350m) and distillation
+KD_TEACHER_LAYERS = [3, 7, 11, 15, 19, 23]
+KD_350M = {"compression_training": {
+    "layer_reduction": {"enabled": True, "module_name_prefix": "h", "teacher_layer": KD_TEACHER_LAYERS,
+                        "other_module_name": ["wte", "wpe", "ln_f"]},
+    "knowledge_distillation": {"enabled": True, "kd_coef": 0.5, "temperature": 2.0,
+                               "layerwise_coef": 0.1, "schedule_offset": 2}}}
+#: the student's deployment export: int8 weights for every kernel and table
+EXPORT_8BIT = {"compression_training": {
+    "weight_quantization": {"shared_parameters": {"enabled": True, "schedule_offset": 0},
+                            "different_groups": {"wq": {"params": {"start_bits": 8, "target_bits": 8},
+                                                        "modules": ["*"]}}}}}
+
+
+def bert_batch(seed: int, vocab: int) -> dict:
+    rng = np.random.default_rng(seed + 22)
+    ids = rng.integers(0, vocab, (BERT_MICRO, BERT_SEQ)).astype(np.int32)
+    lengths = rng.integers(BERT_MIN_LEN, BERT_SEQ + 1, BERT_MICRO)
+    lengths[0] = BERT_SEQ
+    mask = (np.arange(BERT_SEQ)[None] < lengths[:, None]).astype(np.int32)
+    labels = np.where((rng.random(ids.shape) < 0.15) & (mask > 0), ids, -100).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def bert_large(seed: int, dtype=torch.bfloat16, **over):
+    from deepspeed_tpu_torch import BertForMaskedLM, get_bert_config
+    cfg = get_bert_config("large", **dict(dict(attention_backend="flash", dtype=dtype), **over))
+    return BertForMaskedLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def bert_engine(model):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import bert_mlm_loss
+    config = dict(train_config(BERT_MICRO, 1.0, model.config.dtype == torch.bfloat16),
+                  optimizer={"type": "Adam", "params": {"lr": 1e-4}})
+    return initialize(model=model, config=config, loss_fn=bert_mlm_loss)[0]
+
+
+def bert_kernel_lines(gen, lengths: np.ndarray) -> dict:
+    """K1 and K4 in bf16 at BERT-large's attention, [32, 512, 16, 64]
+    non-causal with the batch's right-padding lengths, each against its
+    plain version, timed beside SDPA with the boolean key mask and the bound:
+    its operations over the live (query, key) pairs, its bytes over the live
+    k and v rows and the full q, o, dO and gradients."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    b, l, h, d = BERT_MICRO, BERT_SEQ, 16, 64
+    shape = f"[{b},{l},{h},{d}] bf16 non-causal kv_lengths {int(lengths.min())}-{int(lengths.max())}"
+    qkv = torch.randn(b, l, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(scale=d**-0.5, causal=False, kv_lengths=lens)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, _ = fa.flash_fwd_plain(q, k, v, **kw)
+    err_o = compare(f"flash_fwd bert {shape}", o, ro, torch.bfloat16)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    err_g = max(compare(f"flash_bwd bert {shape} d{x}", g, r, torch.bfloat16)
+                for x, g, r in zip("qkv", got, ref))
+    del ro, got, ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    key_mask = (torch.arange(l, device="cuda")[None] < lens[:, None])[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask)  # noqa: E731
+    pairs = float(h * l * int(lengths.sum()))
+    # the function reads no k or v row past its row's length: q, o (and lse)
+    # move in full, k and v only over the live keys
+    live_kv = 2 * h * d * 2 * int(lengths.sum())
+    fwd = lambda: fa.flash_fwd(q, k, v, **kw)  # noqa: E731
+    lines = {}
+    bnd, by = bound_ms(2 * b * h * l * d * 2 + live_kv + b * h * l * 4, 4 * d * pairs)
+    lines["flash_fwd"] = dict(
+        name="flash_fwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
+        replaces="deepspeed_tpu/ops/pallas/flash_attention.py:117", shape=f"q,k,v {shape}",
+        max_abs_err=err_o, ms=time_ms(fwd, iters=10), device_ms=device_ms(fwd),
+        plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1),
+        bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa))
+    bwd = lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=key_mask)
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)  # noqa: E731
+    # q, o, dO read and dq, dk, dv written in full; k and v read live
+    bnd, by = bound_ms(6 * b * h * l * d * 2 + live_kv + b * h * l * 4, 10 * d * pairs)
+    lines["flash_bwd"] = dict(
+        name="flash_bwd", route="cuda", source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+        replaces="deepspeed_tpu/ops/pallas/flash_attention.py:403", shape=f"q,k,v,o,dO {shape}",
+        max_abs_err=err_g, ms=time_ms(bwd, iters=10), device_ms=device_ms(bwd),
+        plain_ms=time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=3, warmup=1),
+        bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa_bwd))
+    for line in lines.values():
+        log_time(line)
+    del out, qg, kg, vg, dot, sdpa_bwd
+    torch.cuda.empty_cache()
+    return lines
+
+
+def _staged(batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def bert_tied_logits(word: torch.Tensor, gen, card: str) -> dict:
+    """BERT's MLM decoder at its training shape, ``[32 x 512, 1024] @ [30522,
+    1024].T`` in bf16 with fp32 logits: ``tied_logits``' tensor-core product
+    (bf16 operands, fp32 result) and its backward against the fp32 product of
+    the same values. The logits within 1e-5 of the largest (only the sums'
+    order differs), each gradient within one bf16 step of its largest entry
+    (both round the same fp32 sums once); the two timed forward and
+    backward."""
+    from deepspeed_tpu_torch.models.bert import tied_logits
+    x = torch.randn(BERT_MICRO, BERT_SEQ, word.shape[1], generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(BERT_MICRO, BERT_SEQ, word.shape[0], generator=gen, device="cuda") * 1e-4
+    w = word.detach()
+
+    def run(fn):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(xg, wg)
+        out.backward(g)
+        return out.detach(), xg.grad, wg.grad
+
+    plain = lambda a, b: a.float() @ b.float().t()  # noqa: E731
+    got, ref = run(tied_logits), run(plain)
+    out = {}
+    for what, a, b, tol in zip(("logits", "dx", "dword"), got, ref, (1e-5, 2.0**-7, 2.0**-7)):
+        err, rel = rel_err(a, b)
+        ok = bool(rel <= tol)
+        RESULTS["checks"].append({"name": f"bert tied logits {what} vs the fp32 product",
+                                  "rel_err": rel, "tol": tol, "ok": ok})
+        out[f"{what}_rel"] = rel
+        if not ok:
+            raise AssertionError(f"bert tied logits: {what} {rel:.3e} of max > {tol:.3e}")
+    del got, ref
+    out["ms"] = time_ms(lambda: run(tied_logits), iters=3, warmup=1)
+    out["fp32_ms"] = time_ms(lambda: run(plain), iters=3, warmup=1)
+    log(f"bert (a) tied logits: rel {out['logits_rel']:.2e}, dx {out['dx_rel']:.2e}, dword "
+        f"{out['dword_rel']:.2e}; forward+backward {out['ms']:.2f} ms against the fp32 product's "
+        f"{out['fp32_ms']:.2f}  [{card}]")
+    del x, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_mlm(seed: int, card: str) -> dict:
+    """(a) BERT-large MLM training at full width and depth: 3 steps with K1
+    and K4 read around each (24 each a step, no remat); the first step's
+    loss against the same weights on ``"xla"`` with the ``[B, L]`` mask,
+    the logits held by the bf16 rule (1.5x the plain bf16 rounding against
+    fp32); the tokens past each row's length leaving its valid logits
+    bit-equal; the decoder's product against the fp32 one
+    (:func:`bert_tied_logits`)."""
+    from deepspeed_tpu_torch.models.bert import bert_mlm_loss
+    model = bert_large(seed)
+    cfg = model.config
+    batch = bert_batch(seed, cfg.vocab_size)
+    staged = _staged(batch)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {"n_params": sum(p.numel() for p in model.parameters())}
+
+    def logits_of(m):
+        with torch.no_grad():
+            return m(staged["input_ids"], attention_mask=staged["attention_mask"])
+
+    flash_logits = logits_of(model)
+    refs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        with skipped_init():
+            twin = bert_large(seed, dtype=dt, attention_backend="xla")
+        twin.load_state_dict(state)
+        refs[dt] = logits_of(twin)
+        if dt == torch.bfloat16:
+            out["xla_loss"] = float(bert_mlm_loss(refs[dt], staged))
+        del twin
+    served = rel_err(flash_logits, refs[torch.bfloat16])[1]
+    rounding = rel_err(refs[torch.bfloat16], refs[torch.float32])[1]
+    ok = served <= 1.5 * rounding
+    RESULTS["checks"].append({"name": "bert-large logits flash vs xla (1.5x bf16 rounding)",
+                              "rel_err": served, "tol": 1.5 * rounding, "ok": ok})
+    log(f"bert (a) logits: flash vs xla max rel {served:.3e}; xla bf16 vs fp32 {rounding:.3e}  [{card}]")
+    if not ok:
+        raise AssertionError(f"bert-large logits: flash vs xla {served:.3e} > 1.5 x {rounding:.3e}")
+    del refs
+    other = staged["input_ids"].clone()
+    pad = staged["attention_mask"] == 0
+    other[pad] = (other[pad] + 7) % cfg.vocab_size
+    with torch.no_grad():
+        moved = model(other, attention_mask=staged["attention_mask"])
+    valid = ~pad
+    if not torch.equal(moved[valid], flash_logits[valid]):
+        raise AssertionError("bert (a): tokens past a row's length changed its valid logits")
+    RESULTS["checks"].append({"name": "bert-large padding leaves valid logits bit-equal", "ok": True})
+    del moved, flash_logits, other
+    torch.cuda.empty_cache()
+    out["tied_logits"] = bert_tied_logits(model.bert.word_embeddings.to(cfg.dtype),
+                                          torch.Generator(device="cuda").manual_seed(seed + 23), card)
+
+    engine = bert_engine(model)
+    torch.cuda.reset_peak_memory_stats()
+    rows = _counted_steps(engine, [batch] * 3, "bert (a)", card)
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert (a): non-finite losses {losses}")
+    per_step = [(r["flash_fwd"], r["flash_bwd"]) for r in rows]
+    if any(c != (cfg.num_hidden_layers, cfg.num_hidden_layers) for c in per_step):
+        raise AssertionError(f"bert (a): K1 and K4 launches per step {per_step}, expected 24 each")
+    rel = abs(losses[0] - out["xla_loss"]) / abs(out["xla_loss"])
+    RESULTS["checks"].append({"name": "bert-large first loss flash vs xla", "rel_err": rel,
+                              "tol": TOL[torch.bfloat16], "ok": rel <= TOL[torch.bfloat16]})
+    if rel > TOL[torch.bfloat16]:
+        raise AssertionError(f"bert (a): first loss {losses[0]} vs xla {out['xla_loss']}")
+    tokens = int(batch["attention_mask"].sum())
+    step_ms = float(np.mean([r["step_ms"] for r in rows[1:]]))
+    out.update(losses=losses, steps=rows, flash_logits_rel=served, bf16_rounding_rel=rounding,
+               first_loss_rel_to_xla=rel, valid_tokens=tokens, step_ms=step_ms,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"bert (a): BERT-large ({out['n_params']} params) MLM, [{BERT_MICRO}, {BERT_SEQ}] with "
+        f"{tokens} valid tokens, bf16, flash; losses {losses}; xla {out['xla_loss']:.5f}; "
+        f"{step_ms:.1f} ms/step, peak {out['peak_memory_gb']:.2f} GB  [{card}]")
+    out["profile"] = _profile_train_step(engine, batch, card, step_ms)
+    del engine, model
+    _free()
+    base = bert_large(seed + 1, num_hidden_layers=BERT_GRADCHECK_LAYERS)
+    gstate = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    del base
+    out["gradcheck"] = gradcheck(f"bert gradcheck {BERT_GRADCHECK_LAYERS} layers", lambda device, dtype: (
+        bert_large(seed + 1, dtype=dtype, num_hidden_layers=BERT_GRADCHECK_LAYERS)), gstate, batch,
+        loss_fn=bert_mlm_loss, zero_grads=("attention.key.bias",))
+    return out
+
+
+def _kept_ok(scores: torch.Tensor, keep: int) -> bool:
+    """Whether ``scores`` (of the rows or heads a mask kept, unchanged by
+    it) hold exactly ``keep`` entries, or more only because entries tie
+    with the threshold (a mask keeps every tie, as JAX's ``>=`` does)."""
+    kept = scores.numel()
+    return kept == keep or (kept > keep and int((scores == scores.min()).sum()) > kept - keep)
+
+
+def _mask_read(w: torch.Tensor, blocks: int = None) -> dict:
+    """The zero output rows (the last axis) of a kernel the forward reads,
+    or with ``blocks`` its zero blocks of that axis split ``blocks`` ways
+    (what JAX's head pruning masks), and the l1 scores of the kept ones."""
+    if blocks is None:
+        cols = w.detach().float().reshape(-1, w.shape[-1])
+        zero = (cols == 0).all(dim=0)
+        return {"zero": int(zero.sum()), "kept_scores": cols.abs().sum(dim=0)[~zero]}
+    split = w.detach().float().reshape(-1, blocks, w.shape[-1] // blocks)
+    zero = (split == 0).all(dim=2).all(dim=0)
+    return {"zero": int(zero.sum()), "kept_scores": split.abs().sum(dim=(0, 2))[~zero]}
+
+
+def bert_compression(seed: int, card: str, first_loss: float) -> dict:
+    """(b) ``init_compression`` on BERT-large (24 layers): 3 steps; step 0
+    (before every offset) bit-equal to (a)'s uncompressed first step from
+    the same weights and batch, with no weight zeroed; at steps 1 and 2 the
+    forward's weights read 8 of 16 output blocks of 64 zero in each
+    attention-output kernel ``[H, D, E]`` (JAX's head pruning masks blocks
+    of its last axis, E, not heads),
+    half the rows of each MLP output zero and half the entries of each
+    intermediate kernel (more kept only where they tie with the threshold,
+    as they do on 4-bit values)."""
+    from deepspeed_tpu_torch.compression import init_compression
+    model = bert_large(seed)
+    engine = init_compression(bert_engine(model), BERT_COMPRESSION)
+    batch = bert_batch(seed, model.config.vocab_size)
+    heads = model.config.num_attention_heads
+    half = model.config.hidden_size // 2
+    rows, reads = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = engine.forward(batch)  # the swap window holds the forward's weights
+        layers = [getattr(model.bert, f"layer_{i}") for i in range(model.config.num_hidden_layers)]
+        blocks_read = [_mask_read(l.attention.output.kernel, heads) for l in layers]
+        rows_read = [_mask_read(l.output.kernel) for l in layers]
+        step = engine.global_steps
+        read = dict(step=step, attention_zero_blocks=sorted({r["zero"] for r in blocks_read}),
+                    output_zero_rows=sorted({r["zero"] for r in rows_read}),
+                    intermediate_nonzero=max(float((l.intermediate.kernel != 0).float().mean())
+                                             for l in layers))
+        inter = [l.intermediate.kernel.detach() for l in layers]
+        if step == 0:
+            ok = read["attention_zero_blocks"] == [0] and read["output_zero_rows"] == [0]
+        else:
+            ok = (all(_kept_ok(r["kept_scores"], heads // 2) for r in blocks_read)
+                  and all(_kept_ok(r["kept_scores"], half) for r in rows_read)
+                  and all(_kept_ok(w[w != 0].abs(), w.numel() // 2) for w in inter))
+        engine.backward()
+        engine.step()
+        torch.cuda.synchronize()
+        rows.append(dict(step=step, loss=loss.item(), step_ms=(time.perf_counter() - t0) * 1e3))
+        reads.append(read)
+        log(f"bert (b) step {step}: loss {rows[-1]['loss']:.5f}, {rows[-1]['step_ms']:.1f} ms; forward "
+            f"weights: zero attention-output blocks {read['attention_zero_blocks']} of {heads}, zero "
+            f"MLP-output rows {read['output_zero_rows']} of {2 * half}, intermediate nonzero <= "
+            f"{read['intermediate_nonzero']:.3f}  [{card}]")
+        if not ok:
+            raise AssertionError(f"bert (b): the forward's weights at step {step}: {read}")
+    if rows[0]["loss"] != first_loss:
+        raise AssertionError(f"bert (b): step 0 loss {rows[0]['loss']} != uncompressed {first_loss}")
+    if not all(np.isfinite([r["loss"] for r in rows])):
+        raise AssertionError(f"bert (b): non-finite losses {rows}")
+    RESULTS["checks"].append({"name": "bert-large compression gate and masks", "ok": True})
+    del engine, model
+    _free()
+    return {"steps": rows, "forward_weights": reads}
+
+
+def kd_350m(seed: int, card: str, work: str) -> dict:
+    """(c) Layer reduction and KD on GPT-2 350m: the 24-layer teacher seeds
+    a 6-layer student, which trains 4 steps with KD from step 2 (seq 1024,
+    micro-batch 8, bf16, flash, unfused head): steps 0-1 bit-equal to the
+    seeded student without the teacher, steps 2-3 not; then
+    ``redundancy_clean``, ``export_compressed`` (int8) and
+    ``load_compressed`` of the student, its file against the fp32 npz."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel, get_gpt2_config, initialize
+    from deepspeed_tpu_torch.checkpoint.zero_to_fp32 import save_npz
+    from deepspeed_tpu_torch.compression import (export_compressed, get_compression_config,
+                                                 init_compression, load_compressed, redundancy_clean)
+    from deepspeed_tpu_torch.compression.compress import CompressionSpec
+
+    def gpt2(layers, s):
+        cfg = get_gpt2_config("350m", vocab_size=50304, n_layer=layers, attention_backend="flash",
+                              dtype=torch.bfloat16)
+        return GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(s))
+
+    teacher = gpt2(24, seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    batch = {"input_ids": rng.integers(0, 50304, (8, 1024)).astype(np.int32)}
+    runs = {}
+    for what in ("kd", "plain"):
+        engine = initialize(model=gpt2(6, seed + 4), config=train_config(8, 1.0, True))[0]
+        block = KD_350M if what == "kd" else {"compression_training": {
+            "layer_reduction": KD_350M["compression_training"]["layer_reduction"]}}
+        init_compression(engine, block, teacher_model=teacher)
+        runs[what] = (engine, _counted_steps(engine, [batch] * 4, f"kd (c) {what}", card))
+    kd, plain = ([r["loss"] for r in runs[w][1]] for w in ("kd", "plain"))
+    if kd[:2] != plain[:2] or any(a == b for a, b in zip(kd[2:], plain[2:])):
+        raise AssertionError(f"kd (c): the gate at step 2: kd {kd}, without the teacher {plain}")
+    if not all(np.isfinite(kd)):
+        raise AssertionError(f"kd (c): non-finite losses {kd}")
+    RESULTS["checks"].append({"name": "gpt2-350m KD gate at step 2", "ok": True})
+    student = runs["kd"][0].module
+    del runs
+    state = {k: v.detach() for k, v in student.state_dict().items()}
+    t0 = time.perf_counter()
+    cleaned = redundancy_clean(state, EXPORT_8BIT)
+    fp32_path = os.path.join(work, "student_fp32.npz")
+    save_npz(fp32_path, {k: v.float().cpu() for k, v in state.items()})
+    int8_path = export_compressed(state, EXPORT_8BIT, os.path.join(work, "deploy"))
+    loaded = load_compressed(int8_path)
+    export_s = time.perf_counter() - t0
+    errs = {k: float((loaded[k] - state[k].float().cpu()).abs().max() / state[k].abs().max().cpu())
+            for k in state}
+    worst = max(errs, key=errs.get)
+    sizes = {"fp32_npz_bytes": os.path.getsize(fp32_path), "int8_npz_bytes": os.path.getsize(int8_path)}
+    log(f"kd (c) export: fp32 npz {sizes['fp32_npz_bytes']} B, int8 {sizes['int8_npz_bytes']} B, "
+        f"worst round trip {errs[worst]:.4f} of max |w| ({worst}); {export_s:.1f} s  [{card}]")
+    if not (sizes["int8_npz_bytes"] < sizes["fp32_npz_bytes"] and errs[worst] <= 0.02):
+        raise AssertionError(f"kd (c): export {sizes}, worst round trip {errs[worst]} ({worst})")
+    ruled = CompressionSpec(get_compression_config(EXPORT_8BIT), state).rules
+    if not all(torch.equal(cleaned[k], state[k]) for k in state if k not in ruled):
+        raise AssertionError("kd (c): redundancy_clean changed a leaf no rule selects")
+    RESULTS["checks"].append({"name": "gpt2-350m student int8 export round trip", "ok": True})
+    return {"kd_losses": kd, "plain_losses": plain, "export": dict(sizes, worst_rel=errs[worst],
+                                                                   worst_leaf=worst, seconds=export_s)}
+
+
+def encoder_ops(seed: int, card: str) -> dict:
+    """(d) 4 pre-LN ``DeepSpeedTransformerLayer``s at BERT-large's width on
+    flash without a mask (K1 and K4 non-causal), forward and backward
+    against ``"xla"`` by the bf16 rule; ``TiledLinear`` 4096 -> 11008 in
+    2 x 4 tiles against one dense product (fp32, 1e-4); the spatial ops at
+    [2, 64, 64, 320] bf16 in both layouts bit-equal to their expressions."""
+    from deepspeed_tpu_torch.ops import spatial
+    from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerConfig, DeepSpeedTransformerLayer
+    from deepspeed_tpu_torch.runtime.zero import TiledLinear
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x0 = torch.randn(8, BERT_SEQ, 1024, generator=gen, device="cuda")
+    cot = torch.randn(8, BERT_SEQ, 1024, generator=gen, device="cuda")
+    state = None
+    runs = {}
+    for backend, dt in (("flash", torch.bfloat16), ("xla", torch.bfloat16), ("xla", torch.float32)):
+        cfg = DeepSpeedTransformerConfig(hidden_size=1024, heads=16, intermediate_size=4096,
+                                         num_hidden_layers=24, pre_layer_norm=True,
+                                         attention_backend=backend, dtype=dt)
+        stack = torch.nn.ModuleList([DeepSpeedTransformerLayer(
+            cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 6 + i))
+            for i in range(4)])
+        if state is None:
+            state = stack.state_dict()
+        stack.load_state_dict(state)
+        x = x0.clone().requires_grad_()
+        y = x.to(dt)
+        for layer in stack:
+            y = layer(y)
+        (y.float() * cot).sum().backward()
+        runs[(backend, dt)] = [y.detach().float(), x.grad.float()] + [p.grad.float() for p in stack.parameters()]
+    served = max(rel_err(a, b)[1] for a, b in zip(runs[("flash", torch.bfloat16)], runs[("xla", torch.bfloat16)]))
+    rounding = max(rel_err(a, b)[1] for a, b in zip(runs[("xla", torch.bfloat16)], runs[("xla", torch.float32)]))
+    ok = served <= 1.5 * rounding
+    RESULTS["checks"].append({"name": "encoder layer stack flash vs xla (1.5x bf16 rounding)",
+                              "rel_err": served, "tol": 1.5 * rounding, "ok": ok})
+    log(f"encoder (d): 4 pre-LN layers flash vs xla max rel {served:.3e}; xla bf16 vs fp32 "
+        f"{rounding:.3e}  [{card}]")
+    if not ok:
+        raise AssertionError(f"encoder (d): flash vs xla {served:.3e} > 1.5 x {rounding:.3e}")
+    del runs
+    tiled = TiledLinear(4096, 11008, in_splits=2, out_splits=4, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 7))
+    xt = torch.randn(2048, 4096, generator=gen, device="cuda")
+    w = torch.cat([torch.cat([getattr(tiled, f"tile_{oi}_{ii}_kernel") for ii in range(2)], dim=0)
+                   for oi in range(4)], dim=1)
+    b = torch.cat([getattr(tiled, f"tile_{oi}_bias") for oi in range(4)])
+    with torch.no_grad():
+        tiled_err = compare("TiledLinear 4096->11008 2x4 vs dense (fp32)", tiled(xt), xt @ w + b,
+                            torch.float32)
+    nhwc = torch.randn(2, 64, 64, 320, generator=gen, device="cuda").to(torch.bfloat16)
+    other = torch.randn(2, 64, 64, 320, generator=gen, device="cuda").to(torch.bfloat16)
+    bias, obias = (torch.randn(320, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    for layout, a, o in (("nhwc", nhwc, other),
+                         ("nchw", nhwc.permute(0, 3, 1, 2).contiguous(), other.permute(0, 3, 1, 2).contiguous())):
+        bs = (1, 1, 1, 320) if layout == "nhwc" else (1, 320, 1, 1)
+        pairs = [(spatial.nhwc_bias_add(a, bias, layout), a + bias.view(bs)),
+                 (spatial.nhwc_bias_add_add(a, bias, o, layout), a + bias.view(bs) + o),
+                 (spatial.nhwc_bias_add_bias_add(a, bias, o, obias, layout),
+                  a + bias.view(bs) + o + obias.view(bs))]
+        if not all(torch.equal(g, r) for g, r in pairs):
+            raise AssertionError(f"spatial ops ({layout}): not bit-equal to their expressions")
+    RESULTS["checks"].append({"name": "spatial ops [2,64,64,320] bf16 bit-equal", "ok": True})
+    return {"stack_flash_vs_xla_rel": served, "stack_bf16_rounding_rel": rounding,
+            "tiled_max_abs_err": tiled_err}
+
+
+def bert_phase(seed: int, card: str):
+    """Phase 22: (a) BERT-large MLM on K1 and K4 with padding lengths, (b)
+    compression on BERT-large, (c) layer reduction and KD on GPT-2 350m
+    with the int8 export, (d) the encoder layer, tiles and spatial ops.
+    Returns the results and the launches of its paths (a)-(d), zeroed
+    after the kernel lines and read after (d)."""
+    from deepspeed_tpu_torch.ops.cuda import launches, reset_launches
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+    lengths = bert_batch(seed, 30522)["attention_mask"].sum(axis=1)
+    out["kernel_lines"] = bert_kernel_lines(torch.Generator(device="cuda").manual_seed(seed + 22), lengths)
+    seconds["kernels"] = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    out["a_bert_mlm"] = bert_mlm(seed, card)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b_compression"] = bert_compression(seed, card, out["a_bert_mlm"]["losses"][0])
+    seconds["b"] = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="ds_kd_")
+    try:
+        t0 = time.perf_counter()
+        out["c_kd"] = kd_350m(seed, card, work)
+        seconds["c"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _free()
+    t0 = time.perf_counter()
+    out["d_encoder_ops"] = encoder_ops(seed, card)
+    seconds["d"] = time.perf_counter() - t0
+    counts = launches()
+    missing = [k for k in TRAINING_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 22: kernels never launched on its paths: {missing} ({counts})")
+    out["seconds"] = seconds
+    log("phase 22 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7566,7 +8102,7 @@ def main(argv=None) -> int:
                          "'kernels' (phase 3 at head dim 64), 'defaults' (phase 14, after "
                          "phase 4, whose measured rounding it reads), 'resilience' (phase 15), "
                          "'moe' (phase 16), 'rlhf' (phase 17), 'fleet' (phases 4 and 18), 'offload' "
-                         "(phase 19), 'fp16' (phase 20) and 'data' (phase 21)")
+                         "(phase 19), 'fp16' (phase 20), 'data' (phase 21) and 'bert' (phase 22)")
     ap.add_argument("--offload-layers", type=int, default=OFFLOAD_LAYERS,
                     help=f"phase 19 (a)'s depth at LLaMA-7b's width (default {OFFLOAD_LAYERS}, at least "
                          f"{OFFLOAD_MIN_LAYERS}; the host needs {OFFLOAD_HOST_BYTES} bytes a parameter)")
@@ -7580,11 +8116,11 @@ def main(argv=None) -> int:
         return child_main(args)
     phases = set(args.phases.split(","))
     if (not phases <= {"all", "times", "serving", "kernels", "defaults", "resilience", "moe", "rlhf",
-                       "fleet", "offload", "fp16", "data"}
+                       "fleet", "offload", "fp16", "data", "bert"}
             or ("all" in phases and len(phases) > 1)):
         ap.error(f"--phases takes 'all' or a comma list of 'times', 'serving', 'kernels', "
-                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet', 'offload', 'fp16' and 'data', got "
-                 f"{args.phases!r}")
+                 f"'defaults', 'resilience', 'moe', 'rlhf', 'fleet', 'offload', 'fp16', 'data' and "
+                 f"'bert', got {args.phases!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -7648,6 +8184,10 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             RESULTS["data"] = data_phase(args.seed, card)[0]
             RESULTS.setdefault("phase_s", {})["21 data and quantized training"] = time.perf_counter() - t_phase
+        if "bert" in phases:
+            t_phase = time.perf_counter()
+            RESULTS["bert"] = bert_phase(args.seed, card)[0]
+            RESULTS.setdefault("phase_s", {})["22 BERT and compression"] = time.perf_counter() - t_phase
     else:
         phase_s = {}
         t_phase = time.perf_counter()
@@ -7733,6 +8273,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         RESULTS["data"], data_counts = data_phase(args.seed, card)
         phase_s["21 data and quantized training"] = time.perf_counter() - t_phase
+        _free()
+        t_phase = time.perf_counter()
+        RESULTS["bert"], bert_counts = bert_phase(args.seed, card)
+        phase_s["22 BERT and compression"] = time.perf_counter() - t_phase
         RESULTS["phase_s"] = phase_s
         log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     RESULTS["total_s"] = time.perf_counter() - t_start
@@ -7753,7 +8297,8 @@ def main(argv=None) -> int:
         # the rounds of phase 14 (b) read them around each step's calls.
         paths = (serve_counts, train_counts, moe_counts, sparse_counts, api_counts,
                  llama_train_counts, llama_serve_counts, defaults_counts, resilience_counts,
-                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts, fp16_counts, data_counts)
+                 moe_serve_counts, rlhf_counts, fleet_counts, offload_counts, fp16_counts, data_counts,
+                 bert_counts)
         b_runs = RESULTS["defaults"]["b_spec"]["runs"]
         student, full = b_runs["on"]["launches_per_round"], b_runs["on_full_depth"]["launches_per_round"]
         llama_paths = (llama_train_counts, llama_serve_counts, offload_counts)
@@ -7790,6 +8335,14 @@ def main(argv=None) -> int:
                     shapes=[{k: v for k, v in t.items() if k in KERNEL_LINE_KEYS + ("shape",)}
                             for t in RESULTS["data"]["kernel_lines"][name].values()],
                     launches=data_counts.get(name, 0))
+            if name in RESULTS["bert"]["kernel_lines"]:
+                # phase 22: K1 and K4 non-causal at BERT-large's attention
+                # with the batch's padding lengths, with the launches of
+                # phase 22's paths and the MLM step's per step
+                entry["at_phase22"] = dict(
+                    {k: v for k, v in RESULTS["bert"]["kernel_lines"][name].items()
+                     if k in KERNEL_LINE_KEYS + ("shape",)}, launches=bert_counts.get(name, 0),
+                    launches_per_mlm_step=RESULTS["bert"]["a_bert_mlm"]["steps"][0][name])
             if name in RESULTS["offload"]["kernel_lines"]:
                 # phase 19: LLaMA-7b's width under both offloads, its
                 # launches (part of at_head_dim_128's) and its shape

@@ -1,11 +1,15 @@
 """Carry weights from the JAX package to the port.
 
-``params_from_jax`` takes the JAX package's flax param tree of a GPT-2 or a
-LLaMA-family model as nested dicts of numpy arrays
+``params_from_jax`` takes the JAX package's flax param tree of a GPT-2, a
+LLaMA-family or a BERT model, a ``DeepSpeedTransformerLayer`` or a
+``TiledLinear``, as nested dicts of numpy arrays
 (``jax.device_get(engine.params)``) and returns the port's state dict. The
 layouts are identical, so this is a renaming: ``h_0/attn/c_attn/kernel`` ->
 ``h_0.attn.c_attn.kernel``, ``ln_f/LayerNorm_0/scale`` -> ``ln_f.scale``,
-``layers_0/self_attn/q_proj/kernel`` -> ``layers_0.self_attn.q_proj.kernel``.
+``layers_0/self_attn/q_proj/kernel`` -> ``layers_0.self_attn.q_proj.kernel``,
+``bert/layer_0/attention_ln/LayerNorm_0/scale`` ->
+``bert.layer_0.attention_ln.scale``, ``layer/attn_qkv/kernel`` ->
+``layer.attn_qkv.kernel``, ``tile_0_1_kernel`` as it is.
 ``opt_state_from_jax`` does the same for the JAX ``fused_adam`` state, so that both packages can resume
 from one mid-training state; ``params_to_jax`` goes the other way (the JAX
 paths and numpy arrays of a port state dict, as the engine's
@@ -24,12 +28,15 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models import gpt2, llama
+from deepspeed_tpu_torch.models import bert, gpt2, llama
+from deepspeed_tpu_torch.models.bert import BertConfig
 from deepspeed_tpu_torch.models.common import flatten_tree
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config
 from deepspeed_tpu_torch.models.llama import LlamaConfig
+from deepspeed_tpu_torch.ops.transformer import transformer
+from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerConfig
 
-ModelConfig = Union[GPT2Config, LlamaConfig]
+ModelConfig = Union[GPT2Config, LlamaConfig, BertConfig, DeepSpeedTransformerConfig]
 
 #: flax's inner scope of ``nn.LayerNorm`` inside the model's LayerNorm wrapper
 _FLAX_NORM_SCOPE = "LayerNorm_0"
@@ -44,9 +51,12 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-#: the port's LayerNorm modules (``ln_1``, ``ln_2``, ``ln_f``), whose leaves
-#: sit one flax scope deeper in the JAX tree
+#: the port's LayerNorm wrappers (GPT-2's ``ln_1``, ``ln_2``, ``ln_f``;
+#: BERT's ``attention_ln``, ``output_ln``, ``embeddings_ln``,
+#: ``transform_ln``), whose leaves sit one flax scope deeper in the JAX tree.
+#: A bare flax ``nn.LayerNorm`` (the encoder layer's ``attn_norm``) has none.
 _NORM_PREFIX = "ln_"
+_NORM_SUFFIX = "_ln"
 
 
 def _torch_key(path: str) -> str:
@@ -56,7 +66,7 @@ def _torch_key(path: str) -> str:
 def _jax_path(key: str) -> str:
     """The inverse of :func:`_torch_key`."""
     parts = key.split(".")
-    if len(parts) >= 2 and parts[-2].startswith(_NORM_PREFIX):
+    if len(parts) >= 2 and (parts[-2].startswith(_NORM_PREFIX) or parts[-2].endswith(_NORM_SUFFIX)):
         parts.insert(len(parts) - 1, _FLAX_NORM_SCOPE)
     return "/".join(parts)
 
@@ -68,9 +78,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """State-dict key -> (shape, dtype) of the model family ``cfg`` builds."""
-    return (llama if isinstance(cfg, LlamaConfig) else gpt2).param_shapes(cfg)
+def param_shapes(cfg) -> Dict[str, tuple]:
+    """State-dict key -> (shape, dtype) of the model ``cfg`` builds, or of a
+    module given in its place (a ``TiledLinear``: its own state dict)."""
+    if isinstance(cfg, torch.nn.Module):
+        return {k: (tuple(v.shape), v.dtype) for k, v in cfg.state_dict().items()}
+    family = {LlamaConfig: llama, BertConfig: bert, DeepSpeedTransformerConfig: transformer}
+    return family.get(type(cfg), gpt2).param_shapes(cfg)
 
 
 _MOE_GATE = ".moe.deepspeed_moe.gate.wg"
@@ -117,9 +131,36 @@ def _infer_llama_config(sd: Dict[str, torch.Tensor]) -> LlamaConfig:
                        param_dtype=sd["embed_tokens"].dtype, **moe)
 
 
+def _infer_bert_config(sd: Dict[str, torch.Tensor]) -> BertConfig:
+    """A BERT tree's config as far as its shapes tell it (the activation,
+    norm epsilon and dropout keep ``BertConfig``'s defaults)."""
+    vocab, hidden = sd["bert.word_embeddings"].shape
+    q = sd["bert.layer_0.attention.query.kernel"]
+    return BertConfig(vocab_size=vocab, hidden_size=hidden,
+                      num_hidden_layers=len({k.split(".")[1] for k in sd if k.startswith("bert.layer_")}),
+                      num_attention_heads=q.shape[1],
+                      intermediate_size=sd["bert.layer_0.intermediate.kernel"].shape[1],
+                      max_position_embeddings=sd["bert.position_embeddings"].shape[0],
+                      type_vocab_size=sd["bert.token_type_embeddings"].shape[0],
+                      param_dtype=sd["bert.word_embeddings"].dtype)
+
+
+def _infer_layer_config(sd: Dict[str, torch.Tensor]) -> DeepSpeedTransformerConfig:
+    """A ``DeepSpeedTransformerLayer`` tree's config (its widths; the norm
+    placement and ratios keep the defaults)."""
+    hidden, _, heads, _ = sd["layer.attn_qkv.kernel"].shape
+    return DeepSpeedTransformerConfig(hidden_size=hidden, heads=heads,
+                                      intermediate_size=sd["layer.inter.kernel"].shape[1],
+                                      param_dtype=sd["layer.attn_qkv.kernel"].dtype)
+
+
 def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
     if "embed_tokens" in sd:
         return _infer_llama_config(sd)
+    if "bert.word_embeddings" in sd:
+        return _infer_bert_config(sd)
+    if "layer.attn_qkv.kernel" in sd:
+        return _infer_layer_config(sd)
     n_layer = len({k.split(".")[0] for k in sd if k.startswith("h_")})
     vocab, n_embd = sd["wte"].shape
     qkv = sd.get("h_0.attn.c_attn.kernel")
@@ -135,9 +176,11 @@ def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
 
 def params_from_jax(tree: dict, config: Optional[ModelConfig] = None,
                     scales: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-    """The port's state dict of a GPT-2 or a LLaMA-family model from a JAX
-    param tree (the family read from ``config``, or from the tree: LLaMA's
-    has ``embed_tokens``).
+    """The port's state dict of a model from a JAX param tree (the family
+    read from ``config``, or from the tree: LLaMA's has ``embed_tokens``,
+    BERT's ``bert/word_embeddings``, the encoder layer's
+    ``layer/attn_qkv/kernel``; a ``TiledLinear`` is passed as ``config``
+    itself, the module the weights are for).
 
     ``scales`` is the ``"quant"`` mirror tree of a quantized tree (JAX
     ``quantize_params`` output); its ``kernel_scale`` leaves join the state

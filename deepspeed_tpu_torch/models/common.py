@@ -1,6 +1,7 @@
 """Shared model helpers (the serving and training subset of
 ``deepspeed_tpu/models/common.py``)."""
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -23,6 +24,100 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, out_dtype: torch
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * weight.float()).to(out_dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm``: statistics in fp32 with the fast variance
+    E[x^2] - E[x]^2 (clipped at 0), output in ``dtype``. Scale and bias are
+    rounded to ``dtype`` first, as the JAX engine rounds every parameter."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * scale.to(dtype).float()
+    return ((xf - mean) * mul + bias.to(dtype).float()).to(dtype)
+
+
+class LayerNorm(torch.nn.Module):
+    """flax ``nn.LayerNorm`` (:func:`layer_norm`) over ``size`` features.
+    Its epsilon is the config field named ``eps_field`` and its output
+    ``cfg.dtype``, both read from ``self.cfg`` at each call: the engine
+    re-points ``cfg`` when it updates the model's config."""
+
+    def __init__(self, cfg, size: int, eps_field: str, device):
+        super().__init__()
+        self.cfg = cfg
+        self.eps_field = eps_field
+        self.scale = torch.nn.Parameter(torch.ones(size, dtype=cfg.param_dtype, device=device))
+        self.bias = torch.nn.Parameter(torch.zeros(size, dtype=cfg.param_dtype, device=device))
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias, getattr(self.cfg, self.eps_field), self.cfg.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - rate`` (drawn from ``generator``) and scale it by ``1 / (1 - rate)``;
+    the identity without a generator (deterministic) or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def pld_gate(branch: torch.Tensor, keep: Optional[float], mask: Optional[torch.Tensor],
+             which: int) -> torch.Tensor:
+    """JAX ``pld_gate`` (``models/common.py:135``) with the draw made by the
+    caller: ``branch / keep`` where ``mask[which]`` keeps the sublayer, 0
+    where it drops it; the branch itself without a draw."""
+    if mask is None:
+        return branch
+    return torch.where(mask[which], branch / keep, torch.zeros((), dtype=branch.dtype,
+                                                                device=branch.device))
+
+
+def pld_draws(n_layer: int, theta: float, generator: torch.Generator, device):
+    """Progressive layer drop's per-block keep probabilities ``1 - (i + 1) /
+    n_layer * (1 - theta)`` (JAX's depth rule) and one keep flag per
+    sublayer, bool ``[n_layer, 2]`` (attention, then the MLP), drawn from
+    ``generator``."""
+    keeps = [1.0 - (i + 1) / n_layer * (1.0 - float(theta)) for i in range(n_layer)]
+    draws = torch.rand((n_layer, 2), generator=generator, device=generator.device)
+    return keeps, (draws < torch.tensor(keeps, device=draws.device)[:, None]).to(device)
+
+
+class Dense(torch.nn.Module):
+    """flax ``DenseGeneral`` over the trailing ``n_contract`` dims of the
+    input: ``kernel`` of shape ``in_dims + out_dims``, an optional ``bias``
+    of ``out_dims``, computed in ``cfg.dtype``."""
+
+    def __init__(self, cfg, kshape, n_contract: int, device, bias: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.n_contract = n_contract
+        self.kernel = torch.nn.Parameter(torch.zeros(kshape, dtype=cfg.param_dtype, device=device))
+        self.bias = (torch.nn.Parameter(torch.zeros(kshape[n_contract:], dtype=cfg.param_dtype,
+                                                    device=device)) if bias else None)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        nc = self.n_contract
+        lead = x.shape[:x.dim() - nc]
+        k = math.prod(self.kernel.shape[:nc])
+        out = x.to(dt).reshape(*lead, k) @ self.kernel.to(dt).reshape(k, -1)
+        out = out.reshape(*lead, *self.kernel.shape[nc:])
+        return out if self.bias is None else out + self.bias.to(dt)
+
+
+def normalize_padding_mask(attention_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A ``[B, L]`` 0/1 padding mask as a ``[B, 1, 1, L]`` boolean; a mask
+    of another rank as a boolean of its own shape (JAX
+    ``normalize_padding_mask``)."""
+    if attention_mask is None:
+        return None
+    if attention_mask.dim() == 2:
+        return attention_mask[:, None, None, :].bool()
+    return attention_mask.bool()
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -60,9 +60,10 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, host_to_device, resolve_device
-from deepspeed_tpu_torch.models.common import (StackedDense, config_from,  # noqa: F401
-                                               cross_entropy_loss, dense_init, embed_lookup,
-                                               fused_head_loss_output, maybe_remat)
+from deepspeed_tpu_torch.models.common import (LayerNorm, StackedDense, config_from,  # noqa: F401
+                                               cross_entropy_loss, dense_init, dropout,
+                                               embed_lookup, fused_head_loss_output,
+                                               maybe_remat, pld_draws, pld_gate)
 from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
 from deepspeed_tpu_torch.ops.quantizer.weights import quant_bits
@@ -309,37 +310,6 @@ class MLP(nn.Module):
         return dropout(h, self.cfg.dropout, generator)
 
 
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: statistics in fp32 with the fast variance
-    E[x^2] - E[x]^2 (clipped at 0), output in the compute dtype. Scale and
-    bias are rounded to the compute dtype first, as the JAX engine rounds
-    every parameter."""
-
-    def __init__(self, cfg, device):
-        super().__init__()
-        self.cfg = cfg
-        self.scale = nn.Parameter(torch.ones(cfg.n_embd, dtype=cfg.param_dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(cfg.n_embd, dtype=cfg.param_dtype, device=device))
-
-    def forward(self, x):
-        dt = self.cfg.dtype
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.cfg.layer_norm_epsilon) * self.scale.to(dt).float()
-        return ((xf - mean) * mul + self.bias.to(dt).float()).to(dt)
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout`` in training: keep each element with probability
-    ``1 - rate`` (drawn from ``generator``) and scale it by ``1 / (1 - rate)``;
-    the identity without a generator (deterministic) or at rate 0."""
-    if generator is None or rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 class _SlotWrite(NamedTuple):
     """Where one decode call writes into the KV pools, computed on the host
     from the write positions: flat destination rows (slot * P + position)
@@ -452,9 +422,9 @@ class Block(nn.Module):
     def __init__(self, cfg, device, use_moe: bool = False):
         super().__init__()
         self.use_moe = use_moe
-        self.ln_1 = LayerNorm(cfg, device)
+        self.ln_1 = LayerNorm(cfg, cfg.n_embd, "layer_norm_epsilon", device)
         self.attn = SelfAttention(cfg, device)
-        self.ln_2 = LayerNorm(cfg, device)
+        self.ln_2 = LayerNorm(cfg, cfg.n_embd, "layer_norm_epsilon", device)
         if use_moe:
             from deepspeed_tpu_torch.moe.layer import MoE
 
@@ -486,9 +456,9 @@ class Block(nn.Module):
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        x = x + _pld_gate(self.attn(self.ln_1(x), cache, prefix, plans, gen), pld_keep, pld_mask, 0)
+        x = x + pld_gate(self.attn(self.ln_1(x), cache, prefix, plans, gen), pld_keep, pld_mask, 0)
         if not self.use_moe:
-            return x + _pld_gate(self.mlp(self.ln_2(x), gen), pld_keep, pld_mask, 1), None
+            return x + pld_gate(self.mlp(self.ln_2(x), gen), pld_keep, pld_mask, 1), None
         gate_gen = None
         if gating_seed is not None:
             gate_gen = torch.Generator(device=x.device).manual_seed(gating_seed)
@@ -497,17 +467,7 @@ class Block(nn.Module):
         if pld_mask is not None:
             # a dropped expert layer pushes no balancing gradient into its router
             l_aux = torch.where(pld_mask[1], l_aux, torch.zeros_like(l_aux))
-        return x + _pld_gate(out, pld_keep, pld_mask, 1), l_aux
-
-
-def _pld_gate(branch: torch.Tensor, keep: Optional[float], mask: Optional[torch.Tensor],
-              which: int) -> torch.Tensor:
-    """JAX ``pld_gate``: ``branch / keep`` where the sublayer is kept, 0
-    where it is dropped; the branch itself without a draw."""
-    if mask is None:
-        return branch
-    return torch.where(mask[which], branch / keep, torch.zeros((), dtype=branch.dtype,
-                                                                device=branch.device))
+        return x + pld_gate(out, pld_keep, pld_mask, 1), l_aux
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -531,7 +491,7 @@ class GPT2LMHeadModel(nn.Module):
                                             device=dev))
         for i in range(cfg.n_layer):
             setattr(self, f"h_{i}", Block(cfg, dev, cfg.is_moe_layer(i)))
-        self.ln_f = LayerNorm(cfg, dev)
+        self.ln_f = LayerNorm(cfg, cfg.n_embd, "layer_norm_epsilon", dev)
         self.last_pld_keep: Optional[torch.Tensor] = None
         self.reset_parameters(generator)
 
@@ -599,10 +559,7 @@ class GPT2LMHeadModel(nn.Module):
         if cfg.progressive_layer_drop and pld_theta is not None and not deterministic:
             if generator is None:
                 raise ValueError("progressive layer drop in training needs a generator")
-            keeps = [1.0 - (i + 1) / cfg.n_layer * (1.0 - float(pld_theta))
-                     for i in range(cfg.n_layer)]
-            draws = torch.rand((cfg.n_layer, 2), generator=generator, device=generator.device)
-            pld = (draws < torch.tensor(keeps, device=draws.device)[:, None]).to(self.device)
+            keeps, pld = pld_draws(cfg.n_layer, pld_theta, generator, self.device)
             self.last_pld_keep = pld
         wte = self.wte.to(cfg.dtype)  # once: both uses of the tied table share its gradient
         x = embed_lookup(wte, ids)

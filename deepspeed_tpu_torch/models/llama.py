@@ -43,7 +43,6 @@ them on the paths ported here.
 """
 
 import dataclasses
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -51,9 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.common import (StackedDense, config_from, dense_init,
-                                               embed_lookup, fused_head_loss_output, maybe_remat,
-                                               rms_norm)
+from deepspeed_tpu_torch.models.common import (Dense, StackedDense, config_from,  # noqa: F401
+                                               dense_init, embed_lookup, fused_head_loss_output,
+                                               maybe_remat, rms_norm)
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import get_remat_policy
 
@@ -224,29 +223,6 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         return rms_norm(x, self.weight.to(cfg.dtype), cfg.rms_norm_eps, cfg.dtype)
-
-
-class Dense(nn.Module):
-    """flax ``DenseGeneral`` over the trailing ``n_contract`` dims of the
-    input: ``kernel`` of shape ``in_dims + out_dims``, an optional ``bias``
-    of ``out_dims``, computed in the compute dtype."""
-
-    def __init__(self, cfg: LlamaConfig, kshape, n_contract: int, device, bias: bool = False):
-        super().__init__()
-        self.cfg = cfg
-        self.n_contract = n_contract
-        self.kernel = nn.Parameter(torch.zeros(kshape, dtype=cfg.param_dtype, device=device))
-        self.bias = (nn.Parameter(torch.zeros(kshape[n_contract:], dtype=cfg.param_dtype,
-                                              device=device)) if bias else None)
-
-    def forward(self, x):
-        dt = self.cfg.dtype
-        nc = self.n_contract
-        lead = x.shape[:x.dim() - nc]
-        k = math.prod(self.kernel.shape[:nc])
-        out = x.to(dt).reshape(*lead, k) @ self.kernel.to(dt).reshape(k, -1)
-        out = out.reshape(*lead, *self.kernel.shape[nc:])
-        return out if self.bias is None else out + self.bias.to(dt)
 
 
 class LlamaAttention(nn.Module):

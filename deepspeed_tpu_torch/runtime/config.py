@@ -34,9 +34,11 @@ setting is never dropped quietly. Taken:
 - ``curriculum_learning`` (the engine truncates batches to the seqlen
   difficulty), ``quantize_training`` (MoQ, ``runtime/quantize.py``) and
   ``eigenvalue`` (its period factors, ``runtime/eigenvalue.py``), read by
-  the engine as JAX's reads them; ``data_efficiency`` is stored and applied
-  nowhere, as in JAX (its components, ``runtime/data_pipeline/``, are used
-  by hand, as JAX's tests use them).
+  the engine as JAX's reads them; ``compression_training`` is stored and
+  applied by ``compression.init_compression``, as in JAX;
+  ``data_efficiency`` is stored and applied nowhere, as in JAX (its
+  components, ``runtime/data_pipeline/``, are used by hand, as JAX's tests
+  use them).
 """
 
 import json
@@ -60,7 +62,7 @@ _KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumu
           "gradient_predivide_factor", "sparse_gradients", "communication_data_type",
           "disable_allgather", "checkpoint", "activation_checkpointing", "program",
           "attention", "progressive_layer_drop", "data_efficiency", "curriculum_learning",
-          "quantize_training", "eigenvalue")
+          "quantize_training", "eigenvalue", "compression_training")
 
 #: the top-level keys JAX reads that the port refuses, with the reason
 REFUSED_KEYS = {
@@ -75,8 +77,6 @@ REFUSED_KEYS = {
     "telemetry": "the training half of runtime/telemetry/ is not ported (ROADMAP.md Queue A "
                  "item 9)",
     "autotuning": "autotuning/ is not ported (ROADMAP.md Queue A item 9)",
-    "compression_training": "compression/'s training transforms are not ported (ROADMAP.md "
-                            "Queue A item 7)",
     "pipeline": "the pipeline engine (runtime/pipe/) spans several cards (ROADMAP.md Queue A "
                 "item 8)",
 }
@@ -451,6 +451,8 @@ class DeepSpeedConfig:
         self.curriculum_enabled_legacy = bool(self.curriculum_learning_legacy.get("enabled", False))
         self.quantize_training_config = dict(config.get("quantize_training") or {})
         self.eigenvalue_config = dict(config.get("eigenvalue") or {})
+        # applied by ``compression.init_compression``, as in JAX
+        self.compression_config = dict(config.get("compression_training") or {})
         self.seed = int(config.get("seed", 1234))
         self.gradient_clipping = float(config.get("gradient_clipping", 0.0))
         moe = dict(config.get("moe") or {})

@@ -91,7 +91,20 @@ casts round them), and the gradient lands on the master; with
 ``eigenvalue`` enabled too, each layer's period is stretched
 by its Hessian curvature, probed once before the first step on JAX's
 synthetic batch (JAX ``engine.py:1641-1696, 1820-1840, 1981-1982``). MoQ
-raises under either offload, where JAX applies it nowhere. The JAX engine ran the step as one
+raises under either offload, where JAX applies it nowhere.
+``compression_training`` through ``compression.init_compression`` (JAX
+``engine.py:1440-1640, 1821-1864``) shares MoQ's window: every training
+forward and eval reads the masters transformed at the step count
+(quantized, pruned; MoQ after compression when both are on), and a
+gradient hook on each compressed master multiplies what reaches it by the
+window's pruning masks, which is the transform's derivative. Knowledge
+distillation mixes the teacher's logits and block outputs into the
+training loss inside its step window (``compression.compress
+.distillation_loss``). Compression raises under either offload (JAX runs
+offloaded steps uncompressed), distillation under ``offload_optimizer`` or
+with the fused head, as in JAX. Batch keys besides ``input_ids`` and
+``labels`` that the model's ``forward`` takes (``attention_mask``,
+``token_type_ids``) go to it (JAX ``_module_kwargs``). The JAX engine ran the step as one
 jitted program and ``train_batches`` as a ``lax.scan``; here they are
 Python loops over eager PyTorch (a CUDA graph is later work). The
 gradients live in one flat fp32 buffer, each parameter's ``.grad`` a view
@@ -132,6 +145,7 @@ offload) loads its parameters and resets the host moments, with a warning
 """
 
 import dataclasses
+import functools
 import inspect
 import logging
 import os
@@ -260,6 +274,12 @@ def _truncate_seq(batch, seqlen: int):
     return trunc(batch)
 
 
+def _masked_grad(masks: Dict[str, Optional[torch.Tensor]], name: str, grad: torch.Tensor):
+    """A compressed parameter's gradient times its live pruning mask."""
+    mask = masks.get(name)
+    return grad if mask is None else grad * mask
+
+
 def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} belongs to a later slice of the PyTorch port "
                                f"(ROADMAP.md Queue A item {item})")
@@ -304,9 +324,10 @@ class DeepSpeedEngine:
         self.overflow_events: list = []
         self.progressive_layer_drop = None
         self._pld_model = False
+        self._forward_args = set(inspect.signature(type(model).forward).parameters)
         if config.pld_enabled:
             self.progressive_layer_drop = ProgressiveLayerDrop(**config.pld_params)
-            accepts = "pld_theta" in inspect.signature(type(model).forward).parameters
+            accepts = "pld_theta" in self._forward_args
             flag_on = bool(getattr(mcfg, "progressive_layer_drop", False))
             self._pld_model = accepts and flag_on
             if not self._pld_model:
@@ -343,7 +364,17 @@ class DeepSpeedEngine:
         # MoQ: resolved against the parameters before the first forward
         self._moq = None
         self._moq_params: Dict[str, torch.Tensor] = {}
+        # the masters' own data while the swap window holds their
+        # transformed values (MoQ's and compression's)
         self._moq_masters: Optional[Dict[str, torch.Tensor]] = None
+        # compression training (``compression.init_compression``): the
+        # resolved spec, its parameters, the live window's pruning masks
+        # (which the gradient hooks read), and knowledge distillation
+        self._compression = None
+        self._comp_params: Dict[str, torch.Tensor] = {}
+        self._grad_masks: Dict[str, Optional[torch.Tensor]] = {}
+        self._comp_hooks: list = []
+        self._kd_config: Optional[dict] = None
         self.moq_period_factors: Optional[Dict[str, float]] = None
         self._moq_pending = bool(config.quantize_training_config.get("enabled", False))
         if self._moq_pending and (self._param_offload or zcfg.offload_optimizer_device != "none"):
@@ -525,32 +556,59 @@ class DeepSpeedEngine:
             self._moq_params = {n: named[n] for n in self._moq.names}
 
     def _moq_swap_in(self) -> None:
-        """Point each quantized master's data at its values quantized at
-        this step (JAX's ``x + stop_gradient(q - x)``): the forward and any
-        recompute read them, the gradient lands on the master, as the
-        straight-through estimator wants."""
-        if self._moq is None or self._moq_masters is not None:
+        """Point each transformed master's data at its values at this step:
+        compression's, then MoQ's on top (JAX's ``moq(comp(p, s), s)``,
+        ``engine.py:1831-1836``). The forward and any recompute read them
+        and the gradient lands on the master: straight through a
+        quantization (JAX's ``x + stop_gradient(q - x)``), times the
+        active pruning masks, which the gradient hooks apply."""
+        if (self._moq is None and self._compression is None) or self._moq_masters is not None:
             return
+        values: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
-            quantized = self._moq(self._moq_params, self.global_steps)
-        self._moq_masters = {n: p.data for n, p in self._moq_params.items()}
-        for n, p in self._moq_params.items():
-            p.data = quantized[n]
+            if self._compression is not None:
+                values, masks = self._compression.apply(self._comp_params, self.global_steps,
+                                                        grad_masks=True)
+                self._grad_masks.update(masks)
+            if self._moq is not None:
+                values.update(self._moq({n: values.get(n, p) for n, p in self._moq_params.items()},
+                                        self.global_steps))
+        params = {**self._comp_params, **self._moq_params}
+        self._moq_masters = {n: params[n].data for n in values}
+        for n, v in values.items():
+            params[n].data = v
 
     def _moq_swap_out(self) -> None:
         """Point the masters' data back at the fp32 masters."""
         if self._moq_masters is None:
             return
-        for n, p in self._moq_params.items():
-            p.data = self._moq_masters[n]
+        params = {**self._comp_params, **self._moq_params}
+        for n, data in self._moq_masters.items():
+            params[n].data = data
         self._moq_masters = None
+        self._grad_masks.clear()
+
+    def _install_compression(self, spec) -> None:
+        """Apply ``spec`` (a ``compression.CompressionSpec``, or None to
+        remove it) from the next forward on: its parameters join the swap
+        window, and a gradient hook on each multiplies what reaches it by
+        the window's pruning mask."""
+        for handle in self._comp_hooks:
+            handle.remove()
+        self._compression, self._comp_hooks = spec, []
+        named = dict(self.module.named_parameters())
+        self._comp_params = {n: named[n] for n in (spec.rules if spec is not None else ())}
+        for name, p in self._comp_params.items():
+            self._comp_hooks.append(p.register_hook(functools.partial(_masked_grad, self._grad_masks,
+                                                                      name)))
 
     def _moq_refuse_pending(self, what: str) -> None:
         """Raise while a ``forward`` waits for its ``backward``: the masters'
         data are the quantized values until then."""
         if self._moq_masters is not None:
-            raise RuntimeError(f"{what} between forward() and backward() under quantize_training: "
-                               f"the masters hold their quantized values until backward() ends")
+            raise RuntimeError(f"{what} between forward() and backward() under quantize_training "
+                               f"or compression_training: the masters hold their transformed "
+                               f"values until backward() ends")
 
     def _moq_eigenvalue_factors(self) -> Optional[Dict[str, float]]:
         """Eigenvalue-modulated MoQ periods (JAX ``engine.py:1641-1696``):
@@ -605,22 +663,37 @@ class DeepSpeedEngine:
         logger.info(f"MoQ eigenvalue period factors: {factors}")
         return factors
 
+    def _module_kwargs(self, mb: dict) -> dict:
+        """The batch keys besides ``input_ids`` and ``labels`` that the
+        module's ``forward`` takes (``attention_mask``, ``token_type_ids``;
+        JAX ``engine.py:1365-1375``)."""
+        return {k: v for k, v in mb.items()
+                if k not in ("input_ids", "labels") and k in self._forward_args}
+
     def _loss_for(self, mb: dict, train: bool) -> torch.Tensor:
         mcfg = self.module.config
         ids = mb["input_ids"]
-        moe = mcfg.moe_num_experts > 0
+        moe = getattr(mcfg, "moe_num_experts", 0) > 0
         # a family without dropout (LLaMA) has no ``dropout`` field
         stochastic = train and (getattr(mcfg, "dropout", 0.0) > 0.0 or moe)
-        kwargs = dict(deterministic=not stochastic,
+        kwargs = dict(self._module_kwargs(mb), deterministic=not stochastic,
                       generator=self.generator if stochastic else None)
         # a fused-head model computes the loss itself (no [B, L, V] logits);
         # only the default loss knows that contract
-        fused_head = self.loss_fn is default_causal_lm_loss and mcfg.fused_head_loss_chunk > 0
+        fused_head = (self.loss_fn is default_causal_lm_loss
+                      and getattr(mcfg, "fused_head_loss_chunk", 0) > 0)
         if fused_head:
             kwargs["labels"] = mb.get("labels", ids)
         if train and self._pld_model:
             kwargs.update(deterministic=False, generator=self.generator,
                           pld_theta=self.progressive_layer_drop.get_theta())
+        kd = self._kd_config if train else None
+        if kd is not None and fused_head:
+            raise ValueError("knowledge_distillation needs student logits; fused_head_loss_chunk "
+                             "never materializes them — disable one of the two")
+        if kd is not None and kd["schedule_offset"] <= self.global_steps < kd["schedule_offset_end"]:
+            from deepspeed_tpu_torch.compression.compress import distillation_loss
+            return distillation_loss(self, kd, mb, kwargs)
         outputs = self._run_module(ids, **kwargs)
         if not train and moe and isinstance(outputs, (tuple, list)):
             # eval reports the pure cross-entropy: the load-balancing loss

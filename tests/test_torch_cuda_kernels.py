@@ -11,7 +11,9 @@ result is exact (``deepspeed_tpu_torch.testing.exact_probe``, ``sparse_exact_pro
 ``decode_exact_probe``); K2's three bodies must give their plain version's bits on
 ``quant_matmul_probe``'s inputs, and K3's int8 form the bits of its value form on the
 dequantised pool. K1, K4 and K3 run at head dims 64 and 128 (the ``_d128``
-cases: the same comparisons and probes at the LLaMA family's width).
+cases: the same comparisons and probes at the LLaMA family's width). BERT's
+MLM decoder (``models.bert.tied_logits``, a cuBLAS product on the tensor cores)
+is held to the fp32 product of the same bf16 values.
 """
 
 import numpy as np
@@ -707,3 +709,28 @@ def test_sparse_refuses_misaligned_bf16(gen):
             sa.sparse_bwd(ok, ok, ok, o, lse, bad, *lists, **kw)
     with pytest.raises(ValueError, match="launch order"):
         sa.sparse_fwd(ok, ok, ok, *lists[:2], order=lists[1].flatten()[:3], **kw)
+
+
+def test_bert_tied_logits_match_the_fp32_product(gen):
+    """BERT's MLM decoder on bf16 operands (``tied_logits``: a bf16 product
+    with an fp32 result, its backward over three bf16 pieces of the fp32
+    cotangent) against the fp32 product of the same values: the logits
+    within 1e-5 of the largest (the sums' order differs), each gradient
+    within one bf16 step of its largest entry (both round fp32 sums once)."""
+    from deepspeed_tpu_torch.models.bert import tied_logits
+    x = _randn(gen, 2, 96, 256, dtype=torch.bfloat16)
+    word = (_randn(gen, 1000, 256, dtype=torch.float32) * 0.05).to(torch.bfloat16)
+    g = _randn(gen, 2, 96, 1000, dtype=torch.float32) * 1e-3
+
+    def run(fn):
+        xg, wg = x.clone().requires_grad_(), word.clone().requires_grad_()
+        out = fn(xg, wg)
+        out.backward(g)
+        return out.detach(), xg.grad, wg.grad
+
+    got = run(tied_logits)
+    ref = run(lambda a, b: a.float() @ b.float().t())
+    assert got[0].dtype == torch.float32
+    for a, b, tol in zip(got, ref, (1e-5, 2.0**-7, 2.0**-7)):
+        assert a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()

@@ -90,10 +90,13 @@ def _port_grads(q, k, v, w, **kw):
     return [x.grad.numpy() for x in (qt, kt, vt)]
 
 
-def _jax_grads(fn, q, k, v, w):
-    def loss(q_, k_, v_):
-        return jnp.sum(fn(q_, k_, v_) * jnp.asarray(w))
-    return [np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))]
+def _jax_grads(fns, q, k, v, w):
+    """The q, k, v gradients of ``sum(fn(q, k, v) * w)`` for each of
+    ``fns``, all in one compiled program."""
+    def grads(q_, k_, v_):
+        return [jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(w)), argnums=(0, 1, 2))(q_, k_, v_)
+                for fn in fns]
+    return [[np.asarray(g) for g in gs] for gs in jax.jit(grads)(*map(jnp.asarray, (q, k, v)))]
 
 
 def _jax_kwargs(case):
@@ -112,8 +115,8 @@ def test_autograd_matches_jax_flash_and_xla(case):
     got = _port_grads(q, k, v, w, **{key: val for key, val in case.items() if key not in ("lq", "lk")})
     assert LAUNCHES == before, "the plain versions on CPU tensors count no kernel launch"
     jkw = _jax_kwargs(case)
-    ref_flash = _jax_grads(lambda *a: jax_flash.flash_attention(*a, interpret=True, **jkw), q, k, v, w)
-    ref_xla = _jax_grads(lambda *a: jax_xla_attention(*a, **jkw), q, k, v, w)
+    ref_flash, ref_xla = _jax_grads((lambda *a: jax_flash.flash_attention(*a, interpret=True, **jkw),
+                                     lambda *a: jax_xla_attention(*a, **jkw)), q, k, v, w)
     for name, g, rf, rx in zip("qkv", got, ref_flash, ref_xla):
         assert np.all(np.isfinite(g)), name
         np.testing.assert_allclose(g, rf, atol=ATOL, rtol=0, err_msg=f"d{name} vs JAX flash")
@@ -167,10 +170,14 @@ def test_flash_bwd_plain_matches_jax_kernels(case):
     lens = jkw.get("kv_lengths")
     scale = 16**-0.5
     bhld = [jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do)]
-    o, lse = jax_flash._flash_fwd(*bhld[:3], scale, case["causal"], 16, 16, True,
-                                  kv_lengths=lens, window=case.get("window"))
-    ref = jax_flash._flash_bwd((*bhld[:3], o, lse, lens), bhld[3], scale, case["causal"], 16, 16,
-                               True, window=case.get("window"))[:3]
+
+    def kernels(q_, k_, v_, do_, lens_):  # the forward and backward kernels in one program
+        o, lse = jax_flash._flash_fwd(q_, k_, v_, scale, case["causal"], 16, 16, True,
+                                      kv_lengths=lens_, window=case.get("window"))
+        return o, lse, jax_flash._flash_bwd((q_, k_, v_, o, lse, lens_), do_, scale, case["causal"],
+                                            16, 16, True, window=case.get("window"))[:3]
+
+    o, lse, ref = jax.jit(kernels)(*bhld, lens)
     o_t = torch.from_numpy(np.asarray(o).transpose(0, 2, 1, 3).copy())
     got = port_flash.flash_bwd_plain(
         *map(torch.from_numpy, (q, k, v)), o_t, torch.from_numpy(np.array(lse)),
