@@ -1,7 +1,8 @@
 """Carry weights from the JAX package to the port.
 
 ``params_from_jax`` takes the JAX package's flax param tree of a GPT-2, a
-LLaMA-family or a BERT model, a ``DeepSpeedTransformerLayer`` or a
+LLaMA-family or a BERT model, a decoder family (GPT-NeoX, GPT-J, GPT-Neo,
+OPT, Falcon, BLOOM), a ``DeepSpeedTransformerLayer`` or a
 ``TiledLinear``, as nested dicts of numpy arrays
 (``jax.device_get(engine.params)``) and returns the port's state dict. The
 layouts are identical, so this is a renaming: ``h_0/attn/c_attn/kernel`` ->
@@ -9,7 +10,10 @@ layouts are identical, so this is a renaming: ``h_0/attn/c_attn/kernel`` ->
 ``layers_0/self_attn/q_proj/kernel`` -> ``layers_0.self_attn.q_proj.kernel``,
 ``bert/layer_0/attention_ln/LayerNorm_0/scale`` ->
 ``bert.layer_0.attention_ln.scale``, ``layer/attn_qkv/kernel`` ->
-``layer.attn_qkv.kernel``, ``tile_0_1_kernel`` as it is.
+``layer.attn_qkv.kernel``, ``tile_0_1_kernel`` as it is. The decoder
+families' norms are flax ``nn.LayerNorm``s with no wrapper scope
+(``layers_0/input_layernorm/scale`` -> ``layers_0.input_layernorm.scale``,
+GPT-J's ``h_0/ln_1/scale`` -> ``h_0.ln_1.scale``).
 ``opt_state_from_jax`` does the same for the JAX ``fused_adam`` state, so that both packages can resume
 from one mid-training state; ``params_to_jax`` goes the other way (the JAX
 paths and numpy arrays of a port state dict, as the engine's
@@ -30,13 +34,25 @@ import torch
 
 from deepspeed_tpu_torch.models import bert, gpt2, llama
 from deepspeed_tpu_torch.models.bert import BertConfig
+from deepspeed_tpu_torch.models.bloom import BloomConfig, BloomForCausalLM
 from deepspeed_tpu_torch.models.common import flatten_tree
+from deepspeed_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+from deepspeed_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoForCausalLM
+from deepspeed_tpu_torch.models.gpt_neox import GPTNeoXConfig, GPTNeoXForCausalLM
+from deepspeed_tpu_torch.models.gptj import GPTJConfig, GPTJForCausalLM
 from deepspeed_tpu_torch.models.llama import LlamaConfig
+from deepspeed_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
 from deepspeed_tpu_torch.ops.transformer import transformer
 from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerConfig
 
-ModelConfig = Union[GPT2Config, LlamaConfig, BertConfig, DeepSpeedTransformerConfig]
+ModelConfig = Union[GPT2Config, LlamaConfig, BertConfig, DeepSpeedTransformerConfig, GPTNeoXConfig,
+                    GPTJConfig, GPTNeoConfig, OPTConfig, FalconConfig, BloomConfig]
+
+#: the decoder families: config type -> model class
+FAMILIES = {GPTNeoXConfig: GPTNeoXForCausalLM, GPTJConfig: GPTJForCausalLM,
+            GPTNeoConfig: GPTNeoForCausalLM, OPTConfig: OPTForCausalLM,
+            FalconConfig: FalconForCausalLM, BloomConfig: BloomForCausalLM}
 
 #: flax's inner scope of ``nn.LayerNorm`` inside the model's LayerNorm wrapper
 _FLAX_NORM_SCOPE = "LayerNorm_0"
@@ -63,12 +79,42 @@ def _torch_key(path: str) -> str:
     return ".".join(p for p in path.split("/") if p != _FLAX_NORM_SCOPE)
 
 
-def _jax_path(key: str) -> str:
-    """The inverse of :func:`_torch_key`."""
+def _jax_path(key: str, wrapped: bool) -> str:
+    """The inverse of :func:`_torch_key`; ``wrapped`` for a tree whose norms
+    sit in a wrapper scope (GPT-2's and BERT's). Callers take ``wrapped``
+    from :func:`jax_paths`, which reads it from the whole state dict."""
     parts = key.split(".")
-    if len(parts) >= 2 and (parts[-2].startswith(_NORM_PREFIX) or parts[-2].endswith(_NORM_SUFFIX)):
+    if wrapped and len(parts) >= 2 and (parts[-2].startswith(_NORM_PREFIX)
+                                        or parts[-2].endswith(_NORM_SUFFIX)):
         parts.insert(len(parts) - 1, _FLAX_NORM_SCOPE)
     return "/".join(parts)
+
+
+def _family_type(sd) -> Optional[type]:
+    """The config type of a decoder family's state dict, read from the keys
+    only that family has (GPT-NeoX's ``embed_in``, BLOOM's
+    ``word_embeddings_layernorm`` beside Falcon's ``word_embeddings``, OPT's
+    ``embed_positions``, GPT-J's ``lm_head`` beside the ``h_<i>.attn.q_proj``
+    that GPT-Neo has without it), or None for any other model."""
+    if "embed_in" in sd:
+        return GPTNeoXConfig
+    if "word_embeddings" in sd:
+        return BloomConfig if "word_embeddings_layernorm.scale" in sd else FalconConfig
+    if "embed_positions" in sd:
+        return OPTConfig
+    if any(k.startswith("h_") and k.endswith(".attn.q_proj.kernel") for k in sd):
+        return GPTJConfig if "lm_head.kernel" in sd else GPTNeoConfig
+    return None
+
+
+def jax_paths(state_dict) -> Dict[str, str]:
+    """``{key: JAX path}`` of a port state dict (or of its names), the one
+    place that decides whether the norms sit in flax's ``LayerNorm_0``
+    scope: GPT-2's and BERT's do, a decoder family's
+    (:func:`_family_type`) do not (GPT-J's ``h_0.ln_1.scale`` ->
+    ``h_0/ln_1/scale``, GPT-2's -> ``h_0/ln_1/LayerNorm_0/scale``)."""
+    wrapped = _family_type(state_dict) is None
+    return {k: _jax_path(k, wrapped) for k in state_dict}
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -83,6 +129,8 @@ def param_shapes(cfg) -> Dict[str, tuple]:
     module given in its place (a ``TiledLinear``: its own state dict)."""
     if isinstance(cfg, torch.nn.Module):
         return {k: (tuple(v.shape), v.dtype) for k, v in cfg.state_dict().items()}
+    if type(cfg) in FAMILIES:  # the model's own skeleton, built on no device
+        return param_shapes(FAMILIES[type(cfg)](cfg, device="meta"))
     family = {LlamaConfig: llama, BertConfig: bert, DeepSpeedTransformerConfig: transformer}
     return family.get(type(cfg), gpt2).param_shapes(cfg)
 
@@ -154,7 +202,63 @@ def _infer_layer_config(sd: Dict[str, torch.Tensor]) -> DeepSpeedTransformerConf
                                       param_dtype=sd["layer.attn_qkv.kernel"].dtype)
 
 
+def _n_layers(sd: Dict[str, torch.Tensor], prefix: str) -> int:
+    return len({k.split(".")[0] for k in sd if k.startswith(prefix)})
+
+
+def _infer_family_config(sd: Dict[str, torch.Tensor]) -> Optional[ModelConfig]:
+    """A decoder family's config as far as its tree's shapes tell it, or
+    None for a tree of no decoder family. What leaves no trace in the
+    parameters keeps the config's default: the context length (but GPT-Neo's
+    and OPT's, from their position tables), GPT-NeoX's ``rotary_pct`` and
+    ``use_parallel_residual``, GPT-J's ``rotary_dim``, GPT-Neo's
+    ``window_size``, the norm epsilons and RoPE bases: pass ``config=`` for
+    a model that sets them. (OPT's ``do_layer_norm_before`` is read from its
+    final norm, which pre-LN models alone have.)"""
+    family = _family_type(sd)
+    if family is GPTNeoXConfig:
+        vocab, e = sd["embed_in"].shape
+        qkv = sd["layers_0.attention.query_key_value.kernel"]
+        return GPTNeoXConfig(vocab_size=vocab, hidden_size=e, num_attention_heads=qkv.shape[1],
+                             intermediate_size=sd["layers_0.dense_h_to_4h.kernel"].shape[1],
+                             num_hidden_layers=_n_layers(sd, "layers_"), param_dtype=qkv.dtype)
+    if family in (BloomConfig, FalconConfig):
+        vocab, e = sd["word_embeddings"].shape
+        qkv = sd["h_0.self_attention.query_key_value.kernel"]
+        if family is BloomConfig:
+            return BloomConfig(vocab_size=vocab, hidden_size=e, n_head=qkv.shape[1],
+                               n_layer=_n_layers(sd, "h_"), param_dtype=qkv.dtype)
+        kv, g = qkv.shape[1], qkv.shape[2] - 2
+        return FalconConfig(vocab_size=vocab, hidden_size=e, num_attention_heads=kv * g,
+                            num_kv_heads=kv, num_hidden_layers=_n_layers(sd, "h_"),
+                            new_decoder_architecture="h_0.ln_attn.scale" in sd, param_dtype=qkv.dtype)
+    if family is OPTConfig:
+        vocab, embed = sd["embed_tokens"].shape
+        q = sd["layers_0.self_attn.q_proj.kernel"]
+        e = q.shape[0]
+        return OPTConfig(vocab_size=vocab, hidden_size=e, num_attention_heads=q.shape[1],
+                         ffn_dim=sd["layers_0.fc1.kernel"].shape[1], num_hidden_layers=_n_layers(sd, "layers_"),
+                         max_position_embeddings=sd["embed_positions"].shape[0] - 2,
+                         word_embed_proj_dim=embed if embed != e else None,
+                         do_layer_norm_before="final_layer_norm.scale" in sd, param_dtype=q.dtype)
+    if family in (GPTJConfig, GPTNeoConfig):
+        vocab, e = sd["wte"].shape
+        q = sd["h_0.attn.q_proj.kernel"]
+        if family is GPTJConfig:
+            return GPTJConfig(vocab_size=vocab, hidden_size=e, num_attention_heads=q.shape[1],
+                              intermediate_size=sd["h_0.fc_in.kernel"].shape[1],
+                              num_hidden_layers=_n_layers(sd, "h_"), param_dtype=q.dtype)
+        return GPTNeoConfig(vocab_size=vocab, hidden_size=e, num_attention_heads=q.shape[1],
+                            intermediate_size=sd["h_0.c_fc.kernel"].shape[1],
+                            num_hidden_layers=_n_layers(sd, "h_"),
+                            max_position_embeddings=sd["wpe"].shape[0], param_dtype=q.dtype)
+    return None
+
+
 def _infer_config(sd: Dict[str, torch.Tensor]) -> ModelConfig:
+    family = _infer_family_config(sd)
+    if family is not None:
+        return family
     if "embed_tokens" in sd:
         return _infer_llama_config(sd)
     if "bert.word_embeddings" in sd:
@@ -179,7 +283,11 @@ def params_from_jax(tree: dict, config: Optional[ModelConfig] = None,
     """The port's state dict of a model from a JAX param tree (the family
     read from ``config``, or from the tree: LLaMA's has ``embed_tokens``,
     BERT's ``bert/word_embeddings``, the encoder layer's
-    ``layer/attn_qkv/kernel``; a ``TiledLinear`` is passed as ``config``
+    ``layer/attn_qkv/kernel``, GPT-NeoX's ``embed_in``, OPT's
+    ``embed_positions``, BLOOM's ``word_embeddings_layernorm`` and Falcon's
+    ``word_embeddings`` without it, GPT-J's ``lm_head`` beside
+    ``h_0/attn/q_proj``, GPT-Neo's ``h_0/attn/q_proj`` without it:
+    :func:`_family_type`; a ``TiledLinear`` is passed as ``config``
     itself, the module the weights are for).
 
     ``scales`` is the ``"quant"`` mirror tree of a quantized tree (JAX
@@ -211,10 +319,10 @@ def params_from_jax(tree: dict, config: Optional[ModelConfig] = None,
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax`: ``{JAX path: numpy array}``
-    (``h_0.ln_1.scale`` -> ``h_0/ln_1/LayerNorm_0/scale``), flat, on the
-    host. A bf16 tensor comes back as its bits in a ``uint16`` array, the
+    (GPT-2's ``h_0.ln_1.scale`` -> ``h_0/ln_1/LayerNorm_0/scale``, by
+    :func:`jax_paths`), flat, on the host. A bf16 tensor comes back as its bits in a ``uint16`` array, the
     form the JAX package's npz files store bf16 in."""
-    return {_jax_path(k): _to_numpy(v) for k, v in state_dict.items()}
+    return {path: _to_numpy(state_dict[k]) for k, path in jax_paths(state_dict).items()}
 
 
 def opt_state_from_jax(adam_state) -> dict:

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.checkpoint.from_jax import _jax_path, params_to_jax
+from deepspeed_tpu_torch.checkpoint.from_jax import jax_paths, params_to_jax
 from deepspeed_tpu_torch.models.common import nest_tree
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_engine import (METADATA_NAME, MODULE_GROUP,
                                                                         STATE_DIR)
@@ -91,7 +91,7 @@ def convert_zero_checkpoint_to_fp32_state_dict(checkpoint_dir: str, output_dir: 
     with open(os.path.join(output_dir, "manifest.json"), "w") as f:
         json.dump({"dtype": str(save_dtype),
                    "num_params": int(sum(v.numel() for v in cast.values())),
-                   "keys": sorted(_jax_path(k) for k in cast)}, f, indent=2)
+                   "keys": sorted(jax_paths(cast).values())}, f, indent=2)
     return out_path
 
 

@@ -3,7 +3,7 @@
 
 ``CompressionSpec`` resolves the ``compression_training`` block against a
 model's named parameters: a leaf is a candidate when it is floating point,
-at least 2-D, and its JAX path (``checkpoint/from_jax._jax_path``) ends in
+at least 2-D, and its JAX path (``checkpoint/from_jax.jax_paths``) ends in
 ``kernel`` or contains ``embedding`` or ``wte``; each group's module
 patterns select among them on whole path segments (``h_1`` never matches
 ``h_10``), so both packages select the same leaves. Its ``transform`` is
@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.checkpoint.from_jax import _jax_path, _torch_key
+from deepspeed_tpu_torch.checkpoint.from_jax import _torch_key, jax_paths
 from deepspeed_tpu_torch.compression import basic_layer as BL
 from deepspeed_tpu_torch.compression.config import (CHANNEL_PRUNING, COMPRESSION_TRAINING,
                                                     DIFFERENT_GROUPS, HEAD_PRUNING,
@@ -149,13 +149,14 @@ class CompressionSpec:
         self.config = config
         self.rules: Dict[str, List[Rule]] = {}
         n = 0
+        paths = jax_paths(params)
         for tech in WEIGHT_TECHNIQUES:
             shared = config[tech][SHARED_PARAMETERS]
             if not shared.get("enabled", False):
                 continue
             for group in config[tech][DIFFERENT_GROUPS].values():
                 for name, leaf in params.items():
-                    path = _jax_path(name)
+                    path = paths[name]
                     if _candidate(path, leaf) and _match(path, group["modules"]):
                         self.rules.setdefault(name, []).append((tech, group["params"], shared))
                         n += 1
@@ -251,8 +252,9 @@ def export_compressed(params: Dict[str, torch.Tensor], deepspeed_config: Dict[st
     target_bits = {n: int(gp["target_bits"]) for n, rules in spec.rules.items()
                    for t, gp, _ in rules if t == WEIGHT_QUANTIZATION}
     out = {}
+    paths = jax_paths(cleaned)
     for name, t in cleaned.items():
-        path = _jax_path(name)
+        path = paths[name]
         arr = t.detach().float().cpu() if t.is_floating_point() else t.detach().cpu()
         if name in target_bits and target_bits[name] <= 8:
             q, qp = quantize(arr, num_bits=8, symmetric=True,
@@ -266,7 +268,7 @@ def export_compressed(params: Dict[str, torch.Tensor], deepspeed_config: Dict[st
     out_path = os.path.join(output_dir, COMPRESSED_WEIGHTS)
     _save_flat_npz(out_path, out)
     with open(os.path.join(output_dir, MANIFEST), "w") as f:
-        json.dump({"int8_params": sorted(_jax_path(n) for n in target_bits)}, f, indent=2)
+        json.dump({"int8_params": sorted(paths[n] for n in target_bits)}, f, indent=2)
     return out_path
 
 

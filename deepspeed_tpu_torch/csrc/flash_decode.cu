@@ -47,6 +47,17 @@
 //   fp32 accumulators, P split into bf16 hi + lo as in K1, and the four
 //   warps' partials merge in shared memory. All of a block's loads are in
 //   flight at once, which is what a double buffer buys a longer loop.
+// * Head dims 96 (GPT-NeoX-20b) and 256 (GPT-J-6b), each a library of its
+//   own (-DDS_HEAD_DIM=96 or 256). The row body gives a key eight lanes of
+//   16 dims at 96 as at 128, and the lanes past dim 96 load nothing and add
+//   0; at 256 a key takes 16 lanes, and in fp32 the value rows load after
+//   the scores (K and V rows of 64 keys at once would be 256 registers a
+//   thread). The tile body lays its rows out 128 columns wide at 96 (K1's
+//   layout, csrc/mma.cuh tile_cols); at 256 each warp takes 32 keys of a
+//   128-key chunk (64 keys would need 270 KB of shared memory) and reads
+//   Q's fragment from shared memory at each k16 step (its O is already 128
+//   registers a thread), so the chunk of the tile body is 128 keys there
+//   (ops/cuda/attention_geometry.py decode_chunk).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -60,18 +71,24 @@ using ds::to_f;
 constexpr int kThreads = 128;    // four warps
 constexpr int kWarps = 4;
 constexpr int kRowChunk = 64;    // keys per block, row body (DECODE_CHUNK["rows"])
-constexpr int kTileChunk = 256;  // keys per block, tile body (DECODE_CHUNK["tiles"])
 constexpr int kTileRows = 16;    // query rows per block, tile body
-constexpr int kWarpKeys = kTileChunk / kWarps;
 
-// head dim D (64 or 128: ops/cuda/attention_geometry.py KERNEL_HEAD_DIMS):
-// one stored partial (m, l, acc[D]) and the tile body's shared memory (q's
-// tile and each warp's K and V tiles, rows of D bf16)
+// head dim D (ops/cuda/attention_geometry.py KERNEL_HEAD_DIMS): one stored
+// partial (m, l, acc[D]), the columns of a shared row (tile_cols), the keys
+// of a tile body's warp and block (DECODE_CHUNK["tiles"], 128 at head dim
+// 256: decode_chunk) and its shared memory (q's tile and each warp's K and
+// V tiles)
 template <int D>
 struct Dim {
-  static_assert(D == 64 || D == 128, "K3 is instantiated for head dims 64 and 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "K3 is instantiated for head dims 64, 96, 128 and 256");
   static constexpr int kPart = D + 2;
-  static constexpr int kTileSmem = (kTileRows + kWarps * 2 * kWarpKeys) * ds::mma::row_bytes<D>();
+  static constexpr int kCols = ds::mma::tile_cols<D>();
+  static constexpr int kWarpKeys = D <= 128 ? 64 : 32;
+  static constexpr int kTileChunk = kWarps * kWarpKeys;
+  static constexpr int kTileSmem =
+      (kTileRows + kWarps * 2 * kWarpKeys) * ds::mma::row_bytes<kCols>();
+  static constexpr bool kQRegs = D <= 128;  // the tile body's Q fragments in registers
 };
 
 struct Args {
@@ -177,10 +194,14 @@ template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
   __shared__ float red[kWarps];
   __shared__ float acc_s[kWarps][D];
-  constexpr int kLanes = D / 16;                         // lanes that share a key
+  constexpr int kLanes = Dim<D>::kCols / 16;             // lanes that share a key
+  constexpr int kLive = D / 16;                          // of which hold dims (6 of 8 at 96)
   constexpr int kGroups = 32 / kLanes;                   // keys a warp reads per step
   constexpr int kSteps = kRowChunk / (kWarps * kGroups);  // keys per lane group
   constexpr int kPart = Dim<D>::kPart;
+  // K and V rows of all the steps at once, in 32-bit registers; past 128 the
+  // value rows load after the scores instead (fp32 at head dim 256)
+  constexpr bool kLateV = kSteps * Raw<KV>::kVec * 4 * 2 > 128;
 
   const int chunk = blockIdx.x, h = blockIdx.y;
   const int s = blockIdx.z / a.Lq, row = blockIdx.z % a.Lq;
@@ -191,11 +212,12 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
   T* out = static_cast<T*>(a.o) + (((long long)s * a.Lq + row) * a.H + h) * D;
   if (chunk >= max(n_chunks, 1)) return;
   if (n_chunks == 0) {  // no live key: zeros, written by chunk 0's block
-    if (tid < D) out[tid] = from_f<T>(0.f);
+    for (int d = tid; d < D; d += kThreads) out[d] = from_f<T>(0.f);
     return;
   }
 
   const int kg = lane / kLanes, dq = lane % kLanes;  // key of the warp's step; dims 16 dq ..
+  const bool dims = dq < kLive;                      // a lane past the head dim loads nothing
   const KV* kp = static_cast<const KV*>(a.k) + s * a.k_sb + h * a.k_sh + 16 * dq;
   const KV* vp = static_cast<const KV*>(a.v) + s * a.v_sb + h * a.v_sh + 16 * dq;
   Raw<KV> kr[kSteps], vr[kSteps];
@@ -205,15 +227,15 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
   for (int st = 0; st < kSteps; ++st) {
     key[st] = chunk * kRowChunk + warp * kGroups * kSteps + kGroups * st + kg;
     const bool ok = key[st] < limit;
-    load_raw(kr[st], kp + key[st] * a.k_sl, ok);
-    load_raw(vr[st], vp + key[st] * a.v_sl, ok);
+    load_raw(kr[st], kp + key[st] * a.k_sl, ok && dims);
+    if constexpr (!kLateV) load_raw(vr[st], vp + key[st] * a.v_sl, ok && dims);
     ksc[st] = scale_of<T, KV>(a.ks, s * a.ks_sb + key[st] * a.ks_sl + h * a.ks_sh, ok);
     vsc[st] = scale_of<T, KV>(a.vs, s * a.vs_sb + key[st] * a.vs_sl + h * a.vs_sh, ok);
   }
   const T* qp = static_cast<const T*>(a.q) + s * a.q_sb + row * a.q_sl + h * a.q_sh + 16 * dq;
   float qv[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) qv[i] = to_f(qp[i]) * a.scale;
+  for (int i = 0; i < 16; ++i) qv[i] = dims ? to_f(qp[i]) * a.scale : 0.f;
 
   float sc[kSteps], mx = kNegInf;
 #pragma unroll
@@ -234,6 +256,10 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
   const float m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
   __syncthreads();  // red is reused below
 
+  if constexpr (kLateV) {
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) load_raw(vr[st], vp + key[st] * a.v_sl, key[st] < limit && dims);
+  }
   float lsum = 0.f, acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
@@ -253,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
   }
-  if (kg == 0) {
+  if (kg == 0 && dims) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc_s[warp][16 * dq + i] = acc[i];
   }
@@ -262,21 +288,21 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
 
   const float l = red[0] + red[1] + red[2] + red[3];
   if (n_chunks == 1) {
-    if (tid < D) {
-      const float o = acc_s[0][tid] + acc_s[1][tid] + acc_s[2][tid] + acc_s[3][tid];
-      out[tid] = from_f<T>(o / fmaxf(l, 1e-37f));
+    for (int d = tid; d < D; d += kThreads) {
+      const float o = acc_s[0][d] + acc_s[1][d] + acc_s[2][d] + acc_s[3][d];
+      out[d] = from_f<T>(o / fmaxf(l, 1e-37f));
     }
     return;
   }
   float* part = part_of<D>(a, s, h, row, kRowChunk);
-  if (tid < D)
-    part[chunk * kPart + 2 + tid] = acc_s[0][tid] + acc_s[1][tid] + acc_s[2][tid] + acc_s[3][tid];
+  for (int d = tid; d < D; d += kThreads)
+    part[chunk * kPart + 2 + d] = acc_s[0][d] + acc_s[1][d] + acc_s[2][d] + acc_s[3][d];
   if (tid == 0) {
     part[chunk * kPart] = m;
     part[chunk * kPart + 1] = l;
   }
-  if (ds::arrive_last(a.counters + ((long long)s * a.H + h) * a.Lq + row, n_chunks) && tid < D)
-    out[tid] = from_f<T>(merge_partials<D>(part, n_chunks, tid));
+  if (ds::arrive_last(a.counters + ((long long)s * a.H + h) * a.Lq + row, n_chunks))
+    for (int d = tid; d < D; d += kThreads) out[d] = from_f<T>(merge_partials<D>(part, n_chunks, d));
 }
 
 // ---------------------------------------------------------------------------
@@ -286,27 +312,32 @@ __global__ void __launch_bounds__(kThreads) decode_rows_kernel(const Args a) {
 // Rows key0 .. key0 + 63 of a [L, D] int8 code slice (row stride `ld`
 // bytes) with their scales (stride `sld` elements) into a swizzled bf16
 // tile, dequantised as the row body reads them; rows >= limit are zeros.
-// D / 16 lanes per row, 16 codes each, all the loads a lane makes at once.
+// D / 16 lanes per row, 16 codes each, all the loads a lane makes at once;
+// rows of Dim<D>::kCols columns (the first D written).
 template <int D>
 __device__ __forceinline__ void load_codes_tile(uint32_t tile, const int8_t* __restrict__ src,
                                                 const bf16* __restrict__ sc, int key0, int limit,
                                                 long long ld, long long sld, int lane) {
   constexpr int kLanes = D / 16;
-  constexpr int kShift = D == 64 ? 2 : 3;  // log2(kLanes): i >> kShift is i / kLanes
-  constexpr int kIt = kWarpKeys * kLanes / 32;
+  constexpr int kIt = Dim<D>::kWarpKeys * kLanes / 32;
+  constexpr int kCols = Dim<D>::kCols;
+  // i / kLanes and i % kLanes: a shift and a mask where kLanes is a power of
+  // two (the unsigned division compiles to them), a multiply at 96
+  const auto row_of = [](int i) { return static_cast<int>(static_cast<unsigned>(i) / kLanes); };
+  const auto col_of = [](int i) { return static_cast<int>(static_cast<unsigned>(i) % kLanes); };
   uint4 u[kIt];
   float f[kIt];
 #pragma unroll
   for (int it = 0; it < kIt; ++it) {
-    const int i = lane + 32 * it, key = key0 + (i >> kShift);
+    const int i = lane + 32 * it, key = key0 + row_of(i);
     const bool ok = key < limit;
-    u[it] = ok ? __ldg(reinterpret_cast<const uint4*>(src + key * ld + 16 * (i & (kLanes - 1))))
+    u[it] = ok ? __ldg(reinterpret_cast<const uint4*>(src + key * ld + 16 * col_of(i)))
                : make_uint4(0, 0, 0, 0);
     f[it] = ok ? __bfloat162float(sc[key * sld]) : 0.f;
   }
 #pragma unroll
   for (int it = 0; it < kIt; ++it) {
-    const int i = lane + 32 * it, r = i >> kShift, c = i & (kLanes - 1);
+    const int i = lane + 32 * it, r = row_of(i), c = col_of(i);
     uint32_t w[8];
 #pragma unroll
     for (int e = 0; e < 16; e += 2) {
@@ -315,16 +346,20 @@ __device__ __forceinline__ void load_codes_tile(uint32_t tile, const int8_t* __r
       const int c1 = static_cast<int8_t>(x >> (8 * (e % 4) + 8));
       w[e / 2] = ds::mma::pack_bf16(static_cast<float>(c0) * f[it], static_cast<float>(c1) * f[it]);
     }
-    ds::mma::st_shared16(tile + ds::mma::swizzle<D>(r, 2 * c), w[0], w[1], w[2], w[3]);
-    ds::mma::st_shared16(tile + ds::mma::swizzle<D>(r, 2 * c + 1), w[4], w[5], w[6], w[7]);
+    ds::mma::st_shared16(tile + ds::mma::swizzle<kCols>(r, 2 * c), w[0], w[1], w[2], w[3]);
+    ds::mma::st_shared16(tile + ds::mma::swizzle<kCols>(r, 2 * c + 1), w[4], w[5], w[6], w[7]);
   }
 }
 
 template <typename KV, int D>
 __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
   using namespace ds::mma;
-  constexpr int kRowB = row_bytes<D>();
+  constexpr int kCols = Dim<D>::kCols;
+  constexpr int kRowB = row_bytes<kCols>();
   constexpr int kPart = Dim<D>::kPart;
+  constexpr int kWarpKeys = Dim<D>::kWarpKeys, kTileChunk = Dim<D>::kTileChunk;
+  constexpr int kN8 = kWarpKeys / 8;  // n8 tiles of a warp's scores
+  constexpr bool kQRegs = Dim<D>::kQRegs;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -349,8 +384,8 @@ __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
   const uint32_t q_tile = smem_addr(smem);
   const uint32_t k_tile = q_tile + (kTileRows + warp * 2 * kWarpKeys) * kRowB;
   const uint32_t v_tile = k_tile + kWarpKeys * kRowB;
-  load_tile_by<kTileRows, kThreads, D>(q_tile, static_cast<const bf16*>(a.q) + s * a.q_sb + h * a.q_sh,
-                                    row0, a.Lq, a.q_sl, tid);
+  load_tile_by<kTileRows, kThreads, kCols, bf16, D>(
+      q_tile, static_cast<const bf16*>(a.q) + s * a.q_sb + h * a.q_sh, row0, a.Lq, a.q_sl, tid);
   const int key0 = chunk * kTileChunk + warp * kWarpKeys;
   const bool warp_live = key0 < limit_max;
   if (warp_live) {
@@ -362,10 +397,12 @@ __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
                       static_cast<const bf16*>(a.vs) + s * a.vs_sb + h * a.vs_sh, key0, limit_max,
                       a.v_sl, a.vs_sl, lane);
     } else {
-      load_tile_by<kWarpKeys, 32, D>(k_tile, static_cast<const bf16*>(a.k) + s * a.k_sb + h * a.k_sh,
-                                  key0, limit_max, a.k_sl, lane);
-      load_tile_by<kWarpKeys, 32, D>(v_tile, static_cast<const bf16*>(a.v) + s * a.v_sb + h * a.v_sh,
-                                  key0, limit_max, a.v_sl, lane);
+      load_tile_by<kWarpKeys, 32, kCols, bf16, D>(
+          k_tile, static_cast<const bf16*>(a.k) + s * a.k_sb + h * a.k_sh, key0, limit_max, a.k_sl,
+          lane);
+      load_tile_by<kWarpKeys, 32, kCols, bf16, D>(
+          v_tile, static_cast<const bf16*>(a.v) + s * a.v_sb + h * a.v_sh, key0, limit_max, a.v_sl,
+          lane);
     }
   }
   cp_async_commit();
@@ -382,26 +419,35 @@ __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
   if (warp_live) {
-    uint32_t qa[D / 16][4];
+    uint32_t qa[kQRegs ? D / 16 : 1][4];
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) load_a<D>(qa[kk], q_tile, 0, 16 * kk, lane);
-    float sacc[8][4];
+      for (int kk = 0; kk < D / 16; ++kk) load_a<kCols>(qa[kk], q_tile, 0, 16 * kk, lane);
+    }
+    float sacc[kN8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sacc[n][c] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kN8 / 2; ++j)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t b[4];
-        load_b<D>(b, k_tile, 16 * j, 16 * kk, lane);
-        mma_bf16(sacc[2 * j], qa[kk], b[0], b[1]);
-        mma_bf16(sacc[2 * j + 1], qa[kk], b[2], b[3]);
+        load_b<kCols>(b, k_tile, 16 * j, 16 * kk, lane);
+        if constexpr (kQRegs) {
+          mma_bf16(sacc[2 * j], qa[kk], b[0], b[1]);
+          mma_bf16(sacc[2 * j + 1], qa[kk], b[2], b[3]);
+        } else {  // head dim 256: this step's Q fragment from shared memory
+          uint32_t qs[4];
+          load_a<kCols>(qs, q_tile, 0, 16 * kk, lane);
+          mma_bf16(sacc[2 * j], qs, b[0], b[1]);
+          mma_bf16(sacc[2 * j + 1], qs, b[2], b[3]);
+        }
       }
     // scale and mask; a dead key keeps kNegInf and gets an explicit p = 0
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = key0 + 8 * n + 2 * t + (c & 1);
@@ -417,7 +463,7 @@ __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
       m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = key0 + 8 * n + 2 * t + (c & 1);
@@ -435,13 +481,13 @@ __global__ void __launch_bounds__(kThreads) decode_tile_kernel(const Args a) {
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kN8 / 2; ++kk) {
       uint32_t hi[4], lo[4];
       acc_to_a_split(hi, lo, sacc[2 * kk], sacc[2 * kk + 1]);
 #pragma unroll
       for (int jd = 0; jd < D / 16; ++jd) {
         uint32_t b[4];
-        load_b_trans<D>(b, v_tile, 16 * jd, 16 * kk, lane);
+        load_b_trans<kCols>(b, v_tile, 16 * jd, 16 * kk, lane);
         mma_bf16(o[2 * jd], hi, b[0], b[1]);
         mma_bf16(o[2 * jd], lo, b[0], b[1]);
         mma_bf16(o[2 * jd + 1], hi, b[2], b[3]);
@@ -518,7 +564,7 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 template <typename KV, int D>
 cudaError_t launch_tiles(const Args& a, cudaStream_t stream) {
   auto kernel = decode_tile_kernel<KV, D>;
-  constexpr int kSmem = Dim<D>::kTileSmem;
+  constexpr int kSmem = Dim<D>::kTileSmem, kTileChunk = Dim<D>::kTileChunk;
   static cudaError_t attr = ds::allow_smem(kernel, kSmem);
   if (attr != cudaSuccess) return attr;
   const int row_tiles = (a.Lq + kTileRows - 1) / kTileRows;
@@ -543,14 +589,15 @@ cudaError_t launch(const Args& a, int dtype, int body, bool codes, cudaStream_t 
 
 extern "C" {
 
-// q: [S, Lq, H, D], D 64 or 128; k/v: [S, P, H, D] values of q's dtype, or int8 codes
+// q: [S, Lq, H, D], D 64 or 128 (96 or 256 in the library built with
+// -DDS_HEAD_DIM=96 or 256); k/v: [S, P, H, D] values of q's dtype, or int8 codes
 // with k_scale/v_scale [S, P, H, 1] of q's dtype (both null for values);
 // unit stride on D, element strides (slot, position, head) for each, k and
 // v 16-byte aligned with strides of 16 bytes' multiples (and q too for the
 // tile body). lengths: [S] int32; o: contiguous [S, Lq, H, D]. body 0 is
 // the row body (any dtype and Lq), 1 the tile body (bf16). ws: fp32
 // partials [S, H, Lq, ceil(P / chunk), D + 2], chunk = 64 (body 0) or 256
-// (body 1); counters: >= S * H * Lq int32, zero, and left zero.
+// (body 1; 128 at head dim 256); counters: >= S * H * Lq int32, zero, and left zero.
 int ds_flash_decode(const void* q, const void* k, const void* v, const void* k_scale,
                     const void* v_scale, const void* lengths, void* o, void* ws, void* counters,
                     int dtype, int body, int S, int H, int Lq, int P, int D, float scale,
@@ -567,8 +614,13 @@ int ds_flash_decode(const void* q, const void* k, const void* v, const void* k_s
                o,    static_cast<float*>(ws),     static_cast<int*>(counters),
                S,    H,    Lq,   P,       scale,   q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
                v_sb, v_sl, v_sh, ks_sb,   ks_sl,   ks_sh, vs_sb, vs_sl, vs_sh};
+#ifdef DS_HEAD_DIM
+  // a library of one head dim (ops/cuda/build.py VARIANTS)
+  if (D == DS_HEAD_DIM) return launch<DS_HEAD_DIM>(a, dtype, body, codes, cs);
+#else
   if (D == 64) return launch<64>(a, dtype, body, codes, cs);
   if (D == 128) return launch<128>(a, dtype, body, codes, cs);
+#endif
   return cudaErrorInvalidValue;
 }
 

@@ -64,6 +64,23 @@
 // cannot meet the fp32 checks' 1e-4. The C entry picks the body by the
 // dtype the caller passed; it is not a fallback.
 //
+// Head dims 96 (GPT-NeoX-20b) and 256 (GPT-J-6b) are the same body with
+// two changes, each built as a library of its own (-DDS_HEAD_DIM=96 or
+// 256, so that the parallel build compiles them beside the 64/128 library).
+// At 96 a head row is 12 16-byte chunks, which the 8-row XOR swizzle cannot
+// fold into the row; the shared rows are laid out 128 columns wide and only
+// the first 96 are loaded and read (csrc/mma.cuh tile_cols): 6 k16 steps of
+// Q K^T, 12 n8 tiles of P V, the bank pattern of head dim 128, and a
+// quarter of the shared rows idle. At 256 one warp's 16 rows of O alone are
+// 128 fp32 registers a thread, and Q's fragments would be 64 more; Q stays
+// in shared memory and each k16 step of Q K^T reads its fragment with one
+// ldmatrix (16 more per key tile, against 64 products), which leaves O,
+// one S tile and the operands of one step in registers. Its shared memory is
+// 64 rows of Q and two stages of 64-key K and V tiles of 512-byte rows,
+// 160 KB. The fp32 body keeps the query row in registers up to head dim 128
+// and in shared memory at 256 (the row and 128 output columns would not fit
+// in 255 registers).
+//
 // Next step: wgmma with TMA loads and a warp-specialised pipeline
 // (FlashAttention-3's design). wgmma is the only route to the full
 // tensor-core rate, and TMA frees the registers and issue slots the
@@ -97,11 +114,14 @@ constexpr int kThreadsBF16 = 32 * kWarps;
 // for no saved product), and the K/V tiles, 256-byte rows, take 80 KB.
 template <int D>
 struct FwdTile {
-  static_assert(D == 64 || D == 128, "K1 is instantiated for head dims 64 and 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "K1 is instantiated for head dims 64, 96, 128 and 256");
   static constexpr int kMT = D == 64 ? 2 : 1;        // m16 tiles per warp
   static constexpr int kRows = 16 * kMT * kWarps;    // query rows per block
-  static constexpr int kRowB = row_bytes<D>();
+  static constexpr int kCols = tile_cols<D>();       // columns of a shared row
+  static constexpr int kRowB = row_bytes<kCols>();
   static constexpr int kSmem = (kRows + 4 * kKeys) * kRowB;  // Q + two K/V stages
+  static constexpr bool kQRegs = D <= 128;  // Q's fragments in registers for the whole loop
 };
 
 // T: bf16 or __half, the element type of q, k, v and o
@@ -114,7 +134,8 @@ __global__ void __launch_bounds__(kThreadsBF16)
                          long long q_sh, long long k_sb, long long k_sl, long long k_sh,
                          long long v_sb, long long v_sl, long long v_sh) {
   using Tile = FwdTile<D>;
-  constexpr int kMT = Tile::kMT, kRows = Tile::kRows;
+  constexpr int kMT = Tile::kMT, kRows = Tile::kRows, kCols = Tile::kCols;
+  constexpr bool kQRegs = Tile::kQRegs;
   constexpr int kKD = D / 16;  // k16 steps of Q K^T; n16 pairs of P V
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = smem_addr(smem);
@@ -144,9 +165,9 @@ __global__ void __launch_bounds__(kThreadsBF16)
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
   if (t_begin < t_end) {  // a block with no live key loads nothing
-    load_tile<kRows, kThreadsBF16, D>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
-    load_tile<kKeys, kThreadsBF16, D>(sK, kb, t_begin * kKeys, Lk, k_sl);
-    load_tile<kKeys, kThreadsBF16, D>(sV, vb, t_begin * kKeys, Lk, v_sl);
+    load_tile<kRows, kThreadsBF16, kCols, T, D>(sQ, q + b * q_sb + h * q_sh, q0, Lq, q_sl);
+    load_tile<kKeys, kThreadsBF16, kCols, T, D>(sK, kb, t_begin * kKeys, Lk, k_sl);
+    load_tile<kKeys, kThreadsBF16, kCols, T, D>(sV, vb, t_begin * kKeys, Lk, v_sl);
     cp_async_commit();
   }
 
@@ -163,25 +184,29 @@ __global__ void __launch_bounds__(kThreadsBF16)
     m[mt][0] = m[mt][1] = -INFINITY;
     l[mt][0] = l[mt][1] = 0.f;
   }
-  uint32_t qf[kMT][kKD][4];
+  uint32_t qf[kQRegs ? kMT : 1][kQRegs ? kKD : 1][4];
 
   for (int t = t_begin; t < t_end; ++t) {
     const uint32_t stage = ((t - t_begin) & 1) * kStage;
     if (t + 1 < t_end) {  // the next tile loads while this one is multiplied
-      load_tile<kKeys, kThreadsBF16, D>(sK + (kStage - stage), kb, (t + 1) * kKeys, Lk, k_sl);
-      load_tile<kKeys, kThreadsBF16, D>(sV + (kStage - stage), vb, (t + 1) * kKeys, Lk, v_sl);
+      load_tile<kKeys, kThreadsBF16, kCols, T, D>(sK + (kStage - stage), kb, (t + 1) * kKeys, Lk,
+                                                  k_sl);
+      load_tile<kKeys, kThreadsBF16, kCols, T, D>(sV + (kStage - stage), vb, (t + 1) * kKeys, Lk,
+                                                  v_sl);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == t_begin) {
+    if constexpr (kQRegs) {
+      if (t == t_begin) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+        for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < kKD; ++kk)
-          load_a<D>(qf[mt][kk], sQ, (row_base - q0) + 16 * mt, 16 * kk, lane);
+          for (int kk = 0; kk < kKD; ++kk)
+            load_a<kCols>(qf[mt][kk], sQ, (row_base - q0) + 16 * mt, 16 * kk, lane);
+      }
     }
 
     // S = Q K^T for this warp's rows and the tile's 64 keys
@@ -194,14 +219,25 @@ __global__ void __launch_bounds__(kThreadsBF16)
         for (int c = 0; c < 4; ++c) s[mt][n][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKD; ++kk) {
+      uint32_t qs[kMT][4];  // this step's Q fragment, read from shared memory (head dim 256)
+      if constexpr (!kQRegs) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          load_a<kCols>(qs[mt], sQ, (row_base - q0) + 16 * mt, 16 * kk, lane);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
-        load_b<D>(bk, sK + stage, 16 * np, 16 * kk, lane);
+        load_b<kCols>(bk, sK + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          mma16<T>(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
-          mma16<T>(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
+          if constexpr (kQRegs) {
+            mma16<T>(s[mt][2 * np], qf[mt][kk], bk[0], bk[1]);
+            mma16<T>(s[mt][2 * np + 1], qf[mt][kk], bk[2], bk[3]);
+          } else {
+            mma16<T>(s[mt][2 * np], qs[mt], bk[0], bk[1]);
+            mma16<T>(s[mt][2 * np + 1], qs[mt], bk[2], bk[3]);
+          }
         }
       }
     }
@@ -273,7 +309,7 @@ __global__ void __launch_bounds__(kThreadsBF16)
 #pragma unroll
       for (int np = 0; np < kKD; ++np) {
         uint32_t bv[4];
-        load_b_trans<D>(bv, sV + stage, 16 * np, 16 * kk, lane);
+        load_b_trans<kCols>(bv, sV + stage, 16 * np, 16 * kk, lane);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma16<T>(acc[mt][2 * np], pa[mt], bv[0], bv[1]);
@@ -319,9 +355,17 @@ constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per tile
 constexpr int kThreads = 128;  // two threads per query row
 
+// the query rows stay in registers up to head dim 128 and in shared memory
+// above it (kBQ rows of D + 1 floats after Ps)
+template <int D>
+__host__ __device__ constexpr bool q_in_smem() {
+  return D > 128;
+}
+
 template <int D>
 constexpr int smem_bytes() {
-  return (2 * kBK * (D + 1) + kBQ * (kBK + 1)) * static_cast<int>(sizeof(float));
+  return (2 * kBK * (D + 1) + kBQ * (kBK + 1) + (q_in_smem<D>() ? kBQ * (D + 1) : 0)) *
+         static_cast<int>(sizeof(float));
 }
 
 template <int D>
@@ -336,6 +380,8 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = smem_f;                // [kBK][D + 1]
   float* Vs = Ks + kBK * (D + 1);    // [kBK][D + 1]
   float* Ps = Vs + kBK * (D + 1);    // [kBQ][kBK + 1]
+  float* Qs = Ps + kBQ * (kBK + 1);  // [kBQ][D + 1], head dims above 128
+  constexpr bool kQs = q_in_smem<D>();
 
   const int tid = threadIdx.x;
   const int r = tid >> 1;     // query row inside the tile
@@ -358,8 +404,14 @@ __global__ void __launch_bounds__(kThreads)
   const int t_begin = k_begin / kBK;
   const int t_end = k_end > k_begin ? (k_end + kBK - 1) / kBK : t_begin;
 
-  float qr[D];
-  {
+  float qr[kQs ? 1 : D];
+  if constexpr (kQs) {  // the tile's rows, scaled; the loop's first barrier publishes them
+    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+      const int rr = idx / D, d = idx % D, qrow = qt * kBQ + rr;
+      Qs[rr * (D + 1) + d] =
+          qrow < Lq ? q[b * q_sb + (long long)qrow * q_sl + h * q_sh + d] * scale : 0.f;
+    }
+  } else {
     const float* qp = q + b * q_sb + (long long)min(row, Lq - 1) * q_sl + h * q_sh;
 #pragma unroll
     for (int d = 0; d < D; ++d) qr[d] = row_ok ? qp[d] * scale : 0.f;
@@ -397,7 +449,11 @@ __global__ void __launch_bounds__(kThreads)
       const int kj = k0 + j;
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j * (D + 1) + d], dot);
+      for (int d = 0; d < D; ++d)
+        if constexpr (kQs)
+          dot = fmaf(Qs[r * (D + 1) + d], Ks[j * (D + 1) + d], dot);
+        else
+          dot = fmaf(qr[d], Ks[j * (D + 1) + d], dot);
       bool ok = row_ok && kj < kv_len;
       if (causal) ok = ok && kj <= qpos;
       if (window > 0) ok = ok && kj > qpos - window;
@@ -494,7 +550,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 extern "C" {
 
 // q/k/v: [B, L, H, D] with unit stride on D and element strides (batch, len,
-// head) for each, D 64 or 128; o: contiguous [B, Lq, H, D] of q's dtype; lse:
+// head) for each, D 64 or 128 (96 or 256 in the library built with
+// -DDS_HEAD_DIM=96 or 256); o: contiguous [B, Lq, H, D] of q's dtype; lse:
 // contiguous [B, H, Lq] fp32; kv_lengths: [B] int32 or null; window <= 0
 // means none.
 // bf16 and fp16 run on the tensor cores and need 16-byte aligned q/k/v with
@@ -507,12 +564,19 @@ int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
   const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+#ifdef DS_HEAD_DIM
+  // a library of one head dim (ops/cuda/build.py VARIANTS)
+  if (D == DS_HEAD_DIM)
+    return launch<DS_HEAD_DIM>(dtype, q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal,
+                               window, st, s);
+#else
   if (D == 64)
     return launch<64>(dtype, q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
                       st, s);
   if (D == 128)
     return launch<128>(dtype, q, k, v, o, lse, kv_lengths, B, H, Lq, Lk, scale, causal, window,
                        st, s);
+#endif
   return cudaErrorInvalidValue;
 }
 

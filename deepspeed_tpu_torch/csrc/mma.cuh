@@ -19,13 +19,16 @@
 // are, packed to bf16 pairs, exactly the A operand of one k16 step: a
 // product's output feeds the next product from registers.
 //
-// Shared tiles hold rows of COLS bf16 (the head dim: 64 or 128, i.e. 128
-// or 256 bytes, eight or sixteen 16-byte chunks). Chunk c of row r sits at
-// chunk c ^ (r % 8), so the eight rows one ldmatrix 8x8 matrix reads fall in
-// eight different bank groups, and the 16-byte cp.async writes of eight
+// Shared tiles hold rows of COLS bf16 (the head dim: 64, 128 or 256, i.e.
+// 128, 256 or 512 bytes, 8, 16 or 32 16-byte chunks). Chunk c of row r sits
+// at chunk c ^ (r % 8), so the eight rows one ldmatrix 8x8 matrix reads fall
+// in eight different bank groups, and the 16-byte cp.async writes of eight
 // consecutive chunks do too. COLS defaults to 64, so a caller that names no
 // width (K2, K3 at head dim 64, K6) compiles to what it did before the width
-// became a parameter.
+// became a parameter. Head dim 96 (GPT-NeoX-20b) is 12 chunks, which the XOR
+// would carry past the end of the row (chunk 11 ^ 7 = 12); its rows are laid
+// out 128 columns wide (tile_cols), and only the first 96 are loaded and
+// read: the swizzle, and so the bank pattern, is that of head dim 128.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +43,13 @@ namespace mma {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowBytes = 128;  // one row of a shared tile of the default width: 64 bf16
+
+// columns of the shared rows that hold head dim D: D itself where it is a
+// whole number of 64-column units, else the next such width (96 -> 128)
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  return (D + 63) / 64 * 64;
+}
 
 // bytes of one row of a shared tile of COLS bf16
 template <int COLS>
@@ -83,34 +93,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + ROWS - 1 of a [L, COLS] bf16 slice with row stride
-// `ld` elements into a swizzled shared tile, by the THREADS threads numbered
-// `tid` = 0 .. THREADS - 1 (the thread block, one warp, or the warps that
-// share a block list in K6); rows >= L are zero-filled and never read.
-// Needs a 16-byte aligned `src` and `ld` a multiple of 8 (the Python
-// wrappers check both).
-template <int ROWS, int THREADS, int COLS = 64, typename T = bf16>
+// Rows row0 .. row0 + ROWS - 1 of a [L, USED] bf16 slice with row stride
+// `ld` elements into a swizzled shared tile of COLS-column rows (USED <=
+// COLS: the columns past USED are neither written nor read), by the THREADS
+// threads numbered `tid` = 0 .. THREADS - 1 (the thread block, one warp, or
+// the warps that share a block list in K6); rows >= L are zero-filled and
+// never read. Needs a 16-byte aligned `src` and `ld` a multiple of 8 (the
+// Python wrappers check both).
+template <int ROWS, int THREADS, int COLS = 64, typename T = bf16, int USED = COLS>
 __device__ __forceinline__ void load_tile_by(uint32_t tile, const T* __restrict__ src, int row0,
                                              int L, long long ld, int tid) {
-  constexpr int kChunks = COLS / 8;  // 16-byte chunks per row
-  // log2(kChunks): a shift and a mask, where a signed i / kChunks would add
-  // a sign fix-up and change the code of the default width
-  constexpr int kShift = COLS == 64 ? 3 : 4;
-  static_assert(kChunks == 1 << kShift, "rows of 64 or 128 bf16");
+  constexpr int kChunks = USED / 8;  // 16-byte chunks loaded per row
+  static_assert(USED % 8 == 0 && USED <= COLS, "whole 16-byte chunks inside the row");
+  if constexpr (USED == COLS) {
+    // log2(kChunks): a shift and a mask, where a signed i / kChunks would
+    // add a sign fix-up and change the code of the default width
+    constexpr int kShift = COLS == 64 ? 3 : COLS == 128 ? 4 : 5;
+    static_assert(kChunks == 1 << kShift, "rows of 64, 128 or 256 bf16");
 #pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-    const int r = i >> kShift, chunk = i & (kChunks - 1);
-    const int row = row0 + r;
-    const bool ok = row < L;
-    cp_async16(tile + swizzle<COLS>(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
+    for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+      const int r = i >> kShift, chunk = i & (kChunks - 1);
+      const int row = row0 + r;
+      const bool ok = row < L;
+      cp_async16(tile + swizzle<COLS>(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
+    }
+  } else {  // a row that is not a power of two of chunks (head dim 96: 12)
+#pragma unroll
+    for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+      const int r = static_cast<unsigned>(i) / kChunks, chunk = static_cast<unsigned>(i) % kChunks;
+      const int row = row0 + r;
+      const bool ok = row < L;
+      cp_async16(tile + swizzle<COLS>(r, chunk), src + (ok ? row * ld + chunk * 8 : 0), ok);
+    }
   }
 }
 
 // load_tile_by the whole thread block of THREADS threads
-template <int ROWS, int THREADS, int COLS = 64, typename T = bf16>
+template <int ROWS, int THREADS, int COLS = 64, typename T = bf16, int USED = COLS>
 __device__ __forceinline__ void load_tile(uint32_t tile, const T* __restrict__ src, int row0,
                                           int L, long long ld) {
-  load_tile_by<ROWS, THREADS, COLS, T>(tile, src, row0, L, ld, threadIdx.x);
+  load_tile_by<ROWS, THREADS, COLS, T, USED>(tile, src, row0, L, ld, threadIdx.x);
 }
 
 // A gathered tile (K6): tile row r holds slot s0 + r of the concatenation

@@ -14,11 +14,14 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``cuda`` (the default) or ``cpu``; a model constructor also takes
+    ``meta``, a skeleton with no storage and no random init that kernel
+    injection fills with the caller's tensors (``inference/engine.py``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deepspeed_tpu_torch runs on a CUDA GPU and none is available; "
                            "pass device='cpu' to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

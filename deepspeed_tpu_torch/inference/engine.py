@@ -3,7 +3,11 @@ beam search (counterpart of ``deepspeed_tpu/inference/engine.py``).
 
 Kernel injection rebuilds the model with the serving dtype and, with
 ``use_flash_prefill``, the ``"flash"`` attention backend: K1 for
-``forward`` and K3 for every cached decode step. ``generate`` runs a
+``forward`` and K3 for every cached decode step (a model class that sets
+``xla_attention_reason``, BLOOM, keeps ``"xla"``). The rebuilt module is a skeleton on the
+meta device that takes the caller's tensors as they are where their dtype
+is the serving dtype, so injection holds one copy of the weights; JAX's
+rebuilt flax module holds none. ``generate`` runs a
 chunked prefill (``PREFILL_CHUNK`` tokens per call plus single-token
 remainders) and then a Python token loop, where the JAX engine ran one
 ``lax.while_loop`` on the device; capturing the loop in a CUDA graph is
@@ -114,22 +118,37 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator], do
 
 def replace_transformer_layer(model, config: DeepSpeedInferenceConfig, device: torch.device,
                               params: Optional[dict] = None):
-    """Kernel injection: rebuild ``model`` (its own class: GPT-2 or a LLaMA
-    family model) with the serving dtype (weights cast to it) and, with
-    ``replace_with_kernel_inject`` and ``use_flash_prefill``, the CUDA flash
-    attention backend. Weights come from ``params`` (a state dict) or the
-    model itself."""
+    """Kernel injection: rebuild ``model`` (its own class) with the serving
+    dtype and, with ``replace_with_kernel_inject`` and
+    ``use_flash_prefill``, the CUDA flash attention backend. A model class
+    whose attention takes what the flash kernels do not declares it in
+    ``xla_attention_reason`` and keeps ``"xla"``, with the reason logged. Weights come from ``params`` (a
+    state dict) or the model itself. The module is built on the meta device,
+    with no storage and no random init, and then takes each tensor as it
+    is (``load_state_dict(assign=True)``) where it already has the serving
+    dtype and device, and a converted copy where not: a model already in
+    the serving dtype is served from its own tensors, without a second
+    copy."""
     mcfg = model.config
+    name = type(model).__name__
     updates = {}
     # int8 means quantized weights served at bf16 (quantized after the build)
     dtype = torch.bfloat16 if config.dtype == torch.int8 else config.dtype
     if dtype is not None:
         updates.update(dtype=dtype, param_dtype=dtype)
     if config.replace_with_kernel_inject and config.use_flash_prefill:
-        updates["attention_backend"] = "flash"
-    module = type(model)(dataclasses.replace(mcfg, **updates), device=device)
+        reason = getattr(type(model), "xla_attention_reason", None)
+        if reason is not None:
+            logger.info(f"inference injection: {name} keeps attention_backend 'xla' ({reason})")
+        else:
+            updates["attention_backend"] = "flash"
+    module = type(model)(dataclasses.replace(mcfg, **updates), device="meta")
+    module.device = device
+    template = module.state_dict()
     state = params if params is not None else model.state_dict()
-    module.load_state_dict(state, strict=True)
+    module.load_state_dict({k: v.to(device=device, dtype=template[k].dtype) if k in template else v
+                            for k, v in state.items()}, strict=True, assign=True)
+    logger.info(f"inference injection: {name} config updates {sorted(updates)}")
     return module
 
 

@@ -13,7 +13,14 @@ def init_inference(model, config=None, params: Optional[dict] = None, device: De
     ``device="cpu"``). ``config`` is a dict or a
     :class:`DeepSpeedInferenceConfig`; keyword arguments (``dtype=``,
     ``kernel_inject=``, ``use_flash_prefill=``...) are folded into a dict
-    config and may not be combined with a config object."""
+    config and may not be combined with a config object.
+
+    A weight (of ``model`` or ``params``) that already has the serving
+    dtype and lies on ``device`` is served from its own tensor, not a copy:
+    the engine shares it with the caller, and what writes into the served
+    weights in place (``ContinuousBatchingScheduler.swap_served_params``)
+    writes into the caller's model too. A weight of another dtype or device
+    is served from a converted copy."""
     if isinstance(config, DeepSpeedInferenceConfig):
         if kwargs:
             raise ValueError(f"init_inference got both a DeepSpeedInferenceConfig and kwargs "

@@ -207,7 +207,8 @@ class BertModel(nn.Module):
             setattr(self, f"layer_{i}", BertLayer(cfg, dev))
         self.pooler = Dense(cfg, (e, e), 1, dev, bias=True)
         self.last_pld_keep: Optional[torch.Tensor] = None
-        self.reset_parameters(generator)
+        if dev.type != "meta":  # a skeleton for kernel injection draws nothing
+            self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

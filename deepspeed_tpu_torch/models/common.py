@@ -2,7 +2,7 @@
 ``deepspeed_tpu/models/common.py``)."""
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -325,6 +325,102 @@ def init_cache(model, batch_size: int) -> Dict[str, torch.Tensor]:
     for name, (shape, dtype, device) in model.cache_shapes(batch_size).items():
         cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+def decode_cache_shapes(scopes, batch_size: int, length: int, heads: int, head_dim: int, dtype,
+                        device, position_index: bool = False):
+    """The lockstep decode cache of a decoder whose attention layers sit at
+    ``scopes`` (the JAX cache collection's paths, e.g. ``"h_0/attn"``): per
+    layer a ``[batch, length, heads, head_dim]`` key and value pool and a
+    host write index, and with ``position_index`` the model's own host
+    index of its learned positions. name -> (shape, dtype, device)."""
+    pool = ((batch_size, length, heads, head_dim), dtype, device)
+    host_index = ((), torch.int64, torch.device("cpu"))
+    shapes = {}
+    for scope in scopes:
+        shapes[f"{scope}/cache_index"] = host_index
+        shapes[f"{scope}/cached_key"] = pool
+        shapes[f"{scope}/cached_value"] = pool
+    if position_index:
+        shapes["position_index"] = host_index
+    return shapes
+
+
+def cache_write(cache: Dict[str, torch.Tensor], prefix: str, k: torch.Tensor, v: torch.Tensor):
+    """Write ``k`` and ``v`` [B, L, H, D] into the layer's pools at its host
+    index and advance the index in place (the JAX models'
+    ``dynamic_update_slice`` of the cache collection). Returns ``(pool_k,
+    pool_v, decode_lengths)``: the whole pools and the live length of every
+    row, for the attention backend's cache decode."""
+    pool_k, pool_v = cache[prefix + "cached_key"], cache[prefix + "cached_value"]
+    idx = cache[prefix + "cache_index"]
+    start, l = int(idx), k.shape[1]
+    if start + l > pool_k.shape[1]:
+        raise ValueError(f"decode write [{start}, {start + l}) exceeds the cache capacity "
+                         f"{pool_k.shape[1]}")
+    pool_k[:, start:start + l] = k
+    pool_v[:, start:start + l] = v
+    idx += l  # in place: the cache dict is the caller's
+    return pool_k, pool_v, torch.full((k.shape[0],), start + l, dtype=torch.int32, device=k.device)
+
+
+def cache_positions(cache: Optional[Dict[str, torch.Tensor]], prefix: str, l: int,
+                    device) -> torch.Tensor:
+    """Positions ``[1, l]`` of a call's tokens: 0.. for a full forward, the
+    layer's cache index onward for a cached call (read before
+    :func:`cache_write` advances it)."""
+    start = 0 if cache is None else int(cache[prefix + "cache_index"])
+    return torch.arange(start, start + l, device=device)[None]
+
+
+def learned_positions(wpe: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]], l: int,
+                      offset: int = 0) -> torch.Tensor:
+    """Rows ``offset + p`` of a learned position table for a call of ``l``
+    tokens: p from 0, or from the cache's host ``position_index``, which
+    advances in place (JAX ``pos_idx`` of GPT-Neo and OPT)."""
+    start = 0
+    if cache is not None:
+        pidx = cache["position_index"]
+        start = int(pidx)
+        pidx += l
+    return wpe[offset + start:offset + start + l]
+
+
+def tied_logits(x: torch.Tensor, table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tied LM head: ``einsum("ble,ve->blv")`` of ``x`` with the ``[V, E]``
+    embedding table in the compute dtype (JAX's ``preferred_element_type``:
+    the logits stay in that dtype)."""
+    return x.to(dtype) @ table.to(dtype).t()
+
+
+#: what the decoder families' training slice brings, refused until then
+LATER_SLICE = "the decoder families' training slice of the PyTorch port (ROADMAP.md Queue A item 6)"
+
+
+def refuse_later_fields(cfg) -> None:
+    """Raise for a config field of a decoder family (GPT-NeoX, GPT-J,
+    GPT-Neo, OPT, Falcon, BLOOM) that its serving slice does not take."""
+    if cfg.fused_head_loss_chunk > 0:
+        raise NotImplementedError(f"{type(cfg).__name__}.fused_head_loss_chunk belongs to {LATER_SLICE}")
+
+
+@torch.no_grad()
+def init_decoder(model: torch.nn.Module, generator: Optional[torch.Generator],
+                 tables: Tuple[str, ...], position_tables: Tuple[str, ...] = ()) -> None:
+    """The families' random init (their JAX modules' initializers): normal
+    0.02 for the token ``tables`` and every ``kernel``, 0.01 for the learned
+    ``position_tables``; biases stay zero and norm scales one, as built.
+    Draws in the order of the state dict, from ``generator`` (a fresh one
+    seeded 0 when None)."""
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    for name in tables:
+        dense_init()(getattr(model, name), generator)
+    for name in position_tables:
+        dense_init(0.01)(getattr(model, name), generator)
+    for name, t in model.named_parameters():
+        if name.endswith(".kernel"):
+            dense_init()(t, generator)
 
 
 def flatten_tree(tree: dict, sep: str, prefix: str = "") -> Dict[str, object]:

@@ -61,8 +61,8 @@ from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, host_to_device, resolve_device
 from deepspeed_tpu_torch.models.common import (LayerNorm, StackedDense, config_from,  # noqa: F401
-                                               cross_entropy_loss, dense_init, dropout,
-                                               embed_lookup, fused_head_loss_output,
+                                               cross_entropy_loss, decode_cache_shapes, dense_init,
+                                               dropout, embed_lookup, fused_head_loss_output,
                                                maybe_remat, pld_draws, pld_gate)
 from deepspeed_tpu_torch.ops.cuda.quant_matmul import quant_dense_general
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups, quantize_lastaxis
@@ -493,7 +493,8 @@ class GPT2LMHeadModel(nn.Module):
             setattr(self, f"h_{i}", Block(cfg, dev, cfg.is_moe_layer(i)))
         self.ln_f = LayerNorm(cfg, cfg.n_embd, "layer_norm_epsilon", dev)
         self.last_pld_keep: Optional[torch.Tensor] = None
-        self.reset_parameters(generator)
+        if dev.type != "meta":  # a skeleton for kernel injection draws nothing
+            self.reset_parameters(generator)
 
     @property
     def blocks(self):
@@ -519,15 +520,9 @@ class GPT2LMHeadModel(nn.Module):
     def cache_shapes(self, batch_size: int):
         """Decode-cache leaves: name -> (shape, dtype, device)."""
         cfg = self.config
-        pool = ((batch_size, cfg.n_positions, cfg.n_head, cfg.head_dim), cfg.dtype, self.device)
-        host_index = ((), torch.int64, torch.device("cpu"))
-        shapes = {}
-        for i in range(cfg.n_layer):
-            shapes[f"h_{i}/attn/cache_index"] = host_index
-            shapes[f"h_{i}/attn/cached_key"] = pool
-            shapes[f"h_{i}/attn/cached_value"] = pool
-        shapes["position_index"] = host_index
-        return shapes
+        return decode_cache_shapes([f"h_{i}/attn" for i in range(cfg.n_layer)], batch_size,
+                                   cfg.n_positions, cfg.n_head, cfg.head_dim, cfg.dtype, self.device,
+                                   position_index=True)
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None, *,
                 labels: Optional[torch.Tensor] = None, deterministic: bool = True,

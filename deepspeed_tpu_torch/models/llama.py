@@ -50,9 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.models.common import (Dense, StackedDense, config_from,  # noqa: F401
-                                               dense_init, embed_lookup, fused_head_loss_output,
-                                               maybe_remat, rms_norm)
+from deepspeed_tpu_torch.models.common import (Dense, StackedDense, cache_positions,  # noqa: F401
+                                               cache_write, config_from, decode_cache_shapes,
+                                               dense_init, embed_lookup,
+                                               fused_head_loss_output, maybe_remat, rms_norm)
 from deepspeed_tpu_torch.ops.transformer.attention import dot_product_attention
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import get_remat_policy
 
@@ -239,29 +240,14 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cache: Optional[Dict[str, torch.Tensor]] = None, prefix: str = ""):
         cfg = self.cfg
-        b, l = x.shape[0], x.shape[1]
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         causal, decode_lengths, window = True, None, cfg.sliding_window
+        positions = cache_positions(cache, prefix, x.shape[1], x.device)
+        q = rotary_embedding(q, positions, cfg.rope_theta)
+        k = rotary_embedding(k, positions, cfg.rope_theta)
         if cache is not None:
-            pool_k, pool_v = cache[prefix + "cached_key"], cache[prefix + "cached_value"]
-            idx = cache[prefix + "cache_index"]
-            start = int(idx)
-            if start + l > pool_k.shape[1]:
-                raise ValueError(f"decode write [{start}, {start + l}) exceeds the cache "
-                                 f"capacity {pool_k.shape[1]}")
-            positions = torch.arange(start, start + l, device=x.device)[None]
-            q = rotary_embedding(q, positions, cfg.rope_theta)
-            k = rotary_embedding(k, positions, cfg.rope_theta)
-            pool_k[:, start:start + l] = k
-            pool_v[:, start:start + l] = v
-            idx += l  # in place: the cache dict is the caller's
-            k, v = pool_k, pool_v
-            decode_lengths = torch.full((b,), start + l, dtype=torch.int32, device=x.device)
+            k, v, decode_lengths = cache_write(cache, prefix, k, v)
             causal, window = False, None
-        else:
-            positions = torch.arange(l, device=x.device)[None]
-            q = rotary_embedding(q, positions, cfg.rope_theta)
-            k = rotary_embedding(k, positions, cfg.rope_theta)
         n_rep = cfg.num_attention_heads // cfg.num_key_value_heads
         if n_rep > 1:  # GQA: every query head reads its group's kv head
             k = k.repeat_interleave(n_rep, dim=2)
@@ -366,7 +352,8 @@ class LlamaForCausalLM(nn.Module):
             setattr(self, f"layers_{i}", LlamaDecoderLayer(cfg, dev, cfg.is_moe_layer(i)))
         self.norm = RMSNorm(cfg, dev)
         self.lm_head = Dense(cfg, (cfg.hidden_size, cfg.vocab_size), 1, dev)
-        self.reset_parameters(generator)
+        if dev.type != "meta":  # a skeleton for kernel injection draws nothing
+            self.reset_parameters(generator)
 
     @property
     def blocks(self):
@@ -389,14 +376,9 @@ class LlamaForCausalLM(nn.Module):
         """Decode-cache leaves (the JAX cache collection's paths): name ->
         (shape, dtype, device); the write index lives on the host."""
         cfg = self.config
-        pool = ((batch_size, cfg.max_position_embeddings, cfg.num_key_value_heads, cfg.head_dim),
-                cfg.dtype, self.device)
-        shapes = {}
-        for i in range(cfg.num_hidden_layers):
-            shapes[f"layers_{i}/self_attn/cache_index"] = ((), torch.int64, torch.device("cpu"))
-            shapes[f"layers_{i}/self_attn/cached_key"] = pool
-            shapes[f"layers_{i}/self_attn/cached_value"] = pool
-        return shapes
+        return decode_cache_shapes([f"layers_{i}/self_attn" for i in range(cfg.num_hidden_layers)],
+                                   batch_size, cfg.max_position_embeddings, cfg.num_key_value_heads,
+                                   cfg.head_dim, cfg.dtype, self.device)
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None, *,
                 labels: Optional[torch.Tensor] = None, deterministic: bool = True,

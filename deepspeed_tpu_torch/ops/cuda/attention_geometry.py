@@ -22,26 +22,48 @@ QMM_GEMV_MAX_K_CHUNK = 512
 QMM_MAX_CLUSTER = 8
 
 #: ``csrc/flash_decode.cu``: the C entry's body codes, keys per block of
-#: each body, and query rows per block of the tile body
+#: each body (the tile body's at head dim 256: ``DECODE_TILE_CHUNK_D256``),
+#: and query rows per block of the tile body
 DECODE_BODIES = ("rows", "tiles")
 DECODE_CHUNK = {"rows": 64, "tiles": 256}
+DECODE_TILE_CHUNK_D256 = 128
 DECODE_TILE_ROWS = 16
 
-#: head dims the attention kernels K1, K4 and K3 are instantiated for (GPT-2
-#: 125m/350m use 64, the LLaMA family 128; each more width is another
-#: template instance and more build time). Their tiles per head dim are
-#: compile-time constants of the sources (``FwdTile``, ``BwdTile``, ``Dim``):
-#: no wrapper sizes anything by them.
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the serving kernels K1 and K3 are instantiated for (GPT-2
+#: 125m/350m, OPT, GPT-Neo, Falcon-7b and BLOOM use 64, the LLaMA family
+#: and Qwen2 128, GPT-NeoX-20b 96, GPT-J-6b 256; each more width is another
+#: template instance and more build time, and 96 and 256 are libraries of
+#: their own, ``build.VARIANTS``). Their tiles per head dim are compile-time
+#: constants of the sources (``FwdTile``, ``Dim``): no wrapper sizes
+#: anything by them but K3's workspace (:func:`decode_chunk`).
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+#: head dims the flash backward K4 is instantiated for (``BwdTile``):
+#: training at 96 and 256 is ROADMAP.md Queue B item 2
+TRAIN_HEAD_DIMS = (64, 128)
 #: head dims the block-sparse kernels K6 take (``csrc/sparse_fwd.cu``)
 SPARSE_HEAD_DIMS = (64,)
 
 
-def check_head_dim(what: str, d: int) -> None:
+def check_head_dim(what: str, d: int, dims=KERNEL_HEAD_DIMS) -> None:
     """Raise ``ValueError`` for a head dim the CUDA kernels are not built
-    for; the wrappers call it before they build or launch anything."""
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
+    for (K1 and K3: ``KERNEL_HEAD_DIMS``; K4 passes ``TRAIN_HEAD_DIMS``);
+    the wrappers call it before they build or launch anything."""
+    if d not in dims:
+        later = (" (the flash backward at this head dim waits in ROADMAP.md Queue B item 2)"
+                 if dims is TRAIN_HEAD_DIMS and d in KERNEL_HEAD_DIMS else "")
+        raise ValueError(f"{what}: head_dim {d} not in the kernel's {dims}{later}")
+
+
+def kernel_library(kernel: str, d: int) -> str:
+    """The library of ``kernel`` (``"flash_fwd"`` or ``"flash_decode"``) at
+    head dim ``d``: the source's own for 64 and 128, its ``_d<d>`` variant
+    for 96 and 256 (``build.VARIANTS``); the key of its launch count."""
+    return kernel if d in (64, 128) else f"{kernel}_d{d}"
+
+
+def decode_chunk(body: str, d: int = 64) -> int:
+    """Keys per block of K3's ``body`` at head dim ``d``."""
+    return DECODE_TILE_CHUNK_D256 if body == "tiles" and d == 256 else DECODE_CHUNK[body]
 
 
 def decode_body(bf16: bool, lq: int) -> str:
@@ -57,14 +79,14 @@ def decode_row_limit(length: int, lq: int, p_len: int, row: int) -> int:
     return max(0, min(min(max(length, 0), p_len), length - lq + row + 1))
 
 
-def decode_blocks(length: int, lq: int, p_len: int, body: str):
+def decode_blocks(length: int, lq: int, p_len: int, body: str, d: int = 64):
     """The blocks of one (slot, head) that K3 runs, as the kernel plans them
     on the device from the slot's length: ``(rows, keys)`` pairs, each a
     range of query rows and the chunk of keys the block reads for them
     (clipped to what the rows read), or ``(rows, None)`` for the block that
     writes the zeros of rows with no live key. Every other block of the grid
     returns before it loads anything."""
-    chunk = DECODE_CHUNK[body]
+    chunk = decode_chunk(body, d)
     tile = DECODE_TILE_ROWS if body == "tiles" else 1
     blocks = []
     for row0 in range(0, lq, tile):

@@ -2,7 +2,8 @@
 
 Each ``deepspeed_tpu_torch/csrc/<name>.cu`` is compiled on its own by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
-interface, cached under ``build/deepspeed_tpu_torch/`` by a hash of the
+interface (and K1's and K3's sources once more for each further head dim,
+``VARIANTS``), cached under ``build/deepspeed_tpu_torch/`` by a hash of the
 sources and flags, and loaded with :mod:`ctypes` on first use. Every pointer
 and the CUDA stream cross the boundary as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` after its launches and :func:`check` raises when that
@@ -28,9 +29,20 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "deepspeed_tpu_torch"
 
-#: the kernel libraries, one per source file
+#: libraries built from another library's source for one head dim each
+#: (``-DDS_HEAD_DIM``), so that every instance is an ``nvcc`` of its own and
+#: the parallel build runs them side by side: name -> (source, extra flags)
+VARIANTS = {f"{src}_d{d}": (src, (f"-DDS_HEAD_DIM={d}",))
+            for src in ("flash_fwd", "flash_decode") for d in (96, 256)}
+
+#: the kernel libraries: one per source file, then the variants
 KERNELS = ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul", "moe_permute", "sparse_fwd",
-           "sparse_bwd")
+           "sparse_bwd") + tuple(VARIANTS)
+
+
+def source_of(name: str):
+    """``(source name, extra nvcc flags)`` of library ``name``."""
+    return VARIANTS.get(name, (name, ()))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -74,11 +86,12 @@ class KernelLibrary:
         self.name = name
         self.path = path
         self._cdll = ctypes.CDLL(str(path))
-        entry, argtypes = SIGNATURES[name]
+        source = source_of(name)[0]
+        entry, argtypes = SIGNATURES[source]
         self.entry = getattr(self._cdll, entry)
         self.entry.argtypes = argtypes
         self.entry.restype = ctypes.c_int
-        self._err = getattr(self._cdll, f"ds_{name}_error_string")
+        self._err = getattr(self._cdll, f"ds_{source}_error_string")
         self._err.argtypes = [ctypes.c_int]
         self._err.restype = ctypes.c_char_p
 
@@ -109,9 +122,10 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
+    source, extra = source_of(name)
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
+    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    for path in [CSRC_DIR / f"{source}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -138,10 +152,11 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, fl
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR)]
+        source, extra = source_of(name)
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC_DIR)]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd += ["-o", str(tmp), str(CSRC_DIR / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     logs = {}
@@ -160,10 +175,10 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, fl
     for name, (proc, tmp, out, _) in procs.items():
         log = logs[name]
         if proc.returncode != 0:
-            failures.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log}")
+            failures.append(f"--- nvcc {name} (exit {proc.returncode}) ---\n{log}")
             continue
         if verbose and log:
-            print(f"--- nvcc {name}.cu ---\n{log}", flush=True)
+            print(f"--- nvcc {name} ---\n{log}", flush=True)
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))

@@ -12,8 +12,10 @@ launches the kernel or raises. K1 and K4 run bf16 and fp16 on the tensor
 cores (K1 carries p as a hi + lo pair of the input's type into its second
 product; K4 rounds p and ds to it, fp16's ds scaled by a power of two per
 row first so that it cannot pass 65504, ``csrc/flash_bwd.cu``) and fp32 as
-FMAs, at head dim 64 or 128 (any other raises ``ValueError`` before
-anything is built or launched); a bf16 or fp16 tensor whose rows are not
+FMAs. K1 and K3 take head dims 64, 96, 128 and 256 (96 and 256 are
+libraries of their own, counted under ``flash_fwd_d96`` and so on), K4 64
+and 128; any other raises ``ValueError`` before anything is built or
+launched; a bf16 or fp16 tensor whose rows are not
 16-byte aligned raises ``ValueError``. K3 takes fp32 and bf16 only (its
 fp16 instance waits, ROADMAP.md Queue B item 3). K3 splits the cache
 over thread blocks and reads it either as values of q's dtype or as the
@@ -32,8 +34,9 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES
 from deepspeed_tpu_torch.ops.cuda import build
-from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_BODIES, DECODE_CHUNK,
-                                                              check_head_dim, decode_body)
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import (DECODE_BODIES, TRAIN_HEAD_DIMS,
+                                                              check_head_dim, decode_body,
+                                                              decode_chunk, kernel_library)
 from deepspeed_tpu_torch.ops.transformer.attention import NEG_INF, register_backend
 from deepspeed_tpu_torch.utils.autograd import once_differentiable
 
@@ -139,8 +142,9 @@ def flash_decode_plain(q, k, v, lengths: torch.Tensor, *, scale: float,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _check_operands(what, q, k, v):
-    check_head_dim(what, q.shape[-1])  # first: a head dim without a kernel never reaches the build
+def _check_operands(what, q, k, v, dims=None):
+    # first: a head dim without a kernel never reaches the build
+    check_head_dim(what, q.shape[-1], *(() if dims is None else (dims,)))
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"{what}: q, k and v must lie on one CUDA device")
     if q.dtype != k.dtype or q.dtype != v.dtype:
@@ -197,12 +201,13 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
     lens = None if kv_lengths is None else _lengths_operand("flash_fwd", kv_lengths, b, q.device)
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_fwd")
+    name = kernel_library("flash_fwd", d)
+    lib = build.load(name)
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), build.ptr(lens),
         build.dtype_code(q, "flash_fwd", build.FP16_DTYPES), b, h, lq, lk, d, float(scale), int(bool(causal)),
         int(window) if window is not None else 0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], build.stream_ptr(q.device))
-    LAUNCHES["flash_fwd"] += 1
+    LAUNCHES[name] += 1
     return o, lse
 
 
@@ -217,7 +222,7 @@ def flash_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale=scale, causal=causal,
                                kv_lengths=kv_lengths, window=window)
-    _check_operands("flash_bwd", q, k, v)
+    _check_operands("flash_bwd", q, k, v, TRAIN_HEAD_DIMS)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(-1) != 1:
@@ -347,16 +352,17 @@ def flash_decode(q, k, v, lengths: torch.Tensor, *, scale: Optional[float] = Non
         _check_tensor_core_operands("flash_decode", q=q)
     lens = _lengths_operand("flash_decode", lengths, s, q.device)
     o = torch.empty((s, lq, h, d), dtype=q.dtype, device=q.device)
-    chunks = -(-p_len // DECODE_CHUNK[body])
+    chunks = -(-p_len // decode_chunk(body, d))
     ws = torch.empty(s * h * lq * chunks * (d + 2), dtype=torch.float32, device=q.device)
     scale_strides = [0] * 6 if k_scale is None else [*k_scale.stride()[:3], *v_scale.stride()[:3]]
-    lib = build.load("flash_decode")
+    name = kernel_library("flash_decode", d)
+    lib = build.load(name)
     lib(q.data_ptr(), k.data_ptr(), v.data_ptr(), build.ptr(k_scale), build.ptr(v_scale),
         lens.data_ptr(), o.data_ptr(), ws.data_ptr(), build.counters(q.device, s * h * lq).data_ptr(),
         build.dtype_code(q, "flash_decode"), DECODE_BODIES.index(body), s, h, lq, p_len, d,
         float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *scale_strides,
         build.stream_ptr(q.device))
-    LAUNCHES["flash_decode"] += 1
+    LAUNCHES[name] += 1
     return o
 
 

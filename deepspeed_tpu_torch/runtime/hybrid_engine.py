@@ -17,6 +17,7 @@ the view's copy of each kernel (``kernel + (lora_b @ lora_a).T *
 lora_scaling``); the training parameters keep the adapters separate.
 """
 
+import itertools
 import logging
 import os
 import time
@@ -116,6 +117,13 @@ class DeepSpeedHybridEngine(DeepSpeedEngine):
                                         replace_with_kernel_inject=False)
         engine = InferenceEngine(self.module, icfg, params=self._inference_params_value(),
                                  device=self.device)
+        # injection serves a tensor already of the serving dtype as it is;
+        # the view must not move with the training step until a sync, so it
+        # takes a copy of those alone (a cast leaf is a new tensor already)
+        live = {t.untyped_storage().data_ptr() for t in self.module.state_dict().values()}
+        for t in itertools.chain(engine.module.parameters(), engine.module.buffers()):
+            if t.untyped_storage().data_ptr() in live:
+                t.data = t.data.clone()
         logger.info(f"hybrid engine: inference view ready (max_out_tokens="
                     f"{self.he_config.max_out_tokens}, backend "
                     f"{engine.module.config.attention_backend})")

@@ -8,7 +8,7 @@ Groups run over each leaf's flattened elements in the JAX layout (``[in,
 out]`` kernels, GPT-2's fused ``[E, 3, H, D]`` QKV), with the reference's
 scale ``2^bits / (2 max|g| + 1e-5)``. Leaves are keyed by the port's
 state-dict names; the skip list and the MLP test read the JAX path of each
-name (``checkpoint/from_jax._jax_path``), so the same leaves are quantized,
+name (``checkpoint/from_jax.jax_paths``), so the same leaves are quantized,
 with the same group counts, as in the JAX package. The serving engine keeps
 the codes and scales on the card and dequantizes inside each call
 (:func:`dequantize_tree`), as JAX's ``_mparams`` does in-graph. This format
@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.checkpoint.from_jax import _jax_path
+from deepspeed_tpu_torch.checkpoint.from_jax import jax_paths
 from deepspeed_tpu_torch.ops.quantizer.core import divisor_groups
 
 logger = logging.getLogger(__name__)
@@ -77,8 +77,9 @@ class WeightQuantization:
         ``quantize_grouping``), wins when given. MLP weights get twice the
         groups under ``mlp_extra_grouping``."""
         out, scales = {}, {}
+        paths = jax_paths(params)
         for name, leaf in params.items():
-            if not _is_quantizable(_jax_path(name), leaf):
+            if not _is_quantizable(paths[name], leaf):
                 out[name] = leaf
                 continue
             n = leaf.numel()

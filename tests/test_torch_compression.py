@@ -33,7 +33,7 @@ from deepspeed_tpu.compression.scheduler import compression_scheduler as JaxSche
 from deepspeed_tpu.models import GPT2LMHeadModel as JaxGPT2, get_gpt2_config as jax_gpt2_config
 from deepspeed_tpu.parallel.topology import MeshTopology
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.checkpoint.from_jax import _jax_path, params_from_jax, params_to_jax
+from deepspeed_tpu_torch.checkpoint.from_jax import jax_paths, params_from_jax, params_to_jax
 from deepspeed_tpu_torch.compression import (export_compressed, get_compression_config,
                                              init_compression, load_compressed, redundancy_clean,
                                              student_initialization)
@@ -167,7 +167,8 @@ def test_leaf_selection_and_transform_equal_jax(family):
     flat = params_to_jax(state)
     jax_spec = JaxSpec(jax_get_config(config), nest_tree(flat, "/"))
     spec = CompressionSpec(get_compression_config(config), state)
-    assert {_jax_path(n): [r[0] for r in rules] for n, rules in spec.rules.items()} == \
+    paths = jax_paths(state)
+    assert {paths[n]: [r[0] for r in rules] for n, rules in spec.rules.items()} == \
         {p: [r[0] for r in rules] for p, rules in jax_spec.rules.items()}
     if family == "gpt2":
         def techs(path):
@@ -187,7 +188,7 @@ def test_leaf_selection_and_transform_equal_jax(family):
         got = spec.apply(state, step)
         want = flatten_tree(transform(nest_tree(flat, "/"), jnp.asarray(step)), "/")
         for name, t in got.items():
-            assert np.array_equal(t.numpy(), np.asarray(want[_jax_path(name)])), (step, name)
+            assert np.array_equal(t.numpy(), np.asarray(want[paths[name]])), (step, name)
 
 
 def test_scheduler_flags_equal_jax():

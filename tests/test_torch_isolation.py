@@ -131,10 +131,12 @@ def test_importing_builds_nothing():
     """Kernels build on first CUDA use, never at import (no nvcc on a CPU host)."""
     from deepspeed_tpu_torch.ops.cuda import build
     assert build.KERNELS == ("flash_fwd", "flash_bwd", "flash_decode", "quant_matmul",
-                             "moe_permute", "sparse_fwd", "sparse_bwd")
-    assert set(build.KERNELS) == set(build.SIGNATURES) == set(LAUNCHES)
+                             "moe_permute", "sparse_fwd", "sparse_bwd", "flash_fwd_d96",
+                             "flash_fwd_d256", "flash_decode_d96", "flash_decode_d256")
+    assert set(build.KERNELS) == set(LAUNCHES)
+    assert {build.source_of(name)[0] for name in build.KERNELS} == set(build.SIGNATURES)
     for name in build.KERNELS:
-        assert (build.CSRC_DIR / f"{name}.cu").is_file()
+        assert (build.CSRC_DIR / f"{build.source_of(name)[0]}.cu").is_file()
     assert not build._loaded
 
 

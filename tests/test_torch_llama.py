@@ -14,8 +14,9 @@ versions on CPU tensors; JAX runs its Pallas kernels in interpret mode, as
 of hidden 256 with 2 heads (head dim 128), all within ``atol=1e-4`` as the
 GPT-2 comparisons; the decode cache against the full forward at
 ``test_models.py``'s 2e-4; greedy ``generate`` token for token against the
-JAX ``InferenceEngine``. And the head dims the CUDA kernels take: 64 and
-128, any other refused with ``ValueError`` before a build or a launch.
+JAX ``InferenceEngine``. And the head dims the CUDA kernels take: K1 and
+K3 64, 96, 128 and 256, K4 64 and 128, any other refused with
+``ValueError`` before a build or a launch.
 """
 
 import functools
@@ -43,7 +44,8 @@ from deepspeed_tpu_torch.models.common import fused_lm_head_loss, init_cache, rm
 from deepspeed_tpu_torch.models.llama import param_shapes, rotary_embedding
 from deepspeed_tpu_torch.ops.cuda import LAUNCHES, build
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-from deepspeed_tpu_torch.ops.cuda.attention_geometry import KERNEL_HEAD_DIMS, check_head_dim
+from deepspeed_tpu_torch.ops.cuda.attention_geometry import (KERNEL_HEAD_DIMS, TRAIN_HEAD_DIMS,
+                                                              check_head_dim)
 
 ATOL = 1e-4
 #: the 1-layer head-dim-128 model: hidden 256, 2 query heads over 1 kv head
@@ -260,7 +262,8 @@ def test_remat_policy_is_taken(policy):
 
 
 # ---------------------------------------------------------------------------
-# head dims on the card: 64 and 128 have kernels, any other raises first
+# head dims on the card: K1 and K3 have kernels at 64, 96, 128 and 256, K4
+# at 64 and 128; any other raises first
 # ---------------------------------------------------------------------------
 def _meta(*shape):
     """A tensor that is neither on the CPU (no plain version) nor on a card."""
@@ -271,25 +274,35 @@ def _meta(*shape):
 def test_kernel_wrappers_refuse_other_head_dims_before_any_launch(d):
     """K1, K4 and K3's wrappers check the head dim before anything else, so
     a head dim without a kernel raises ``ValueError`` without building or
-    launching one (the tensors here lie on no device the port runs on)."""
+    launching one (the tensors here lie on no device the port runs on): 32
+    and 80 for all three, 96 and 256 for K4 alone, naming the Queue B item
+    that holds it (K1 and K3 take them: the call stops at the device
+    check)."""
     q = _meta(1, 8, 2, d)
     launches, loaded = dict(LAUNCHES), dict(build._loaded)
-    with pytest.raises(ValueError, match=f"flash_fwd: head_dim {d} not in"):
+    serving = "must lie on one CUDA device" if d in KERNEL_HEAD_DIMS else None
+    with pytest.raises(ValueError, match=serving or f"flash_fwd: head_dim {d} not in"):
         fa.flash_fwd(q, q, q, scale=0.125, causal=True)
-    with pytest.raises(ValueError, match=f"flash_bwd: head_dim {d} not in"):
+    with pytest.raises(ValueError, match=f"flash_bwd: head_dim {d} not in the kernel's "
+                                         rf"\(64, 128\){' .*Queue B item 2' if serving else '$'}"):
         fa.flash_bwd(q, q, q, q, _meta(1, 2, 8).float(), q, scale=0.125, causal=True)
-    with pytest.raises(ValueError, match=f"flash_decode: head_dim {d} not in"):
+    with pytest.raises(ValueError, match=serving or f"flash_decode: head_dim {d} not in"):
         fa.flash_decode(q, q, q, torch.zeros(1, dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError, match=f"head_dim {d} not in"):
+    if serving:
         check_head_dim("flash", d)
+    else:
+        with pytest.raises(ValueError, match=f"head_dim {d} not in"):
+            check_head_dim("flash", d)
+    with pytest.raises(ValueError, match=f"head_dim {d} not in"):
+        check_head_dim("flash", d, TRAIN_HEAD_DIMS)
     assert LAUNCHES == launches and build._loaded == loaded
 
 
 @pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_kernel_head_dims_pass_the_head_dim_check(d):
-    """64 and 128 pass the check: the same call then stops at the device
-    check (a CUDA tensor would launch the kernel)."""
-    assert KERNEL_HEAD_DIMS == (64, 128)
+    """64, 96, 128 and 256 pass K1's and K3's check: the same call then
+    stops at the device check (a CUDA tensor would launch the kernel)."""
+    assert KERNEL_HEAD_DIMS == (64, 96, 128, 256) and TRAIN_HEAD_DIMS == (64, 128)
     check_head_dim("flash", d)
     q = _meta(1, 8, 2, d)
     with pytest.raises(ValueError, match="must lie on one CUDA device"):

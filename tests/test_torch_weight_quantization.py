@@ -28,7 +28,7 @@ from deepspeed_tpu.parallel.topology import set_topology
 from deepspeed_tpu.runtime.weight_quantizer import WeightQuantization as JaxWeightQuantization
 from deepspeed_tpu_torch import (GPT2LMHeadModel, LlamaForCausalLM, get_gpt2_config,
                                  get_llama_config, init_inference)
-from deepspeed_tpu_torch.checkpoint.from_jax import _jax_path, params_from_jax
+from deepspeed_tpu_torch.checkpoint.from_jax import jax_paths, params_from_jax
 from deepspeed_tpu_torch.models.common import flatten_tree
 from deepspeed_tpu_torch.runtime.weight_quantizer import WeightQuantization, dequantize_tree
 
@@ -82,14 +82,15 @@ def test_model_quantize_matches_jax(trees, family, group_size, extra):
     state = params_from_jax(tree)
     q, scales = WeightQuantization(mlp_extra_grouping=extra).model_quantize(
         state, group_size=group_size)
-    assert sorted(_jax_path(k) for k in scales) == sorted(jscales)
+    paths = jax_paths(state)
+    assert sorted(paths[k] for k in scales) == sorted(jscales)
     jflat = flatten_tree(jax.device_get(jq), "/")
     for name, leaf in q.items():
-        want = np.asarray(jflat[_jax_path(name)])
+        want = np.asarray(jflat[paths[name]])
         if name in scales:
             assert leaf.dtype == torch.int8
             np.testing.assert_array_equal(leaf.numpy(), want)
-            np.testing.assert_allclose(scales[name].numpy(), np.asarray(jscales[_jax_path(name)]),
+            np.testing.assert_allclose(scales[name].numpy(), np.asarray(jscales[paths[name]]),
                                        rtol=1e-6)
         else:  # skipped: untouched
             assert leaf is state[name]
